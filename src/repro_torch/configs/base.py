@@ -1,0 +1,79 @@
+"""Model configuration schema (port of ``repro.configs.base``).
+
+The fields are those the ported serving path reads or refuses.  The
+reference's MoE, SSM, RG-LRU and training fields come with the modules
+that read them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+def pad_to(n: int, multiple: int) -> int:
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                  # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+
+    # attention options
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    window: Optional[int] = None          # local-attention window
+    # block pattern
+    pattern_unit: Tuple[str, ...] = ("attn",)
+    # ffn
+    activation: str = "silu"              # silu | gelu_glu | gelu
+    norm: str = "rmsnorm"                 # rmsnorm | layernorm
+    n_experts: int = 0
+    # enc-dec / vlm inputs
+    n_enc_layers: int = 0
+    n_patches: int = 0
+    # padding granularity for vocab sharding (16-way model × 128 lanes)
+    vocab_pad_multiple: int = 2048
+    # block-sparse MLP: the down-projection becomes a BlockCSR weight
+    # driven by maple_spmm.  The block mask is sampled once from
+    # `sparse_mask_seed` and shared by all layers, so the stacked weights
+    # agree on one pattern.
+    sparse_mlp: bool = False
+    sparse_block: Tuple[int, int] = (64, 64)
+    sparse_density: float = 0.25
+    sparse_mask_seed: int = 0
+
+    @property
+    def vocab_padded(self) -> int:
+        return pad_to(self.vocab_size, self.vocab_pad_multiple)
+
+    @property
+    def ffn_kind(self) -> str:
+        if self.n_experts > 0:
+            return "moe"
+        if self.d_ff > 0:
+            return "dense"
+        return "none"
+
+    def layer_plan(self) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
+        """(pattern unit, n_groups, homogeneous tail)."""
+        k = len(self.pattern_unit)
+        n_groups = self.n_layers // k
+        rem = self.n_layers - n_groups * k
+        tail = tuple(self.pattern_unit[:rem])
+        if len(set(tail)) > 1:
+            raise ValueError(f"heterogeneous tail {tail} unsupported")
+        return self.pattern_unit, n_groups, tail
+
+    def block_kinds(self) -> Tuple[str, ...]:
+        unit, g, tail = self.layer_plan()
+        return unit * g + tail

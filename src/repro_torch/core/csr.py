@@ -1,0 +1,158 @@
+"""Padded CSR / BSR containers (port of ``repro.core.csr``).
+
+Metadata (``col_id`` / ``block_col`` / ``block_row`` / ``row_ptr``) is
+host numpy, exactly as the reference builds it on the host; the BSR
+payload ``blocks`` is a torch tensor on the device.  The pad contract is
+the reference's: pad slots carry ``col = -1`` and a zero payload, and a
+BSR pad slot's ``block_row`` points at block-row ``max(gm - 1, 0)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+
+@dataclasses.dataclass
+class CSR:
+    """Padded CSR matrix, all host numpy: the pattern view through which
+    ``kernels.schedule.bsr_stats`` analyzes a block pattern."""
+
+    value: np.ndarray     # (nnz_max,) float
+    col_id: np.ndarray    # (nnz_max,) int32, -1 on padding
+    row_ptr: np.ndarray   # (n_rows + 1,) int32
+    shape: Tuple[int, int]
+
+
+@dataclasses.dataclass
+class BlockCSR:
+    """Padded block-CSR (BSR): the Maple kernels' metadata format.
+
+    ``blocks[i]`` is the ``(bm, bk)`` payload of the i-th non-zero block
+    in row-major (by block-row) order, ``block_col[i]`` its block-column
+    (-1 on pads), ``block_row[i]`` its block-row.  ``blocks`` may carry a
+    leading layer axis ``(L, n_blocks_max, bm, bk)``: a stack of layers
+    sharing one pattern (the sparse MLP's layout); :meth:`layer` takes
+    one layer's container.
+    """
+
+    blocks: torch.Tensor      # ([L,] n_blocks_max, bm, bk)
+    block_col: np.ndarray     # (n_blocks_max,) int32, -1 pad
+    block_row: np.ndarray     # (n_blocks_max,) int32, pads = max(gm-1, 0)
+    row_ptr: np.ndarray       # (n_block_rows + 1,) int32
+    shape: Tuple[int, int]        # dense (M, K)
+    block_shape: Tuple[int, int]  # (bm, bk)
+    # metadata copies on each device the kernels ran on, made once and
+    # shared by every layer of a stack (see kernels.ops.maple_spmm)
+    device_meta: dict = dataclasses.field(default_factory=dict, repr=False,
+                                          compare=False)
+
+    @property
+    def n_blocks_max(self) -> int:
+        return self.block_col.shape[0]
+
+    @property
+    def n_block_rows(self) -> int:
+        return self.shape[0] // self.block_shape[0]
+
+    @property
+    def n_block_cols(self) -> int:
+        return self.shape[1] // self.block_shape[1]
+
+    @property
+    def nnzb(self) -> int:
+        return int(self.row_ptr[-1])
+
+    @property
+    def stacked(self) -> bool:
+        return self.blocks.dim() == 4
+
+    def layer(self, i: int) -> "BlockCSR":
+        """The i-th layer of a stacked container (shared metadata)."""
+        if not self.stacked:
+            raise ValueError("layer() needs a stacked (L, nb, bm, bk) payload")
+        return dataclasses.replace(self, blocks=self.blocks[i])
+
+    @classmethod
+    def from_dense(cls, dense, block_shape: Tuple[int, int],
+                   n_blocks_max: int | None = None, *,
+                   device=None) -> "BlockCSR":
+        """Host conversion.  ``dense`` is numpy or a tensor; the payload
+        lands on ``device`` (default: the tensor's device, else CUDA)."""
+        if isinstance(dense, torch.Tensor):
+            if device is None:
+                device = dense.device
+            dense = dense.detach().cpu().numpy()
+        dev = resolve_device("cuda" if device is None else device)
+        dense = np.asarray(dense)
+        m, k = dense.shape
+        bm, bk = block_shape
+        if m % bm or k % bk:
+            raise ValueError(
+                f"dense {dense.shape} not divisible by {block_shape}")
+        gm, gk = m // bm, k // bk
+        tiles = dense.reshape(gm, bm, gk, bk).transpose(0, 2, 1, 3)
+        nz_mask = np.abs(tiles).sum(axis=(2, 3)) != 0  # (gm, gk)
+        rows, cols = np.nonzero(nz_mask)
+        nnzb = rows.size
+        if n_blocks_max is None:
+            n_blocks_max = max(int(nnzb), 1)
+        if nnzb > n_blocks_max:
+            raise ValueError(
+                f"nnz blocks {nnzb} > n_blocks_max {n_blocks_max}")
+        blocks = np.zeros((n_blocks_max, bm, bk), dtype=dense.dtype)
+        block_col = np.full((n_blocks_max,), -1, dtype=np.int32)
+        # pad rows point at the last block-row (the reference's convention)
+        block_row = np.full((n_blocks_max,), max(gm - 1, 0), dtype=np.int32)
+        blocks[:nnzb] = tiles[rows, cols]
+        block_col[:nnzb] = cols
+        block_row[:nnzb] = rows
+        row_ptr = np.zeros((gm + 1,), dtype=np.int32)
+        np.cumsum(np.bincount(rows, minlength=gm), out=row_ptr[1:])
+        return cls(blocks=torch.from_numpy(blocks).to(dev),
+                   block_col=block_col, block_row=block_row,
+                   row_ptr=row_ptr, shape=(m, k), block_shape=(bm, bk))
+
+    def to_dense(self) -> torch.Tensor:
+        """Dense ``(M, K)`` (or ``(L, M, K)`` when stacked) on the
+        payload's device.  Pads are masked by ``block_col >= 0``."""
+        bm, bk = self.block_shape
+        gm, gk = self.n_block_rows, self.n_block_cols
+        live = np.nonzero(self.block_col >= 0)[0]
+        lead = self.blocks.shape[:-3]
+        tiles = self.blocks.new_zeros((*lead, gm, gk, bm, bk))
+        idx = torch.from_numpy(live).to(self.blocks.device)
+        tiles[..., self.block_row[live], self.block_col[live], :, :] = \
+            self.blocks.index_select(-3, idx)
+        return tiles.transpose(-3, -2).reshape(*lead, gm * bm, gk * bk)
+
+    def check_pad_contract(self) -> "BlockCSR":
+        """Host validation of the BSR pad contract (the reference's checks,
+        in the same order).  Raises ``ValueError``; returns ``self``."""
+        rptr = self.row_ptr
+        nnzb = int(rptr[-1])
+        if not ((np.diff(rptr) >= 0).all() and nnzb <= self.n_blocks_max):
+            raise ValueError("row_ptr not monotone within capacity")
+        bcol, brow = self.block_col, self.block_row
+        gm = self.n_block_rows
+        if nnzb:
+            if not ((bcol[:nnzb] >= 0)
+                    & (bcol[:nnzb] < self.n_block_cols)).all():
+                raise ValueError("live block_col out of range")
+            owner = np.repeat(np.arange(gm, dtype=np.int32),
+                              np.diff(rptr.astype(np.int64)))
+            if not (brow[:nnzb] == owner).all():
+                raise ValueError("live block_row disagrees with row_ptr")
+        if not (bcol[nnzb:] == -1).all():
+            raise ValueError("pad block_col must be -1")
+        if not (brow[nnzb:] == max(gm - 1, 0)).all():
+            raise ValueError(f"pad block_row must be {max(gm - 1, 0)} "
+                             f"(last block row)")
+        if bool(self.blocks[..., nnzb:, :, :].any()):
+            raise ValueError("pad blocks must be 0")
+        return self

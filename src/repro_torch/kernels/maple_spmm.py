@@ -1,0 +1,189 @@
+"""Maple SpMM kernel wrappers: block-CSR ``A`` × dense ``B`` on Hopper.
+
+Two kernels (CUDA C++, ``csrc/maple_spmm.cu``), each with a plain PyTorch
+version of the same function beside it:
+
+* :func:`maple_spmm_naive` — replaces ``maple_spmm_batched_pallas``
+  (``repro/kernels/maple_spmm.py``): the naive walk, one f32 PSB per
+  block-row, flushed once in the input type; empty block-rows come out 0.
+* :func:`maple_spmm_compact` — replaces ``maple_spmm_compact_pallas``:
+  the planned walk, one f32 PSB per (lane, row) run of the plan, flushed
+  into the run's compact slot; returns the f32 slot buffer, whose dead
+  slots are left unwritten (undefined).
+
+A wrapper runs the plain version only for tensors on the CPU.  For CUDA
+tensors it launches the kernel or raises; each launch adds one to the
+wrapper's ``launches`` count.  Inputs are f32 or bf16 (both operands
+alike), accumulated in f32.  The kernel masks a ragged ``N`` itself, so
+no padded copy of ``B`` is made; ``bn`` is the widest N tile of a
+thread block (narrowed to the next power of two ≥ 16 above ``N``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_operands(blocks, b3, ints, bn):
+    if blocks.dim() != 3 or b3.dim() != 3:
+        raise ValueError(f"blocks must be (nb, bm, bk) and B (G, K, N); got "
+                         f"{tuple(blocks.shape)} and {tuple(b3.shape)}")
+    if blocks.dtype not in _DTYPES or b3.dtype != blocks.dtype:
+        raise TypeError(f"blocks and B must both be float32 or bfloat16, got "
+                        f"{blocks.dtype} and {b3.dtype}")
+    if b3.shape[1] % blocks.shape[2]:
+        raise ValueError(f"K={b3.shape[1]} not divisible by block k="
+                         f"{blocks.shape[2]}")
+    for name, t in (("blocks", blocks), ("B", b3), *ints):
+        if t.device != b3.device:
+            raise ValueError(f"{name} is on {t.device}, B on {b3.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in ints:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if b3.is_cuda:
+        if bn < 16 or bn > 256 or bn & (bn - 1):
+            raise ValueError(f"bn={bn}: the CUDA kernels take a power-of-two "
+                             f"N tile in [16, 256]")
+        if blocks.shape[2] % 4 or blocks.data_ptr() % 16:
+            raise ValueError("the CUDA kernels read blocks 4 elements at a "
+                             "time: block k must be a multiple of 4 and the "
+                             "payload 16-byte aligned")
+
+
+def _tile_n(bn: int, n: int) -> int:
+    return min(bn, max(16, 1 << max(n - 1, 0).bit_length()))
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+# --------------------------------------------------------------------------
+# naive schedule (B3)
+# --------------------------------------------------------------------------
+
+def maple_spmm_naive(blocks: torch.Tensor, row_ptr: torch.Tensor,
+                     block_col: torch.Tensor, b3: torch.Tensor, *,
+                     bn: int = 128) -> torch.Tensor:
+    """``(G, gm·bm, N)`` in B's dtype: block-row ``i`` of every batch ``g``
+    is the f32 sum over slots ``row_ptr[i] .. row_ptr[i+1]`` (pads with
+    ``block_col < 0`` masked) of ``blocks[s] @ B[g, col·bk : (col+1)·bk]``,
+    cast once."""
+    _check_operands(blocks, b3, (("row_ptr", row_ptr),
+                                 ("block_col", block_col)), bn)
+    if not b3.is_cuda:
+        return maple_spmm_naive_plain(blocks, row_ptr, block_col, b3)
+    nb, bm, bk = blocks.shape
+    g, k, n = b3.shape
+    gm = row_ptr.numel() - 1
+    out = torch.empty((g, gm * bm, n), dtype=b3.dtype, device=b3.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library("maple_spmm")
+    err = lib.maple_spmm_naive(
+        blocks.data_ptr(), row_ptr.data_ptr(), block_col.data_ptr(),
+        b3.data_ptr(), out.data_ptr(), _DTYPES[b3.dtype], g, gm, k, n, bm,
+        bk, _tile_n(bn, n), _stream())
+    _build.check(lib, err, "maple_spmm_naive")
+    maple_spmm_naive.launches += 1
+    return out
+
+
+maple_spmm_naive.launches = 0
+
+
+def maple_spmm_naive_plain(blocks, row_ptr, block_col, b3) -> torch.Tensor:
+    """Plain PyTorch version of :func:`maple_spmm_naive`."""
+    nb, bm, bk = blocks.shape
+    g, k, n = b3.shape
+    gm = row_ptr.numel() - 1
+    nnzb = int(row_ptr[-1])
+    rows = torch.repeat_interleave(
+        torch.arange(gm, device=b3.device),
+        (row_ptr[1:] - row_ptr[:-1]).long())
+    cols = block_col[:nnzb].long()
+    live = cols >= 0
+    out = torch.zeros((g, gm, bm, n), dtype=torch.float32, device=b3.device)
+    panels = b3.float().reshape(g, k // bk, bk, n)[:, cols[live]]
+    contrib = torch.einsum("sik,gskn->gsin",
+                           blocks[:nnzb][live].float(), panels)
+    out.index_add_(1, rows[live], contrib)
+    return out.reshape(g, gm * bm, n).to(b3.dtype)
+
+
+# --------------------------------------------------------------------------
+# planned compact layout (B1)
+# --------------------------------------------------------------------------
+
+def maple_spmm_compact(blocks: torch.Tensor, order: torch.Tensor,
+                       step_col: torch.Tensor, runs: torch.Tensor,
+                       b3: torch.Tensor, *, n_slots: int,
+                       bn: int = 128) -> torch.Tensor:
+    """The f32 compact slot buffer ``(G, n_slots·bm, N)``: for each run
+    ``(lane, first, end, slot)`` of the plan's run table, slot ``slot``
+    holds the f32 sum over steps ``first .. end`` of lane ``lane`` (pad
+    steps with ``step_col < 0`` add nothing) of
+    ``blocks[order] @ B[g, step_col·bk : (step_col+1)·bk]``.  Slots no run
+    names are not written."""
+    _check_operands(blocks, b3, (("order", order), ("step_col", step_col),
+                                 ("runs", runs)), bn)
+    if order.shape != step_col.shape or order.dim() != 2:
+        raise ValueError("order and step_col must be one (lanes, steps) shape")
+    if runs.dim() != 2 or runs.shape[1] != 4:
+        raise ValueError(f"runs must be (n_runs, 4), got {tuple(runs.shape)}")
+    if not b3.is_cuda:
+        return maple_spmm_compact_plain(blocks, order, step_col, runs, b3,
+                                        n_slots=n_slots)
+    nb, bm, bk = blocks.shape
+    g, k, n = b3.shape
+    out = torch.empty((g, n_slots * bm, n), dtype=torch.float32,
+                      device=b3.device)
+    if out.numel() == 0 or runs.shape[0] == 0:
+        return out                      # no run: every slot is dead
+    lib = _build.library("maple_spmm")
+    err = lib.maple_spmm_compact(
+        blocks.data_ptr(), order.data_ptr(), step_col.data_ptr(),
+        runs.data_ptr(), b3.data_ptr(), out.data_ptr(), _DTYPES[b3.dtype], g,
+        runs.shape[0], order.shape[1],
+        n_slots, k, n, bm, bk, _tile_n(bn, n), _stream())
+    _build.check(lib, err, "maple_spmm_compact")
+    maple_spmm_compact.launches += 1
+    return out
+
+
+maple_spmm_compact.launches = 0
+
+
+def maple_spmm_compact_plain(blocks, order, step_col, runs, b3, *,
+                             n_slots: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`maple_spmm_compact`.  Slots no run
+    names hold NaN, so a merge that reads one shows it."""
+    nb, bm, bk = blocks.shape
+    g, k, n = b3.shape
+    steps = order.shape[1]
+    runs = runs.long()
+    lane, first, end, slot = runs.unbind(1)
+    length = end - first
+    run_of = torch.repeat_interleave(torch.arange(runs.shape[0],
+                                                  device=b3.device), length)
+    start_of = torch.repeat_interleave(torch.cumsum(length, 0) - length,
+                                       length)
+    s = first[run_of] + torch.arange(run_of.numel(), device=b3.device) \
+        - start_of
+    flat = lane[run_of] * steps + s
+    cols = step_col.reshape(-1)[flat].long()
+    live = cols >= 0
+    blk = order.reshape(-1)[flat][live].long()
+    tiles = torch.full((g, n_slots, bm, n), float("nan"), dtype=torch.float32,
+                       device=b3.device)
+    tiles[:, slot] = 0.0
+    panels = b3.float().reshape(g, k // bk, bk, n)[:, cols[live]]
+    contrib = torch.einsum("sik,gskn->gsin", blocks[blk].float(), panels)
+    tiles.index_add_(1, slot[run_of][live], contrib)
+    return tiles.reshape(g, n_slots * bm, n)

@@ -1,0 +1,317 @@
+"""Transformer layers for serving: norms, RoPE, GQA attention (full,
+prefill, decode), the SwiGLU MLP and the block-sparse projection (port
+of ``repro.models.layers``).
+
+Parameters are plain dicts of tensors.  Every ``init_*`` takes an explicit
+``torch.Generator`` and creates its tensors on the generator's device; a
+leading ``stack`` shape draws a whole stack of layers at once (the
+reference's scanned layout: one leading layer axis per leaf).  The
+reference draws with ``jax.random``, which torch cannot reproduce, so
+parity is held on weights carried across (``repro_torch.convert``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.csr import BlockCSR
+from repro_torch.kernels.ops import maple_spmm
+
+
+# --------------------------------------------------------------------------
+# initializers / norms
+# --------------------------------------------------------------------------
+
+def dense_init(generator: torch.Generator, shape, in_axis_size: int,
+               dtype=torch.float32) -> torch.Tensor:
+    scale = 1.0 / math.sqrt(max(in_axis_size, 1))
+    return (torch.randn(tuple(shape), generator=generator,
+                        device=generator.device) * scale).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """Statistics in f32, scale by ``(1 + weight)`` (the reference's
+    zero-initialised weight convention), in the reference's op order."""
+    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    return x * inv.to(x.dtype) * (1.0 + weight).to(x.dtype)
+
+
+def apply_norm(x, p, kind: str):
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    return rms_norm(x, p["scale"])
+
+
+def init_norm(d: int, kind: str, *, stack: Tuple[int, ...] = (),
+              device=None):
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    return {"scale": torch.zeros((*stack, d), dtype=torch.float32,
+                                 device=device)}
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
+    """``(cos, sin)`` of the RoPE angles, each ``(..., S, 1, hd/2)`` f32.
+    Every layer rotates by the same angles, so a forward pass computes
+    them once and hands them to each layer."""
+    freqs = rope_frequencies(head_dim, theta, device=positions.device)
+    angles = positions[..., None].float() * freqs            # (..., S, hd/2)
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def _rotate(x: torch.Tensor, rope) -> torch.Tensor:
+    cos, sin = rope
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Half-split RoPE.  x: (..., S, H, hd); positions: (..., S) int."""
+    return _rotate(x, rope_tables(positions, x.shape[-1], theta))
+
+
+# --------------------------------------------------------------------------
+# GQA attention
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    """Causal global GQA attention (local windows, cross-attention and
+    QKV biases are not ported yet)."""
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+
+
+def init_attention(generator: torch.Generator, cfg: AttnConfig,
+                   dtype=torch.float32, *, stack: Tuple[int, ...] = ()):
+    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dev = generator.device
+    p = {
+        "wq": dense_init(generator, (*stack, d, h, hd), d, dtype),
+        "wk": dense_init(generator, (*stack, d, kvh, hd), d, dtype),
+        "wv": dense_init(generator, (*stack, d, kvh, hd), d, dtype),
+        "wo": dense_init(generator, (*stack, h, hd, d), h * hd, dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = init_norm(hd, "rmsnorm", stack=stack, device=dev)
+        p["k_norm"] = init_norm(hd, "rmsnorm", stack=stack, device=dev)
+    return p
+
+
+def _project(x, w):
+    """``x @ w`` over the leading input axis of ``w``: (B, S, d) × (d, ...)
+    → (B, S, ...).  One matmul on a flattened weight view."""
+    return torch.matmul(x, w.reshape(w.shape[0], -1)).view(
+        *x.shape[:-1], *w.shape[1:])
+
+
+def _project_qkv(p, cfg: AttnConfig, x, rope):
+    q, k, v = _project(x, p["wq"]), _project(x, p["wk"]), _project(x, p["wv"])
+    if cfg.qk_norm:                      # qk-norm comes before RoPE
+        q = rms_norm(q, p["q_norm"]["scale"])
+        k = rms_norm(k, p["k_norm"]["scale"])
+    return _rotate(q, rope), _rotate(k, rope), v
+
+
+def _out_proj(out, wo):
+    """(B, S, H, hd) × (H, hd, d) → (B, S, d)."""
+    return torch.matmul(out.flatten(-2), wo.reshape(-1, wo.shape[-1]))
+
+
+def _gqa_attend(q, k, v, valid, cfg: AttnConfig) -> torch.Tensor:
+    """Softmax attention in f32 without repeating K/V over head groups.
+
+    q: (B, Sq, H, hd); k/v: (B, Sk, KVH, hd); valid: bool mask
+    broadcastable to (Sq, Sk).  Returns (B, Sq, H, hd) in q's dtype."""
+    b, sq = q.shape[:2]
+    kvh = cfg.n_kv_heads
+    grp = cfg.n_heads // kvh
+    hd = cfg.head_dim
+    scale = 1.0 / math.sqrt(hd)
+    qg = (q.float() * scale).view(b, sq, kvh, grp, hd).permute(0, 2, 3, 1, 4)
+    s = torch.matmul(qg.reshape(b, kvh, grp * sq, hd),
+                     k.float().permute(0, 2, 3, 1))       # (B, KV, G·Sq, Sk)
+    s = s.view(b, kvh, grp, sq, -1).masked_fill(~valid, float("-inf"))
+    w = torch.softmax(s, dim=-1)
+    out = torch.matmul(w.view(b, kvh, grp * sq, -1),
+                       v.float().permute(0, 2, 1, 3))     # (B, KV, G·Sq, hd)
+    out = out.view(b, kvh, grp, sq, hd).permute(0, 3, 1, 2, 4)
+    return out.reshape(b, sq, cfg.n_heads, hd).to(q.dtype)
+
+
+def _causal_mask(s: int, device) -> torch.Tensor:
+    pos = torch.arange(s, device=device)
+    return pos[:, None] >= pos[None, :]
+
+
+def attention(p, cfg: AttnConfig, x, rope):
+    """Full-sequence causal self-attention (prefill without a cache).
+    ``rope`` is :func:`rope_tables` of the tokens' positions."""
+    q, k, v = _project_qkv(p, cfg, x, rope)
+    out = _gqa_attend(q, k, v, _causal_mask(x.shape[1], x.device), cfg)
+    return _out_proj(out, p["wo"])
+
+
+def attention_prefill(p, cfg: AttnConfig, x, rope, *, cache_len: int):
+    """Full-sequence attention that also returns the K/V cache
+    ``(B, cache_len, KVH, hd)`` (zero past the prompt)."""
+    s = x.shape[1]
+    if cache_len < s:
+        raise ValueError(f"cache_len={cache_len} < prompt length {s}")
+    q, k, v = _project_qkv(p, cfg, x, rope)
+    out = _gqa_attend(q, k, v, _causal_mask(s, x.device), cfg)
+    k_cache = F.pad(k, (0, 0, 0, 0, 0, cache_len - s))
+    v_cache = F.pad(v, (0, 0, 0, 0, 0, cache_len - s))
+    return _out_proj(out, p["wo"]), k_cache, v_cache
+
+
+def attention_decode(p, cfg: AttnConfig, x, cache_k, cache_v, pos: int,
+                     rope):
+    """One-token decode step against a static KV cache.
+
+    x: (B, 1, D); cache_k/v: (B, S_cache, KVH, hd); ``pos`` the absolute
+    position of the new token and ``rope`` its :func:`rope_tables`.  The
+    new K/V are written into the caches **in place** (the reference
+    returns updated copies; updating in place keeps one cache buffer).
+    Returns (out, cache_k, cache_v)."""
+    q, k_new, v_new = _project_qkv(p, cfg, x, rope)
+    cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
+    valid = torch.arange(cache_k.shape[1], device=x.device) <= pos
+    out = _gqa_attend(q, cache_k, cache_v, valid, cfg)
+    return _out_proj(out, p["wo"]), cache_k, cache_v
+
+
+# --------------------------------------------------------------------------
+# MLPs
+# --------------------------------------------------------------------------
+
+def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
+             activation: str, dtype=torch.float32, *,
+             stack: Tuple[int, ...] = (), sparse_down: bool = False,
+             sparse_block=(64, 64), sparse_density: float = 0.25,
+             mask_generator: Optional[torch.Generator] = None):
+    """Gated (SwiGLU) MLP params.  ``sparse_down=True`` makes the down
+    projection a block-sparse :class:`BlockCSR`; every layer of the stack
+    shares one block pattern (drawn from ``mask_generator``)."""
+    if activation != "silu":
+        raise NotImplementedError(f"activation {activation!r} is not "
+                                  f"ported yet")
+    p = {
+        "w_gate": dense_init(generator, (*stack, d_model, d_ff), d_model,
+                             dtype),
+        "w_up": dense_init(generator, (*stack, d_model, d_ff), d_model,
+                           dtype),
+    }
+    if sparse_down:
+        p["w_down"] = init_sparse_linear(
+            generator, d_ff, d_model, block_shape=sparse_block,
+            block_density=sparse_density, dtype=dtype,
+            mask_generator=mask_generator, stack=stack)
+    else:
+        p["w_down"] = dense_init(generator, (*stack, d_ff, d_model), d_ff,
+                                 dtype)
+    return p
+
+
+def mlp(p, x, activation: str):
+    """SwiGLU MLP.  A :class:`BlockCSR` down projection runs the Maple
+    kernel through :func:`sparse_linear` with ``schedule="naive"``: one
+    kernel launch and no host planning per call.  That mirrors the
+    reference's serving path, where prefill and decode call ``mlp`` with
+    no plan under ``jax.jit``, the traced metadata cannot be planned, and
+    ``maple_spmm`` drops to the naive walk; a literal port of the default
+    ``"balanced"`` schedule would run a host LPT plan walk on every layer
+    of every token.  (The planned training path, ``sparse_plan=``, comes
+    with the backward pass.)
+    """
+    if activation != "silu":
+        raise NotImplementedError(f"activation {activation!r} is not "
+                                  f"ported yet")
+    h = F.silu(torch.matmul(x, p["w_gate"]))
+    h = h * torch.matmul(x, p["w_up"])
+    if isinstance(p["w_down"], BlockCSR):
+        return sparse_linear(p["w_down"], h, schedule="naive")
+    return torch.matmul(h, p["w_down"])
+
+
+# --------------------------------------------------------------------------
+# block-sparse projections (the Maple kernel as a model layer)
+# --------------------------------------------------------------------------
+
+def init_sparse_linear(generator: torch.Generator, d_in: int, d_out: int, *,
+                       block_shape=(64, 64), block_density: float = 0.25,
+                       dtype=torch.float32,
+                       mask_generator: Optional[torch.Generator] = None,
+                       stack: Tuple[int, ...] = ()) -> BlockCSR:
+    """Block-sparse ``(d_out, d_in)`` projection weight as BlockCSR.
+
+    Blocks are kept with probability ``block_density`` (drawn from
+    ``mask_generator``, default ``generator``); a block-row left empty
+    gets block ``(i, i mod gk)`` so no output channel goes dead.  Values
+    are ``N(0, 1) / sqrt(max(d_in · density, bk))`` on the generator's
+    device.  The container is built directly from the mask (never
+    densified); with ``stack`` the payload is ``(*stack, nnzb, bm, bk)``
+    over one shared pattern.
+    """
+    bm, bk = block_shape
+    if d_out % bm or d_in % bk:
+        raise ValueError(f"({d_out},{d_in}) not divisible by {block_shape}")
+    gm, gk = d_out // bm, d_in // bk
+    mg = generator if mask_generator is None else mask_generator
+    mask = (torch.rand((gm, gk), generator=mg, device=mg.device)
+            < block_density).cpu().numpy()
+    empty = ~mask.any(axis=1)
+    mask[np.nonzero(empty)[0], np.nonzero(empty)[0] % gk] = True
+    rows, cols = np.nonzero(mask)
+    nnzb = rows.size
+    fan_in = max(d_in * block_density, float(bk))
+    blocks = torch.randn((*stack, nnzb, bm, bk), generator=generator,
+                         device=generator.device) / math.sqrt(fan_in)
+    row_ptr = np.zeros((gm + 1,), np.int32)
+    np.cumsum(np.bincount(rows, minlength=gm), out=row_ptr[1:])
+    return BlockCSR(blocks=blocks.to(dtype), block_col=cols.astype(np.int32),
+                    block_row=rows.astype(np.int32), row_ptr=row_ptr,
+                    shape=(d_out, d_in), block_shape=(bm, bk))
+
+
+def sparse_linear(w: BlockCSR, x: torch.Tensor, *, plan=None,
+                  schedule: str = "balanced") -> torch.Tensor:
+    """``y = x @ Wᵀ`` for block-sparse ``W`` in one batched kernel launch.
+
+    ``x`` may be ``(d_in,)``, ``(T, d_in)`` or ``(B, S, d_in)``; tokens
+    move to the minor axis (``(B, S, d) → (B, d, S)``) so they become the
+    PSB columns, and each batch element is one right-hand side."""
+    d_out = w.shape[0]
+    if x.dim() == 3:
+        y = maple_spmm(w, x.transpose(1, 2), plan=plan,
+                       schedule=schedule)                 # (B, d_out, S)
+        return y.transpose(1, 2)
+    flat = x.reshape(-1, x.shape[-1])                     # (T, d_in)
+    y = maple_spmm(w, flat.t(), plan=plan, schedule=schedule)
+    return y.t().reshape(*x.shape[:-1], d_out)

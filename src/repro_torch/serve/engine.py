@@ -1,0 +1,176 @@
+"""Serving on the static path: prefill + sampling decode loop, and the
+block-sparse logit head (port of ``repro.serve.engine``).
+
+Randomness: sampled decoding draws from an explicit ``torch.Generator``
+on the logits' device.  It cannot reproduce the reference's
+``jax.random`` draws; greedy decoding (temperature 0) matches it.
+
+Not ported yet: the continuous batcher and paged decode,
+``SparseLogitHead.build(trainable=True)`` (the backward pass),
+``n_shards`` / ``n_col_shards`` and ``plan="auto"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.csr import BlockCSR
+from repro_torch.kernels.schedule import SpmmPlan, plan_spmm
+from repro_torch.models import lm
+from repro_torch.models.layers import sparse_linear
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseLogitHead:
+    """Serving-side block-sparse unembedding.  The load-balanced plan is
+    built once from the weight's sparsity pattern and reused on every
+    step; a call scores ``(B, S, D)`` hidden states in one planned kernel
+    launch plus the deterministic slot merge."""
+
+    weight: BlockCSR         # (vocab, d_model) block-sparse
+    plan: SpmmPlan
+
+    @classmethod
+    def build(cls, weight: BlockCSR, *, n_lanes: int = 8,
+              chunk: int | None = None, n_shards: int | None = None,
+              n_col_shards: int | None = None, trainable: bool = False,
+              plan: str | None = None) -> "SparseLogitHead":
+        if plan is not None:
+            if plan != "auto":
+                raise ValueError(f"unknown plan {plan!r}; only 'auto' "
+                                 f"(or drop it for the hand-tuned knobs)")
+            raise NotImplementedError("plan='auto' (the autotuner) is not "
+                                      "ported yet")
+        if trainable:
+            raise NotImplementedError("trainable heads need the SpMM "
+                                      "backward, which is not ported yet")
+        if (n_shards is not None and n_shards > 1) or \
+                (n_col_shards is not None and n_col_shards > 1):
+            raise NotImplementedError("partitioned heads (n_shards / "
+                                      "n_col_shards) are not ported yet")
+        return cls(weight=weight,
+                   plan=plan_spmm(weight, n_lanes=n_lanes, chunk=chunk))
+
+    @property
+    def predicted_cycles(self):
+        return self.plan.predicted_cycles()
+
+    def __call__(self, hidden: torch.Tensor) -> torch.Tensor:
+        """hidden: (B, S, D) → logits (B, S, V)."""
+        return sparse_linear(self.weight, hidden, plan=self.plan)
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingConfig:
+    temperature: float = 0.0     # 0 → greedy
+    top_k: int = 0               # 0 → no top-k filtering
+    max_new_tokens: int = 32
+    eos_id: int = -1             # -1 → never stop early
+
+
+def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
+                 cfg: SamplingConfig, vocab_size: int) -> torch.Tensor:
+    """logits: (B, V_padded) → (B,) int64; padded vocab ids are masked."""
+    logits = logits.float()
+    mask = torch.arange(logits.shape[-1], device=logits.device) < vocab_size
+    logits = logits.masked_fill(~mask, float("-inf"))
+    if cfg.temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    logits = logits / cfg.temperature
+    if cfg.top_k > 0:
+        kth = torch.topk(logits, cfg.top_k, dim=-1).values[..., -1:]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def token_entropy(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """Per-row softmax entropy over the real vocabulary: (B, V) → (B,)."""
+    lg = logits[..., :vocab_size].float()
+    probs = torch.softmax(lg, dim=-1)
+    return -torch.sum(probs * torch.log(probs + 1e-9), dim=-1)
+
+
+def _default_generator(device: torch.device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(0)
+
+
+def complete_static(params, cfg: ModelConfig, tokens, max_new: int, *,
+                    sampling: SamplingConfig,
+                    generator: Optional[torch.Generator] = None,
+                    head: Optional[SparseLogitHead] = None):
+    """Finish ONE request on the static path: batch-1 prefill over the
+    prompt, then one ``decode_step`` per token, scored by ``head`` when
+    given (else the dense ``lm_head``).
+
+    Returns ``(new_tokens, reason, generator)`` with ``reason`` in
+    ``("eos", "length", "error")``: the request ends at
+    ``sampling.eos_id`` (when ≥ 0), at ``max_new`` tokens, or with
+    ``"error"`` on non-finite logits."""
+    tokens = np.asarray(tokens, np.int64).reshape(-1)
+    if max_new <= 0:
+        return [], "length", generator
+    device = params["embed_tokens"].device
+    if generator is None:
+        generator = _default_generator(device)
+    use_head = head is not None
+    out, state = lm.prefill(
+        params, cfg, {"tokens": torch.from_numpy(tokens)[None].to(device)},
+        max_seq=tokens.size + max_new, return_hidden=use_head)
+    logits = head(out) if use_head else out
+    new_tokens: list = []
+    while True:
+        row = logits[:, -1]
+        if not bool(torch.isfinite(row[:, :cfg.vocab_size]).all()):
+            return new_tokens, "error", generator
+        tok = int(sample_token(row, generator, sampling, cfg.vocab_size)[0])
+        new_tokens.append(tok)
+        if sampling.eos_id >= 0 and tok == sampling.eos_id:
+            return new_tokens, "eos", generator
+        if len(new_tokens) >= max_new:
+            return new_tokens, "length", generator
+        out, state = lm.decode_step(
+            params, cfg, state,
+            torch.full((1, 1), tok, dtype=torch.int64, device=device),
+            return_hidden=use_head)
+        logits = head(out) if use_head else out
+
+
+def generate(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+             sampling: SamplingConfig = SamplingConfig(),
+             generator: Optional[torch.Generator] = None):
+    """Prefill on ``batch`` then decode ``max_new_tokens`` greedily or
+    sampled.  Returns (tokens (B, T), per-step entropy trace), T ≤
+    max_new_tokens; EOS is tracked per sequence as in the reference."""
+    tokens = batch["tokens"]
+    device = tokens.device
+    if generator is None:
+        generator = _default_generator(device)
+    logits, state = lm.prefill(
+        params, cfg, batch, max_seq=tokens.shape[1] + sampling.max_new_tokens)
+    b = tokens.shape[0]
+    done = torch.zeros((b,), dtype=torch.bool, device=device)
+    outs = []
+    entropies = []
+    for _ in range(sampling.max_new_tokens):
+        last = logits[:, -1]
+        tok = sample_token(last, generator, sampling, cfg.vocab_size)
+        if sampling.eos_id >= 0:
+            tok = torch.where(done, torch.full_like(tok, sampling.eos_id),
+                              tok)
+        outs.append(tok)
+        ent = token_entropy(last, cfg.vocab_size)
+        live = ~done
+        entropies.append(float(torch.where(live, ent, 0.0).sum()
+                               / torch.clamp(live.sum(), min=1)))
+        if sampling.eos_id >= 0:
+            done = done | (tok == sampling.eos_id)
+            if bool(done.all()):
+                break
+        logits, state = lm.decode_step(params, cfg, state, tok[:, None])
+    return torch.stack(outs, dim=1), entropies
