@@ -1,7 +1,7 @@
 """Model configuration schema (port of ``repro.configs.base``).
 
-The fields are those the ported serving path reads or refuses.  The
-reference's MoE, SSM, RG-LRU and training fields come with the modules
+The fields are those the ported serving and training paths read or
+refuse.  The reference's MoE, SSM and RG-LRU fields come with the modules
 that read them.
 """
 
@@ -51,6 +51,11 @@ class ModelConfig:
     sparse_block: Tuple[int, int] = (64, 64)
     sparse_density: float = 0.25
     sparse_mask_seed: int = 0
+    # training defaults
+    train_microbatches: int = 1
+    grad_accum_dtype: str = "float32"  # microbatch grad accumulator
+    scan_remat_chunk: int = 0   # two-level (sqrt) remat over layer groups
+    remat: bool = True
 
     @property
     def vocab_padded(self) -> int:

@@ -9,6 +9,7 @@ def config() -> ModelConfig:
         name="qwen3-4b", family="dense",
         n_layers=36, d_model=2560, n_heads=32, n_kv_heads=8, head_dim=128,
         d_ff=9728, vocab_size=151_936, qk_norm=True, rope_theta=1e6,
+        train_microbatches=4,
     )
 
 
@@ -16,4 +17,5 @@ def smoke_config() -> ModelConfig:
     return dataclasses.replace(
         config(), n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
         head_dim=16, d_ff=128, vocab_size=512, vocab_pad_multiple=64,
+        train_microbatches=1,
     )

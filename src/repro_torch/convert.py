@@ -5,7 +5,8 @@ The reference keeps parameters as a pytree of JAX arrays with
 the tree as nested dicts of numpy arrays, with each ``BlockCSR`` flattened
 to a dict of its fields (``blocks``, ``block_col``, ``block_row``,
 ``row_ptr``, ``shape``, ``block_shape``).  The layout is kept as it is,
-including the stacked ``groups/b<i>`` layer axis.
+including the stacked ``groups/b<i>`` layer axis; the trainer's per-layer
+leaves are ``models.lm.unstack_layers`` of the result.
 """
 
 from __future__ import annotations

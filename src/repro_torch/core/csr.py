@@ -1,4 +1,5 @@
-"""Padded CSR / BSR containers (port of ``repro.core.csr``).
+"""Padded CSR / BSR containers and the block transpose (port of
+``repro.core.csr``).
 
 Metadata (``col_id`` / ``block_col`` / ``block_row`` / ``row_ptr``) is
 host numpy, exactly as the reference builds it on the host; the BSR
@@ -156,3 +157,67 @@ class BlockCSR:
         if bool(self.blocks[..., nnzb:, :, :].any()):
             raise ValueError("pad blocks must be 0")
         return self
+
+
+def _transpose_perm(rows: np.ndarray, cols: np.ndarray):
+    """Permutation taking row-major ``(row, col)`` walk order to the
+    transpose's: a stable sort by ``(col, row)``.  Returns ``(perm,
+    t_rows, t_cols)`` over live entries; ``perm[j]`` is the source slot
+    of the j-th live entry of Aᵀ."""
+    perm = np.lexsort((rows, cols))
+    return perm, cols[perm], rows[perm]
+
+
+def bsr_transpose_meta(a: BlockCSR, *, pad_to: int | None = None):
+    """Host transpose of a BlockCSR *pattern*: ``(perm, block_row,
+    block_col, row_ptr, nnzb)`` of Aᵀ, where ``perm`` maps the j-th live
+    block of Aᵀ to its source slot in ``a.blocks``.  With ``pad_to`` the
+    row / col arrays are padded to that capacity under the container's
+    pad contract (col -1, row = the last block-row of Aᵀ)."""
+    rptr = np.asarray(a.row_ptr).astype(np.int64)
+    nnzb = int(rptr[-1])
+    cols = np.asarray(a.block_col)[:nnzb].astype(np.int64)
+    rows = np.repeat(np.arange(a.n_block_rows, dtype=np.int64),
+                     np.diff(rptr))
+    perm, t_rows, t_cols = _transpose_perm(rows, cols)
+    t_rptr = np.zeros(a.n_block_cols + 1, np.int32)
+    np.cumsum(np.bincount(t_rows, minlength=a.n_block_cols), out=t_rptr[1:])
+    t_rows = t_rows.astype(np.int32)
+    t_cols = t_cols.astype(np.int32)
+    if pad_to is not None:
+        if pad_to < nnzb:
+            raise ValueError(f"n_blocks_max={pad_to} < nnz blocks={nnzb}")
+        pad = lambda arr, fill: np.concatenate(
+            [arr, np.full(pad_to - nnzb, fill, np.int32)])
+        t_rows = pad(t_rows, max(a.n_block_cols - 1, 0))
+        t_cols = pad(t_cols, -1)
+    return perm.astype(np.int32), t_rows, t_cols, t_rptr, nnzb
+
+
+def transpose_payload(blocks: torch.Tensor, perm: torch.Tensor,
+                      cap: int) -> torch.Tensor:
+    """Aᵀ's payload: the ``(nb, bm, bk)`` blocks gathered by ``perm`` (an
+    int64 index tensor on their device, Aᵀ live slot -> A slot) and each
+    swapped to ``(bk, bm)``, in a zero-filled ``(cap, bk, bm)`` buffer."""
+    out = blocks.new_zeros((cap, blocks.shape[2], blocks.shape[1]))
+    if perm.numel():
+        out[:perm.numel()] = blocks.index_select(0, perm).transpose(1, 2)
+    return out
+
+
+def bsr_transpose(a: BlockCSR, *, n_blocks_max: int | None = None
+                  ) -> BlockCSR:
+    """Aᵀ as BlockCSR: the transposed pattern (:func:`bsr_transpose_meta`)
+    and each ``(bm, bk)`` payload gathered and swapped to ``(bk, bm)``;
+    pad slots are zero."""
+    if a.stacked:
+        raise ValueError("a holds a stack of layers; pass one (a.layer(i))")
+    cap = a.n_blocks_max if n_blocks_max is None else int(n_blocks_max)
+    perm, block_row, block_col, row_ptr, nnzb = bsr_transpose_meta(
+        a, pad_to=cap)
+    bm, bk = a.block_shape
+    idx = torch.from_numpy(perm[:nnzb].astype(np.int64)).to(a.blocks.device)
+    blocks = transpose_payload(a.blocks, idx, cap)
+    return BlockCSR(blocks=blocks, block_col=block_col, block_row=block_row,
+                    row_ptr=row_ptr, shape=(a.shape[1], a.shape[0]),
+                    block_shape=(bk, bm))

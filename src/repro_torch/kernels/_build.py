@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("maple_spmm",)
+SOURCES = ("maple_spmm", "maple_sddmm")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -97,8 +97,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.maple_spmm_compact.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                            i, i, i, i, i, p]
         lib.maple_spmm_compact.restype = i
-        lib.maple_error_string.argtypes = [i]
-        lib.maple_error_string.restype = ctypes.c_char_p
+    elif name == "maple_sddmm":
+        lib.maple_sddmm_bsr.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
+                                        i, i, p]
+        lib.maple_sddmm_bsr.restype = i
+    lib.maple_error_string.argtypes = [i]
+    lib.maple_error_string.restype = ctypes.c_char_p
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -1,11 +1,12 @@
-"""Public entry point of the Maple SpMM (port of the forward half of
-``repro.kernels.ops.maple_spmm``).
+"""Public entry point of the Maple SpMM (port of
+``repro.kernels.ops.maple_spmm``), forward and backward.
 
 The wrapper owns everything that is not the kernel: argument checks (the
 reference's plan-mismatch raises, same types and messages), schedule
-selection and planning, device copies of the metadata, and the
-deterministic f32 merge of the compact layout.  This slice is forward
-only: an input that requires grad raises.
+selection and planning, device copies of the metadata, the deterministic
+f32 merge of the compact layout, and the backward (:class:`_SpmmFunction`):
+dB = Aᵀ·dC on the planned compact kernel over the transpose-side plan,
+dA through the block SDDMM kernel.
 """
 
 from __future__ import annotations
@@ -14,18 +15,21 @@ from typing import List, Tuple
 
 import torch
 
-from repro_torch.core.csr import BlockCSR
+from repro_torch.core.csr import BlockCSR, transpose_payload
+from repro_torch.kernels.maple_sddmm import maple_sddmm_bsr
 from repro_torch.kernels.maple_spmm import maple_spmm_compact, maple_spmm_naive
-from repro_torch.kernels.schedule import SpmmPlan, plan_spmm
+from repro_torch.kernels.schedule import (SpmmPlan, SpmmTrainPlan, plan_spmm,
+                                          plan_spmm_vjp)
 
 
 def maple_spmm(a: BlockCSR, b_dense: torch.Tensor, *, bn: int = 128,
                schedule: str = "balanced", n_lanes: int = 8,
                chunk: int | None = None, n_shards: int | None = None,
                n_col_shards: int | None = None,
-               plan: SpmmPlan | str | None = None,
+               plan: SpmmPlan | SpmmTrainPlan | str | None = None,
                reorder: bool | str = False) -> torch.Tensor:
-    """C = A_bsr @ B with the Maple block dataflow (forward only).
+    """C = A_bsr @ B with the Maple block dataflow.  Differentiable in
+    ``a.blocks`` and ``b_dense``.
 
     ``b_dense`` is one ``(K, N)`` right-hand side or a batch ``(G, K, N)``
     sharing A's structure; ``N`` may be ragged.  ``schedule``:
@@ -37,19 +41,25 @@ def maple_spmm(a: BlockCSR, b_dense: torch.Tensor, *, bn: int = 128,
     * ``"naive"`` — the construction-order walk: one kernel launch, no
       plan, no host work per call beyond argument checks.
 
+    **Backward** (a ``torch.autograd.Function``): dB = Aᵀ·dC runs the
+    compact kernel on the transpose-side plan of an
+    :class:`~repro_torch.kernels.schedule.SpmmTrainPlan` and merges
+    deterministically as the forward does; dA is the block SDDMM sampled
+    at A's pattern, masked on ``block_col >= 0`` and cast to the payload's
+    dtype.  Metadata gets no gradient.  Pass the train plan
+    (``plan_spmm_vjp``) to build it once per weight; without one, the
+    first backward of a call builds it from the call's forward plan (the
+    naive schedule plans afresh), as the reference does eagerly.
+
     Not ported yet (raise ``NotImplementedError``): ELL / bitmap operands,
     ``schedule="partitioned"`` and ``n_shards`` / ``n_col_shards``,
-    ``plan="auto"``, ``reorder``, and any backward pass.
+    ``plan="auto"`` and ``reorder``.
     """
     if not isinstance(a, BlockCSR):
         raise NotImplementedError("ELL / bitmap operands are not ported yet; "
                                   "pass a BlockCSR")
     if a.stacked:
         raise ValueError("a holds a stack of layers; pass one (a.layer(i))")
-    if a.blocks.requires_grad or b_dense.requires_grad:
-        raise NotImplementedError(
-            "maple_spmm backward not ported yet: the port is forward-only "
-            "(call under torch.no_grad() or detach the inputs)")
     if schedule not in ("balanced", "row_atomic", "naive", "partitioned"):
         raise ValueError(f"unknown schedule {schedule!r}")
     if schedule == "naive" and plan is not None:
@@ -80,6 +90,9 @@ def maple_spmm(a: BlockCSR, b_dense: torch.Tensor, *, bn: int = 128,
                              "PartitionedSpmmPlan)")
     if schedule == "partitioned":
         raise NotImplementedError("schedule='partitioned' is not ported yet")
+    train = plan if isinstance(plan, SpmmTrainPlan) else None
+    if train is not None:
+        plan = train.fwd
     if plan is not None and not isinstance(plan, SpmmPlan):
         raise NotImplementedError(
             f"{type(plan).__name__} plans are not ported yet; pass a "
@@ -108,13 +121,68 @@ def maple_spmm(a: BlockCSR, b_dense: torch.Tensor, *, bn: int = 128,
     if plan is None and schedule != "naive":
         plan = plan_spmm(a, n_lanes=n_lanes, chunk=chunk,
                          row_atomic=(schedule == "row_atomic"))
-    if plan is not None:
-        out = _planned_spmm_f32(a.blocks, b3, plan, bn=bn).to(b3.dtype)
+    if train is not None:
+        train_thunk = lambda: train
     else:
-        meta = _meta_on(a, b3.device)
-        out = maple_spmm_naive(a.blocks, meta["row_ptr"], meta["block_col"],
-                               b3, bn=bn)
+        # built on the first backward only, from the plan this call ran
+        memo = []
+
+        def train_thunk(fwd=plan, ra=(schedule == "row_atomic")):
+            if not memo:
+                memo.append(plan_spmm_vjp(a, n_lanes=n_lanes, chunk=chunk,
+                                          row_atomic=ra, fwd=fwd))
+            return memo[0]
+    out = _SpmmFunction.apply(a.blocks, b3, a, plan, train_thunk, bn)
     return out if batched else out[0]
+
+
+class _SpmmFunction(torch.autograd.Function):
+    """The differentiable boundary of :func:`maple_spmm` (the reference's
+    ``_spmm_call`` custom VJP).  Inputs are the payload and the dense
+    operand; the container, the plan and the lazy train-plan thunk ride
+    along as constants."""
+
+    @staticmethod
+    def forward(ctx, blocks, b3, a: BlockCSR, plan, train_thunk, bn: int):
+        if plan is not None:
+            # split-row partials merge in f32; round once, like the naive
+            # single-accumulator walk
+            out = _planned_spmm_f32(blocks, b3, plan, bn=bn).to(b3.dtype)
+        else:
+            meta = _meta_on(a, b3.device)
+            out = maple_spmm_naive(blocks, meta["row_ptr"],
+                                   meta["block_col"], b3, bn=bn)
+        ctx.save_for_backward(blocks, b3)
+        ctx.train_thunk = train_thunk
+        ctx.bn = bn
+        return out
+
+    @staticmethod
+    def backward(ctx, dc):
+        blocks, b3 = ctx.saved_tensors
+        need_da, need_db = ctx.needs_input_grad[:2]
+        if not (need_da or need_db):
+            return None, None, None, None, None, None
+        train = ctx.train_thunk()
+        dc = dc.to(b3.dtype).contiguous()
+        d = train.on_device(dc.device)
+        bm, bk = train.block_shape
+        da = db = None
+        if need_db:
+            # dB = Aᵀ·dC: gather the payload into Aᵀ slot order, swap each
+            # block, and run the compact kernel on the transpose-side plan
+            at_blocks = transpose_payload(blocks, d["t_perm"],
+                                          train.n_blocks_max)
+            db = _planned_spmm_f32(at_blocks, dc, train.bwd,
+                                   bn=ctx.bn).to(b3.dtype)
+        if need_da:
+            # dA = (dC·Bᵀ) sampled at A's pattern; pads masked in-kernel
+            # and again here, as the reference does
+            da = maple_sddmm_bsr(dc, b3, d["block_row"], d["block_col"],
+                                 bm=bm, bk=bk, bn=ctx.bn)
+            live = (d["block_col"] >= 0)[:, None, None]
+            da = torch.where(live, da, 0.0).to(blocks.dtype)
+        return da, db, None, None, None, None
 
 
 def _meta_on(a: BlockCSR, device: torch.device) -> dict:

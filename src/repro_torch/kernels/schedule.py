@@ -1,5 +1,6 @@
 """Load-balanced execution planning for the Maple SpMM kernels (port of
-the SpMM half of ``repro.kernels.schedule``).
+the SpMM half of ``repro.kernels.schedule``): forward plans and the
+training plan that adds the transpose-side schedule for the backward.
 
 Plans are host numpy over the sparsity pattern and come out identical to
 the reference's: ``order``, ``step_row``, ``step_col``, ``written``,
@@ -7,6 +8,7 @@ the reference's: ``order``, ``step_row``, ``step_col``, ``written``,
 held against it with ``np.array_equal``, and ``predicted_cycles()`` with
 ``==``.  The port adds two derived tables the Hopper executor needs
 (``runs`` and ``merge_ranks``, see :class:`SpmmPlan`), built once per plan.
+Partitioned (multi-device) plans are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, TypeVar
 import numpy as np
 import torch
 
-from repro_torch.core.csr import CSR, BlockCSR
+from repro_torch.core.csr import CSR, BlockCSR, bsr_transpose_meta
 from repro_torch.core.maple import (SpGEMMStats, analyze_spgemm,
                                     baseline_pe_cycles, maple_pe_cycles)
 from repro_torch.kernels.accum import run_bounds
@@ -297,3 +299,112 @@ def plan_spmm(a: BlockCSR, *, n_lanes: int = 8,
                     n_real_steps=n_real, stats=stats,
                     block_m=a.block_shape[0], block_k=a.block_shape[1],
                     fused=fused)
+
+
+# --------------------------------------------------------------------------
+# SpMM training plan: forward + transpose-side schedules for the backward
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SpmmTrainPlan:
+    """Forward plan plus everything the ``maple_spmm`` backward needs,
+    built once per weight pattern (the reference's ``SpmmTrainPlan``).
+
+    ``dB = Aᵀ·dC`` runs the planned compact kernel on the transposed
+    block pattern (``bwd``); ``dA = (dC·Bᵀ)`` sampled at A's pattern runs
+    the block SDDMM over ``block_row`` / ``block_col``.
+
+    * ``fwd`` / ``bwd`` — lane schedules for A and Aᵀ;
+    * ``t_perm`` — gather taking ``a.blocks`` slots to Aᵀ live-slot order;
+    * ``t_block_row`` / ``t_block_col`` / ``t_row_ptr`` — Aᵀ metadata at
+      the source capacity, pads per the container contract;
+    * ``block_row`` / ``block_col`` — host copies of A's metadata.
+    """
+
+    fwd: SpmmPlan
+    bwd: SpmmPlan
+    t_perm: np.ndarray        # (nnzb,) int32 — Aᵀ live slot -> A slot
+    t_block_row: np.ndarray   # (n_blocks_max,) int32
+    t_block_col: np.ndarray   # (n_blocks_max,) int32, -1 pads
+    t_row_ptr: np.ndarray     # (n_block_cols + 1,) int32
+    block_row: np.ndarray     # (n_blocks_max,) int32
+    block_col: np.ndarray     # (n_blocks_max,) int32, -1 pads
+    shape: Tuple[int, int]
+    block_shape: Tuple[int, int]
+    n_blocks_max: int
+    _on_device: dict = dataclasses.field(default_factory=dict, repr=False,
+                                         compare=False)
+
+    @property
+    def n_block_rows(self) -> int:
+        return self.fwd.n_block_rows
+
+    def predicted_cycles(self) -> Dict[str, float]:
+        """Fwd + Aᵀ cycle predictions (the ``ExecutionPlan`` keys), plus
+        ``fwd_plan`` / ``at_plan``."""
+        f = self.fwd.predicted_cycles()
+        b = self.bwd.predicted_cycles()
+        out = {k: f[k] + b[k] for k in f}
+        out["fwd_plan"] = f["plan"]
+        out["at_plan"] = b["plan"]
+        return out
+
+    def on_device(self, device: torch.device) -> dict:
+        """The backward's index tensors on ``device`` (``t_perm`` as int64
+        for the payload gather; A's ``block_row`` / ``block_col`` as int32
+        for the SDDMM), copied once per device."""
+        key = str(device)
+        cached = self._on_device.get(key)
+        if cached is None:
+            as_t = lambda a, dt: torch.from_numpy(
+                np.ascontiguousarray(a).astype(dt)).to(device)
+            cached = {"t_perm": as_t(self.t_perm, np.int64),
+                      "block_row": as_t(self.block_row, np.int32),
+                      "block_col": as_t(self.block_col, np.int32)}
+            self._on_device[key] = cached
+        return cached
+
+
+def _single_device_only(n_shards, n_col_shards) -> None:
+    if (n_shards is not None and n_shards > 1) or \
+            (n_col_shards is not None and n_col_shards > 1):
+        raise NotImplementedError("partitioned training plans (n_shards / "
+                                  "n_col_shards > 1) are not ported yet")
+
+
+def plan_spmm_vjp(a: BlockCSR, *, n_lanes: int = 8,
+                  chunk: Optional[int] = None,
+                  row_atomic: bool = False,
+                  fused: str = "auto",
+                  n_shards: Optional[int] = None,
+                  n_col_shards: Optional[int] = None,
+                  fwd: Optional[SpmmPlan] = None) -> SpmmTrainPlan:
+    """Build the forward plan (or take the given ``fwd``) and the
+    transpose-side plan with it, on the host, as the reference does.
+    Single-device only."""
+    _single_device_only(n_shards, n_col_shards)
+    if fwd is None:
+        fwd = plan_spmm(a, n_lanes=n_lanes, chunk=chunk,
+                        row_atomic=row_atomic, fused=fused)
+    return transpose_train_plan(
+        a, fwd, lambda at: plan_spmm(at, n_lanes=n_lanes, chunk=chunk,
+                                     row_atomic=row_atomic, fused=fused))
+
+
+def transpose_train_plan(a: BlockCSR, fwd, plan_at) -> SpmmTrainPlan:
+    """Aᵀ metadata at the source capacity, a metadata-only Aᵀ stand-in
+    handed to ``plan_at``, and the assembled :class:`SpmmTrainPlan`."""
+    cap = a.n_blocks_max
+    bm, bk = a.block_shape
+    perm, t_block_row, t_block_col, t_rptr, nnzb = bsr_transpose_meta(
+        a, pad_to=cap)
+    at_pattern = BlockCSR(
+        blocks=torch.zeros((cap, 1, 1)), block_col=t_block_col,
+        block_row=t_block_row, row_ptr=t_rptr,
+        shape=(a.shape[1], a.shape[0]), block_shape=(bk, bm))
+    return SpmmTrainPlan(
+        fwd=fwd, bwd=plan_at(at_pattern), t_perm=perm[:nnzb],
+        t_block_row=t_block_row, t_block_col=t_block_col, t_row_ptr=t_rptr,
+        block_row=np.asarray(a.block_row).astype(np.int32).copy(),
+        block_col=np.asarray(a.block_col).astype(np.int32).copy(),
+        shape=a.shape, block_shape=a.block_shape, n_blocks_max=cap)

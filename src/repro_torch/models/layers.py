@@ -1,6 +1,7 @@
-"""Transformer layers for serving: norms, RoPE, GQA attention (full,
-prefill, decode), the SwiGLU MLP and the block-sparse projection (port
-of ``repro.models.layers``).
+"""Transformer layers: norms, RoPE, GQA attention (full, prefill,
+decode), the SwiGLU MLP and the block-sparse projection (port of
+``repro.models.layers``).  Every layer is differentiable; the
+block-sparse projection through ``maple_spmm``'s autograd Function.
 
 Parameters are plain dicts of tensors.  Every ``init_*`` takes an explicit
 ``torch.Generator`` and creates its tensors on the generator's device; a
@@ -239,16 +240,20 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
     return p
 
 
-def mlp(p, x, activation: str):
+def mlp(p, x, activation: str, *, sparse_plan=None):
     """SwiGLU MLP.  A :class:`BlockCSR` down projection runs the Maple
-    kernel through :func:`sparse_linear` with ``schedule="naive"``: one
-    kernel launch and no host planning per call.  That mirrors the
-    reference's serving path, where prefill and decode call ``mlp`` with
-    no plan under ``jax.jit``, the traced metadata cannot be planned, and
-    ``maple_spmm`` drops to the naive walk; a literal port of the default
-    ``"balanced"`` schedule would run a host LPT plan walk on every layer
-    of every token.  (The planned training path, ``sparse_plan=``, comes
-    with the backward pass.)
+    kernel through :func:`sparse_linear`:
+
+    * with ``sparse_plan`` (the shared ``SpmmTrainPlan`` of
+      ``lm.sparse_mlp_plan``, the training path) on that plan, forward
+      and backward;
+    * without it with ``schedule="naive"``: one kernel launch and no host
+      planning per call.  That mirrors the reference's serving path,
+      where prefill and decode call ``mlp`` with no plan under
+      ``jax.jit``, the traced metadata cannot be planned, and
+      ``maple_spmm`` drops to the naive walk; a literal port of the
+      default ``"balanced"`` schedule would run a host LPT plan walk on
+      every layer of every token.
     """
     if activation != "silu":
         raise NotImplementedError(f"activation {activation!r} is not "
@@ -256,6 +261,8 @@ def mlp(p, x, activation: str):
     h = F.silu(torch.matmul(x, p["w_gate"]))
     h = h * torch.matmul(x, p["w_up"])
     if isinstance(p["w_down"], BlockCSR):
+        if sparse_plan is not None:
+            return sparse_linear(p["w_down"], h, plan=sparse_plan)
         return sparse_linear(p["w_down"], h, schedule="naive")
     return torch.matmul(h, p["w_down"])
 
@@ -306,7 +313,9 @@ def sparse_linear(w: BlockCSR, x: torch.Tensor, *, plan=None,
 
     ``x`` may be ``(d_in,)``, ``(T, d_in)`` or ``(B, S, d_in)``; tokens
     move to the minor axis (``(B, S, d) → (B, d, S)``) so they become the
-    PSB columns, and each batch element is one right-hand side."""
+    PSB columns, and each batch element is one right-hand side.  ``plan``
+    may be a forward ``SpmmPlan`` or a ``SpmmTrainPlan``; the call is
+    differentiable in ``w.blocks`` and ``x`` either way."""
     d_out = w.shape[0]
     if x.dim() == 3:
         y = maple_spmm(w, x.transpose(1, 2), plan=plan,

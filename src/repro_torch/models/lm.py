@@ -1,23 +1,32 @@
-"""Decoder-only LM for serving (port of the dense family of
-``repro.models.lm``): ``init_params``, ``init_decode_state``, ``prefill``
-and ``decode_step``.
+"""Decoder-only LM (port of the dense family of ``repro.models.lm``):
+``init_params``, ``sparse_mlp_plan``, ``forward`` and ``loss_fn`` for
+training; ``init_decode_state``, ``prefill`` and ``decode_step`` for
+serving.
 
-The parameter tree keeps the reference's scanned layout: every leaf under
+Serving keeps the reference's scanned layout: every leaf under
 ``params["groups"]["b<i>"]`` carries a leading layer axis, and a stacked
 block-sparse MLP weight is one :class:`BlockCSR` with a
-``(L, nnzb, bm, bk)`` payload over a shared pattern.  The layer loop is a
-Python loop over that axis.  Decode caches are updated in place.
+``(L, nnzb, bm, bk)`` payload over a shared pattern.  ``init_params``,
+``prefill`` and ``decode_step`` take that layout.  The trainer holds the
+same tree with ``groups["b<i>"]`` as a list of per-layer subtrees instead
+(:func:`unstack_layers`), each leaf a tensor of its own: autograd then
+gives each layer its own gradient, where indexing a stacked leaf would
+allocate a zero tensor as large as the stack per layer in the backward.
+``forward`` and ``loss_fn`` take that layout.  The layer loop is a Python
+loop; decode caches are updated in place.
 
 Not ported yet: MoE, SSM, RG-LRU, local-window and cross attention, QKV
-biases, the vision prefix, paged decode, and training (``forward`` /
-``loss_fn``).
+biases, the vision prefix, paged decode, two-level remat
+(``scan_remat_chunk > 1``) and the plan autotuner.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import dataclasses
+from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -50,6 +59,36 @@ def _layer(tree, i: int):
     if isinstance(tree, BlockCSR):
         return tree.layer(i)
     return tree[i]
+
+
+def _stacked_layers(group) -> List[Dict[str, Any]]:
+    """The per-layer views of a stacked layer group (serving layout)."""
+    if isinstance(group, list):
+        raise TypeError("serving takes the stacked layout; this tree holds "
+                        "per-layer lists (the trainer's)")
+    leaf = group
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    n = leaf.blocks.shape[0] if isinstance(leaf, BlockCSR) else leaf.shape[0]
+    return [_layer(group, i) for i in range(n)]
+
+
+def unstack_layers(params):
+    """The trainer's layout: each stacked group becomes a list of
+    per-layer subtrees whose leaves are tensors of their own (copies; a
+    sparse weight keeps its one host pattern).  Other leaves are shared
+    with ``params``."""
+    def own(t):
+        if isinstance(t, dict):
+            return {k: own(v) for k, v in t.items()}
+        if isinstance(t, BlockCSR):
+            return dataclasses.replace(t, blocks=t.blocks.clone())
+        return t.clone()
+
+    out = dict(params)
+    out["groups"] = {name: [own(p) for p in _stacked_layers(group)]
+                     for name, group in params["groups"].items()}
+    return out
 
 
 def _init_block(generator, cfg: ModelConfig, *, stack, dtype,
@@ -93,6 +132,99 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     }
 
 
+def sparse_mlp_plan(params, *, n_lanes: int = 8, chunk=None,
+                    n_shards=None, n_col_shards=None,
+                    autotune: bool = False):
+    """The shared ``SpmmTrainPlan`` of a sparse-MLP model, built on the
+    host from the first :class:`BlockCSR` in the tree (every layer shares
+    its pattern), or ``None`` when the tree holds no sparse weight.
+    Single-device only; ``autotune`` is not ported yet."""
+    from repro_torch.kernels.schedule import plan_spmm_vjp
+
+    def first_sparse(tree):
+        if isinstance(tree, BlockCSR):
+            return tree
+        items = tree.values() if isinstance(tree, dict) else \
+            tree if isinstance(tree, list) else ()
+        for v in items:
+            found = first_sparse(v)
+            if found is not None:
+                return found
+        return None
+
+    w = first_sparse(params)
+    if w is None:
+        return None
+    if autotune:
+        raise NotImplementedError("sparse_mlp_plan(autotune=True): the "
+                                  "plan autotuner is not ported yet")
+    return plan_spmm_vjp(w, n_lanes=n_lanes, chunk=chunk, n_shards=n_shards,
+                         n_col_shards=n_col_shards)
+
+
+def _apply_block(p, cfg: ModelConfig, acfg: L.AttnConfig, x, rope,
+                 mlp_plan):
+    h = L.apply_norm(x, p["norm1"], cfg.norm)
+    x = x + L.attention(p["attn"], acfg, h, rope)
+    h = L.apply_norm(x, p["norm2"], cfg.norm)
+    return x + L.mlp(p["mlp"], h, cfg.activation, sparse_plan=mlp_plan)
+
+
+def forward(params, cfg: ModelConfig, batch, *, remat: bool = True,
+            mlp_plan=None):
+    """Full-sequence forward → logits ``(B, S, vocab_padded)``, on the
+    trainer's per-layer parameters (:func:`unstack_layers`).
+
+    ``mlp_plan`` is the shared ``SpmmTrainPlan`` of the sparse MLP
+    (:func:`sparse_mlp_plan`); without it the sparse layers run the naive
+    schedule.  ``remat`` recomputes each layer in the backward instead of
+    keeping its activations (``torch.utils.checkpoint``, non-reentrant:
+    only the layer's input is saved, the reference's
+    ``nothing_saveable`` policy)."""
+    _check_ported(cfg)
+    if remat and cfg.scan_remat_chunk > 1:
+        raise NotImplementedError("two-level remat (scan_remat_chunk > 1) "
+                                  "is not ported yet")
+    tok = batch["tokens"]
+    x = params["embed_tokens"][tok]                        # (B, S, D)
+    b, s, _ = x.shape
+    rope = L.rope_tables(torch.arange(s, device=x.device).expand(b, s),
+                         cfg.head_dim, cfg.rope_theta)
+    acfg = _attn_cfg(cfg)
+    layers = params["groups"]["b0"]
+    if not isinstance(layers, list):
+        raise TypeError("forward takes the trainer's per-layer layout: "
+                        "pass lm.unstack_layers(params)")
+    for p in layers:
+        if remat:
+            x = checkpoint(_apply_block, p, cfg, acfg, x, rope, mlp_plan,
+                           use_reentrant=False)
+        else:
+            x = _apply_block(p, cfg, acfg, x, rope, mlp_plan)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm)
+    return _logits(params, x)
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = True,
+            mlp_plan=None):
+    """Next-token cross-entropy plus z-loss, masked on ``labels < 0``.
+    Returns ``(loss, {"loss": nll, "z_loss": ..., "tokens": ...})``."""
+    logits = forward(params, cfg, batch, remat=remat,
+                     mlp_plan=mlp_plan).float()
+    labels = batch["labels"]
+    mask = labels >= 0
+    safe = torch.where(mask, labels, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    z_loss = 1e-4 * torch.square(lse) * mask
+    denom = torch.clamp(mask.sum(), min=1)
+    loss = (nll + z_loss).sum() / denom
+    return loss, {"loss": nll.sum().detach() / denom,
+                  "z_loss": z_loss.sum().detach() / denom,
+                  "tokens": mask.sum()}
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       dtype=torch.float32, *, device="cuda"):
     """Empty decode state: stacked ``(L, B, max_seq, KVH, hd)`` caches and
@@ -124,13 +256,11 @@ def prefill(params, cfg: ModelConfig, batch, *, max_seq: Optional[int] = None,
     rope = L.rope_tables(torch.arange(s, device=x.device).expand(b, s),
                          cfg.head_dim, cfg.rope_theta)
     acfg = _attn_cfg(cfg)
-    groups = params["groups"]["b0"]
-    n_layers = groups["attn"]["wq"].shape[0]
-    cache_shape = (n_layers, b, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    layers = _stacked_layers(params["groups"]["b0"])
+    cache_shape = (len(layers), b, max_seq, cfg.n_kv_heads, cfg.head_dim)
     k_all = torch.empty(cache_shape, dtype=x.dtype, device=x.device)
     v_all = torch.empty(cache_shape, dtype=x.dtype, device=x.device)
-    for li in range(n_layers):
-        p = _layer(groups, li)
+    for li, p in enumerate(layers):
         h = L.apply_norm(x, p["norm1"], cfg.norm)
         h, kc, vc = L.attention_prefill(p["attn"], acfg, h, rope,
                                         cache_len=max_seq)
@@ -158,10 +288,8 @@ def decode_step(params, cfg: ModelConfig, state, tokens, *,
     rope = L.rope_tables(torch.full((b, 1), pos, device=x.device),
                          cfg.head_dim, cfg.rope_theta)
     acfg = _attn_cfg(cfg)
-    groups = params["groups"]["b0"]
     caches = state["groups"]["b0"]
-    for li in range(groups["attn"]["wq"].shape[0]):
-        p = _layer(groups, li)
+    for li, p in enumerate(_stacked_layers(params["groups"]["b0"])):
         h = L.apply_norm(x, p["norm1"], cfg.norm)
         h, _, _ = L.attention_decode(p["attn"], acfg, h, caches["k"][li],
                                      caches["v"][li], pos, rope)

@@ -5,9 +5,8 @@ Randomness: sampled decoding draws from an explicit ``torch.Generator``
 on the logits' device.  It cannot reproduce the reference's
 ``jax.random`` draws; greedy decoding (temperature 0) matches it.
 
-Not ported yet: the continuous batcher and paged decode,
-``SparseLogitHead.build(trainable=True)`` (the backward pass),
-``n_shards`` / ``n_col_shards`` and ``plan="auto"``.
+Not ported yet: the continuous batcher and paged decode, ``n_shards`` /
+``n_col_shards`` and ``plan="auto"``.
 """
 
 from __future__ import annotations
@@ -20,7 +19,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.csr import BlockCSR
-from repro_torch.kernels.schedule import SpmmPlan, plan_spmm
+from repro_torch.kernels.schedule import (SpmmPlan, SpmmTrainPlan, plan_spmm,
+                                          plan_spmm_vjp)
 from repro_torch.models import lm
 from repro_torch.models.layers import sparse_linear
 
@@ -30,10 +30,12 @@ class SparseLogitHead:
     """Serving-side block-sparse unembedding.  The load-balanced plan is
     built once from the weight's sparsity pattern and reused on every
     step; a call scores ``(B, S, D)`` hidden states in one planned kernel
-    launch plus the deterministic slot merge."""
+    launch plus the deterministic slot merge.  ``trainable=True`` builds
+    the training plan (``plan_spmm_vjp``), so a call is differentiable in
+    the weight's payload and the hidden states through the kernels."""
 
     weight: BlockCSR         # (vocab, d_model) block-sparse
-    plan: SpmmPlan
+    plan: SpmmPlan | SpmmTrainPlan
 
     @classmethod
     def build(cls, weight: BlockCSR, *, n_lanes: int = 8,
@@ -46,13 +48,14 @@ class SparseLogitHead:
                                  f"(or drop it for the hand-tuned knobs)")
             raise NotImplementedError("plan='auto' (the autotuner) is not "
                                       "ported yet")
-        if trainable:
-            raise NotImplementedError("trainable heads need the SpMM "
-                                      "backward, which is not ported yet")
         if (n_shards is not None and n_shards > 1) or \
                 (n_col_shards is not None and n_col_shards > 1):
             raise NotImplementedError("partitioned heads (n_shards / "
                                       "n_col_shards) are not ported yet")
+        if trainable:
+            return cls(weight=weight,
+                       plan=plan_spmm_vjp(weight, n_lanes=n_lanes,
+                                          chunk=chunk))
         return cls(weight=weight,
                    plan=plan_spmm(weight, n_lanes=n_lanes, chunk=chunk))
 

@@ -1,0 +1,83 @@
+"""Training step: gradient accumulation over microbatches plus the AdamW
+update (port of ``repro.train.train_step``).
+
+Gradients accumulate in each parameter's ``.grad``: every microbatch
+runs ``backward`` on ``loss / n``, the idiomatic counterpart of the
+reference's f32 accumulator of ``grad / n``.  Sparse-container metadata
+is host numpy and never part of the autograd graph, so no partition of
+trainable leaves is needed.  Hold the parameters in the per-layer layout
+(``lm.unstack_layers``) so that each layer's gradient is a tensor of its
+own.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import lm
+from repro_torch.train.optimizer import (OptimizerConfig, OptState,
+                                         apply_updates, named_leaves,
+                                         tree_map)
+
+
+def _split_microbatches(batch: Dict[str, torch.Tensor],
+                        n: int) -> List[Dict[str, torch.Tensor]]:
+    """(B, ...) → n batches of (B/n, ...)."""
+    for x in batch.values():
+        if x.shape[0] % n:
+            raise ValueError(f"batch {x.shape[0]} not divisible by {n} "
+                             f"microbatches")
+    return [{k: x.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
+             for k, x in batch.items()} for i in range(n)]
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
+                    micro_batches: int | None = None, mlp_plan=None):
+    """``train_step(params, opt_state, batch) → (params, opt_state,
+    metrics)``.  ``params`` are updated in place.  ``mlp_plan`` is the
+    shared ``SpmmTrainPlan`` of a sparse-MLP model
+    (``lm.sparse_mlp_plan(params)``, built once)."""
+    n_micro = micro_batches or cfg.train_microbatches
+    if cfg.grad_accum_dtype != "float32":
+        raise NotImplementedError(
+            f"grad_accum_dtype={cfg.grad_accum_dtype!r}: gradients "
+            f"accumulate in the f32 .grad of f32 parameters; other "
+            f"accumulator types are not ported yet")
+
+    def loss_of(params, mb):
+        return lm.loss_fn(params, cfg, mb, remat=cfg.remat,
+                          mlp_plan=mlp_plan)
+
+    def train_step(params, opt_state: OptState, batch):
+        leaves = [t for _, t in named_leaves(params)]
+        for t in leaves:
+            if t.dtype != torch.float32:
+                raise NotImplementedError("training non-f32 parameters is "
+                                          "not ported yet")
+            t.requires_grad_(True)
+            t.grad = None
+        if n_micro == 1:
+            loss, metrics = loss_of(params, batch)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            loss = None
+            for mb in _split_microbatches(batch, n_micro):
+                mb_loss, _ = loss_of(params, mb)
+                (mb_loss / n_micro).backward()
+                part = mb_loss.detach() / n_micro
+                loss = part if loss is None else loss + part
+            metrics = {}
+        grads = tree_map(lambda t: t.grad, params)
+        params, opt_state, opt_metrics = apply_updates(opt_cfg, params,
+                                                       grads, opt_state)
+        for t in leaves:
+            t.grad = None
+        out = {"loss": loss, **opt_metrics}
+        out.update({k: v for k, v in metrics.items() if k != "loss"})
+        return params, opt_state, out
+
+    return train_step

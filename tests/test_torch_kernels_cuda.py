@@ -1,4 +1,5 @@
-"""The Hopper kernels against their plain versions, on the card.
+"""The Hopper kernels (SpMM forward, block SDDMM and the maple_spmm
+backward) against their plain versions, on the card.
 
 These tests need an NVIDIA GPU and the CUDA toolkit (``nvcc``); without a
 card they skip.  They import nothing of JAX, so they run on a machine
@@ -114,3 +115,57 @@ def test_wrappers_refuse_bad_tiles_on_the_card(cuda):
     with pytest.raises(ValueError, match="is on"):
         maple_spmm_naive(a.blocks, meta["row_ptr"].cpu(), meta["block_col"],
                          b3)
+
+
+# --------------------------------------------------------------------------
+# the block SDDMM (B2) and the maple_spmm backward
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block,bn,g,n,density", [
+    ((8, 8), 16, 3, 21, 0.5), ((8, 8), 16, 1, 1, 0.5),
+    ((64, 64), 128, 1, 256, 0.3), ((16, 32), 64, 2, 70, 0.4),
+    ((8, 8), 16, 2, 40, 0.0)])
+def test_sddmm_kernel_matches_plain(cuda, dtype, block, bn, g, n, density):
+    from repro_torch.kernels import maple_sddmm_bsr
+    from repro_torch.kernels.maple_sddmm import maple_sddmm_bsr_plain
+    a, rng = _operands(cuda, 4, 6, 5, block, density, dtype)
+    bm, bk = block
+    dc = torch.from_numpy(rng.standard_normal((g, a.shape[0], n))
+                          .astype(np.float32)).to(cuda, dtype)
+    b3 = torch.from_numpy(rng.standard_normal((g, a.shape[1], n))
+                          .astype(np.float32)).to(cuda, dtype)
+    br = torch.from_numpy(a.block_row).to(cuda)
+    bc = torch.from_numpy(a.block_col).to(cuda)
+    before = maple_sddmm_bsr.launches
+    got = [maple_sddmm_bsr(dc, b3, br, bc, bm=bm, bk=bk, bn=bn)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert maple_sddmm_bsr.launches == before + 2
+    assert torch.equal(got[0], got[1])            # no atomics: same bits
+    _close(got[0], maple_sddmm_bsr_plain(dc, b3, br, bc, bm=bm, bk=bk),
+           dtype)
+    assert (got[0][bc < 0] == 0).all()
+
+
+def test_maple_spmm_backward_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.kernels import (maple_sddmm_bsr, plan_spmm_vjp)
+    a, rng = _operands(cuda, 5, 10, 6, (8, 8), 0.4, torch.float32)
+    b = rng.standard_normal((2, a.shape[1], 19)).astype(np.float32)
+    cot = rng.standard_normal((2, a.shape[0], 19)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        blocks = a.blocks.detach().to(dev).clone().requires_grad_()
+        bt = torch.from_numpy(b).to(dev).requires_grad_()
+        w = dataclasses.replace(a, blocks=blocks, device_meta={})
+        before = (maple_spmm_compact.launches, maple_sddmm_bsr.launches)
+        out = maple_spmm(w, bt, bn=16, plan=plan_spmm_vjp(w, n_lanes=4))
+        (out * torch.from_numpy(cot).to(dev)).sum().backward()
+        if dev == cuda:
+            torch.cuda.synchronize()
+            # forward and dB on the compact kernel, dA on the SDDMM
+            assert (maple_spmm_compact.launches - before[0],
+                    maple_sddmm_bsr.launches - before[1]) == (2, 1)
+        grads[str(dev)] = (blocks.grad.cpu(), bt.grad.cpu())
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        _close(got, want, torch.float32)

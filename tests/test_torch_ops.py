@@ -161,12 +161,15 @@ def test_unported_features_and_gradients_raise():
                dict(schedule="partitioned", n_shards=2)):
         with pytest.raises(NotImplementedError, match="not ported"):
             maple_spmm(a, b, **kw)
-    with pytest.raises(NotImplementedError, match="backward not ported"):
-        maple_spmm(a, b.clone().requires_grad_())
+    # gradients are ported: both operands get one (held against jax.grad
+    # in test_torch_autodiff.py)
+    b_grad = b.clone().requires_grad_()
+    maple_spmm(a, b_grad).sum().backward()
+    assert b_grad.grad is not None and b_grad.grad.shape == b.shape
     grad_a = BlockCSR(a.blocks.clone().requires_grad_(), a.block_col,
                       a.block_row, a.row_ptr, a.shape, a.block_shape)
-    with pytest.raises(NotImplementedError, match="backward not ported"):
-        maple_spmm(grad_a, b)
+    maple_spmm(grad_a, b).sum().backward()
+    assert grad_a.blocks.grad.shape == a.blocks.shape
 
 
 def test_wrappers_check_their_operands():
