@@ -1,4 +1,5 @@
-"""Carry the reference's parameters across to the port.
+"""Carry the reference's parameters and sparse operands across to the
+port.
 
 The reference keeps parameters as a pytree of JAX arrays with
 ``BlockCSR`` leaves.  This module never sees JAX: the caller hands over
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.csr import BlockCSR
+from repro_torch.core.csr import CSR, BlockCSR
 
 _BSR_FIELDS = {"blocks", "block_col", "block_row", "row_ptr", "shape",
                "block_shape"}
@@ -47,6 +48,17 @@ def block_csr_from_numpy(d: Mapping[str, Any], device="cuda") -> BlockCSR:
                     row_ptr=np.ascontiguousarray(meta["row_ptr"]),
                     shape=tuple(int(x) for x in d["shape"]),
                     block_shape=tuple(int(x) for x in d["block_shape"]))
+
+
+def csr_from_numpy(value, col_id, row_ptr, shape, device="cuda") -> CSR:
+    """A padded CSR from the reference's three host vectors (``np.asarray``
+    of its ``value`` / ``col_id`` / ``row_ptr``); the value lands on
+    ``device``, the pattern stays host numpy."""
+    return CSR(value=torch.from_numpy(np.array(value)).to(
+                   resolve_device(device)),
+               col_id=np.array(col_id, dtype=np.int32),
+               row_ptr=np.array(row_ptr, dtype=np.int32),
+               shape=tuple(int(x) for x in shape))
 
 
 def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,

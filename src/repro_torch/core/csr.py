@@ -1,11 +1,12 @@
-"""Padded CSR / BSR containers and the block transpose (port of
-``repro.core.csr``).
+"""Padded CSR / BSR containers, the transposes and the sorted-CSR
+utilities of the SpGEMM's symbolic phase (port of ``repro.core.csr``).
 
 Metadata (``col_id`` / ``block_col`` / ``block_row`` / ``row_ptr``) is
-host numpy, exactly as the reference builds it on the host; the BSR
-payload ``blocks`` is a torch tensor on the device.  The pad contract is
-the reference's: pad slots carry ``col = -1`` and a zero payload, and a
-BSR pad slot's ``block_row`` points at block-row ``max(gm - 1, 0)``.
+host numpy, exactly as the reference builds it on the host; the payloads
+(``CSR.value``, ``BlockCSR.blocks``) are torch tensors on the device.  The
+pad contract is the reference's: pad slots carry ``col = -1`` and a zero
+payload, and a BSR pad slot's ``block_row`` points at block-row
+``max(gm - 1, 0)``.
 """
 
 from __future__ import annotations
@@ -19,15 +20,103 @@ import torch
 from repro_torch import resolve_device
 
 
+def _payload_device(dense, device):
+    """``(numpy array, device)`` for a host conversion: the payload lands
+    on ``device``, by default the tensor's device, else CUDA."""
+    if isinstance(dense, torch.Tensor):
+        if device is None:
+            device = dense.device
+        dense = dense.detach().cpu().numpy()
+    return np.asarray(dense), resolve_device("cuda" if device is None
+                                             else device)
+
+
 @dataclasses.dataclass
 class CSR:
-    """Padded CSR matrix, all host numpy: the pattern view through which
-    ``kernels.schedule.bsr_stats`` analyzes a block pattern."""
+    """Padded CSR matrix: ``value`` on the device, the pattern on the host.
 
-    value: np.ndarray     # (nnz_max,) float
+    **Pad contract** (the reference's): slots at index >= ``nnz`` carry
+    ``col_id = -1`` and ``value = 0``; consumers mask on ``col_id >= 0``.
+    Trailing all-zero rows repeat ``row_ptr``'s final value.
+    """
+
+    value: torch.Tensor   # (nnz_max,) float, on the device
     col_id: np.ndarray    # (nnz_max,) int32, -1 on padding
     row_ptr: np.ndarray   # (n_rows + 1,) int32
     shape: Tuple[int, int]
+
+    @property
+    def n_rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n_cols(self) -> int:
+        return self.shape[1]
+
+    @property
+    def nnz_max(self) -> int:
+        return self.value.shape[0]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.row_ptr[-1])
+
+    def row_lengths(self) -> np.ndarray:
+        return self.row_ptr[1:] - self.row_ptr[:-1]
+
+    @classmethod
+    def from_dense(cls, dense, nnz_max: int | None = None, *,
+                   device=None) -> "CSR":
+        """Host conversion (numpy or a tensor); the value lands on
+        ``device`` (default: the tensor's device, else CUDA)."""
+        dense, dev = _payload_device(dense, device)
+        n_rows, n_cols = dense.shape
+        rows, cols = np.nonzero(dense)
+        nnz = rows.size
+        if nnz_max is None:
+            nnz_max = max(int(nnz), 1)
+        if nnz > nnz_max:
+            raise ValueError(f"nnz={nnz} exceeds nnz_max={nnz_max}")
+        value = np.zeros((nnz_max,), dtype=dense.dtype)
+        col_id = np.full((nnz_max,), -1, dtype=np.int32)
+        value[:nnz] = dense[rows, cols]
+        col_id[:nnz] = cols
+        row_ptr = np.zeros((n_rows + 1,), dtype=np.int32)
+        np.cumsum(np.bincount(rows, minlength=n_rows), out=row_ptr[1:])
+        return cls(value=torch.from_numpy(value).to(dev), col_id=col_id,
+                   row_ptr=row_ptr, shape=(n_rows, n_cols))
+
+    def to_dense(self) -> torch.Tensor:
+        """Dense ``(n_rows, n_cols)`` on the value's device (differentiable
+        in ``value``).  Pads are masked by ``col_id >= 0``."""
+        nnz = self.nnz
+        dev = self.value.device
+        rows = torch.from_numpy(np.repeat(
+            np.arange(self.n_rows, dtype=np.int64),
+            np.diff(self.row_ptr.astype(np.int64)))).to(dev)
+        cols = torch.from_numpy(self.col_id[:nnz].astype(np.int64)).to(dev)
+        out = self.value.new_zeros(self.shape)
+        return out.index_put((rows, cols), self.value[:nnz], accumulate=True)
+
+    def row_ids(self) -> np.ndarray:
+        """(nnz_max,) int32 — the row that owns each value slot (pads
+        resolve to ``n_rows``, as in the reference)."""
+        slot = np.arange(self.nnz_max, dtype=np.int32)
+        return np.searchsorted(self.row_ptr[1:], slot,
+                               side="right").astype(np.int32)
+
+    def check_pad_contract(self) -> "CSR":
+        """Host validation of the pad contract (the reference's checks,
+        in the same order).  Raises ``ValueError``; returns ``self``."""
+        rptr = np.asarray(self.row_ptr)
+        nnz = int(rptr[-1])
+        if not ((np.diff(rptr) >= 0).all() and nnz <= self.nnz_max):
+            raise ValueError("row_ptr not monotone within capacity")
+        if not (np.asarray(self.col_id)[nnz:] == -1).all():
+            raise ValueError("pad col_id must be -1")
+        if bool(self.value[nnz:].any()):
+            raise ValueError("pad values must be 0")
+        return self
 
 
 @dataclasses.dataclass
@@ -85,12 +174,7 @@ class BlockCSR:
                    device=None) -> "BlockCSR":
         """Host conversion.  ``dense`` is numpy or a tensor; the payload
         lands on ``device`` (default: the tensor's device, else CUDA)."""
-        if isinstance(dense, torch.Tensor):
-            if device is None:
-                device = dense.device
-            dense = dense.detach().cpu().numpy()
-        dev = resolve_device("cuda" if device is None else device)
-        dense = np.asarray(dense)
+        dense, dev = _payload_device(dense, device)
         m, k = dense.shape
         bm, bk = block_shape
         if m % bm or k % bk:
@@ -159,7 +243,7 @@ class BlockCSR:
         return self
 
 
-def _transpose_perm(rows: np.ndarray, cols: np.ndarray):
+def transpose_perm(rows: np.ndarray, cols: np.ndarray):
     """Permutation taking row-major ``(row, col)`` walk order to the
     transpose's: a stable sort by ``(col, row)``.  Returns ``(perm,
     t_rows, t_cols)`` over live entries; ``perm[j]`` is the source slot
@@ -179,7 +263,7 @@ def bsr_transpose_meta(a: BlockCSR, *, pad_to: int | None = None):
     cols = np.asarray(a.block_col)[:nnzb].astype(np.int64)
     rows = np.repeat(np.arange(a.n_block_rows, dtype=np.int64),
                      np.diff(rptr))
-    perm, t_rows, t_cols = _transpose_perm(rows, cols)
+    perm, t_rows, t_cols = transpose_perm(rows, cols)
     t_rptr = np.zeros(a.n_block_cols + 1, np.int32)
     np.cumsum(np.bincount(t_rows, minlength=a.n_block_cols), out=t_rptr[1:])
     t_rows = t_rows.astype(np.int32)
@@ -221,3 +305,84 @@ def bsr_transpose(a: BlockCSR, *, n_blocks_max: int | None = None
     return BlockCSR(blocks=blocks, block_col=block_col, block_row=block_row,
                     row_ptr=row_ptr, shape=(a.shape[1], a.shape[0]),
                     block_shape=(bk, bm))
+
+
+def csr_transpose(a: CSR, *, nnz_max: int | None = None) -> CSR:
+    """Aᵀ as sorted padded CSR, without densifying: the pattern is walked
+    on the host, the values move through one gather on their device
+    (differentiable).  Capacity defaults to the input's."""
+    rptr = np.asarray(a.row_ptr).astype(np.int64)
+    nnz = int(rptr[-1])
+    cap = a.nnz_max if nnz_max is None else int(nnz_max)
+    if cap < nnz:
+        raise ValueError(f"nnz_max={cap} < nnz={nnz}")
+    n_rows, n_cols = a.shape
+    cols = np.asarray(a.col_id)[:nnz].astype(np.int64)
+    rows = np.repeat(np.arange(n_rows, dtype=np.int64), np.diff(rptr))
+    perm, t_rows, t_cols = transpose_perm(rows, cols)
+    t_rptr = np.zeros(n_cols + 1, np.int32)
+    np.cumsum(np.bincount(t_rows, minlength=n_cols), out=t_rptr[1:])
+    col_id = np.full(cap, -1, np.int32)
+    col_id[:nnz] = t_cols
+    value = a.value.new_zeros((cap,))
+    if nnz:
+        idx = torch.from_numpy(perm.astype(np.int64)).to(a.value.device)
+        value = torch.cat([a.value.index_select(0, idx),
+                           value[nnz:]])
+    return CSR(value=value, col_id=col_id, row_ptr=t_rptr,
+               shape=(n_cols, n_rows))
+
+
+# --------------------------------------------------------------------------
+# sorted-CSR utilities (host numpy; the symbolic half of the SpGEMM)
+# --------------------------------------------------------------------------
+
+def merge_by_column(cols, vals=None):
+    """Merge one row's (column, value) partials by column (Eq. (8)):
+    pads (``col < 0``) dropped, columns sorted and unique as int32, values
+    summed per column when given.  The per-row oracle of the accumulate
+    step, not a hot-path routine."""
+    cols = np.asarray(cols).astype(np.int64)
+    mask = cols >= 0
+    uniq, inv = np.unique(cols[mask], return_inverse=True)
+    if vals is None:
+        return uniq.astype(np.int32), None
+    vals = np.asarray(vals)[mask]
+    acc = np.zeros(uniq.size, dtype=vals.dtype)
+    np.add.at(acc, inv, vals)
+    return uniq.astype(np.int32), acc
+
+
+def spgemm_row_upper_bounds(a: CSR, b: CSR) -> np.ndarray:
+    """Per-row bound on ``nnz(C[i,:])`` for ``C = A @ B``: the row's
+    partial products Σ nnz(B[k',:]), capped at the width of B."""
+    a_rptr = np.asarray(a.row_ptr).astype(np.int64)
+    nnz_a = int(a_rptr[-1])
+    a_cols = np.asarray(a.col_id)[:nnz_a].astype(np.int64)
+    a_len = np.diff(a_rptr)
+    b_len = np.diff(np.asarray(b.row_ptr).astype(np.int64))
+    row_of = np.repeat(np.arange(a_len.size), a_len)
+    ub = np.bincount(row_of, weights=b_len[a_cols],
+                     minlength=a_len.size).astype(np.int64)
+    return np.minimum(ub, b.shape[1])
+
+
+def grow_nnz_max(required: int, current: int = 0, *, floor: int = 8) -> int:
+    """Geometric capacity policy: ``max(current, floor)`` doubled until it
+    holds ``required``, so drifting nnz reuses a few capacities."""
+    if required < 0:
+        raise ValueError(f"required={required} < 0")
+    if floor < 1:
+        raise ValueError(f"floor={floor} < 1")
+    cap = max(int(current), floor)
+    while cap < required:
+        cap *= 2
+    return cap
+
+
+def ell_slots(row_ptr, width: int | None = None):
+    """Deprecated shim: :func:`repro_torch.core.formats.ell_slots` is the
+    canonical home (imported late: ``core.formats`` imports this
+    module)."""
+    from repro_torch.core.formats import ell_slots as _ell_slots
+    return _ell_slots(row_ptr, width)

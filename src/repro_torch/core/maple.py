@@ -1,5 +1,6 @@
 """Maple PE workload statistics and cycle model (port of the parts of
-``repro.core.maple`` behind ``ExecutionPlan.predicted_cycles``).
+``repro.core.maple`` behind ``ExecutionPlan.predicted_cycles`` and the
+SpGEMM planner).
 
 Host-side numpy over CSR metadata, identical arithmetic to the reference.
 """
@@ -54,9 +55,15 @@ def expand_partials(a: CSR, b: CSR):
     return a_slot, out_row, out_col, b_off
 
 
-def analyze_spgemm(a: CSR, b: CSR) -> SpGEMMStats:
+def analyze_spgemm(a: CSR, b: CSR | None = None,
+                   exact_output: bool = True) -> SpGEMMStats:
     """Count everything a row-wise product dataflow moves (the reference's
-    ``analyze_spgemm`` with its exact output count, same arithmetic)."""
+    ``analyze_spgemm``, same arithmetic).  ``b=None`` means B = A (the
+    paper's protocol).  ``exact_output=True`` counts nnz(C) exactly by
+    expanding the partial coordinates (O(P) memory); ``False`` gives the
+    per-row expectation of P uniform draws into the row's width."""
+    if b is None:
+        b = a
     a_rptr = np.asarray(a.row_ptr).astype(np.int64)
     a_cols = np.asarray(a.col_id)
     b_rptr = np.asarray(b.row_ptr).astype(np.int64)
@@ -74,10 +81,16 @@ def analyze_spgemm(a: CSR, b: CSR) -> SpGEMMStats:
     row_partials = np.bincount(a_row_of_nnz, weights=per_nnz_work,
                                minlength=a_row_len.size).astype(np.int64)
 
-    nnz_c = 0
-    if partials > 0:
+    if exact_output and partials > 0:
         _, out_i, out_j, _ = expand_partials(a, b)
         nnz_c = int(np.unique(out_i * b.shape[1] + out_j).size)
+    elif partials == 0 or b.shape[1] == 0:
+        nnz_c = 0
+    else:
+        n_out = b.shape[1]
+        with np.errstate(over="ignore"):
+            exp_row = n_out * (1.0 - np.exp(-row_partials / n_out))
+        nnz_c = int(exp_row.sum())
 
     b_row_refs = np.bincount(a_cols, minlength=b_row_len.size).astype(np.int64)
 

@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("maple_spmm", "maple_sddmm")
+SOURCES = ("maple_spmm", "maple_sddmm", "maple_spgemm", "maple_spmspm")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -101,6 +101,18 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.maple_sddmm_bsr.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
                                         i, i, p]
         lib.maple_sddmm_bsr.restype = i
+    elif name == "maple_spgemm":
+        lib.maple_spgemm.argtypes = [p] * 9 + [i] * 4 + [p]
+        lib.maple_spgemm.restype = i
+        lib.maple_sddmm_csr.argtypes = [p] * 9 + [i] * 3 + [p]
+        lib.maple_sddmm_csr.restype = i
+        lib.maple_spgemm_db.argtypes = [p] * 10 + [i] * 3 + [p]
+        lib.maple_spgemm_db.restype = i
+        lib.maple_smem_optin.argtypes = [i]
+        lib.maple_smem_optin.restype = i
+    elif name == "maple_spmspm":
+        lib.maple_spmspm.argtypes = [p] * 4 + [i] * 5 + [p]
+        lib.maple_spmspm.restype = i
     lib.maple_error_string.argtypes = [i]
     lib.maple_error_string.restype = ctypes.c_char_p
 

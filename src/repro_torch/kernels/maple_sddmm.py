@@ -1,18 +1,23 @@
-"""Block SDDMM on Hopper: the dA half of the ``maple_spmm`` backward.
+"""SDDMM kernels on Hopper: the dA halves of the ``maple_spmm`` and
+``maple_spgemm`` backwards.
 
 :func:`maple_sddmm_bsr` (CUDA C++, ``csrc/maple_sddmm.cu``) replaces
 ``maple_sddmm_bsr_pallas`` (``repro/kernels/maple_sddmm.py``): for
 ``C = A·B`` with A block-sparse, the payload gradient is ``dC·Bᵀ``
 sampled at A's block pattern, one f32 ``(bm, bk)`` tile per block slot,
 with pad slots (``block_col < 0``) zero.  A dense ``dC·Bᵀ`` is never
-formed.
+formed.  ``dC`` and ``B`` are f32 or bf16 (alike), summed in f32 in a
+fixed order: two runs give the same bits.  ``N`` may be ragged; ``bn``
+caps the N columns the kernel stages in shared memory at a time.
 
-The wrapper runs the plain PyTorch version (:func:`maple_sddmm_bsr_plain`,
-a gather and an einsum) only for tensors on the CPU.  For CUDA tensors it
-launches the kernel or raises; each launch adds one to ``launches``.
-``dC`` and ``B`` are f32 or bf16 (alike), summed in f32 in a fixed order:
-two runs give the same bits.  ``N`` may be ragged; ``bn`` caps the N
-columns the kernel stages in shared memory at a time.
+:func:`maple_sddmm_csr` replaces ``maple_sddmm_csr_pallas``: the
+element-granular dA of the SpGEMM.  It reads the SpGEMM's device plan, so
+it is defined in :mod:`repro_torch.kernels.maple_spgemm` beside B5 and
+re-exported here, where the reference keeps it.
+
+A wrapper runs its plain PyTorch version only for tensors on the CPU.
+For CUDA tensors it launches the kernel or raises; each launch adds one
+to its ``launches`` count.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.maple_spgemm import (  # noqa: F401  (re-export)
+    maple_sddmm_csr, maple_sddmm_csr_plain)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_STAGE = 32          # N columns staged per step (the smem tile width)

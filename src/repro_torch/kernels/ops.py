@@ -1,24 +1,33 @@
-"""Public entry point of the Maple SpMM (port of
-``repro.kernels.ops.maple_spmm``), forward and backward.
+"""Public entry points of the Maple kernels (port of
+``repro.kernels.ops``): ``maple_spmm``, ``maple_spgemm`` and
+``maple_spmspm``, forward and backward.
 
-The wrapper owns everything that is not the kernel: argument checks (the
-reference's plan-mismatch raises, same types and messages), schedule
-selection and planning, device copies of the metadata, the deterministic
-f32 merge of the compact layout, and the backward (:class:`_SpmmFunction`):
+The wrappers own everything that is not a kernel: argument checks (the
+reference's raises, same types and messages), schedule selection and
+planning, device copies of the metadata, the deterministic f32 merge of
+the SpMM's compact layout, and the backwards.  :class:`_SpmmFunction`:
 dB = Aᵀ·dC on the planned compact kernel over the transpose-side plan,
-dA through the block SDDMM kernel.
+dA through the block SDDMM kernel.  :class:`_SpgemmValueFunction`: dA
+through the CSR SDDMM kernel, dB through the fiber-order dB kernel.
 """
 
 from __future__ import annotations
 
 from typing import List, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.core.csr import BlockCSR, transpose_payload
-from repro_torch.kernels.maple_sddmm import maple_sddmm_bsr
+from repro_torch.core import formats
+from repro_torch.core.csr import (CSR, BlockCSR, grow_nnz_max,
+                                  transpose_payload)
+from repro_torch.kernels.maple_sddmm import maple_sddmm_bsr, maple_sddmm_csr
+from repro_torch.kernels.maple_spgemm import (maple_spgemm_db,
+                                              maple_spgemm_numeric)
 from repro_torch.kernels.maple_spmm import maple_spmm_compact, maple_spmm_naive
-from repro_torch.kernels.schedule import (SpmmPlan, SpmmTrainPlan, plan_spmm,
+from repro_torch.kernels.maple_spmspm import maple_spmspm_ell
+from repro_torch.kernels.schedule import (SpgemmPlan, SpmmPlan, SpmmTrainPlan,
+                                          plan_spgemm, plan_spmm,
                                           plan_spmm_vjp)
 
 
@@ -231,3 +240,164 @@ def _scatter_merge_f32(tiles: torch.Tensor,
         merged.index_copy_(1, rows, merged.index_select(1, rows)
                            + tiles.index_select(1, slots))
     return merged.reshape(g, gm * bm, n)
+
+
+# --------------------------------------------------------------------------
+# element-granular CSR × CSR (the paper's protocol C = A×A)
+# --------------------------------------------------------------------------
+
+def csr_to_ell(a: CSR, max_row_len: int | None = None, *,
+               truncate: bool = False):
+    """Deprecated shim: :func:`repro_torch.core.formats.csr_to_ell` is the
+    canonical home."""
+    return formats.csr_to_ell(a, max_row_len, truncate=truncate)
+
+
+def _as_csr(op) -> CSR:
+    if isinstance(op, CSR):
+        return op
+    if isinstance(op, BlockCSR):
+        # blocked operands expand to the element pattern they store
+        return formats.as_element_csr(op)
+    raise TypeError(
+        "maple_spgemm takes CSR (or BlockCSR) operands; for dense B use "
+        "maple_spmm or maple_spmspm")
+
+
+def maple_spgemm(a: CSR, b: CSR, *, schedule: str = "balanced",
+                 n_lanes: int = 8, plan: SpgemmPlan | None = None,
+                 nnz_max: int | None = None) -> CSR:
+    """C = A_csr @ B_csr → **padded CSR** via the two-phase Maple SpGEMM.
+    Differentiable in ``a.value`` and ``b.value`` (pass the same CSR twice
+    for A×A: both gradients add up).
+
+    The symbolic phase (:func:`~repro_torch.kernels.schedule.plan_spgemm`,
+    host numpy) fixes C's exact pattern and every partial product's
+    position; the numeric phase (:func:`~repro_torch.kernels.maple_spgemm
+    .maple_spgemm_numeric`, B5) computes the values with B held as
+    compressed rows, never densified.  The result is a padded ``CSR``
+    (``col_id = -1`` pads) at capacity :func:`~repro_torch.core.csr
+    .grow_nnz_max` of nnz(C), unless ``nnz_max`` pins it.  ``BlockCSR``
+    operands lower to the element pattern they store.
+
+    ``schedule`` packs A rows onto lanes: ``"balanced"`` (LPT by partial
+    products), ``"row_atomic"`` (LPT by nnz(A[i,:])) or ``"naive"`` (one
+    lane, rows in order).  The packing changes the plan, not the values:
+    the kernel runs one warp per row.  A prebuilt ``plan`` skips the
+    symbolic phase.
+
+    **Backward** (a ``torch.autograd.Function``): dA through the CSR SDDMM
+    kernel (B6), dB through the fiber-order kernel, both over the plan;
+    one launch each per backward, none when nnz(C) is 0.
+    """
+    a = _as_csr(a)
+    b = _as_csr(b)
+    if a.shape[1] != b.shape[0]:
+        raise ValueError(
+            f"contraction mismatch: A is {a.shape}, B is {b.shape}")
+    if schedule not in ("balanced", "row_atomic", "naive"):
+        raise ValueError(f"unknown schedule {schedule!r}")
+    if plan is None:
+        balance = {"balanced": "work", "row_atomic": "fibers",
+                   "naive": "none"}[schedule]
+        plan = plan_spgemm(a, b, n_lanes=n_lanes, balance=balance)
+    else:
+        if plan.shape_a != a.shape or plan.shape_b != b.shape:
+            raise ValueError(
+                f"plan is for {plan.shape_a} @ {plan.shape_b}, operands "
+                f"are {a.shape} @ {b.shape}")
+        # the largest slot a plan's gather names is its last live one
+        # (dead ELL entries name slot 0): the reference's max(a_gather)
+        if plan.stats.nnz_a > a.nnz_max:
+            raise ValueError("plan indexes A slots beyond the operand's "
+                             "capacity — was it built for this pattern?")
+        if plan.stats.nnz_b > b.nnz_max:
+            raise ValueError("plan indexes B slots beyond the operand's "
+                             "capacity — was it built for this pattern?")
+    m, n = a.shape[0], b.shape[1]
+    nnz_c = plan.nnz_c
+    cap = grow_nnz_max(nnz_c) if nnz_max is None else nnz_max
+    if cap < nnz_c:
+        raise ValueError(f"nnz_max={cap} < nnz(C)={nnz_c}")
+    value = _SpgemmValueFunction.apply(a.value, b.value, plan, cap)
+    col_id, row_ptr = plan.out_pattern(cap)
+    return CSR(value=value, col_id=col_id, row_ptr=row_ptr, shape=(m, n))
+
+
+def _spgemm_compaction_maps(plan: SpgemmPlan, cap: int):
+    """Host (row, offset) of each output value slot, the reference's ELL →
+    padded-CSR compaction map.  B5 writes C's values in place, so here it
+    only names a C slot's row (``maple_spmspm``'s densify)."""
+    m = plan.shape_a[0]
+    nnz_c = plan.nnz_c
+    lens = np.diff(plan.out_row_ptr)
+    rows = np.zeros(cap, np.int32)
+    offs = np.zeros(cap, np.int32)
+    rows[:nnz_c] = np.repeat(np.arange(m, dtype=np.int32), lens)
+    offs[:nnz_c] = (np.arange(nnz_c, dtype=np.int64)
+                    - np.repeat(plan.out_row_ptr[:-1], lens)
+                    ).astype(np.int32)
+    return rows, offs
+
+
+class _SpgemmValueFunction(torch.autograd.Function):
+    """The differentiable boundary of :func:`maple_spgemm` (the reference's
+    ``_spgemm_value_call`` custom VJP): (A values, B values) → C values.
+    The plan and the capacity ride along as constants; the patterns get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, a_value, b_value, plan: SpgemmPlan, cap: int):
+        ctx.save_for_backward(a_value, b_value)
+        ctx.plan = plan
+        if plan.nnz_c == 0:
+            # nothing to compute: an all-zero pattern or a zero-dimension
+            # operand
+            return a_value.new_zeros((cap,))
+        return maple_spgemm_numeric(a_value, b_value, plan, cap=cap)
+
+    @staticmethod
+    def backward(ctx, dvalue):
+        a_value, b_value = ctx.saved_tensors
+        plan = ctx.plan
+        need_da, need_db = ctx.needs_input_grad[:2]
+        if plan.nnz_c == 0:
+            return (torch.zeros_like(a_value) if need_da else None,
+                    torch.zeros_like(b_value) if need_db else None,
+                    None, None)
+        dc = dvalue.to(a_value.dtype).contiguous()
+        da = db = None
+        if need_da:
+            da = maple_sddmm_csr(dc, b_value, plan,
+                                 n_slots=a_value.shape[0]).to(a_value.dtype)
+        if need_db:
+            db = maple_spgemm_db(dc, a_value, plan,
+                                 n_slots=b_value.shape[0]).to(b_value.dtype)
+        return da, db, None, None
+
+
+def maple_spmspm(a: CSR, b) -> torch.Tensor:
+    """C = A_csr @ B → dense ``(M, N)``.
+
+    A CSR ``b`` goes through the two-phase :func:`maple_spgemm` (B stays
+    compressed) and only the result is densified, from its live nnz(C)
+    prefix.  A dense ``b`` ``(K, N)`` takes the element walk
+    (:func:`~repro_torch.kernels.maple_spmspm.maple_spmspm_ell`, B7) over
+    ``csr_to_ell(a)``.
+    """
+    a = _as_csr(a)
+    if isinstance(b, CSR):
+        plan = plan_spgemm(a, b)
+        c = maple_spgemm(a, b, plan=plan)
+        rows, _ = _spgemm_compaction_maps(plan, plan.nnz_c)
+        dev = c.value.device
+        dense = c.value.new_zeros((a.shape[0], b.shape[1]))
+        return dense.index_put(
+            (torch.from_numpy(rows.astype(np.int64)).to(dev),
+             torch.from_numpy(plan.out_cols.astype(np.int64)).to(dev)),
+            c.value[:plan.nnz_c])
+    if b.dim() != 2 or b.shape[0] != a.shape[1]:
+        raise ValueError(f"contraction mismatch: A is {a.shape}, B is "
+                         f"{tuple(b.shape)}")
+    values, col_ids = csr_to_ell(a)
+    return maple_spmspm_ell(values, col_ids, b.contiguous())

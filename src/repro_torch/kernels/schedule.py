@@ -1,13 +1,15 @@
-"""Load-balanced execution planning for the Maple SpMM kernels (port of
-the SpMM half of ``repro.kernels.schedule``): forward plans and the
-training plan that adds the transpose-side schedule for the backward.
+"""Load-balanced execution planning for the Maple kernels (port of
+``repro.kernels.schedule``): SpMM forward plans, the training plan that
+adds the transpose-side schedule for the backward, and the SpGEMM's
+symbolic phase (:func:`plan_spgemm`).
 
 Plans are host numpy over the sparsity pattern and come out identical to
 the reference's: ``order``, ``step_row``, ``step_col``, ``written``,
 ``step_acc``, ``flush_slot``, ``slot_row``, ``r_max`` and ``row_mask`` are
 held against it with ``np.array_equal``, and ``predicted_cycles()`` with
-``==``.  The port adds two derived tables the Hopper executor needs
-(``runs`` and ``merge_ranks``, see :class:`SpmmPlan`), built once per plan.
+``==``; so are every array of :class:`SpgemmPlan`.  The port adds the
+derived tables the Hopper executors need (``SpmmPlan.runs`` and
+``merge_ranks``; ``SpgemmPlan.on_device``), built once per plan.
 Partitioned (multi-device) plans are not ported yet.
 """
 
@@ -20,9 +22,12 @@ from typing import Dict, List, Optional, Sequence, Tuple, TypeVar
 import numpy as np
 import torch
 
-from repro_torch.core.csr import CSR, BlockCSR, bsr_transpose_meta
+from repro_torch.core.csr import (CSR, BlockCSR, bsr_transpose_meta,
+                                  spgemm_row_upper_bounds, transpose_perm)
+from repro_torch.core.formats import as_element_csr, ell_slots
 from repro_torch.core.maple import (SpGEMMStats, analyze_spgemm,
-                                    baseline_pe_cycles, maple_pe_cycles)
+                                    baseline_pe_cycles, expand_partials,
+                                    maple_pe_cycles)
 from repro_torch.kernels.accum import run_bounds
 
 _T = TypeVar("_T")
@@ -36,9 +41,9 @@ def bsr_stats(a: BlockCSR) -> SpGEMMStats:
     rptr = np.asarray(a.row_ptr).astype(np.int32)
     nnzb = int(rptr[-1])
     cols = np.asarray(a.block_col).astype(np.int32)[:max(nnzb, 1)]
-    pattern = CSR(value=np.zeros(max(nnzb, 1), np.float32),
+    pattern = CSR(value=torch.zeros(max(nnzb, 1)),
                   col_id=cols, row_ptr=rptr, shape=(gm, gk))
-    eye = CSR(value=np.ones(gk, np.float32),
+    eye = CSR(value=torch.ones(gk),
               col_id=np.arange(gk, dtype=np.int32),
               row_ptr=np.arange(gk + 1, dtype=np.int32), shape=(gk, gk))
     return analyze_spgemm(pattern, eye)
@@ -86,11 +91,15 @@ class ExecutionPlan:
     def utilization(self) -> float:
         return self.n_real_steps / max(self.n_lanes * self.steps, 1)
 
+    def _realized_makespan(self) -> float:
+        """What the grid executes, in the plan's work unit."""
+        return float(self.steps)
+
     def predicted_cycles(self) -> Dict[str, float]:
         """``plan`` (realized makespan), ``maple`` (m = n_lanes Maple PE)
         and ``row_atomic`` (MatRaptor bound), priced by the shared model."""
         return {
-            "plan": float(self.steps),
+            "plan": self._realized_makespan(),
             "maple": maple_pe_cycles(self.stats, macs_per_pe=self.n_lanes,
                                      n_pes=1),
             "row_atomic": baseline_pe_cycles(self.stats, n_pes=self.n_lanes),
@@ -408,3 +417,228 @@ def transpose_train_plan(a: BlockCSR, fwd, plan_at) -> SpmmTrainPlan:
         block_row=np.asarray(a.block_row).astype(np.int32).copy(),
         block_col=np.asarray(a.block_col).astype(np.int32).copy(),
         shape=a.shape, block_shape=a.block_shape, n_blocks_max=cap)
+
+
+# --------------------------------------------------------------------------
+# SpGEMM: the symbolic phase + work-balanced lane schedule
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SpgemmPlan(ExecutionPlan):
+    """Element-granular plan for ``maple_spgemm``: the symbolic phase's
+    output, every array equal to the reference's.
+
+    One step consumes one live A non-zero and the whole B row its
+    ``col_id`` selects (``step_col``).  On top of the lane schedule:
+
+    * ``out_row_ptr`` / ``out_cols`` — the exact pattern of C, columns
+      sorted within rows; ``row_upper`` the O(nnz_a) a-priori bound;
+    * ``lc`` — the PSB width, the longest output row (>= 1);
+    * ``scatter_pos[i·la + t, u]`` — the position within output row i of
+      the partial A[i, t-th nnz] · B[k', u-th nnz], -1 where dead (Eq. (8)
+      made explicit);
+    * ``a_gather`` / ``a_live``, ``b_gather`` / ``b_live`` — the ELL slot
+      maps of A and B; ``la`` / ``lb`` their widths;
+    * ``lane_work`` — partial products per lane (the balancing target).
+
+    Pad steps point ``step_row`` at the sacrificial row ``n_rows``.  Rows
+    are atomic (``chunk = 0``).  The Hopper kernels do not walk lanes: they
+    take one warp per row, and :meth:`on_device` gives them the plan in
+    A's CSR slot order.
+    """
+
+    out_row_ptr: np.ndarray   # (n_rows + 1,) int64 — exact C pattern
+    out_cols: np.ndarray      # (nnz_c,) int32, column-sorted within rows
+    row_upper: np.ndarray     # (n_rows,) int64 — a-priori nnz(C[i,:]) bound
+    lc: int                   # PSB width = longest output row (>= 1)
+    scatter_pos: np.ndarray   # (n_rows * la, lb) int32, -1 dead
+    a_gather: np.ndarray      # (n_rows * la,) int32 — slot -> A nnz index
+    a_live: np.ndarray        # (n_rows * la,) bool
+    b_gather: np.ndarray      # (n_rows_b, lb) int32
+    b_live: np.ndarray        # (n_rows_b, lb) bool
+    la: int                   # ELL width of A
+    lb: int                   # ELL width of B (panel width)
+    lane_work: np.ndarray     # (n_lanes,) int64 — partial products per lane
+    shape_a: Tuple[int, int]
+    shape_b: Tuple[int, int]
+    _on_device: dict = dataclasses.field(default_factory=dict, repr=False,
+                                         compare=False)
+    _patterns: dict = dataclasses.field(default_factory=dict, repr=False,
+                                        compare=False)
+
+    @property
+    def nnz_c(self) -> int:
+        return int(self.out_row_ptr[-1])
+
+    def out_pattern(self, cap: int) -> Tuple[np.ndarray, np.ndarray]:
+        """C's padded-CSR ``(col_id, row_ptr)`` at capacity ``cap``, int32,
+        built once per capacity and shared by every result of the plan:
+        read-only, so no holder can change another's pattern."""
+        cached = self._patterns.get(cap)
+        if cached is None:
+            col_id = np.full(cap, -1, np.int32)
+            col_id[:self.nnz_c] = self.out_cols
+            cached = (col_id, self.out_row_ptr.astype(np.int32))
+            for arr in cached:
+                arr.flags.writeable = False
+            self._patterns[cap] = cached
+        return cached
+
+    def _realized_makespan(self) -> float:
+        # the busiest lane's partial products: a slot costs its B row's
+        # length, not one flat step
+        return float(self.lane_work.max(initial=0))
+
+    def on_device(self, device: torch.device) -> dict:
+        """The numeric kernels' view of the plan on ``device``, derived
+        from the host arrays, copied once per device and cached.
+
+        In A's CSR slot order (``a_gather[i·la + t] = a_rptr[i] + t``):
+
+        * ``a_rptr`` (m + 1,) int32; ``a_cols`` / ``a_rows`` (nnz_a,)
+          int32 — the B row each live A slot consumes, and its output row;
+        * ``b_rptr`` (k + 1,) int32 — B's row pointer (the panels);
+        * ``part_ptr`` (nnz_a + 1,) int64 and ``pos`` (P,) int32 — the live
+          entries of ``scatter_pos``: slot s's partials sit at
+          ``pos[part_ptr[s] : part_ptr[s + 1]]``, one per entry of its B
+          row, so dead entries take no bytes on the card;
+        * ``out_rptr`` (m + 1,) int64 — C's row pointer;
+        * ``t_ptr`` (k + 1,) int32 and ``t_perm`` (nnz_a,) int32 — A's
+          column fibers (the rows of Aᵀ): the slots that consume B row k'
+          are ``t_perm[t_ptr[k'] : t_ptr[k' + 1]]``, in row order.
+        """
+        key = str(device)
+        cached = self._on_device.get(key)
+        if cached is not None:
+            return cached
+        m, k = self.shape_a[0], self.shape_b[0]
+        la = self.la
+        a_len = self.a_live.reshape(m, la).sum(axis=1)
+        a_rptr = np.zeros(m + 1, np.int64)
+        np.cumsum(a_len, out=a_rptr[1:])
+        live_slots = np.nonzero(self.a_live)[0]
+        slot_col = np.full(self.a_live.size, -1, np.int32)
+        live_steps = self.step_col >= 0
+        slot_col[self.order[live_steps]] = self.step_col[live_steps]
+        a_cols = slot_col[live_slots]
+        a_rows = (live_slots // la).astype(np.int32)
+        b_len = self.b_live.sum(axis=1).astype(np.int64)
+        b_rptr = np.zeros(k + 1, np.int64)
+        np.cumsum(b_len, out=b_rptr[1:])
+        part_ptr = np.zeros(live_slots.size + 1, np.int64)
+        np.cumsum(b_len[a_cols], out=part_ptr[1:])
+        sp = self.scatter_pos[live_slots]
+        pos = sp[sp >= 0]
+        if pos.size != part_ptr[-1]:
+            raise ValueError("scatter_pos disagrees with the B panels: "
+                             "the plan is inconsistent")
+        t_perm, t_rows, _ = transpose_perm(a_rows, a_cols)
+        t_ptr = np.zeros(k + 1, np.int64)
+        np.cumsum(np.bincount(t_rows, minlength=k), out=t_ptr[1:])
+        as_t = lambda arr, dt: torch.from_numpy(
+            np.ascontiguousarray(arr, dtype=dt)).to(device)
+        cached = {"a_rptr": as_t(a_rptr, np.int32),
+                  "a_cols": as_t(a_cols, np.int32),
+                  "a_rows": as_t(a_rows, np.int32),
+                  "b_rptr": as_t(b_rptr, np.int32),
+                  "part_ptr": as_t(part_ptr, np.int64),
+                  "pos": as_t(pos, np.int32),
+                  "out_rptr": as_t(self.out_row_ptr, np.int64),
+                  "t_ptr": as_t(t_ptr, np.int32),
+                  "t_perm": as_t(t_perm, np.int32)}
+        self._on_device[key] = cached
+        return cached
+
+
+def plan_spgemm(a: CSR, b: CSR, *, n_lanes: int = 8,
+                balance: str = "work") -> SpgemmPlan:
+    """Symbolic SpGEMM phase: exact C pattern + work-balanced lane schedule
+    (the reference's ``plan_spgemm``, host numpy over metadata).
+
+    ``balance`` weights rows for LPT lane packing: ``"work"`` by
+    Σ nnz(B[k',:]) (the partial products), ``"fibers"`` by nnz(A[i,:]),
+    ``"none"`` one lane, rows in order.  ``BlockCSR`` operands lower to
+    the element pattern they store (``core.formats.as_element_csr``).
+    """
+    if not isinstance(a, CSR):
+        a = as_element_csr(a)
+    if not isinstance(b, CSR):
+        b = as_element_csr(b)
+    if a.shape[1] != b.shape[0]:
+        raise ValueError(f"shape mismatch {a.shape} @ {b.shape}")
+    if n_lanes < 1:
+        raise ValueError(f"n_lanes={n_lanes} < 1")
+    if balance not in ("work", "fibers", "none"):
+        raise ValueError(f"unknown balance {balance!r}")
+    m, n = a.shape[0], b.shape[1]
+    a_rptr = np.asarray(a.row_ptr).astype(np.int64)
+    a_cols = np.asarray(a.col_id).astype(np.int32)
+    a_len = np.diff(a_rptr)
+    b_len = np.diff(np.asarray(b.row_ptr).astype(np.int64))
+    # the exact pattern is computed below; stats.nnz_c is patched after
+    stats = analyze_spgemm(a, b, exact_output=False)
+
+    la = max(int(a_len.max(initial=0)), 1)
+    lb = max(int(b_len.max(initial=0)), 1)
+    a_gather, a_live = ell_slots(a.row_ptr, la)         # (m, la)
+    b_gather, b_live = ell_slots(b.row_ptr, lb)         # (k, lb)
+
+    row_upper = spgemm_row_upper_bounds(a, b)
+    scatter = np.full((m * la, lb), -1, np.int32)
+    out_row_ptr = np.zeros(m + 1, np.int64)
+    if row_upper.sum() > 0:
+        a_slot, out_i, out_j, b_off = expand_partials(a, b)
+        keys = out_i * np.int64(n) + out_j
+        uniq, gpos = np.unique(keys, return_inverse=True)
+        out_cols = (uniq % n).astype(np.int32)
+        np.cumsum(np.bincount((uniq // n).astype(np.int64), minlength=m),
+                  out=out_row_ptr[1:])
+        a_off = a_slot - a_rptr[out_i]                  # ELL lane of A slot
+        scatter[out_i * la + a_off, b_off] = \
+            (gpos - out_row_ptr[out_i]).astype(np.int32)
+    else:
+        out_cols = np.zeros(0, np.int32)
+    stats = dataclasses.replace(stats, nnz_c=int(out_cols.size))
+    lc = max(int(np.diff(out_row_ptr).max(initial=0)), 1)
+
+    # lane schedule: whole rows, LPT by the chosen weight
+    rows = [i for i in range(m) if a_len[i] > 0]
+    if balance == "none":
+        n_lanes = 1
+        lanes: List[List[int]] = [rows]
+    else:
+        weight = stats.row_partials if balance == "work" else a_len
+        weighted = sorted(((int(weight[i]), i) for i in rows),
+                          key=lambda t: (-t[0], t[1]))
+        lanes, _ = _lpt_pack(weighted, n_lanes)
+        for lane in lanes:
+            lane.sort()
+
+    steps = max(1, max((sum(int(a_len[i]) for i in lane) for lane in lanes),
+                       default=0))
+    order = np.zeros((n_lanes, steps), np.int32)
+    step_row = np.full((n_lanes, steps), m, np.int32)   # pads -> row m
+    step_col = np.full((n_lanes, steps), -1, np.int32)
+    written = np.zeros((n_lanes, m), bool)
+    lane_work = np.zeros(n_lanes, np.int64)
+    n_real = 0
+    for l, lane in enumerate(lanes):
+        t = 0
+        for i in lane:
+            ln = int(a_len[i])
+            lo = int(a_rptr[i])
+            order[l, t:t + ln] = i * la + np.arange(ln, dtype=np.int32)
+            step_row[l, t:t + ln] = i
+            step_col[l, t:t + ln] = a_cols[lo:lo + ln]
+            written[l, i] = True
+            lane_work[l] += int(stats.row_partials[i])
+            t += ln
+        n_real += t
+
+    return SpgemmPlan(
+        order=order, step_row=step_row, step_col=step_col, written=written,
+        chunk=0, n_rows=m, n_real_steps=n_real, stats=stats,
+        out_row_ptr=out_row_ptr, out_cols=out_cols, row_upper=row_upper,
+        lc=lc, scatter_pos=scatter, a_gather=a_gather.reshape(-1),
+        a_live=a_live.reshape(-1), b_gather=b_gather, b_live=b_live,
+        la=la, lb=lb, lane_work=lane_work, shape_a=a.shape, shape_b=b.shape)

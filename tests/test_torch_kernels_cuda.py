@@ -1,5 +1,6 @@
 """The Hopper kernels (SpMM forward, block SDDMM and the maple_spmm
-backward) against their plain versions, on the card.
+backward; the SpGEMM numeric phase, its CSR SDDMM and dB, and the element
+walk with a dense B) against their plain versions, on the card.
 
 These tests need an NVIDIA GPU and the CUDA toolkit (``nvcc``); without a
 card they skip.  They import nothing of JAX, so they run on a machine
@@ -169,3 +170,132 @@ def test_maple_spmm_backward_on_the_card_matches_the_cpu(cuda):
         grads[str(dev)] = (blocks.grad.cpu(), bt.grad.cpu())
     for got, want in zip(grads["cuda"], grads["cpu"]):
         _close(got, want, torch.float32)
+
+
+# --------------------------------------------------------------------------
+# the SpGEMM kernels (B5, B6, dB) and the element walk (B7)
+# --------------------------------------------------------------------------
+
+def _element_csr(cuda, mask, rng, dtype, pad=2):
+    from repro_torch.core.csr import CSR
+    d = (mask * rng.standard_normal(mask.shape)).astype(np.float32)
+    c = CSR.from_dense(d, nnz_max=max(int(mask.sum()), 1) + pad, device=cuda)
+    return dataclasses.replace(c, value=c.value.to(dtype))
+
+
+def _spgemm_operands(cuda, kind, dtype, seed=0, shape=(40, 36, 44)):
+    from repro_torch.core.sparsity import element_pattern_mask
+    from repro_torch.kernels import plan_spgemm
+    rng = np.random.default_rng(seed)
+    m, k, n = shape
+    if kind == "wide":                  # rows and panels wider than a warp
+        am, bm = rng.random((m, k)) < 0.9, rng.random((k, n)) < 0.9
+    else:
+        am = element_pattern_mask(kind, rng, m, k)
+        bm = element_pattern_mask(kind, rng, k, n)
+        am[1::5] = False                # empty rows
+    a = _element_csr(cuda, am, rng, dtype)
+    b = _element_csr(cuda, bm, rng, dtype)
+    return a, b, plan_spgemm(a, b, n_lanes=3), rng
+
+
+SPGEMM_KINDS = ["uniform", "power_law", "banded", "wide"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", SPGEMM_KINDS)
+def test_spgemm_numeric_kernel_matches_plain(cuda, kind, dtype):
+    from repro_torch.kernels.maple_spgemm import (maple_spgemm_numeric,
+                                                  maple_spgemm_numeric_plain)
+    shape = (6, 80, 90) if kind == "wide" else (40, 36, 44)
+    a, b, plan, _ = _spgemm_operands(cuda, kind, dtype, shape=shape)
+    cap = plan.nnz_c + 7
+    before = maple_spgemm_numeric.launches
+    got = [maple_spgemm_numeric(a.value, b.value, plan, cap=cap)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert maple_spgemm_numeric.launches == before + 2
+    assert torch.equal(got[0], got[1])            # no atomics: same bits
+    want = maple_spgemm_numeric_plain(a.value, b.value, plan, cap=cap)
+    _close(got[0], want, dtype)
+    assert not got[0][plan.nnz_c:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", SPGEMM_KINDS)
+def test_csr_sddmm_and_db_kernels_match_plain(cuda, kind, dtype):
+    from repro_torch.kernels.maple_sddmm import (maple_sddmm_csr,
+                                                 maple_sddmm_csr_plain)
+    from repro_torch.kernels.maple_spgemm import (maple_spgemm_db,
+                                                  maple_spgemm_db_plain)
+    shape = (6, 80, 90) if kind == "wide" else (40, 36, 44)
+    a, b, plan, rng = _spgemm_operands(cuda, kind, dtype, seed=1,
+                                       shape=shape)
+    dc = torch.from_numpy(rng.standard_normal(plan.nnz_c + 3).astype(
+        np.float32)).to(cuda, dtype)
+    for kernel, plain, other, n in (
+            (maple_sddmm_csr, maple_sddmm_csr_plain, b.value, a.nnz_max),
+            (maple_spgemm_db, maple_spgemm_db_plain, a.value, b.nnz_max)):
+        before = kernel.launches
+        got = [kernel(dc, other, plan, n_slots=n) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 2
+        assert torch.equal(got[0], got[1])
+        _close(got[0], plain(dc, other, plan, n_slots=n), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 37, 300])
+def test_spmspm_ell_kernel_matches_plain(cuda, dtype, n):
+    from repro_torch.core.formats import csr_to_ell
+    from repro_torch.core.sparsity import element_pattern_mask
+    from repro_torch.kernels.maple_spmspm import (maple_spmspm_ell,
+                                                  maple_spmspm_ell_plain)
+    rng = np.random.default_rng(2)
+    mask = element_pattern_mask("power_law", rng, 30, 25)
+    mask[3] = False
+    a = _element_csr(cuda, mask, rng, dtype)
+    values, col_ids = csr_to_ell(a)
+    b = torch.from_numpy(rng.standard_normal((25, n)).astype(
+        np.float32)).to(cuda, dtype)
+    before = maple_spmspm_ell.launches
+    got = maple_spmspm_ell(values, col_ids, b)
+    torch.cuda.synchronize()
+    assert maple_spmspm_ell.launches == before + 1
+    _close(got, maple_spmspm_ell_plain(values, col_ids, b), dtype)
+    assert not got[3].any()
+
+
+def test_maple_spgemm_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.kernels import maple_spgemm
+    from repro_torch.kernels.maple_sddmm import maple_sddmm_csr
+    from repro_torch.kernels.maple_spgemm import (maple_spgemm_db,
+                                                  maple_spgemm_numeric)
+    a, b, plan, _ = _spgemm_operands(cuda, "power_law", torch.float32,
+                                     seed=3)
+    results = {}
+    for dev in ("cpu", cuda):
+        av = a.value.detach().to(dev).clone().requires_grad_()
+        bv = b.value.detach().to(dev).clone().requires_grad_()
+        kernels = (maple_spgemm_numeric, maple_sddmm_csr, maple_spgemm_db)
+        before = [k.launches for k in kernels]
+        c = maple_spgemm(dataclasses.replace(a, value=av),
+                         dataclasses.replace(b, value=bv), plan=plan)
+        torch.sin(c.value).sum().backward()
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert [k.launches - n for k, n in zip(kernels, before)] == \
+                [1, 1, 1]
+        results[str(dev)] = (c.value.detach().cpu(), av.grad.cpu(),
+                             bv.grad.cpu())
+    for got, want in zip(results["cuda"], results["cpu"]):
+        _close(got, want, torch.float32)
+
+
+def test_spgemm_psb_wider_than_shared_memory_raises(cuda):
+    from repro_torch.kernels import maple_spgemm
+    rng = np.random.default_rng(4)
+    a = _element_csr(cuda, np.ones((1, 1), bool), rng, torch.float32)
+    b = _element_csr(cuda, np.ones((1, 60_000), bool), rng, torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        maple_spgemm(a, b)
