@@ -71,7 +71,33 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    ``maple_spmspm(A, B)`` with a dense (n, 64) B (one B7 launch, against
    scipy); then the four kernels timed at these shapes beside
    their bounds, plain versions and ``torch.sparse.mm`` (cuSPARSE).
-10. the ``{"kernels": [...]}`` summary, then the final
+10. moe_kernels — the MoE grouped GEMM (B8) against its plain version, f32
+    and bf16: the reference sweep's groups (empty groups included) at
+    D = F = 256, bt = 128, and decode's bt = 8 at the smoke widths; each
+    twice for bit identity.
+11. moe_reference — the granite-moe-3b smoke config on the card against
+    the same weights on the CPU: logits within 1e-4, equal greedy tokens.
+12. moe_serve — granite-moe-3b at full width and depth (32 layers, f32,
+    random weights from a seed): ``generate`` answers 4 prompts with 16
+    greedy tokens; the B8 launch count is zeroed just before and read
+    just after and must be 3 per layer per forward pass.  Layer 0's MoE,
+    on its inputs in a prefill (cap 96) and in a decode step (cap 8), is
+    held against a per-expert oracle whose routing is recomputed in
+    float64 with numpy (``expert_idx``, ``order``, ``keep`` and the
+    capacity must be equal).  Prints prefill ms, decode ms per step,
+    tokens/s, peak GiB and a profile of one decode step.  Then B8 at
+    granite's four expert-product shapes (gate/up and down, prefill and
+    decode) against its plain version, f32 and bf16, timed beside its
+    bound, plain version and ``torch.bmm``.
+13. block_attn_kernels — block-sparse local attention (B9) against its
+    plain version, f32 and bf16, over the reference sweep's shapes and
+    one with bq != bk; each twice for bit identity.
+14. local_attention — ``local_block_attention`` at recurrentgemma-9b's
+    local-attention shape (B 2, S 8192, H 16, hd 256, window 2048,
+    128-blocks): exactly one B9 launch, held against the plain version and
+    the dense oracle one example at a time, then timed beside its bound,
+    plain version and ``scaled_dot_product_attention`` with a band mask.
+15. the ``{"kernels": [...]}`` summary, then the final
     ``{"ok": true, ...}``.
 """
 
@@ -99,7 +125,9 @@ SOURCES = {"maple_spmm_naive": "src/repro_torch/csrc/maple_spmm.cu",
            "maple_spgemm_numeric": "src/repro_torch/csrc/maple_spgemm.cu",
            "maple_sddmm_csr": "src/repro_torch/csrc/maple_spgemm.cu",
            "maple_spgemm_db": "src/repro_torch/csrc/maple_spgemm.cu",
-           "maple_spmspm_ell": "src/repro_torch/csrc/maple_spmspm.cu"}
+           "maple_spmspm_ell": "src/repro_torch/csrc/maple_spmspm.cu",
+           "moe_gemm": "src/repro_torch/csrc/moe_gemm.cu",
+           "block_attention": "src/repro_torch/csrc/block_attn.cu"}
 # dB has no TPU kernel: the reference leaves it to an XLA scatter-add
 REPLACES = {"maple_spmm_naive": "src/repro/kernels/maple_spmm.py:91",
             "maple_spmm_compact": "src/repro/kernels/maple_spmm.py:288",
@@ -107,7 +135,9 @@ REPLACES = {"maple_spmm_naive": "src/repro/kernels/maple_spmm.py:91",
             "maple_spgemm_numeric": "src/repro/kernels/maple_spgemm.py:92",
             "maple_sddmm_csr": "src/repro/kernels/maple_sddmm.py:214",
             "maple_spgemm_db": "src/repro/kernels/ops.py:934",
-            "maple_spmspm_ell": "src/repro/kernels/maple_spmspm.py:61"}
+            "maple_spmspm_ell": "src/repro/kernels/maple_spmspm.py:61",
+            "moe_gemm": "src/repro/kernels/moe_gemm.py:57",
+            "block_attention": "src/repro/kernels/block_attn.py:94"}
 # the serving shapes of the kernels: the qwen3-4b MLP down-projection
 # (d_ff -> d_model) as sparse_mlp builds it, over a batch of 4 sequences
 # (G) at decode (N = 1 token) and prefill (N = 128 tokens); the sparse
@@ -131,6 +161,23 @@ SPMSPM_N = 64
 TRAIN_ARGV = ["--arch", "qwen3-4b", "--sparse-mlp", "--steps", "3",
               "--global-batch", "4", "--seq-len", "256", "--seed", "0",
               "--device", "cuda"]
+# the MoE slice: granite-moe-3b-a800m served at full width and depth; its
+# expert products on B8 at prefill (4 prompts of 112 tokens: capacity 96)
+# and decode (4 tokens: capacity 8), E = 48 padded experts
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_E = 48
+MOE_SHAPES = (("prefill gate", 96, 1536, 512), ("prefill down", 96, 512, 1536),
+              ("decode gate", 8, 1536, 512), ("decode down", 8, 512, 1536))
+# (group sizes, D, F, bt): the reference sweep, then decode's tile at the
+# smoke config's widths
+MOE_EDGE = (([256, 0, 384, 128], 256, 256, 128), ([128] * 4, 256, 256, 128),
+            ([0, 0, 512, 0], 256, 256, 128),
+            ([8, 0, 16, 8, 0, 8, 0, 8], 64, 32, 8))
+# block-sparse local attention: the reference sweep's (S, window, bq, bk)
+# and one with bq != bk; then recurrentgemma-9b's local attention
+ATTN_EDGE = ((256, 64, 64, 64), (512, 128, 128, 128), (256, 40, 64, 64),
+             (128, 128, 64, 64), (256, 40, 128, 64))
+ATTN = dict(B=2, S=8192, H=16, hd=256, window=2048, bq=128, bk=128)
 REPS = 20
 # (HBM bytes/s, {operand type: peak FLOP/s}) from NVIDIA's data sheets:
 # f32 operands at the FP32 rate outside the tensor cores, bf16 operands
@@ -1171,6 +1218,411 @@ def measure_sparse(name, kernel, plain, library, nbytes, flops, dtype, spec,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+# --------------------------------------------------------------------------
+# phase 10: the MoE grouped GEMM (B8) against its plain version
+# --------------------------------------------------------------------------
+
+def moe_kernels_edge():
+    """B8 through ``moe_expert_gemm`` against the plain version on the
+    card, f32 and bf16: the reference sweep's groups at D = F = 256 and
+    bt = 128 (empty groups included), and decode's bt = 8 at the smoke
+    config's widths (D 64, F 32, no tiling multiple); each twice for bit
+    identity."""
+    from repro_torch.kernels import moe_expert_gemm
+    from repro_torch.kernels.moe_gemm import moe_gemm_plain
+    from repro_torch.kernels.ops import expert_of_tile
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for sizes, d, f, bt in MOE_EDGE:
+            rng = np.random.default_rng(sum(sizes) + d)
+            t = int(np.sum(sizes))
+            x = torch.from_numpy(rng.standard_normal((t, d)).astype(
+                np.float32)).cuda().to(dtype)
+            w = torch.from_numpy(rng.standard_normal((len(sizes), d, f))
+                                 .astype(np.float32) * 0.1).cuda().to(dtype)
+            gs = torch.tensor(sizes, device="cuda")
+            got = [moe_expert_gemm(x, gs, w, bt=bt) for _ in range(2)]
+            torch.cuda.synchronize()
+            what = f"moe_gemm {sizes} D{d} F{f} bt{bt} {dtype}"
+            if not torch.equal(got[0], got[1]):
+                raise AssertionError(f"{what}: two runs differ")
+            err = check_close(got[0], moe_gemm_plain(
+                x, expert_of_tile(gs, t // bt, bt), w, bt=bt), dtype, what)
+            cases.append({"sizes": sizes, "D": d, "F": f, "bt": bt,
+                          "dtype": str(dtype).replace("torch.", ""),
+                          "max_abs_err": err})
+    return {"phase": "moe_kernels", "cases": cases, "bit_identical": True,
+            "ok": True}
+
+
+# --------------------------------------------------------------------------
+# phase 11: the granite-moe-3b smoke config, card against CPU
+# --------------------------------------------------------------------------
+
+def moe_reference():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.serve import SamplingConfig, generate
+    from repro_torch.train.optimizer import tree_map
+    cfg = get_smoke_config(MOE_ARCH)
+    cpu = lm.init_params(cfg, torch.Generator().manual_seed(SEED),
+                         device="cpu")
+    gpu = tree_map(lambda t: t.cuda(), cpu)
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (3, 11)))
+    sampling = SamplingConfig(max_new_tokens=8)
+    tok_cpu, _ = generate(cpu, cfg, {"tokens": prompts}, sampling)
+    tok_gpu, _ = generate(gpu, cfg, {"tokens": prompts.cuda()}, sampling)
+    lg_cpu, _ = lm.prefill(cpu, cfg, {"tokens": prompts})
+    lg_gpu, _ = lm.prefill(gpu, cfg, {"tokens": prompts.cuda()})
+    err = float((lg_gpu.cpu() - lg_cpu).abs().max())
+    if not torch.allclose(lg_gpu.cpu(), lg_cpu, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"card MoE prefill logits differ from CPU: {err}")
+    if not torch.equal(tok_cpu, tok_gpu.cpu()):
+        raise AssertionError("card MoE greedy tokens differ from CPU")
+    return {"phase": "moe_reference", "config": f"{MOE_ARCH} smoke, f32",
+            "prefill_max_abs_err": err, "greedy_tokens_equal": True,
+            "new_tokens": int(tok_gpu.shape[1])}
+
+
+# --------------------------------------------------------------------------
+# phase 12: serve granite-moe-3b at full width and depth
+# --------------------------------------------------------------------------
+
+def moe_serve(card):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.models import lm
+    from repro_torch.models import moe as M
+    from repro_torch.serve import SamplingConfig, generate
+    from repro_torch.train.optimizer import named_leaves
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(SEED), device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # the random init holds a stacked leaf twice (draw, then scale); the
+    # serving peak is read from here on
+    init_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    n_params = sum(t.numel() for _, t in named_leaves(params))
+    rng = np.random.default_rng(SEED)
+    prompt_len = int(rng.integers(16, 129))
+    prompts = rng.integers(0, cfg.vocab_size, (4, prompt_len))
+    batch = {"tokens": torch.from_numpy(prompts).cuda()}
+    new = 16
+
+    moe_gemm.launches = 0
+    t0 = time.perf_counter()
+    tokens, _ = generate(params, cfg, batch, SamplingConfig(
+        max_new_tokens=new))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = {"moe_gemm": moe_gemm.launches}
+    # one prefill and one decode step per new token; every layer is MoE,
+    # with three expert products (gate, up, down) per forward pass
+    expect = {"moe_gemm": 3 * cfg.n_layers * (1 + new)}
+    if launches != expect:
+        raise AssertionError(f"MoE launches on the path {launches}, "
+                             f"expected {expect}")
+    if tokens.shape != (4, new) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"generate returned {tuple(tokens.shape)} "
+                             f"tokens outside the vocabulary")
+
+    # checks and timings outside the counted run (capacity depends on the
+    # batch, so a batch-1 prefill routes and drops differently: layer 0 is
+    # checked instead, on its real inputs at prefill (cap 96) and at one
+    # decode step (cap 8))
+    (logits, state), (p0, h0) = layer0_moe_input(
+        lambda: lm.prefill(params, cfg, batch, max_seq=prompt_len + new))
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite MoE logits")
+    layer0 = {"prefill": moe_layer_check(p0, cfg, h0, "prefill")}
+    _, (p0, h0) = layer0_moe_input(
+        lambda: lm.decode_step(params, cfg, state, tokens[:, :1]))
+    layer0["decode"] = moe_layer_check(p0, cfg, h0, "decode")
+    del p0, h0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lm.prefill(params, cfg, batch, max_seq=prompt_len + new)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    step_tok = tokens[:, :1]
+    t0 = time.perf_counter()
+    for _ in range(4):
+        _, state = lm.decode_step(params, cfg, state, step_tok)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / 4
+    prof = profile(lambda: lm.decode_step(params, cfg, state, step_tok))
+    mcfg = lm._moe_cfg(cfg)
+    line = {
+        "phase": "moe_serve", "config": f"{MOE_ARCH}, f32, random weights "
+        f"from seed {SEED}", "n_layers": cfg.n_layers, "depth_reduced": False,
+        "d_model": cfg.d_model, "n_experts": cfg.n_experts,
+        "n_experts_padded": cfg.n_experts_padded, "top_k": cfg.top_k,
+        "d_expert": cfg.d_expert, "n_params": n_params, "batch": 4,
+        "prompt_len": prompt_len, "new_tokens": new,
+        "cap_prefill": M._capacity(4 * prompt_len, mcfg),
+        "cap_decode": M._capacity(4, mcfg), "setup_s": setup_s,
+        "generate_s": gen_s, "generate_tok_per_s": 4 * new / gen_s,
+        "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+        "launches": launches, "launches_expected": expect, "card": card,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "init_peak_mem_gib": init_peak_gib, "layer0_check": layer0,
+        "profile_decode_step": prof}
+    del params, state, logits
+    torch.cuda.empty_cache()
+    return launches, line
+
+
+def layer0_moe_input(fn):
+    """Run ``fn`` with ``moe.moe_layer`` wrapped; return what ``fn``
+    returns and the parameters and hidden states of the wrapped function's
+    first call: layer 0's MoE input in a prefill or a decode step."""
+    from repro_torch.models import moe as M
+    seen = []
+    layer = M.moe_layer
+
+    def record(p, mcfg, h, **kw):
+        if not seen:
+            seen.append((p, h.detach().clone()))
+        return layer(p, mcfg, h, **kw)
+    M.moe_layer = record
+    try:
+        result = fn()
+    finally:
+        M.moe_layer = layer
+    return result, seen[0]
+
+
+def routing_oracle(router, mcfg, xt):
+    """The reference's routing recomputed on the host in float64 with
+    numpy, apart from the port's code: softmax, top-k (descending, ties to
+    the lower expert), renormalised gates, a stable sort of the flat
+    assignments by expert, each slot's rank in its expert segment, and the
+    capacity clamp.  ``margin`` is the least gap between a token's k-th
+    and (k+1)-th probability: how near a tie the f32 router came."""
+    k, t = mcfg.top_k, xt.shape[0]
+    logits = xt.double().cpu().numpy() @ router.double().cpu().numpy()
+    z = np.exp(logits - logits.max(-1, keepdims=True))
+    probs = z / z.sum(-1, keepdims=True)
+    ranked = np.argsort(-probs, axis=-1, kind="stable")
+    expert_idx = ranked[:, :k]
+    gate = np.take_along_axis(probs, expert_idx, -1)
+    gate = gate / np.maximum(gate.sum(-1, keepdims=True), 1e-9)
+    flat_e = expert_idx.reshape(-1)
+    order = np.argsort(flat_e, kind="stable")
+    sorted_e = flat_e[order]
+    rank = np.arange(t * k) - np.searchsorted(sorted_e, sorted_e, "left")
+    c = int(t * k * mcfg.capacity_factor / mcfg.n_experts_padded)
+    cap = max(8, -(-c // 8) * 8)
+    p_sorted = np.take_along_axis(probs, ranked, -1)
+    return {"expert_idx": expert_idx, "gate": gate, "order": order,
+            "sorted_e": sorted_e, "keep": rank < cap, "cap": cap,
+            "margin": float((p_sorted[:, k - 1] - p_sorted[:, k]).min())}
+
+
+def moe_layer_check(p, cfg, h, what):
+    """Layer 0's MoE on hidden states ``h`` at full width against an
+    oracle with its own routing (:func:`routing_oracle`): the port's
+    ``expert_idx``, ``order``, ``keep`` and capacity must equal it; then
+    each expert's kept slots go through three ``torch.matmul`` products and
+    each token's gated slots are summed, within 1e-4·max + 1e-6 of the
+    layer (f32 through three chained products, summed in another order).
+    Returns the error, the capacity, the dropped slots and the margin."""
+    from repro_torch.models import lm
+    from repro_torch.models import moe as M
+    mcfg = lm._moe_cfg(cfg)
+    got = M.moe_layer(p, mcfg, h)
+    xt = h.reshape(-1, cfg.d_model)
+    o = routing_oracle(p["router"], mcfg, xt)
+    cap = M._capacity(xt.shape[0], mcfg)
+    r = M.route(p["router"], mcfg, xt, cap)
+    for key in ("expert_idx", "order", "keep"):
+        if not np.array_equal(r[key].cpu().numpy(), o[key]):
+            raise AssertionError(f"MoE layer 0 ({what}): the port's {key} "
+                                 f"differs from the float64 oracle's "
+                                 f"(top-k margin {o['margin']})")
+    if cap != o["cap"]:
+        raise AssertionError(f"MoE layer 0 ({what}): capacity {cap}, the "
+                             f"oracle's {o['cap']}")
+    dev = h.device
+    token = torch.from_numpy(o["order"] // cfg.top_k).to(dev)
+    gate = torch.from_numpy(o["gate"].reshape(-1)[o["order"]]).float().to(dev)
+    sorted_e = torch.from_numpy(o["sorted_e"]).to(dev)
+    keep = torch.from_numpy(o["keep"]).to(dev)
+    want = torch.zeros_like(xt)
+    for e in range(cfg.n_experts):
+        sel = (sorted_e == e) & keep
+        xe = xt[token[sel]]
+        he = torch.nn.functional.silu(xe @ p["experts_gate"][e]) * (
+            xe @ p["experts_up"][e])
+        want.index_add_(0, token[sel], (he @ p["experts_down"][e])
+                        * gate[sel, None])
+    got = got.reshape(want.shape)
+    err = float((got - want).abs().max())
+    limit = 1e-4 * float(want.abs().max()) + 1e-6
+    if not err <= limit:
+        raise AssertionError(f"MoE layer 0 ({what}) against the oracle: "
+                             f"{err} > {limit}")
+    return {"max_abs_err": err, "tokens": xt.shape[0], "cap": cap,
+            "dropped_slots": int((~o["keep"]).sum()),
+            "top_k_margin": o["margin"]}
+
+
+def moe_rows(spec, flush):
+    """B8 at granite-moe-3b's expert products (capacity buffers with one
+    ``cap``-row tile per expert), f32 and bf16: held against the plain
+    version, timed beside the bound, the plain version and ``torch.bmm``
+    on (E, cap, D) × (E, D, F)."""
+    from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain
+    rows = []
+    e = MOE_E
+    for dtype in (torch.float32, torch.bfloat16):
+        isz = torch.tensor([], dtype=dtype).element_size()
+        for name, cap, d, f in MOE_SHAPES:
+            rng = np.random.default_rng(SEED + cap + d)
+            t = e * cap
+            x = torch.from_numpy(rng.standard_normal((t, d)).astype(
+                np.float32)).cuda().to(dtype)
+            w = torch.from_numpy(rng.standard_normal((e, d, f)).astype(
+                np.float32) / np.sqrt(d)).cuda().to(dtype)
+            eot = torch.arange(e, dtype=torch.int32, device="cuda")
+            got = moe_gemm(x, eot, w, bt=cap)
+            torch.cuda.synchronize()
+            want = moe_gemm_plain(x, eot, w, bt=cap)
+            x3 = x.view(e, cap, d)
+            nbytes = (t * d + e * d * f + t * f) * isz + 4 * e
+            rows.append(measure(
+                "moe_gemm", got, want, dtype,
+                lambda: moe_gemm(x, eot, w, bt=cap),
+                lambda: moe_gemm_plain(x, eot, w, bt=cap),
+                lambda: torch.bmm(x3, w), nbytes, 2 * t * d * f, spec, flush,
+                REPS, shape=f"{name} E={e} cap={cap}: ({t} x {d}) -> {f}",
+                bt=cap))
+            del x, w, got, want, x3
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 13: block-sparse local attention (B9) against its plain version
+# --------------------------------------------------------------------------
+
+def block_attn_kernels_edge():
+    """B9 against the plain version on the card, f32 and bf16: the
+    reference sweep's four shapes, and bq != bk; each twice for bit
+    identity."""
+    from repro_torch.kernels import local_window_kv_map
+    from repro_torch.kernels.block_attn import (block_attention,
+                                                block_attention_plain)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for s, w, bq, bk in ATTN_EDGE:
+            rng = np.random.default_rng(s + w + bq)
+            q, k, v = [torch.from_numpy(rng.standard_normal((2, s, 4, 32))
+                                        .astype(np.float32)).cuda().to(dtype)
+                       for _ in range(3)]
+            kv_map = torch.from_numpy(local_window_kv_map(s, w, bq,
+                                                          bk)).cuda()
+            got = [block_attention(q, k, v, kv_map, bq=bq, bk=bk, window=w)
+                   for _ in range(2)]
+            torch.cuda.synchronize()
+            what = f"block_attention S{s} w{w} bq{bq} bk{bk} {dtype}"
+            if not torch.equal(got[0], got[1]):
+                raise AssertionError(f"{what}: two runs differ")
+            err = check_close(got[0], block_attention_plain(
+                q, k, v, kv_map, bq=bq, bk=bk, window=w), dtype, what)
+            cases.append({"S": s, "window": w, "bq": bq, "bk": bk,
+                          "dtype": str(dtype).replace("torch.", ""),
+                          "max_abs_err": err})
+    return {"phase": "block_attn_kernels", "cases": cases,
+            "bit_identical": True, "ok": True}
+
+
+# --------------------------------------------------------------------------
+# phase 14: local attention at recurrentgemma-9b's shape
+# --------------------------------------------------------------------------
+
+def local_attention(spec, flush, card):
+    """``ops.local_block_attention`` at recurrentgemma-9b's local-attention
+    shape (its one kv head repeated to the 16 query heads, as a model
+    would), one launch, held against the plain version and the dense
+    oracle (one example at a time); then timed beside the bound, the plain
+    version and ``scaled_dot_product_attention`` with a band mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import local_block_attention, local_window_kv_map
+    from repro_torch.kernels.block_attn import (block_attention,
+                                                block_attention_plain)
+    from repro_torch.kernels.ref import local_attention_ref
+    torch.cuda.empty_cache()
+    b, s, h, hd = ATTN["B"], ATTN["S"], ATTN["H"], ATTN["hd"]
+    window, bq, bk = ATTN["window"], ATTN["bq"], ATTN["bk"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q = torch.randn((b, s, h, hd), generator=gen, device="cuda")
+    k, v = [torch.randn((b, s, 1, hd), generator=gen, device="cuda")
+            .expand(b, s, h, hd).contiguous() for _ in range(2)]
+    block_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = local_block_attention(q, k, v, window=window, bq=bq, bk=bk)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"block_attention": block_attention.launches}
+    if launches != {"block_attention": 1}:
+        raise AssertionError(f"local_block_attention launches {launches}, "
+                             f"expected one")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("non-finite attention output")
+    kv_map_np = local_window_kv_map(s, window, bq, bk)
+    kv_map = torch.from_numpy(kv_map_np).cuda()
+    plain = block_attention_plain(q, k, v, kv_map, bq=bq, bk=bk,
+                                  window=window)
+    plain_err = check_close(out, plain, torch.float32, "B9 against plain")
+    del plain
+    dense_err = max(
+        check_close(out[i:i + 1], local_attention_ref(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], window=window),
+            torch.float32, f"B9 against the dense oracle, example {i}")
+        for i in range(b))
+    torch.cuda.empty_cache()
+
+    live = int((kv_map_np >= 0).sum())
+    nbytes = 4 * q.numel() * 4 + kv_map_np.size * 4
+    # the (q, k) pairs the function needs: key k is visible from query q
+    # when 0 <= q - k < window; QK^T and PV take 2·hd FLOPs each a pair
+    pairs = int(np.minimum(np.arange(1, s + 1), window).sum())
+    flops = 4 * hd * pairs * h * b
+    qpos = torch.arange(s, device="cuda")
+    band = ((qpos[:, None] >= qpos[None, :])
+            & (qpos[:, None] - qpos[None, :] < window))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    row = measure_sparse(
+        "block_attention",
+        lambda: block_attention(q, k, v, kv_map, bq=bq, bk=bk,
+                                window=window),
+        lambda: block_attention_plain(q, k, v, kv_map, bq=bq, bk=bk,
+                                      window=window),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band),
+        nbytes, flops, torch.float32, spec, flush,
+        shape=f"recurrentgemma-9b local attention B={b} S={s} H={h} "
+        f"hd={hd} window={window} bq={bq} bk={bk}, live tiles {live}, "
+        f"visible pairs {pairs}")
+    line = {"phase": "local_attention", **ATTN, "nq": kv_map_np.shape[0],
+            "max_nb": kv_map_np.shape[1], "live_tiles_per_head": live,
+            "visible_pairs_per_head": pairs,
+            "launches": launches, "first_call_ms": first_ms,
+            "plain_max_abs_err": plain_err,
+            "dense_oracle_max_abs_err": dense_err, "ms": row["ms"],
+            "card": card}
+    del q, k, v, out, qt, kt, vt, band
+    torch.cuda.empty_cache()
+    return launches, [row], line
+
+
 def profile(fn, warmup: bool = True) -> dict:
     """One call of ``fn`` under torch.profiler (after one call outside it
     with ``warmup``): wall ms, the device time summed over kernels, the
@@ -1253,14 +1705,28 @@ def main() -> int:
         emit({"phase": "kernels", "card": smi, **row})
     rows += spgemm_kernel_rows
 
+    emit(moe_kernels_edge())
+    emit(moe_reference())
+    moe_launches, moe_line = moe_serve(smi)
+    emit(moe_line)
+    moe_kernel_rows = moe_rows(spec, flush)
+    emit(block_attn_kernels_edge())
+    attn_launches, attn_rows, attn_line = local_attention(spec, flush, smi)
+    emit(attn_line)
+    for row in moe_kernel_rows + attn_rows:
+        emit({"phase": "kernels", "card": smi, **row})
+    rows += moe_kernel_rows + attn_rows
+
     # launches: each path's run, counted from 0
     by_path = {"serve": serve_launches, "train": train_launches,
-               **spgemm_launches}
+               **spgemm_launches, "moe_serve": moe_launches,
+               "local_attention": attn_launches}
     f32 = lambda n: lambda r: r["dtype"] == "float32" and r.get("N") == n
     headline = {"maple_spmm_naive": f32(1), "maple_spmm_compact": f32(1),
                 "maple_sddmm_bsr": f32(256),
-                **{k: f32(None) for k in SPGEMM_COUNTERS}}
-    keys = ("shape", "dtype", "G", "N", "ms", "plain_ms", "library_ms",
+                **{k: f32(None) for k in SPGEMM_COUNTERS},
+                "moe_gemm": f32(None), "block_attention": f32(None)}
+    keys = ("shape", "dtype", "G", "N", "bt", "ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by", "max_abs_err")
     summary = []
     for kname, pick in headline.items():

@@ -1,11 +1,12 @@
 """Architecture registry: --arch <id> resolves here.  Only the ported
 architectures are listed."""
 
-from repro_torch.configs import qwen3_4b
+from repro_torch.configs import granite_moe_3b, qwen3_4b
 from repro_torch.configs.base import ModelConfig, pad_to
 
 ARCHS = {
     "qwen3-4b": qwen3_4b,
+    "granite-moe-3b-a800m": granite_moe_3b,
 }
 
 

@@ -1,7 +1,7 @@
 """Model configuration schema (port of ``repro.configs.base``).
 
 The fields are those the ported serving and training paths read or
-refuse.  The reference's MoE, SSM and RG-LRU fields come with the modules
+refuse.  The reference's SSM and RG-LRU fields come with the modules
 that read them.
 """
 
@@ -37,12 +37,18 @@ class ModelConfig:
     # ffn
     activation: str = "silu"              # silu | gelu_glu | gelu
     norm: str = "rmsnorm"                 # rmsnorm | layernorm
+    # moe
     n_experts: int = 0
+    n_experts_padded: int = 0
+    top_k: int = 0
+    d_expert: int = 0
     # enc-dec / vlm inputs
     n_enc_layers: int = 0
     n_patches: int = 0
     # padding granularity for vocab sharding (16-way model × 128 lanes)
     vocab_pad_multiple: int = 2048
+    moe_capacity_factor: float = 1.25
+    moe_impl: str = "gspmd"       # "gspmd" | "ep_a2a" (all-to-all EP)
     # block-sparse MLP: the down-projection becomes a BlockCSR weight
     # driven by maple_spmm.  The block mask is sampled once from
     # `sparse_mask_seed` and shared by all layers, so the stacked weights

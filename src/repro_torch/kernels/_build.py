@@ -24,7 +24,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("maple_spmm", "maple_sddmm", "maple_spgemm", "maple_spmspm")
+SOURCES = ("maple_spmm", "maple_sddmm", "maple_spgemm", "maple_spmspm",
+           "moe_gemm", "block_attn")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -113,6 +114,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "maple_spmspm":
         lib.maple_spmspm.argtypes = [p] * 4 + [i] * 5 + [p]
         lib.maple_spmspm.restype = i
+    elif name == "moe_gemm":
+        lib.maple_moe_gemm.argtypes = [p] * 4 + [i] * 5 + [p]
+        lib.maple_moe_gemm.restype = i
+    elif name == "block_attn":
+        lib.maple_block_attention.argtypes = [p] * 5 + [i] * 11 + \
+            [ctypes.c_float, p]
+        lib.maple_block_attention.restype = i
     lib.maple_error_string.argtypes = [i]
     lib.maple_error_string.restype = ctypes.c_char_p
 

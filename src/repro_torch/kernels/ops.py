@@ -1,6 +1,7 @@
 """Public entry points of the Maple kernels (port of
 ``repro.kernels.ops``): ``maple_spmm``, ``maple_spgemm`` and
-``maple_spmspm``, forward and backward.
+``maple_spmspm``, forward and backward; ``moe_expert_gemm`` and
+``local_block_attention``, forward only.
 
 The wrappers own everything that is not a kernel: argument checks (the
 reference's raises, same types and messages), schedule selection and
@@ -21,11 +22,14 @@ import torch
 from repro_torch.core import formats
 from repro_torch.core.csr import (CSR, BlockCSR, grow_nnz_max,
                                   transpose_payload)
+from repro_torch.kernels.block_attn import (block_attention,
+                                           local_window_kv_map)
 from repro_torch.kernels.maple_sddmm import maple_sddmm_bsr, maple_sddmm_csr
 from repro_torch.kernels.maple_spgemm import (maple_spgemm_db,
                                               maple_spgemm_numeric)
 from repro_torch.kernels.maple_spmm import maple_spmm_compact, maple_spmm_naive
 from repro_torch.kernels.maple_spmspm import maple_spmspm_ell
+from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.kernels.schedule import (SpgemmPlan, SpmmPlan, SpmmTrainPlan,
                                           plan_spgemm, plan_spmm,
                                           plan_spmm_vjp)
@@ -401,3 +405,53 @@ def maple_spmspm(a: CSR, b) -> torch.Tensor:
                          f"{tuple(b.shape)}")
     values, col_ids = csr_to_ell(a)
     return maple_spmspm_ell(values, col_ids, b.contiguous())
+
+
+# --------------------------------------------------------------------------
+# MoE grouped GEMM
+# --------------------------------------------------------------------------
+
+def moe_expert_gemm(x_sorted: torch.Tensor, group_sizes: torch.Tensor,
+                    w: torch.Tensor, *, bt: int = 128) -> torch.Tensor:
+    """y[t] = x[t] @ w[expert(t)] for expert-sorted tokens.
+
+    ``group_sizes`` must already be multiples of ``bt`` (capacity-padded:
+    the MoE layer pads each expert's segment with zero rows), and T a
+    multiple of ``bt``.  The tile → expert map (:func:`expert_of_tile`)
+    is computed on the sizes' device; an empty group owns no tile and its
+    weights are never read.  The reference needs D and F to be multiples
+    of its 128-wide Pallas tiles; the port's kernel takes any D and F.
+    """
+    return moe_gemm(x_sorted,
+                    expert_of_tile(group_sizes, x_sorted.shape[0] // bt, bt),
+                    w, bt=bt)
+
+
+def expert_of_tile(group_sizes: torch.Tensor, n_tiles: int,
+                   bt: int) -> torch.Tensor:
+    """``(n_tiles,)`` int32: the expert that owns each ``bt``-row tile of
+    expert-sorted tokens, ``searchsorted(cumsum(group_sizes), tile start,
+    right=True)`` on the sizes' device."""
+    offsets = torch.cumsum(group_sizes.long(), dim=0)             # (E,)
+    tile_starts = torch.arange(n_tiles, dtype=torch.int64,
+                               device=group_sizes.device) * bt
+    return torch.searchsorted(offsets, tile_starts,
+                              right=True).to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# block-sparse local attention
+# --------------------------------------------------------------------------
+
+def local_block_attention(q, k, v, *, window: int, bq: int = 128,
+                          bk: int = 128) -> torch.Tensor:
+    """Causal local-window attention with banded-BSR tile skipping.
+
+    q/k/v: (B, S, H, hd).  Tiles outside the window band are never fetched
+    (the Maple zero-block skip); within-band masking is elementwise.  One
+    kernel launch covers the whole batch.
+    """
+    kv_map = torch.from_numpy(local_window_kv_map(q.shape[1], window, bq,
+                                                  bk)).to(q.device)
+    return block_attention(q, k, v, kv_map, bq=bq, bk=bk, causal=True,
+                           window=window)

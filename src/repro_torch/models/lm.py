@@ -15,9 +15,12 @@ allocate a zero tensor as large as the stack per layer in the backward.
 ``forward`` and ``loss_fn`` take that layout.  The layer loop is a Python
 loop; decode caches are updated in place.
 
-Not ported yet: MoE, SSM, RG-LRU, local-window and cross attention, QKV
-biases, the vision prefix, paged decode, two-level remat
-(``scan_remat_chunk > 1``) and the plan autotuner.
+The MoE family (``family="moe"``: a :mod:`~repro_torch.models.moe` layer
+in place of the MLP) serves through ``prefill`` and ``decode_step``; its
+training path is not ported yet.  Not ported either: SSM, RG-LRU,
+local-window and cross attention, QKV biases, the vision prefix, paged
+decode, two-level remat (``scan_remat_chunk > 1``) and the plan
+autotuner.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.csr import BlockCSR
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 
 def _attn_cfg(cfg: ModelConfig) -> L.AttnConfig:
@@ -41,15 +45,27 @@ def _attn_cfg(cfg: ModelConfig) -> L.AttnConfig:
         rope_theta=cfg.rope_theta)
 
 
-def _check_ported(cfg: ModelConfig) -> None:
+def _moe_cfg(cfg: ModelConfig) -> M.MoEConfig:
+    return M.MoEConfig(
+        d_model=cfg.d_model, n_experts=cfg.n_experts,
+        n_experts_padded=cfg.n_experts_padded, top_k=cfg.top_k,
+        d_expert=cfg.d_expert, capacity_factor=cfg.moe_capacity_factor,
+        impl=cfg.moe_impl)
+
+
+def _check_ported(cfg: ModelConfig, *, training: bool = False) -> None:
     unit, _, tail = cfg.layer_plan()
-    if (cfg.family != "dense" or cfg.ffn_kind != "dense"
+    if (cfg.family not in ("dense", "moe") or cfg.ffn_kind != cfg.family
             or set(unit) != {"attn"} or tail or cfg.n_enc_layers
             or cfg.n_patches or cfg.qkv_bias):
         raise NotImplementedError(
             f"{cfg.name} (family={cfg.family!r}, pattern={unit}) is not "
-            f"ported yet: only decoder-only dense models with global "
-            f"attention are")
+            f"ported yet: only decoder-only dense and MoE models with "
+            f"global attention are")
+    if training and cfg.family == "moe":
+        raise NotImplementedError("training the MoE family is not ported "
+                                  "yet: it serves only (prefill, "
+                                  "decode_step)")
 
 
 def _layer(tree, i: int):
@@ -94,17 +110,31 @@ def unstack_layers(params):
 def _init_block(generator, cfg: ModelConfig, *, stack, dtype,
                 mask_generator) -> Dict[str, Any]:
     dev = generator.device
-    return {
+    p = {
         "norm1": L.init_norm(cfg.d_model, cfg.norm, stack=stack, device=dev),
         "attn": L.init_attention(generator, _attn_cfg(cfg), dtype,
                                  stack=stack),
         "norm2": L.init_norm(cfg.d_model, cfg.norm, stack=stack, device=dev),
-        "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.activation,
-                          dtype, stack=stack, sparse_down=cfg.sparse_mlp,
-                          sparse_block=cfg.sparse_block,
-                          sparse_density=cfg.sparse_density,
-                          mask_generator=mask_generator),
     }
+    if cfg.ffn_kind == "moe":
+        p["moe"] = M.init_moe(generator, _moe_cfg(cfg), dtype, stack=stack)
+    else:
+        p["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff,
+                              cfg.activation, dtype, stack=stack,
+                              sparse_down=cfg.sparse_mlp,
+                              sparse_block=cfg.sparse_block,
+                              sparse_density=cfg.sparse_density,
+                              mask_generator=mask_generator)
+    return p
+
+
+def _ffn(p, cfg: ModelConfig, x):
+    """The serving path's feed-forward half of a block: the MLP, or the MoE
+    layer for the MoE family."""
+    h = L.apply_norm(x, p["norm2"], cfg.norm)
+    if "moe" in p:
+        return x + M.moe_layer(p["moe"], _moe_cfg(cfg), h)
+    return x + L.mlp(p["mlp"], h, cfg.activation)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -181,7 +211,7 @@ def forward(params, cfg: ModelConfig, batch, *, remat: bool = True,
     keeping its activations (``torch.utils.checkpoint``, non-reentrant:
     only the layer's input is saved, the reference's
     ``nothing_saveable`` policy)."""
-    _check_ported(cfg)
+    _check_ported(cfg, training=True)
     if remat and cfg.scan_remat_chunk > 1:
         raise NotImplementedError("two-level remat (scan_remat_chunk > 1) "
                                   "is not ported yet")
@@ -266,9 +296,7 @@ def prefill(params, cfg: ModelConfig, batch, *, max_seq: Optional[int] = None,
                                         cache_len=max_seq)
         k_all[li] = kc
         v_all[li] = vc
-        x = x + h
-        h = L.apply_norm(x, p["norm2"], cfg.norm)
-        x = x + L.mlp(p["mlp"], h, cfg.activation)
+        x = _ffn(p, cfg, x + h)
     state = {"groups": {"b0": {"k": k_all, "v": v_all}}, "pos": s}
     x = L.apply_norm(x[:, -1:], params["final_norm"], cfg.norm)
     if return_hidden:
@@ -293,9 +321,7 @@ def decode_step(params, cfg: ModelConfig, state, tokens, *,
         h = L.apply_norm(x, p["norm1"], cfg.norm)
         h, _, _ = L.attention_decode(p["attn"], acfg, h, caches["k"][li],
                                      caches["v"][li], pos, rope)
-        x = x + h
-        h = L.apply_norm(x, p["norm2"], cfg.norm)
-        x = x + L.mlp(p["mlp"], h, cfg.activation)
+        x = _ffn(p, cfg, x + h)
     new_state = {"groups": state["groups"], "pos": pos + 1}
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
     if return_hidden:

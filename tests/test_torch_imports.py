@@ -42,5 +42,9 @@ def test_port_file_imports_neither_jax_nor_the_reference(path):
 def test_the_scan_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "src/repro_torch/kernels/ops.py" in names
+    for module in ("kernels/moe_gemm.py", "kernels/block_attn.py",
+                   "kernels/ref.py", "models/moe.py",
+                   "configs/granite_moe_3b.py"):
+        assert f"src/repro_torch/{module}" in names
     assert "chip_smoke.py" in names
     assert len(names) >= 15

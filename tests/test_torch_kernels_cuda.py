@@ -1,6 +1,7 @@
 """The Hopper kernels (SpMM forward, block SDDMM and the maple_spmm
 backward; the SpGEMM numeric phase, its CSR SDDMM and dB, and the element
-walk with a dense B) against their plain versions, on the card.
+walk with a dense B; the MoE grouped GEMM and block-sparse local
+attention) against their plain versions, on the card.
 
 These tests need an NVIDIA GPU and the CUDA toolkit (``nvcc``); without a
 card they skip.  They import nothing of JAX, so they run on a machine
@@ -299,3 +300,118 @@ def test_spgemm_psb_wider_than_shared_memory_raises(cuda):
     b = _element_csr(cuda, np.ones((1, 60_000), bool), rng, torch.float32)
     with pytest.raises(ValueError, match="shared memory"):
         maple_spgemm(a, b)
+
+
+# --------------------------------------------------------------------------
+# the MoE grouped GEMM (B8) and block-sparse local attention (B9)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sizes,d,f,bt", [
+    ([256, 0, 384, 128], 256, 256, 128), ([128] * 4, 256, 256, 128),
+    ([0, 0, 512, 0], 256, 256, 128),
+    ([8, 0, 16, 8, 0, 8, 0, 8], 64, 32, 8),      # decode tile, smoke widths
+    ([96, 96, 0], 100, 36, 96),                 # a 32-row tile, ragged F
+    ([24, 8, 0], 20, 12, 8),                    # D and F below one panel
+    ([8] * 48, 1536, 512, 8),                   # granite decode gate/up
+    ([8] * 48, 512, 1536, 8)])                  # granite decode down
+def test_moe_gemm_kernel_matches_plain(cuda, dtype, sizes, d, f, bt):
+    from repro_torch.kernels import moe_expert_gemm
+    from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain
+    from repro_torch.kernels.ops import expert_of_tile
+    rng = np.random.default_rng(sum(sizes) + d)
+    t = int(np.sum(sizes))
+    x = torch.from_numpy(rng.standard_normal((t, d)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((len(sizes), d, f))
+                         .astype(np.float32) * 0.1)
+    x, w = x.to(cuda, dtype), w.to(cuda, dtype)
+    gs = torch.tensor(sizes, device=cuda)
+    before = moe_gemm.launches
+    got = [moe_expert_gemm(x, gs, w, bt=bt) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert moe_gemm.launches == before + 2
+    assert torch.equal(got[0], got[1])
+    eot = expert_of_tile(gs, t // bt, bt)
+    _close(got[0], moe_gemm_plain(x, eot, w, bt=bt), dtype)
+
+
+def test_moe_gemm_kernel_refuses_a_tile_not_a_multiple_of_8(cuda):
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    x = torch.zeros((12, 8), device=cuda)
+    w = torch.zeros((2, 8, 4), device=cuda)
+    eot = torch.zeros((4,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        moe_gemm(x, eot, w, bt=3)
+
+
+def test_moe_layer_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.models import moe as M
+    cfg = M.MoEConfig(d_model=48, n_experts=40, n_experts_padded=48,
+                      top_k=8, d_expert=24, capacity_factor=0.5)
+    p = M.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 24, 48)).astype(np.float32))
+    want = M.moe_layer(p, cfg, x)
+    p_gpu = {k: v.to(cuda) for k, v in p.items()}
+    before = moe_gemm.launches
+    got = [M.moe_layer(p_gpu, cfg, x.to(cuda)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert moe_gemm.launches == before + 6
+    assert torch.equal(got[0], got[1])
+    _close(got[0].cpu(), want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,w,bq,bk,h,hd", [
+    (256, 64, 64, 64, 4, 32), (512, 128, 128, 128, 4, 32),
+    (256, 40, 64, 64, 4, 32), (128, 128, 64, 64, 4, 32),
+    (256, 40, 128, 64, 2, 32), (256, 100, 32, 128, 2, 64),
+    (512, 200, 128, 128, 2, 256), (96, 30, 96, 48, 1, 20)])
+def test_block_attention_kernel_matches_plain(cuda, dtype, s, w, bq, bk, h,
+                                              hd):
+    from repro_torch.kernels import local_window_kv_map
+    from repro_torch.kernels.block_attn import (block_attention,
+                                                block_attention_plain)
+    rng = np.random.default_rng(s + w + bq)
+    q, k, v = [torch.from_numpy(rng.standard_normal((2, s, h, hd))
+                                .astype(np.float32)).to(cuda, dtype)
+               for _ in range(3)]
+    kv_map = torch.from_numpy(local_window_kv_map(s, w, bq, bk)).to(cuda)
+    before = block_attention.launches
+    got = [block_attention(q, k, v, kv_map, bq=bq, bk=bk, window=w)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert block_attention.launches == before + 2
+    assert torch.equal(got[0], got[1])
+    _close(got[0], block_attention_plain(q, k, v, kv_map, bq=bq, bk=bk,
+                                         window=w), dtype)
+
+
+def test_block_attention_kernel_skips_pads_and_empty_rows(cuda):
+    """Pads between live entries, a q-block with no live entry (its output
+    is 0), and no causality."""
+    from repro_torch.kernels.block_attn import (block_attention,
+                                                block_attention_plain)
+    rng = np.random.default_rng(5)
+    q, k, v = [torch.from_numpy(rng.standard_normal((2, 256, 3, 16))
+                                .astype(np.float32)).to(cuda)
+               for _ in range(3)]
+    kv_map = torch.tensor([[-1, 2, -1, 0], [3, -1, -1, -1],
+                           [-1, -1, -1, -1], [1, 3, 2, 0]],
+                          dtype=torch.int32, device=cuda)
+    for causal, window in ((False, 0), (False, 90), (True, 0)):
+        got = block_attention(q, k, v, kv_map, bq=64, bk=64, causal=causal,
+                              window=window)
+        torch.cuda.synchronize()
+        _close(got, block_attention_plain(q, k, v, kv_map, bq=64, bk=64,
+                                          causal=causal, window=window),
+               torch.float32)
+        assert not got[:, 128:192].any()
+
+
+def test_block_attention_kernel_refuses_wide_heads(cuda):
+    from repro_torch.kernels import local_block_attention
+    q = torch.zeros((1, 64, 1, 260), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4 up to 256"):
+        local_block_attention(q, q, q, window=16, bq=16, bk=16)

@@ -189,7 +189,7 @@ def test_serve_cli_runs_on_cpu_and_refuses_checkpoints(capsys):
 def test_unported_families_and_converter_misuse_raise():
     cfg = get_smoke_config("qwen3-4b")
     with pytest.raises(NotImplementedError, match="not ported"):
-        lm.init_params(dataclasses.replace(cfg, family="moe", n_experts=4),
+        lm.init_params(dataclasses.replace(cfg, family="ssm"),
                        torch.Generator(), device="cpu")
     w = {"blocks": np.zeros((2, 3, 8, 8), np.float32),
          "block_col": np.array([[0, 1, -1], [1, 0, -1]], np.int32),
