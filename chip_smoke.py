@@ -17,15 +17,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      blocks, an all-empty (all-pad) matrix, G > 1, a plan with idle lanes
      and split rows; the SpMM merge and the SDDMM each run twice for bit
      identity;
+   - planned_kernels: the rmw kernel (B4) on edge plans (idle lanes, a
+     row split over three or more lanes, a row split twice on one lane,
+     empty rows, an all-empty A, row_atomic, chunk 1, 8×8 blocks with
+     bn = 16, G > 1, ragged N), f32 and bf16, each twice for bit
+     identity and bitwise against the compact kernel + merge;
    - the serving shapes of the SpMM kernels (the qwen3-4b MLP
      down-projection and the sparse logit head);
-   - the training shapes: the block SDDMM (dA) and the compact kernel on
-     the transpose-side plan (dB) of the MLP down-projection at G=1,
-     N=256 and of the head at G=1, N=4, and the compact kernel on the
-     MLP's forward plan at G=1, N=256 (the train path's forward and remat
-     recompute);
+   - the training shapes: the block SDDMM (dA) and both planned kernels
+     on the transpose-side plan (dB) of the MLP down-projection at G=1,
+     N=256 and of the head at G=1, N=4, and on the MLP's forward plan at
+     G=1, N=256 (the train path's forward and remat recompute); then a
+     power-law block pattern at the MLP's size, whose heavy rows the
+     balanced plan splits over lanes;
    each in f32 and bf16, after an L2 flush.  Prints kernel, plain, library
-   (one dense ``torch.matmul``) and bound times.
+   (one dense ``torch.matmul``) and bound times, and for B4 the time of
+   the compact kernel + merge on the same plan.
 3. reference — the qwen3-4b smoke config on the card against the same
    weights on the CPU (the plain path the CPU tests hold against the JAX
    reference): logits within 1e-4, equal greedy tokens.
@@ -34,10 +41,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    answers a batch of 4 prompts, ``complete_static`` answers the same 4
    requests one at a time through the ``SparseLogitHead``.  Launch counts
    are zeroed just before and read just after, and must equal one naive
-   launch per layer per forward pass and one planned launch per head
-   call.  Outside that counted run it times a prefill, a decode step and
-   a head call, and profiles one decode step and one head call with
-   ``torch.profiler`` (wall ms, summed kernel ms, the top kernels).
+   launch per layer per forward pass and one launch per head call of
+   the kernel of the head plan's layout (rmw: B4).  Then the head is
+   built again with ``plan="auto"`` (search seconds, winning config, a
+   cache hit on a second build) and the same 4 requests go through it,
+   counted again: greedy tokens equal to the default head's, logits
+   within 1e-4.  Outside the counted runs it times a prefill, a decode
+   step and a head call, and profiles one decode step and one head call
+   with ``torch.profiler`` (wall ms, summed kernel ms, the top kernels).
 5. train_reference — the qwen3-4b smoke config with a sparse MLP at
    (8, 8) blocks: the loss and every gradient of one batch on the card
    against the same weights and batch on the CPU (plain path), then one
@@ -45,14 +56,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 6. train   — ``repro_torch.launch.train`` on qwen3-4b at full width and
    depth with ``--sparse-mlp``, f32, seed 0, 4 × 256 tokens in 4
    microbatches, 3 AdamW steps.  Launch counts are zeroed just before and
-   read just after and must equal the derived count: per layer and
-   microbatch, the compact kernel for the forward, the remat recompute
-   and dB, the SDDMM once for dA.  Prints loss and grad norm per step,
+   read just after and must equal the count derived from the plan's
+   layouts: per layer and microbatch, the forward plan's kernel for the
+   forward and the remat recompute, the transpose-side plan's for dB,
+   the SDDMM once for dA.  Prints loss and grad norm per step,
    the step ms of steps 2 and 3, tokens/s, the peak GiB and one profiled
    step.
 7. head_backward — a backward through a full-size
-   ``SparseLogitHead.build(trainable=True)``, its grads held against the
-   kernels' plain versions on the card.
+   ``SparseLogitHead.build(trainable=True)``, its launches counted by
+   the plans' layouts, its grads held against the kernels' plain
+   versions on the card.
+7b. autotune — ``plan_search(measure=True, top_k=3)`` on the MLP
+   down-projection and the head weights (each finalist's config, layout
+   and measured µs); both layouts of the default knobs through
+   ``maple_spmm`` (bitwise equal); on the MLP, the reordered plans
+   (row-atomic bitwise, chunked within 1e-5·max) and ELL and bitmap
+   copies (bitwise against the BlockCSR route).  Launches are counted
+   over the phase.
 8. spgemm_kernels — the SpGEMM numeric phase (B5), its CSR SDDMM (B6) and
    dB, and the element walk with a dense B (B7) against their plain
    versions on the card, f32 and bf16, over the element-pattern goldens
@@ -121,6 +141,7 @@ sys.path.insert(0, str(ROOT / "src"))
 SEED = 0
 SOURCES = {"maple_spmm_naive": "src/repro_torch/csrc/maple_spmm.cu",
            "maple_spmm_compact": "src/repro_torch/csrc/maple_spmm.cu",
+           "maple_spmm_planned": "src/repro_torch/csrc/maple_spmm.cu",
            "maple_sddmm_bsr": "src/repro_torch/csrc/maple_sddmm.cu",
            "maple_spgemm_numeric": "src/repro_torch/csrc/maple_spgemm.cu",
            "maple_sddmm_csr": "src/repro_torch/csrc/maple_spgemm.cu",
@@ -131,6 +152,7 @@ SOURCES = {"maple_spmm_naive": "src/repro_torch/csrc/maple_spmm.cu",
 # dB has no TPU kernel: the reference leaves it to an XLA scatter-add
 REPLACES = {"maple_spmm_naive": "src/repro/kernels/maple_spmm.py:91",
             "maple_spmm_compact": "src/repro/kernels/maple_spmm.py:288",
+            "maple_spmm_planned": "src/repro/kernels/maple_spmm.py:176",
             "maple_sddmm_bsr": "src/repro/kernels/maple_sddmm.py:124",
             "maple_spgemm_numeric": "src/repro/kernels/maple_spgemm.py:92",
             "maple_sddmm_csr": "src/repro/kernels/maple_sddmm.py:214",
@@ -153,6 +175,10 @@ HEAD = dict(name="logit_head 153600x2560 (64,64) d=0.5 L=8", d_out=153_600,
 # compact kernel on Wᵀ over dC
 TRAIN_MLP = dict(MLP, G=1, N=(256,))
 TRAIN_HEAD = dict(HEAD, G=1, N=(4,))
+# a power-law block pattern at the MLP's size (row i holds about
+# 152·(i+1)^-1.2 of the 152 block columns): the balanced plan splits the
+# heavy rows over lanes, and B4 walks each row in one thread block
+POWER_LAW = dict(MLP, name="power_law 2560x9728 (64,64)", G=1, N=(1, 256))
 SERVE_ARCH = "qwen3-4b"
 # the SpGEMM slice: C = A×A on the paper's cage12 clone at full size
 # (Table I: n 130 000, nnz 2.0 M), and A times a dense (n, 64) B
@@ -314,6 +340,87 @@ def edge_cases():
     return cases
 
 
+def run_planned_case(a, plan, g, n, dtype, bn, rng):
+    """B4 on ``plan`` over random B: two launches must give the same bits
+    and equal B1 + the slot merge on the same plan bit for bit."""
+    from repro_torch.kernels.maple_spmm import (maple_spmm_compact,
+                                                maple_spmm_planned,
+                                                maple_spmm_planned_plain)
+    from repro_torch.kernels.ops import _scatter_merge_f32
+    b3 = torch.from_numpy(rng.standard_normal((g, a.shape[1], n))
+                          .astype(np.float32)).cuda().to(dtype)
+    dev = plan.on_device(b3.device)
+    args = (a.blocks, dev["order"], dev["step_col"], dev["row_runs"],
+            dev["row_run_ptr"], b3)
+    got = [maple_spmm_planned(*args, bn=bn) for _ in range(2)]
+    n_slots = plan.n_lanes * plan.r_max
+    tiles = maple_spmm_compact(a.blocks, dev["order"], dev["step_col"],
+                               dev["runs"], b3, n_slots=n_slots, bn=bn)
+    merged = _scatter_merge_f32(tiles.view(g, n_slots, plan.block_m, n),
+                                dev["merge"], gm=plan.n_block_rows)
+    torch.cuda.synchronize()
+    if not torch.equal(got[0], got[1]):
+        raise AssertionError("B4 is not bit-identical over two runs")
+    if not torch.equal(got[0], merged):
+        raise AssertionError("B4 differs from B1 + merge on one plan")
+    return got[0], maple_spmm_planned_plain(*args), args, b3
+
+
+def planned_edge_cases():
+    """B4 against its plain version, f32 and bf16, on plans with idle
+    lanes, a row split over three or more lanes, a row split twice on one
+    lane, empty rows, an all-empty A, row_atomic, chunk 1, 8×8 blocks with
+    bn = 16, G > 1 and ragged N; each twice and against B1 + merge."""
+    from repro_torch.core.csr import BlockCSR
+    from repro_torch.kernels.schedule import plan_spmm
+    rng = np.random.default_rng(SEED + 11)
+    seen, cases = set(), 0
+    for dtype in (torch.float32, torch.bfloat16):
+        mask = np.zeros((6, 5), bool)
+        mask[0] = True                              # a 5-block row
+        mask[3, 1] = True
+        d = np.repeat(np.repeat(mask, 8, 0), 8, 1) * rng.standard_normal(
+            (48, 40)).astype(np.float32)
+        heavy = BlockCSR.from_dense(d, (8, 8), n_blocks_max=8, device="cuda")
+        heavy = dataclasses.replace(heavy, blocks=heavy.blocks.to(dtype))
+        mats = {"uniform": bsr(rng, 6, 5, 8, 8, 0.45, dtype=dtype),
+                "empty_rows": bsr(rng, 6, 5, 8, 8, 0.45, empty_rows=True,
+                                  extra_pad=3, dtype=dtype),
+                "all_empty": bsr(rng, 6, 5, 8, 8, 0.0, extra_pad=2,
+                                 dtype=dtype),
+                "heavy_row": heavy}
+        for name, a in mats.items():
+            for lanes, chunk, whole in ((8, None, True), (8, 1, False),
+                                        (3, 1, False), (1, 2, False)):
+                plan = plan_spmm(a, n_lanes=lanes, chunk=chunk,
+                                 row_atomic=whole)
+                live = plan.step_col >= 0
+                per = np.stack([np.bincount(plan.step_row[l][live[l]],
+                                            minlength=plan.n_block_rows)
+                                for l in range(plan.n_lanes)])
+                seen |= {k for k, hit in (
+                    ("idle_lanes", (plan.written.sum(1) == 0).any()),
+                    ("row_over_3_lanes", plan.written.sum(0).max() >= 3),
+                    ("row_twice_on_one_lane", plan.chunk > 0 and
+                     (per > plan.chunk).any()),
+                    ("empty_rows", (np.diff(a.row_ptr) == 0).any()),
+                    ("all_empty", a.nnzb == 0),
+                    ("row_atomic", whole), ("chunk_1", chunk == 1)) if hit}
+                for g, n in ((1, 1), (3, 21), (2, 40)):
+                    got, want, _, _ = run_planned_case(a, plan, g, n, dtype,
+                                                       16, rng)
+                    check_close(got, want, dtype,
+                                f"planned edge {name} L{lanes} g{g} n{n}")
+                    cases += 1
+    expected = {"idle_lanes", "row_over_3_lanes", "row_twice_on_one_lane",
+                "empty_rows", "all_empty", "row_atomic", "chunk_1"}
+    if seen != expected:
+        raise AssertionError(f"edge plans missed {expected - seen}")
+    return {"phase": "planned_kernels", "cases": cases,
+            "plans_cover": sorted(seen), "bitwise_vs_compact_merge": True,
+            "ok": True}
+
+
 def measure(name, got, want, dtype, kernel, plain, library, nbytes, flops,
             spec, flush, reps, **shape):
     """Check the kernel against its plain version, then time the kernel,
@@ -403,7 +510,12 @@ def serving_shapes(spec, flush):
                                            merge_ranks,
                                            gm=plan.n_block_rows),
                 REPS, flush)
+            # the merge reads each live slot once and writes the result
+            row["merge_bound_ms"] = (g * (n_live + plan.n_block_rows) * bm
+                                     * n * 4) / spec[0] * 1e3
             rows.append(row)
+            rows.append(planned_row(head, plan, g, n, dtype, isz, spec,
+                                    flush, rng, HEAD["name"], dense=dense))
         del dense, head
     return rows, plan_s
 
@@ -451,7 +563,7 @@ def training_shapes(spec, flush):
     from repro_torch.core.csr import bsr_transpose
     from repro_torch.kernels.maple_sddmm import (maple_sddmm_bsr,
                                                  maple_sddmm_bsr_plain)
-    from repro_torch.kernels.schedule import plan_spmm_vjp
+    from repro_torch.kernels.schedule import plan_spmm, plan_spmm_vjp
     rng = np.random.default_rng(SEED + 3)
     rows, plans = [], {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -482,15 +594,34 @@ def training_shapes(spec, flush):
                 shape=shape["name"]))
             del got, want, args, dc, b3
             if shape is TRAIN_MLP:
+                name = f"{shape['name']} forward"
                 rows.append(compact_row(w, train.fwd, g, n, dtype, isz,
-                                        spec, flush, rng,
-                                        f"{shape['name']} forward"))
+                                        spec, flush, rng, name))
+                rows.append(planned_row(w, train.fwd, g, n, dtype, isz,
+                                        spec, flush, rng, name))
             # dB: Aᵀ on the transpose-side plan over dC
-            rows.append(compact_row(bsr_transpose(w), train.bwd, g, n, dtype,
-                                    isz, spec, flush, rng,
-                                    f"{shape['name']} transposed (dB)"))
-            del w
+            wt = bsr_transpose(w)
+            name = f"{shape['name']} transposed (dB)"
+            rows.append(compact_row(wt, train.bwd, g, n, dtype, isz, spec,
+                                    flush, rng, name))
+            rows.append(planned_row(wt, train.bwd, g, n, dtype, isz, spec,
+                                    flush, rng, name))
+            del w, wt
             torch.cuda.empty_cache()
+        # the power-law pattern: heavy rows split over lanes
+        w = power_law_weight(dtype)
+        plan = plan_spmm(w)
+        plans[POWER_LAW["name"]] = {
+            "runs": int(plan.runs.shape[0]), "rows": plan.n_block_rows,
+            "longest_row_blocks": int(np.diff(w.row_ptr).max()),
+            "most_runs_in_a_row": int(np.diff(plan.row_run_ptr).max())}
+        for n in POWER_LAW["N"]:
+            for row in (compact_row(w, plan, 1, n, dtype, isz, spec, flush,
+                                    rng, POWER_LAW["name"]),
+                        planned_row(w, plan, 1, n, dtype, isz, spec, flush,
+                                    rng, POWER_LAW["name"])):
+                rows.append(row)
+        del w
     return rows, plans
 
 
@@ -516,6 +647,62 @@ def compact_row(a, plan, g, n, dtype, isz, spec, flush, rng, name):
         G=g, N=n, shape=name)
     row["runs"] = int(plan.runs.shape[0])
     return row
+
+
+def planned_row(a, plan, g, n, dtype, isz, spec, flush, rng, name,
+                dense=None):
+    """B4 on ``plan`` over ``a``: checked against its plain version and
+    B1 + merge (bitwise), then timed beside its bound, the plain version,
+    ``torch.matmul`` and B1 + merge on the same plan."""
+    from repro_torch.kernels.maple_spmm import (maple_spmm_compact,
+                                                maple_spmm_planned,
+                                                maple_spmm_planned_plain)
+    from repro_torch.kernels.ops import _scatter_merge_f32
+    got, want, args, b3 = run_planned_case(a, plan, g, n, dtype, 128, rng)
+    dev = plan.on_device(b3.device)
+    n_slots = plan.n_lanes * plan.r_max
+    bm = plan.block_m
+    # every output row is written once, f32
+    nbytes, flops = spmm_cost(
+        a, g, n, isz, out_bytes=g * a.shape[0] * n * 4,
+        meta_bytes=4 * 2 * plan.order.size + 16 * plan.row_runs.shape[0]
+        + 4 * (plan.n_block_rows + 1))
+    dense = a.to_dense() if dense is None else dense
+    row = measure(
+        "maple_spmm_planned", got, want, dtype,
+        lambda: maple_spmm_planned(*args, bn=128),
+        lambda: maple_spmm_planned_plain(*args),
+        lambda: torch.matmul(dense, b3), nbytes, flops, spec, flush, REPS,
+        G=g, N=n, shape=name)
+    row["compact_merge_ms"] = time_ms(
+        lambda: _scatter_merge_f32(
+            maple_spmm_compact(a.blocks, dev["order"], dev["step_col"],
+                               dev["runs"], b3, n_slots=n_slots,
+                               bn=128).view(g, n_slots, bm, n),
+            dev["merge"], gm=plan.n_block_rows), REPS, flush)
+    row["runs"] = int(plan.row_runs.shape[0])
+    row["rows"] = plan.n_block_rows
+    return row
+
+
+def power_law_weight(dtype):
+    """The MLP's shape and blocks with a power-law block pattern (no row
+    empty), random values from the seed."""
+    from repro_torch.core.csr import BlockCSR
+    from repro_torch.core.sparsity import block_pattern_mask
+    bm, bk = POWER_LAW["block"]
+    gm, gk = POWER_LAW["d_out"] // bm, POWER_LAW["d_in"] // bk
+    rng = np.random.default_rng(SEED + 13)
+    mask = block_pattern_mask("power_law", rng, gm, gk)
+    rows, cols = np.nonzero(mask)
+    blocks = torch.randn((rows.size, bm, bk), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(SEED + 13)) / np.sqrt(gk * bk)
+    row_ptr = np.zeros(gm + 1, np.int32)
+    np.cumsum(mask.sum(1), out=row_ptr[1:])
+    return BlockCSR(blocks=blocks.to(dtype), block_col=cols.astype(np.int32),
+                    block_row=rows.astype(np.int32), row_ptr=row_ptr,
+                    shape=(gm * bm, gk * bk), block_shape=(bm, bk))
 
 
 # --------------------------------------------------------------------------
@@ -571,10 +758,28 @@ def small_reference():
 # phase 4: serve qwen3-4b at full width
 # --------------------------------------------------------------------------
 
+PLANNED = {"rmw": "maple_spmm_planned", "compact": "maple_spmm_compact"}
+
+
+def _spmm_kernels():
+    from repro_torch.kernels import (maple_spmm_compact, maple_spmm_naive,
+                                     maple_spmm_planned)
+    return maple_spmm_naive, maple_spmm_compact, maple_spmm_planned
+
+
+def spmm_counters():
+    """The SpMM kernels' launch counts, by kernel name."""
+    return {f.__name__: f.launches for f in _spmm_kernels()}
+
+
+def zero_spmm_counters():
+    for f in _spmm_kernels():
+        f.launches = 0
+
+
 def serve(card):
     from repro_torch.configs import get_config
-    from repro_torch.kernels.maple_spmm import (maple_spmm_compact,
-                                                maple_spmm_naive)
+    from repro_torch.kernels.autotune import plan_cache_stats, plan_search
     from repro_torch.models import lm
     from repro_torch.models.layers import init_sparse_linear
     from repro_torch.serve import (SamplingConfig, SparseLogitHead,
@@ -595,8 +800,7 @@ def serve(card):
     new = 16
     sampling = SamplingConfig(max_new_tokens=new)
 
-    maple_spmm_naive.launches = 0
-    maple_spmm_compact.launches = 0
+    zero_spmm_counters()
     t0 = time.perf_counter()
     tokens, _ = generate(params, cfg, batch, sampling)
     torch.cuda.synchronize()
@@ -606,13 +810,14 @@ def serve(card):
                                head=head) for p in prompts]
     torch.cuda.synchronize()
     static_s = time.perf_counter() - t0
-    launches = {"maple_spmm_naive": maple_spmm_naive.launches,
-                "maple_spmm_compact": maple_spmm_compact.launches}
+    launches = spmm_counters()
     # generate: one prefill + one decode step per new token; each request
     # of complete_static: one prefill + (new - 1) decode steps, each scored
-    # by the head; every layer's MLP is one naive launch
+    # by the head in its plan's layout; every layer's MLP is one naive
+    # launch
     expect = {"maple_spmm_naive": cfg.n_layers * ((1 + new) + 4 * new),
-              "maple_spmm_compact": 4 * new}
+              "maple_spmm_compact": 0, "maple_spmm_planned": 0}
+    expect[PLANNED[head.plan.fused]] += 4 * new
 
     if tokens.shape != (4, new) or not bool(
             ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
@@ -626,13 +831,43 @@ def serve(card):
         raise AssertionError(f"kernel launches on the path {launches}, "
                              f"expected {expect}")
 
+    # the autotuned head on the same weight: searched once, a cache hit
+    # when built again, then the same four requests through it, counted
+    t0 = time.perf_counter()
+    auto = SparseLogitHead.build(head.weight, plan="auto")
+    search_s = time.perf_counter() - t0
+    hits = plan_cache_stats()["hits"]
+    again = SparseLogitHead.build(head.weight, plan="auto")
+    if again.plan is not auto.plan or plan_cache_stats()["hits"] != hits + 1:
+        raise AssertionError("second plan='auto' build missed the cache")
+    zero_spmm_counters()
+    auto_singles = [complete_static(params, cfg, p, new,
+                                    sampling=SamplingConfig(), head=auto)
+                    for p in prompts]
+    torch.cuda.synchronize()
+    auto_launches = spmm_counters()
+    auto_expect = {"maple_spmm_naive": cfg.n_layers * 4 * new,
+                   "maple_spmm_compact": 0, "maple_spmm_planned": 0}
+    auto_expect[PLANNED[auto.plan.fused]] += 4 * new
+    if auto_launches != auto_expect:
+        raise AssertionError(f"autotuned head launches {auto_launches}, "
+                             f"expected {auto_expect}")
+    if [t for t, _, _ in auto_singles] != [t for t, _, _ in singles]:
+        raise AssertionError("the autotuned head's greedy tokens differ "
+                             "from the default head's")
+
     # checks and timings outside the counted run
     logits, state = lm.prefill(params, cfg, batch, max_seq=prompt_len + new)
     hidden, _ = lm.prefill(params, cfg, {"tokens": batch["tokens"][:1]},
                            return_hidden=True)
-    if not (torch.isfinite(logits).all() and torch.isfinite(head(hidden))
+    head_logits, auto_logits = head(hidden), auto(hidden)
+    if not (torch.isfinite(logits).all() and torch.isfinite(head_logits)
             .all()):
         raise AssertionError("non-finite logits")
+    auto_err = float((auto_logits - head_logits).abs().max())
+    if not torch.allclose(auto_logits, head_logits, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"autotuned head logits differ by {auto_err}")
+    del head_logits, auto_logits
     alone, _ = lm.prefill(params, cfg, {"tokens": batch["tokens"][:1]})
     if not torch.allclose(alone, logits[:1], rtol=1e-3, atol=1e-3):
         raise AssertionError("batch-1 prefill logits differ from the batch's")
@@ -656,9 +891,18 @@ def serve(card):
         "decode_step": profile(lambda: lm.decode_step(params, cfg, state,
                                                       step_tok)),
         "sparse_head": profile(lambda: head(hidden))}
-    return launches, {
+    _, rep = plan_search(head.weight, full=True)        # the cached search
+    search = {"config": rep.best_config, "fused": auto.plan.fused,
+              "n_candidates": rep.n_candidates, "n_built": rep.n_built,
+              "best_score": rep.best_score,
+              "default_score": rep.default_score, "search_s": search_s,
+              "cache_hit_on_rebuild": True, "launches": auto_launches,
+              "tokens_equal_default_head": True,
+              "logits_max_abs_diff": auto_err}
+    return {"serve": launches, "serve_autotuned_head": auto_launches}, {
         "phase": "serve", "config": "qwen3-4b sparse_mlp (64,64) d=0.25, "
         "sparse head (64,64) d=0.5 n_lanes=8, f32", "n_layers": cfg.n_layers,
+        "head_fused": head.plan.fused, "autotuned_head": search,
         "depth_reduced": False, "batch": 4, "prompt_len": prompt_len,
         "new_tokens": new, "setup_s": setup_s, "generate_s": gen_s,
         "generate_tok_per_s": 4 * new / gen_s,
@@ -744,31 +988,31 @@ def train_reference():
 
 def train(card):
     from repro_torch.kernels.maple_sddmm import maple_sddmm_bsr
-    from repro_torch.kernels.maple_spmm import (maple_spmm_compact,
-                                                maple_spmm_naive)
     from repro_torch.launch import train as launch_train
+    from repro_torch.models import lm
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    maple_spmm_naive.launches = 0
-    maple_spmm_compact.launches = 0
+    zero_spmm_counters()
     maple_sddmm_bsr.launches = 0
     t0 = time.perf_counter()
     run = launch_train.main(TRAIN_ARGV)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = {"maple_spmm_naive": maple_spmm_naive.launches,
-                "maple_spmm_compact": maple_spmm_compact.launches,
+    launches = {**spmm_counters(),
                 "maple_sddmm_bsr": maple_sddmm_bsr.launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     cfg = run.cfg
     steps, tokens = len(run.history), 4 * 256
     micro = cfg.train_microbatches
-    # per layer and microbatch: the MLP forward, its remat recompute and
-    # dB on the compact kernel; dA on the SDDMM
-    per_layer = 3 if cfg.remat else 2
-    expect = {"maple_spmm_naive": 0,
-              "maple_spmm_compact": steps * micro * cfg.n_layers * per_layer,
-              "maple_sddmm_bsr": steps * micro * cfg.n_layers}
+    # per layer and microbatch: the MLP forward and its remat recompute in
+    # the forward plan's layout, dB in the transpose-side plan's; dA on
+    # the SDDMM (the trainer's plan: the same knobs from the same pattern)
+    plan = lm.sparse_mlp_plan(run.params)
+    per_layer = micro * cfg.n_layers * steps
+    expect = {"maple_spmm_naive": 0, "maple_spmm_compact": 0,
+              "maple_spmm_planned": 0, "maple_sddmm_bsr": per_layer}
+    expect[PLANNED[plan.fwd.fused]] += per_layer * (2 if cfg.remat else 1)
+    expect[PLANNED[plan.bwd.fused]] += per_layer
     if launches != expect:
         raise AssertionError(f"kernel launches on the train path "
                              f"{launches}, expected {expect}")
@@ -793,7 +1037,9 @@ def train(card):
         "step_ms": step_ms, "step_ms_2_3": step_ms[1:3],
         "tok_per_s_2_3": [tokens / (ms / 1e3) for ms in step_ms[1:3]],
         "run_s": total_s, "peak_mem_gib": peak_gib, "launches": launches,
-        "launches_expected": expect, "card": card, "profile": prof}
+        "launches_expected": expect, "plan_fused": [plan.fwd.fused,
+                                                   plan.bwd.fused],
+        "card": card, "profile": prof}
 
 
 # --------------------------------------------------------------------------
@@ -804,8 +1050,8 @@ def head_backward():
     from repro_torch.core.csr import transpose_payload
     from repro_torch.kernels.maple_sddmm import (maple_sddmm_bsr,
                                                  maple_sddmm_bsr_plain)
-    from repro_torch.kernels.maple_spmm import (maple_spmm_compact,
-                                                maple_spmm_compact_plain)
+    from repro_torch.kernels.maple_spmm import (maple_spmm_compact_plain,
+                                                maple_spmm_planned_plain)
     from repro_torch.kernels.ops import _scatter_merge_f32
     from repro_torch.models.layers import init_sparse_linear
     from repro_torch.serve import SparseLogitHead
@@ -824,30 +1070,41 @@ def head_backward():
     blocks = w.blocks.clone().requires_grad_()
     trained = SparseLogitHead(weight=dataclasses.replace(w, blocks=blocks),
                               plan=head.plan)
-    before = (maple_spmm_compact.launches, maple_sddmm_bsr.launches)
+    train = head.plan
+    zero_spmm_counters()
+    maple_sddmm_bsr.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     (trained(hidden) * cot).sum().backward()
     torch.cuda.synchronize()
     fwd_bwd_ms = (time.perf_counter() - t0) * 1e3
-    launched = (maple_spmm_compact.launches - before[0],
-                maple_sddmm_bsr.launches - before[1])
-    if launched != (2, 1):
-        raise AssertionError(f"head forward+backward launched {launched} "
-                             f"(compact, sddmm), expected (2, 1)")
+    launched = {**spmm_counters(), "maple_sddmm_bsr": maple_sddmm_bsr.launches}
+    # the forward in the forward plan's layout, dB in the transpose-side
+    # plan's, dA on the SDDMM
+    expect = {"maple_spmm_naive": 0, "maple_spmm_compact": 0,
+              "maple_spmm_planned": 0, "maple_sddmm_bsr": 1}
+    expect[PLANNED[train.fwd.fused]] += 1
+    expect[PLANNED[train.bwd.fused]] += 1
+    if launched != expect:
+        raise AssertionError(f"head forward+backward launched {launched}, "
+                             f"expected {expect}")
     # the same two gradients from the kernels' plain versions
-    train = head.plan
     d = train.on_device(cot.device)
     bm, bk = w.block_shape
     dc = cot.transpose(1, 2).contiguous()                  # (1, V, 4)
     b3 = hidden.detach().transpose(1, 2).contiguous()      # (1, D, 4)
     at = transpose_payload(w.blocks, d["t_perm"], w.n_blocks_max)
     bwd = train.bwd.on_device(dc.device)
-    n_slots = train.bwd.n_lanes * train.bwd.r_max
-    tiles = maple_spmm_compact_plain(at, bwd["order"], bwd["step_col"],
-                                     bwd["runs"], dc, n_slots=n_slots)
-    db = _scatter_merge_f32(tiles.view(1, n_slots, bk, 4), bwd["merge"],
-                            gm=train.bwd.n_block_rows)
+    if train.bwd.fused == "rmw":
+        db = maple_spmm_planned_plain(at, bwd["order"], bwd["step_col"],
+                                      bwd["row_runs"], bwd["row_run_ptr"],
+                                      dc)
+    else:
+        n_slots = train.bwd.n_lanes * train.bwd.r_max
+        tiles = maple_spmm_compact_plain(at, bwd["order"], bwd["step_col"],
+                                         bwd["runs"], dc, n_slots=n_slots)
+        db = _scatter_merge_f32(tiles.view(1, n_slots, bk, 4), bwd["merge"],
+                                gm=train.bwd.n_block_rows)
     da = maple_sddmm_bsr_plain(dc, b3, d["block_row"], d["block_col"],
                                bm=bm, bk=bk)
     err_x = check_close(hidden.grad, db.transpose(1, 2), torch.float32,
@@ -858,7 +1115,83 @@ def head_backward():
                                                         .shape[0]),
             "bwd_runs": int(train.bwd.runs.shape[0]),
             "fwd_bwd_ms": fwd_bwd_ms, "dhidden_max_abs_err": err_x,
-            "dW_max_abs_err": err_w}
+            "dW_max_abs_err": err_w, "launches": launched,
+            "plan_fused": [train.fwd.fused, train.bwd.fused]}
+
+
+# --------------------------------------------------------------------------
+# the autotuned plan path on the MLP and head weights
+# --------------------------------------------------------------------------
+
+def autotune(card):
+    """``plan_search(measure=True, top_k=3)`` on the MLP down-projection and
+    the head (the measured rung runs each finalist through ``maple_spmm``
+    on the card); both layouts of the default knobs through ``maple_spmm``
+    at the path's shapes (B4 against B1 + merge, bitwise); on the MLP
+    only, the reordered plans (row-atomic bitwise, chunked within
+    1e-5·max of the unpermuted run) and ELL and bitmap copies (bitwise
+    against the BlockCSR route).  Launch counts run from zero over the
+    whole phase."""
+    from repro_torch.core import formats
+    from repro_torch.kernels import (maple_spmm, plan_reordered_spmm,
+                                     plan_search, plan_spmm, reorder_rows,
+                                     spmm_knob_space)
+    zero_spmm_counters()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    rng = np.random.default_rng(SEED + 12)
+    line = {"phase": "autotune", "card": card}
+    for key, shape in (("mlp", TRAIN_MLP), ("head", TRAIN_HEAD)):
+        w = sparse_weight(gen, shape, torch.float32)
+        t0 = time.perf_counter()
+        plan, rep = plan_search(w, measure=True, top_k=3, full=True)
+        search_s = time.perf_counter() - t0
+        cfgs = spmm_knob_space(w)
+        b = torch.from_numpy(rng.standard_normal(
+            (shape["d_in"], shape["N"][0])).astype(np.float32)).cuda()
+        out = {f: maple_spmm(w, b, plan=plan_spmm(
+            w, n_lanes=shape.get("n_lanes", 8), fused=f))
+            for f in ("rmw", "compact")}
+        torch.cuda.synchronize()
+        if not torch.equal(out["rmw"], out["compact"]):
+            raise AssertionError(f"{key}: rmw and compact layouts differ")
+        entry = {"shape": shape["name"], "search_s": search_s,
+                 "n_candidates": rep.n_candidates, "n_built": rep.n_built,
+                 "winner": rep.best_config, "winner_fused": plan.fused,
+                 "finalists": [{"config": cfgs[i], "fused": cfgs[i]["fused"],
+                                "measured_us": us}
+                               for i, us in sorted(rep.measured_us.items(),
+                                                   key=lambda t: t[1])],
+                 "layouts_bitwise_equal": True, "N": shape["N"][0]}
+        if key == "mlp":
+            t0 = time.perf_counter()
+            rr = reorder_rows(w)
+            entry["reorder_rows_s"] = time.perf_counter() - t0
+            entry["reorder_identity"] = bool(
+                (rr.perm == np.arange(rr.perm.size)).all())
+            entry["reorder_blocks"] = [w.nnzb, rr.n_blocks]
+            _, rrep = plan_search(w, reorder=True, full=True)
+            entry["reorder_search_winner"] = rrep.best_config
+            same = maple_spmm(w, b, plan=plan_reordered_spmm(
+                w, rr, row_atomic=True))
+            base = maple_spmm(w, b, plan=plan_spmm(w, row_atomic=True))
+            if not torch.equal(same, base):
+                raise AssertionError("reordered row-atomic run differs")
+            entry["reorder_chunked_max_abs_err"] = check_close(
+                maple_spmm(w, b, plan=plan_reordered_spmm(w, rr)),
+                maple_spmm(w, b, plan=plan_spmm(w)), torch.float32,
+                "reordered chunked run")
+            base = maple_spmm(w, b)
+            for fmt, conv in (("ell", formats.to_ell),
+                              ("bitmap", formats.to_bitmap)):
+                if not torch.equal(maple_spmm(conv(w), b), base):
+                    raise AssertionError(f"{fmt} route differs from BSR")
+            entry["ell_bitmap_bitwise_equal"] = True
+        line[key] = entry
+        del w, out
+    torch.cuda.synchronize()
+    launches = spmm_counters()
+    line["launches"] = launches
+    return launches, line
 
 
 # --------------------------------------------------------------------------
@@ -1679,6 +2012,7 @@ def main() -> int:
 
     n_edge = edge_cases() + sddmm_edge_cases()
     emit({"phase": "kernels_edge", "cases": n_edge, "ok": True})
+    emit(planned_edge_cases())
     rows, plan_s = serving_shapes(spec, flush)
     train_rows, train_plans = training_shapes(spec, flush)
     rows += train_rows
@@ -1696,6 +2030,8 @@ def main() -> int:
     train_launches, train_line = train(smi)
     emit(train_line)
     emit(head_backward())
+    autotune_launches, autotune_line = autotune(smi)
+    emit(autotune_line)
     emit(spgemm_kernels_edge())
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     spgemm_launches, spgemm_kernel_rows, spgemm_line = spgemm(spec, flush,
@@ -1718,16 +2054,18 @@ def main() -> int:
     rows += moe_kernel_rows + attn_rows
 
     # launches: each path's run, counted from 0
-    by_path = {"serve": serve_launches, "train": train_launches,
-               **spgemm_launches, "moe_serve": moe_launches,
-               "local_attention": attn_launches}
+    by_path = {**serve_launches, "train": train_launches,
+               "autotune": autotune_launches, **spgemm_launches,
+               "moe_serve": moe_launches, "local_attention": attn_launches}
     f32 = lambda n: lambda r: r["dtype"] == "float32" and r.get("N") == n
     headline = {"maple_spmm_naive": f32(1), "maple_spmm_compact": f32(1),
+                "maple_spmm_planned": f32(1),
                 "maple_sddmm_bsr": f32(256),
                 **{k: f32(None) for k in SPGEMM_COUNTERS},
                 "moe_gemm": f32(None), "block_attention": f32(None)}
     keys = ("shape", "dtype", "G", "N", "bt", "ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_by", "max_abs_err")
+            "bound_ms", "bound_by", "max_abs_err", "compact_merge_ms",
+            "merge_ms", "merge_bound_ms", "runs", "rows")
     summary = []
     for kname, pick in headline.items():
         counts = {p: c[kname] for p, c in by_path.items() if kname in c}

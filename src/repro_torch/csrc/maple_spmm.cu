@@ -1,6 +1,6 @@
 // Maple block-sparse × dense SpMM kernels for Hopper (sm_90a), f32 FMA.
 //
-// Two kernels, one shared tile engine:
+// Three kernels, one shared tile engine:
 //
 // * maple_spmm_naive — replaces repro/kernels/maple_spmm.py::
 //   maple_spmm_batched_pallas (the "naive" schedule).  The TPU kernel walks
@@ -20,6 +20,25 @@
 //   (SpmmPlan.runs) and one thread block runs one (run, N tile, batch g),
 //   flushing its f32 tile to the run's slot.  Pad steps (step_col < 0) add
 //   nothing; dead slots are never written.
+//
+// * maple_spmm_planned — replaces maple_spmm.py::maple_spmm_planned_pallas
+//   (the planned "rmw" layout).  The TPU kernel runs lanes as a sequential
+//   grid axis: a row's first flusher overwrites its output tile, later
+//   flushers read it back and add in f32, and rows no lane flushes are left
+//   for a mask.  Here a loop inside the block takes the place of that
+//   sequential axis: one thread block owns one (block-row i, N tile, batch
+//   g) output tile and walks row i's runs in lane order (the host sorts the
+//   run table by row, stably: SpmmPlan.row_runs / row_run_ptr).  Each run
+//   is zeroed and walked exactly as the compact kernel walks it, then added
+//   into the row's f32 accumulator, so a split row sums ((0 + run0) + run1)
+//   + ... — the rmw order, and the slot merge's — and the tile is written
+//   once.  A row with no run is written as zeros.  No atomics, no flags
+//   between blocks.  Since the run walk is the compact kernel's own code,
+//   the result equals compact + merge bit for bit on the same plan.  It
+//   trades the merge's extra pass over the slot buffer for one block per
+//   row: a row split over many lanes is walked by one block, so where the
+//   plan splits rows (a power-law pattern, 16 lanes on the MLP) it has
+//   fewer blocks in flight than the compact kernel.
 //
 // What bounds them on the H100: every live weight block is read once per
 // N tile, 2·N FLOPs per 4-byte weight element.  Below N ≈ 10 (decode, the
@@ -96,6 +115,14 @@ __host__ __device__ __forceinline__ int stage_floats(const Geom& g) {
   return g.bm * (g.kc + 1) + g.kc * g.bn;   // +1: rows of A in distinct banks
 }
 
+// Shared floats the walk uses: the groups' staging areas, reused for the
+// fixed-order reduction of their PSBs.
+__host__ __device__ __forceinline__ int walk_floats(const Geom& g) {
+  const int staged = g.groups * stage_floats(g);
+  const int reduce = g.groups * g.bm * g.bn;
+  return staged > reduce ? staged : reduce;
+}
+
 // Stage kc columns of weight block a_blk and the matching kc rows of B's
 // panel (columns n0 .. n0+bn, zero past N) into this group's shared memory.
 template <typename T>
@@ -168,7 +195,7 @@ __device__ __forceinline__ void fma_stage(float (&acc)[TM][TN],
   }
 }
 
-// The walk both kernels share: steps [first, end) of a step stream, step s
+// The walk all three kernels share: steps [first, end) of a step stream, step s
 // contributing blocks[block_of(s)] · B[g][col_of(s) panel] unless
 // col_of(s) < 0.  Groups take steps round-robin; the tile comes back in
 // group 0's registers (other groups return with it unspecified).
@@ -283,6 +310,72 @@ compact_kernel(const T* __restrict__ blocks, const int* __restrict__ order,
   flush_tile<float, TM, TN>(acc, out_tile, n0, geo);
 }
 
+// A row's running sum lives in a second register tile where two tiles fit
+// (TM·TN <= 16), else in shared memory past the walk's area, each thread
+// its own elements: with (4, 8) a second register tile spills (ptxas -v),
+// so the (64, 128) tiles of N >= 128 keep the sum in shared memory; the
+// (4, 4) tiles of decode and the logit head never spill, and extra shared
+// memory would cost them occupancy.
+template <int TM, int TN>
+__host__ __device__ constexpr bool row_in_smem() { return TM * TN > 16; }
+
+// grid: (gm, ceil(N / bn), G); row_runs[r] = (lane, first, end, flat slot),
+// sorted by block-row, lane order kept within a row; row i's runs are
+// row_runs[row_run_ptr[i] .. row_run_ptr[i + 1]]
+template <typename T, int TM, int TN>
+__global__ void __launch_bounds__(kMaxThreads)
+planned_kernel(const T* __restrict__ blocks, const int* __restrict__ order,
+               const int* __restrict__ step_col,
+               const int* __restrict__ row_runs,
+               const int* __restrict__ row_run_ptr, const T* __restrict__ b,
+               float* __restrict__ out, int steps, Geom geo) {
+  extern __shared__ float smem[];
+  const int i = blockIdx.x, n0 = blockIdx.y * geo.bn, g = blockIdx.z;
+  const T* b_g = b + (int64_t)g * geo.K * geo.N;
+  float* row_s = smem + walk_floats(geo);
+  const int tx_n = geo.bn / TN, ty_n = geo.bm / TM;
+  const int tx = threadIdx.x % tx_n, ty = threadIdx.x / tx_n;
+  const bool holder = threadIdx.x < tx_n * ty_n;    // group 0
+  const int r0 = row_run_ptr[i], r1 = row_run_ptr[i + 1];
+  float acc[TM][TN], row[TM][TN];
+#pragma unroll
+  for (int u = 0; u < TM; ++u)
+#pragma unroll
+    for (int v = 0; v < TN; ++v) acc[u][v] = row[u][v] = 0.0f;
+  for (int r = r0; r < r1; ++r) {
+    const int lane = row_runs[4 * r], first = row_runs[4 * r + 1];
+    const int end = row_runs[4 * r + 2];
+    const int64_t base = (int64_t)lane * steps;
+    walk<T, TM, TN>(acc, blocks, b_g, first, end, n0, geo, smem,
+                    [&](int s, int& blk, int& col) {
+                      blk = order[base + s];
+                      col = step_col[base + s];
+                    });
+    if (holder) {
+      // the row so far (0 before its first run) plus this run's PSB
+#pragma unroll
+      for (int u = 0; u < TM; ++u)
+#pragma unroll
+        for (int v = 0; v < TN; ++v) {
+          if constexpr (row_in_smem<TM, TN>()) {
+            float* keep = row_s + (ty + u * ty_n) * geo.bn + tx + v * tx_n;
+            acc[u][v] = (r == r0 ? 0.0f : *keep) + acc[u][v];
+            if (r + 1 < r1) *keep = acc[u][v];
+          } else {
+            row[u][v] += acc[u][v];
+          }
+        }
+    }
+    // the next walk reuses shared memory that group 0 may still be reading
+    __syncthreads();
+  }
+  float* out_tile = out + ((int64_t)g * gridDim.x + i) * geo.bm * geo.N;
+  if constexpr (row_in_smem<TM, TN>())
+    flush_tile<float, TM, TN>(acc, out_tile, n0, geo);
+  else
+    flush_tile<float, TM, TN>(row, out_tile, n0, geo);
+}
+
 // Register tile per thread: the first (TM, TN) that divides the tile and
 // gives a group of 64..256 threads; (1, 1) for the small tiles of the
 // tests.  Returns -1 when no tile fits.
@@ -304,11 +397,7 @@ Geom make_geom(int K, int N, int bm, int bk, int bn, int tpg) {
   return Geom{K, N, bm, bk, bn, kc, groups};
 }
 
-size_t smem_bytes(const Geom& g) {
-  const int staged = g.groups * stage_floats(g);
-  const int reduce = g.groups * g.bm * g.bn;
-  return sizeof(float) * (staged > reduce ? staged : reduce);
-}
+size_t smem_bytes(const Geom& g) { return sizeof(float) * walk_floats(g); }
 
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {
@@ -347,6 +436,25 @@ cudaError_t launch_compact(const void* blocks, const int* order,
   compact_kernel<T, TM, TN><<<grid, threads, smem, stream>>>(
       (const T*)blocks, order, step_col, runs, (const T*)b, out, steps,
       n_slots, geo);
+  return cudaGetLastError();
+}
+
+template <typename T, int TM, int TN>
+cudaError_t launch_planned(const void* blocks, const int* order,
+                           const int* step_col, const int* row_runs,
+                           const int* row_run_ptr, const void* b, float* out,
+                           int G, int gm, int steps, const Geom& geo,
+                           cudaStream_t stream) {
+  const dim3 grid(gm, (geo.N + geo.bn - 1) / geo.bn, G);
+  const int threads = geo.groups * (geo.bm / TM) * (geo.bn / TN);
+  // the walk's area, then the row's running sum where it is kept there
+  const size_t smem = smem_bytes(geo) + (row_in_smem<TM, TN>()
+      ? sizeof(float) * geo.bm * geo.bn : 0);
+  cudaError_t err = prepare(planned_kernel<T, TM, TN>, smem);
+  if (err != cudaSuccess) return err;
+  planned_kernel<T, TM, TN><<<grid, threads, smem, stream>>>(
+      (const T*)blocks, order, step_col, row_runs, row_run_ptr, (const T*)b,
+      out, steps, geo);
   return cudaGetLastError();
 }
 
@@ -408,6 +516,31 @@ int maple_spmm_compact(const void* blocks, const int* order,
     DISPATCH_CONFIG(cfg, launch_compact, __nv_bfloat16, blocks, order,
                     step_col, runs, b, out, G, n_runs, steps, n_slots, geo,
                     st)
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// row_runs (n_runs, 4) sorted by block-row, row_run_ptr (gm + 1); out is
+// the merged f32 result (G, gm * bm, N), every row written.
+int maple_spmm_planned(const void* blocks, const int* order,
+                       const int* step_col, const int* row_runs,
+                       const int* row_run_ptr, const void* b, float* out,
+                       int dtype, int G, int gm, int steps, int K, int N,
+                       int bm, int bk, int bn, void* stream) {
+  if (G == 0 || gm == 0 || N == 0) return (int)cudaSuccess;
+  if (bk % 4) return (int)cudaErrorInvalidValue;
+  int tpg = 0;
+  const int cfg = pick_config(bm, bn, &tpg);
+  const Geom geo = make_geom(K, N, bm, bk, bn, tpg);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) {
+    DISPATCH_CONFIG(cfg, launch_planned, float, blocks, order, step_col,
+                    row_runs, row_run_ptr, b, out, G, gm, steps, geo, st)
+  }
+  if (dtype == 1) {
+    DISPATCH_CONFIG(cfg, launch_planned, __nv_bfloat16, blocks, order,
+                    step_col, row_runs, row_run_ptr, b, out, G, gm, steps,
+                    geo, st)
   }
   return (int)cudaErrorInvalidValue;
 }

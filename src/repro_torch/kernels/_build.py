@@ -98,6 +98,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.maple_spmm_compact.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                            i, i, i, i, i, p]
         lib.maple_spmm_compact.restype = i
+        lib.maple_spmm_planned.argtypes = [p] * 7 + [i] * 9 + [p]
+        lib.maple_spmm_planned.restype = i
     elif name == "maple_sddmm":
         lib.maple_sddmm_bsr.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
                                         i, i, p]

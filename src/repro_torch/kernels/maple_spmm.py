@@ -1,7 +1,7 @@
 """Maple SpMM kernel wrappers: block-CSR ``A`` × dense ``B`` on Hopper.
 
-Two kernels (CUDA C++, ``csrc/maple_spmm.cu``), each with a plain PyTorch
-version of the same function beside it:
+Three kernels (CUDA C++, ``csrc/maple_spmm.cu``), each with a plain
+PyTorch version of the same function beside it:
 
 * :func:`maple_spmm_naive` — replaces ``maple_spmm_batched_pallas``
   (``repro/kernels/maple_spmm.py``): the naive walk, one f32 PSB per
@@ -10,6 +10,11 @@ version of the same function beside it:
   the planned walk, one f32 PSB per (lane, row) run of the plan, flushed
   into the run's compact slot; returns the f32 slot buffer, whose dead
   slots are left unwritten (undefined).
+* :func:`maple_spmm_planned` — replaces ``maple_spmm_planned_pallas``:
+  the same runs, summed per block-row in lane order into the merged f32
+  ``(G, M, N)`` result (the rmw layout); rows no run names come out 0.
+  On one plan it equals :func:`maple_spmm_compact` plus
+  ``ops._scatter_merge_f32`` bit for bit.
 
 A wrapper runs the plain version only for tensors on the CPU.  For CUDA
 tensors it launches the kernel or raises; each launch adds one to the
@@ -160,15 +165,14 @@ def maple_spmm_compact(blocks: torch.Tensor, order: torch.Tensor,
 maple_spmm_compact.launches = 0
 
 
-def maple_spmm_compact_plain(blocks, order, step_col, runs, b3, *,
-                             n_slots: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`maple_spmm_compact`.  Slots no run
-    names hold NaN, so a merge that reads one shows it."""
+def _run_psbs(blocks, order, step_col, runs, b3) -> torch.Tensor:
+    """``(G, n_runs, bm, N)`` f32: run r's PSB, the sum over its steps in
+    step order (pad steps add nothing).  Shared by the plain versions."""
     nb, bm, bk = blocks.shape
     g, k, n = b3.shape
     steps = order.shape[1]
     runs = runs.long()
-    lane, first, end, slot = runs.unbind(1)
+    lane, first, end, _ = runs.unbind(1)
     length = end - first
     run_of = torch.repeat_interleave(torch.arange(runs.shape[0],
                                                   device=b3.device), length)
@@ -180,10 +184,85 @@ def maple_spmm_compact_plain(blocks, order, step_col, runs, b3, *,
     cols = step_col.reshape(-1)[flat].long()
     live = cols >= 0
     blk = order.reshape(-1)[flat][live].long()
-    tiles = torch.full((g, n_slots, bm, n), float("nan"), dtype=torch.float32,
+    psbs = torch.zeros((g, runs.shape[0], bm, n), dtype=torch.float32,
                        device=b3.device)
-    tiles[:, slot] = 0.0
     panels = b3.float().reshape(g, k // bk, bk, n)[:, cols[live]]
     contrib = torch.einsum("sik,gskn->gsin", blocks[blk].float(), panels)
-    tiles.index_add_(1, slot[run_of][live], contrib)
-    return tiles.reshape(g, n_slots * bm, n)
+    return psbs.index_add_(1, run_of[live], contrib)
+
+
+def maple_spmm_compact_plain(blocks, order, step_col, runs, b3, *,
+                             n_slots: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`maple_spmm_compact`.  Slots no run
+    names hold NaN, so a merge that reads one shows it."""
+    g, n = b3.shape[0], b3.shape[2]
+    tiles = torch.full((g, n_slots, blocks.shape[1], n), float("nan"),
+                       dtype=torch.float32, device=b3.device)
+    tiles[:, runs[:, 3].long()] = _run_psbs(blocks, order, step_col, runs,
+                                            b3)
+    return tiles.reshape(g, n_slots * blocks.shape[1], n)
+
+
+# --------------------------------------------------------------------------
+# planned rmw layout (B4)
+# --------------------------------------------------------------------------
+
+def maple_spmm_planned(blocks: torch.Tensor, order: torch.Tensor,
+                       step_col: torch.Tensor, row_runs: torch.Tensor,
+                       row_run_ptr: torch.Tensor, b3: torch.Tensor, *,
+                       bn: int = 128) -> torch.Tensor:
+    """The merged f32 result ``(G, gm·bm, N)``: block-row ``i`` is
+    ``((0 + P₀) + P₁) + ...`` over its runs ``row_runs[row_run_ptr[i] :
+    row_run_ptr[i + 1]]`` in that (lane) order, where a run's PSB ``P``
+    is the f32 sum over steps ``first .. end`` of lane ``lane`` (pad steps
+    add nothing) of ``blocks[order] @ B[g, step_col·bk : (step_col+1)·bk]``.
+    A row with no run is 0."""
+    _check_operands(blocks, b3, (("order", order), ("step_col", step_col),
+                                 ("row_runs", row_runs),
+                                 ("row_run_ptr", row_run_ptr)), bn)
+    if order.shape != step_col.shape or order.dim() != 2:
+        raise ValueError("order and step_col must be one (lanes, steps) shape")
+    if row_runs.dim() != 2 or row_runs.shape[1] != 4:
+        raise ValueError(f"row_runs must be (n_runs, 4), got "
+                         f"{tuple(row_runs.shape)}")
+    if row_run_ptr.dim() != 1 or row_run_ptr.numel() < 1:
+        raise ValueError("row_run_ptr must be (gm + 1,)")
+    if not b3.is_cuda:
+        return maple_spmm_planned_plain(blocks, order, step_col, row_runs,
+                                        row_run_ptr, b3)
+    nb, bm, bk = blocks.shape
+    g, k, n = b3.shape
+    gm = row_run_ptr.numel() - 1
+    out = torch.empty((g, gm * bm, n), dtype=torch.float32, device=b3.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.library("maple_spmm")
+    err = lib.maple_spmm_planned(
+        blocks.data_ptr(), order.data_ptr(), step_col.data_ptr(),
+        row_runs.data_ptr(), row_run_ptr.data_ptr(), b3.data_ptr(),
+        out.data_ptr(), _DTYPES[b3.dtype], g, gm, order.shape[1], k, n, bm,
+        bk, _tile_n(bn, n), _stream())
+    _build.check(lib, err, "maple_spmm_planned")
+    maple_spmm_planned.launches += 1
+    return out
+
+
+maple_spmm_planned.launches = 0
+
+
+def maple_spmm_planned_plain(blocks, order, step_col, row_runs, row_run_ptr,
+                             b3) -> torch.Tensor:
+    """Plain PyTorch version of :func:`maple_spmm_planned`: the runs' PSBs,
+    then, for k = 0, 1, ..., every row's k-th run added to the row."""
+    g, n = b3.shape[0], b3.shape[2]
+    bm = blocks.shape[1]
+    gm = row_run_ptr.numel() - 1
+    psbs = _run_psbs(blocks, order, step_col, row_runs, b3)
+    ptr = row_run_ptr.long()
+    count = ptr[1:] - ptr[:-1]
+    out = psbs.new_zeros((g, gm, bm, n))
+    for k in range(int(count.max()) if gm else 0):
+        rows = torch.nonzero(count > k)[:, 0]
+        out.index_copy_(1, rows, out.index_select(1, rows)
+                        + psbs.index_select(1, ptr[rows] + k))
+    return out.reshape(g, gm * bm, n)

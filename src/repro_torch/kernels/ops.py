@@ -4,16 +4,18 @@
 ``local_block_attention``, forward only.
 
 The wrappers own everything that is not a kernel: argument checks (the
-reference's raises, same types and messages), schedule selection and
-planning, device copies of the metadata, the deterministic f32 merge of
-the SpMM's compact layout, and the backwards.  :class:`_SpmmFunction`:
-dB = Aᵀ·dC on the planned compact kernel over the transpose-side plan,
-dA through the block SDDMM kernel.  :class:`_SpgemmValueFunction`: dA
-through the CSR SDDMM kernel, dB through the fiber-order dB kernel.
+reference's raises, same types and messages), format lowering, schedule
+selection, planning and autotuning, row reordering, device copies of the
+metadata, the deterministic f32 merge of the SpMM's compact layout, and
+the backwards.  :class:`_SpmmFunction`: dB = Aᵀ·dC on the planned kernel
+of the transpose-side plan's layout, dA through the block SDDMM kernel.
+:class:`_SpgemmValueFunction`: dA through the CSR SDDMM kernel, dB through
+the fiber-order dB kernel.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Tuple
 
 import numpy as np
@@ -27,15 +29,37 @@ from repro_torch.kernels.block_attn import (block_attention,
 from repro_torch.kernels.maple_sddmm import maple_sddmm_bsr, maple_sddmm_csr
 from repro_torch.kernels.maple_spgemm import (maple_spgemm_db,
                                               maple_spgemm_numeric)
-from repro_torch.kernels.maple_spmm import maple_spmm_compact, maple_spmm_naive
+from repro_torch.kernels.maple_spmm import (maple_spmm_compact,
+                                            maple_spmm_naive,
+                                            maple_spmm_planned)
 from repro_torch.kernels.maple_spmspm import maple_spmspm_ell
 from repro_torch.kernels.moe_gemm import moe_gemm
+from repro_torch.kernels.reorder import apply_reorder
 from repro_torch.kernels.schedule import (SpgemmPlan, SpmmPlan, SpmmTrainPlan,
                                           plan_spgemm, plan_spmm,
                                           plan_spmm_vjp)
 
 
-def maple_spmm(a: BlockCSR, b_dense: torch.Tensor, *, bn: int = 128,
+def _validate_enabled() -> bool:
+    """``MAPLE_VALIDATE=1`` arms the operands' pad-contract checks at the
+    entry points.  Off by default: the checks read payloads on the host,
+    a device sync per call."""
+    return os.environ.get("MAPLE_VALIDATE", "0") not in ("", "0")
+
+
+def _maybe_validate(*operands) -> None:
+    """``check_pad_contract`` on each sparse operand when the
+    ``MAPLE_VALIDATE`` gate is armed."""
+    if not _validate_enabled():
+        return
+    for op in operands:
+        if isinstance(op, (CSR, BlockCSR, formats.EllPack,
+                           formats.BitmapBlocked)):
+            op.check_pad_contract()
+
+
+def maple_spmm(a: "formats.BlockFormat", b_dense: torch.Tensor, *,
+               bn: int = 128,
                schedule: str = "balanced", n_lanes: int = 8,
                chunk: int | None = None, n_shards: int | None = None,
                n_col_shards: int | None = None,
@@ -44,33 +68,46 @@ def maple_spmm(a: BlockCSR, b_dense: torch.Tensor, *, bn: int = 128,
     """C = A_bsr @ B with the Maple block dataflow.  Differentiable in
     ``a.blocks`` and ``b_dense``.
 
-    ``b_dense`` is one ``(K, N)`` right-hand side or a batch ``(G, K, N)``
-    sharing A's structure; ``N`` may be ragged.  ``schedule``:
+    ``a`` is any blocked format (``BlockCSR``, ``EllPack``,
+    ``BitmapBlocked``); ELL and bitmap operands lower through
+    ``core.formats.as_block_csr`` at entry (one host pattern walk, one
+    payload gather), so every format runs bit-identically.  ``b_dense`` is
+    one ``(K, N)`` right-hand side or a batch ``(G, K, N)`` sharing A's
+    structure; ``N`` may be ragged.  ``schedule``:
 
     * ``"balanced"`` (default) / ``"row_atomic"`` — plan with
       :func:`~repro_torch.kernels.schedule.plan_spmm` (or use the prebuilt
-      ``plan``) and run the planned kernel in the compact layout, whose
-      split-row partials merge in f32 in slot order, then cast once.
+      ``plan``) and run the layout the plan carries: ``"rmw"`` (the
+      default) sums each row's runs in lane order inside one kernel,
+      ``"compact"`` flushes per-run slots and merges them in f32 in slot
+      order; both round to the output type once.
     * ``"naive"`` — the construction-order walk: one kernel launch, no
       plan, no host work per call beyond argument checks.
 
-    **Backward** (a ``torch.autograd.Function``): dB = Aᵀ·dC runs the
-    compact kernel on the transpose-side plan of an
-    :class:`~repro_torch.kernels.schedule.SpmmTrainPlan` and merges
-    deterministically as the forward does; dA is the block SDDMM sampled
-    at A's pattern, masked on ``block_col >= 0`` and cast to the payload's
-    dtype.  Metadata gets no gradient.  Pass the train plan
-    (``plan_spmm_vjp``) to build it once per weight; without one, the
-    first backward of a call builds it from the call's forward plan (the
-    naive schedule plans afresh), as the reference does eagerly.
+    ``plan="auto"`` searches the schedule knob space instead
+    (:func:`~repro_torch.kernels.autotune.auto_plan`, memoized per
+    pattern); ``reorder`` rides it (``True`` forces the similarity row
+    reordering, ``"auto"`` lets the search decide).  A plan that carries a
+    ``RowReorder`` (``plan_reordered_spmm``) runs on A's permuted
+    block-rows and the output rows are permuted back.
 
-    Not ported yet (raise ``NotImplementedError``): ELL / bitmap operands,
-    ``schedule="partitioned"`` and ``n_shards`` / ``n_col_shards``,
-    ``plan="auto"`` and ``reorder``.
+    **Backward** (a ``torch.autograd.Function``): dB = Aᵀ·dC runs the
+    transpose-side plan of an
+    :class:`~repro_torch.kernels.schedule.SpmmTrainPlan` in its layout;
+    dA is the block SDDMM sampled at A's pattern, masked on ``block_col >=
+    0`` and cast to the payload's dtype.  Metadata gets no gradient.  Pass
+    the train plan (``plan_spmm_vjp``) to build it once per weight;
+    without one, the first backward of a call builds it from the call's
+    forward plan (the naive schedule plans afresh), as the reference does
+    eagerly.
+
+    ``MAPLE_VALIDATE=1`` checks A's pad contract at entry.  Not ported yet
+    (raise ``NotImplementedError``): ``schedule="partitioned"`` and
+    ``n_shards`` / ``n_col_shards`` above 1.
     """
+    _maybe_validate(a)
     if not isinstance(a, BlockCSR):
-        raise NotImplementedError("ELL / bitmap operands are not ported yet; "
-                                  "pass a BlockCSR")
+        a = formats.as_block_csr(a)
     if a.stacked:
         raise ValueError("a holds a stack of layers; pass one (a.layer(i))")
     if schedule not in ("balanced", "row_atomic", "naive", "partitioned"):
@@ -84,13 +121,17 @@ def maple_spmm(a: BlockCSR, b_dense: torch.Tensor, *, bn: int = 128,
             "reorder is an autotune knob and requires plan='auto'; to "
             "run a reordered schedule directly, prebuild it with "
             "kernels.reorder.plan_reordered_spmm and pass it as `plan`")
+    auto_planned = False
     if isinstance(plan, str):
         if plan != "auto":
             raise ValueError(f"unknown plan {plan!r}; pass a prebuilt plan "
                              f"or 'auto'")
-        raise NotImplementedError("plan='auto' (the autotuner) is not "
-                                  "ported yet")
-    if n_shards is not None or n_col_shards is not None:
+        from repro_torch.kernels.autotune import auto_plan  # imports ops
+        plan = auto_plan(a, n_shards=n_shards, n_col_shards=n_col_shards,
+                         reorder=reorder)
+        auto_planned = True
+    if (n_shards is not None or n_col_shards is not None) \
+            and not auto_planned:
         if plan is not None:
             raise ValueError(
                 "n_shards/n_col_shards was given but the prebuilt "
@@ -118,6 +159,17 @@ def maple_spmm(a: BlockCSR, b_dense: torch.Tensor, *, bn: int = 128,
                          f"K={b_dense.shape[-2]}")
     batched = b_dense.dim() == 3
     b3 = (b_dense if batched else b_dense[None]).contiguous()
+    # a reordered plan runs on A's permuted block-rows (the payload gather
+    # sits outside the autograd Function, so dA scatters back to the
+    # original slots); its output rows are permuted back below
+    rr = getattr(plan, "reorder", None) if plan is not None else None
+    if rr is not None:
+        if rr.shape != a.shape or rr.block_shape != a.block_shape:
+            raise ValueError(
+                f"reordered plan was built for {rr.shape} / blocks "
+                f"{rr.block_shape}, operand is {a.shape} / blocks "
+                f"{a.block_shape} — was it built for this weight?")
+        a = apply_reorder(a, rr)
     if plan is not None:
         if plan.n_block_rows != a.n_block_rows:
             raise ValueError(
@@ -146,6 +198,11 @@ def maple_spmm(a: BlockCSR, b_dense: torch.Tensor, *, bn: int = 128,
                                           row_atomic=ra, fwd=fwd))
             return memo[0]
     out = _SpmmFunction.apply(a.blocks, b3, a, plan, train_thunk, bn)
+    if rr is not None:
+        # permuted row p holds original row rr.perm[p]: gather row i from
+        # position rr.inv[i]
+        out = out.index_select(1, torch.from_numpy(
+            rr.inv.astype(np.int64)).to(out.device))
     return out if batched else out[0]
 
 
@@ -183,7 +240,7 @@ class _SpmmFunction(torch.autograd.Function):
         da = db = None
         if need_db:
             # dB = Aᵀ·dC: gather the payload into Aᵀ slot order, swap each
-            # block, and run the compact kernel on the transpose-side plan
+            # block, and run the transpose-side plan in its layout
             at_blocks = transpose_payload(blocks, d["t_perm"],
                                           train.n_blocks_max)
             db = _planned_spmm_f32(at_blocks, dc, train.bwd,
@@ -210,11 +267,17 @@ def _meta_on(a: BlockCSR, device: torch.device) -> dict:
 
 
 def _planned_spmm_f32(blocks, b3, plan: SpmmPlan, *, bn: int) -> torch.Tensor:
-    """Planned SpMM in the compact layout → merged ``(G, M, N)`` f32 (the
-    cast is the caller's).  The reference also keeps an in-kernel
-    read-modify-write layout (``plan.fused == "rmw"``) that it runs only
-    interpreted; compiled calls there, and every call here, take compact."""
+    """Planned SpMM → merged ``(G, M, N)`` f32 (the cast is the caller's),
+    in the layout the plan carries, on every device: ``"rmw"`` runs B4,
+    which sums each row's runs in lane order; ``"compact"`` runs B1 into
+    per-run slots and merges them in slot order.  The two agree bit for
+    bit on one plan.  (The reference runs rmw only interpreted: Mosaic
+    cannot re-read a revisited output tile, so its compiled calls take
+    compact.)"""
     d = plan.on_device(b3.device)
+    if plan.fused == "rmw":
+        return maple_spmm_planned(blocks, d["order"], d["step_col"],
+                                  d["row_runs"], d["row_run_ptr"], b3, bn=bn)
     bm = plan.block_m
     n_slots = plan.n_lanes * plan.r_max
     tiles = maple_spmm_compact(blocks, d["order"], d["step_col"], d["runs"],
@@ -260,12 +323,12 @@ def csr_to_ell(a: CSR, max_row_len: int | None = None, *,
 def _as_csr(op) -> CSR:
     if isinstance(op, CSR):
         return op
-    if isinstance(op, BlockCSR):
+    if isinstance(op, formats.BLOCK_FORMATS):
         # blocked operands expand to the element pattern they store
         return formats.as_element_csr(op)
     raise TypeError(
-        "maple_spgemm takes CSR (or BlockCSR) operands; for dense B use "
-        "maple_spmm or maple_spmspm")
+        "maple_spgemm takes CSR (or blocked format) operands; for dense B "
+        "use maple_spmm or maple_spmspm")
 
 
 def maple_spgemm(a: CSR, b: CSR, *, schedule: str = "balanced",
@@ -281,7 +344,7 @@ def maple_spgemm(a: CSR, b: CSR, *, schedule: str = "balanced",
     .maple_spgemm_numeric`, B5) computes the values with B held as
     compressed rows, never densified.  The result is a padded ``CSR``
     (``col_id = -1`` pads) at capacity :func:`~repro_torch.core.csr
-    .grow_nnz_max` of nnz(C), unless ``nnz_max`` pins it.  ``BlockCSR``
+    .grow_nnz_max` of nnz(C), unless ``nnz_max`` pins it.  Blocked
     operands lower to the element pattern they store.
 
     ``schedule`` packs A rows onto lanes: ``"balanced"`` (LPT by partial
@@ -293,7 +356,9 @@ def maple_spgemm(a: CSR, b: CSR, *, schedule: str = "balanced",
     **Backward** (a ``torch.autograd.Function``): dA through the CSR SDDMM
     kernel (B6), dB through the fiber-order kernel, both over the plan;
     one launch each per backward, none when nnz(C) is 0.
+    ``MAPLE_VALIDATE=1`` checks both operands' pad contracts at entry.
     """
+    _maybe_validate(a, b)
     a = _as_csr(a)
     b = _as_csr(b)
     if a.shape[1] != b.shape[0]:

@@ -7,15 +7,17 @@ Plans are host numpy over the sparsity pattern and come out identical to
 the reference's: ``order``, ``step_row``, ``step_col``, ``written``,
 ``step_acc``, ``flush_slot``, ``slot_row``, ``r_max`` and ``row_mask`` are
 held against it with ``np.array_equal``, and ``predicted_cycles()`` with
-``==``; so are every array of :class:`SpgemmPlan`.  The port adds the
-derived tables the Hopper executors need (``SpmmPlan.runs`` and
-``merge_ranks``; ``SpgemmPlan.on_device``), built once per plan.
-Partitioned (multi-device) plans are not ported yet.
+``==``; so are every array of :class:`SpgemmPlan`, the pattern
+fingerprint and the autotuner's knob space.  The port adds the derived
+tables the Hopper executors need (``SpmmPlan.runs``, ``row_runs`` /
+``row_run_ptr`` and ``merge_ranks``; ``SpgemmPlan.on_device``), built once
+per plan.  Partitioned (multi-device) plans are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import heapq
 from typing import Dict, List, Optional, Sequence, Tuple, TypeVar
 
@@ -24,7 +26,8 @@ import torch
 
 from repro_torch.core.csr import (CSR, BlockCSR, bsr_transpose_meta,
                                   spgemm_row_upper_bounds, transpose_perm)
-from repro_torch.core.formats import as_element_csr, ell_slots
+from repro_torch.core.formats import (as_block_csr, as_element_csr,
+                                      block_pattern_meta, ell_slots)
 from repro_torch.core.maple import (SpGEMMStats, analyze_spgemm,
                                     baseline_pe_cycles, expand_partials,
                                     maple_pe_cycles)
@@ -113,16 +116,22 @@ class SpmmPlan(ExecutionPlan):
     accumulates), the compact layout's ``flush_slot`` / ``slot_row``
     (lane l flushes its t-th distinct row into slot t; ``-1`` marks dead
     slots), ``r_max`` and the element-granular ``row_mask``.  ``fused`` is
-    the reference's layout preference, kept so the arrays match; the port
-    always executes the compact layout.
+    the layout the executor runs: ``"rmw"`` (B4, one thread block per
+    block-row summing the row's runs in lane order) or ``"compact"`` (B1
+    into per-run slots, then the slot merge).
 
-    Derived for the Hopper executor, once per plan:
+    Derived for the Hopper executors, once per plan:
 
     * ``runs`` — ``(n_runs, 4)`` int32 rows ``(lane, first step, end step,
       flat slot)``, one per (lane, row) PSB run that flushes a live slot
-      (``flat slot = lane · r_max + slot``).  The planned kernel launches
-      one thread block per run; idle lanes, whose only run drains pad
-      steps into a dead slot, get none, so dead slots are never written.
+      (``flat slot = lane · r_max + slot``), in lane order.  The compact
+      kernel launches one thread block per run; idle lanes, whose only run
+      drains pad steps into a dead slot, get none, so dead slots are never
+      written.
+    * ``row_runs`` / ``row_run_ptr`` — the same runs stably sorted by
+      block-row (lane order kept within a row) and a ``(gm + 1,)`` int32
+      pointer into them: block-row i's runs are ``row_runs[row_run_ptr[i]
+      : row_run_ptr[i + 1]]``.  The rmw kernel walks them.
     * ``merge_ranks`` — the deterministic slot merge: a list over rank
       ``k`` of ``(flat slots, rows)`` where each row's k-th live slot (in
       slot order) appears in rank k.  Rows within a rank are distinct.
@@ -167,6 +176,12 @@ class SpmmPlan(ExecutionPlan):
         object.__setattr__(self, "r_max", r_max)
         object.__setattr__(self, "row_mask", np.repeat(any_writer, block_m))
         object.__setattr__(self, "runs", self._run_table())
+        run_rows = slot_row.reshape(-1)[self.runs[:, 3]]
+        object.__setattr__(self, "row_runs", np.ascontiguousarray(
+            self.runs[np.argsort(run_rows, kind="stable")]))
+        row_run_ptr = np.zeros(gm + 1, np.int32)
+        np.cumsum(np.bincount(run_rows, minlength=gm), out=row_run_ptr[1:])
+        object.__setattr__(self, "row_run_ptr", row_run_ptr)
         object.__setattr__(self, "merge_ranks", self._merge_ranks())
         object.__setattr__(self, "_on_device", {})
 
@@ -215,10 +230,44 @@ class SpmmPlan(ExecutionPlan):
                 "order": as_t(self.order),
                 "step_col": as_t(self.step_col),
                 "runs": as_t(self.runs),
+                "row_runs": as_t(self.row_runs),
+                "row_run_ptr": as_t(self.row_run_ptr),
                 "merge": [(as_t(s), as_t(r)) for s, r in self.merge_ranks],
             }
             self._on_device[key] = cached
         return cached
+
+    def output_traffic_bytes(self, g: int, n_cols: int, *,
+                             itemsize: int = 4,
+                             mode: Optional[str] = None) -> int:
+        """Output-side HBM bytes of the fused layout ``mode`` (default the
+        plan's), the reference's model estimate: ``"rmw"`` writes every
+        flushed tile and re-reads each accumulating one; ``"compact"``
+        writes and re-reads the slot buffer and writes the merged result;
+        ``"legacy_epilogue"`` prices the retired full lane buffer."""
+        mode = mode or self.fused
+        bm = self.block_m
+        m = self.n_rows * bm
+        tile_rows_flushed = int(self.written.sum())
+        rows_written = int(self.written.any(axis=0).sum())
+        final = g * m * n_cols * itemsize
+        if mode == "rmw":
+            writes = g * tile_rows_flushed * bm * n_cols * itemsize
+            rereads = g * max(tile_rows_flushed - rows_written, 0) \
+                * bm * n_cols * itemsize
+            return writes + rereads
+        if mode == "compact":
+            buf = g * self.n_lanes * self.r_max * bm * n_cols * itemsize
+            return 2 * buf + final
+        if mode == "legacy_epilogue":
+            buf = g * self.n_lanes * m * n_cols * itemsize
+            return 2 * buf + final
+        if mode == "epilogue":
+            raise ValueError(
+                "the 'epilogue' dataflow was deleted; to price the "
+                "retired lane-buffer path for trajectory comparison, ask "
+                "for mode='legacy_epilogue' explicitly")
+        raise ValueError(f"unknown traffic mode {mode!r}")
 
 
 def _default_chunk(nnzb: int, n_lanes: int) -> int:
@@ -233,12 +282,11 @@ def plan_spmm(a: BlockCSR, *, n_lanes: int = 8,
               fused: str = "auto") -> SpmmPlan:
     """Load-balanced lane schedule from BlockCSR metadata (the reference's
     ``plan_spmm``: rows split into ≤ ``chunk`` block chunks, LPT-packed,
-    each lane row-sorted; ``row_atomic`` keeps rows whole).  ``"auto"``
+    each lane row-sorted; ``row_atomic`` keeps rows whole).  ELL and
+    bitmap operands lower through ``as_block_csr`` first.  ``"auto"``
     resolves to ``"rmw"`` as in the reference."""
     if not isinstance(a, BlockCSR):
-        raise NotImplementedError(
-            "plan_spmm over ELL / bitmap formats is not ported yet; pass a "
-            "BlockCSR")
+        a = as_block_csr(a)
     if n_lanes < 1:
         raise ValueError(f"n_lanes={n_lanes} < 1")
     if fused == "auto":
@@ -308,6 +356,84 @@ def plan_spmm(a: BlockCSR, *, n_lanes: int = 8,
                     n_real_steps=n_real, stats=stats,
                     block_m=a.block_shape[0], block_k=a.block_shape[1],
                     fused=fused)
+
+
+# --------------------------------------------------------------------------
+# pattern hashing + knob enumeration (the autotuner's search space)
+# --------------------------------------------------------------------------
+
+def pattern_fingerprint(a) -> str:
+    """SHA-256 of a blocked operand's sparsity pattern, the plan cache
+    key: logical and block shape, ``row_ptr`` and the live block columns
+    in canonical order (``core.formats.block_pattern_meta``), so every
+    storage format of one pattern hashes alike.  Blind to the payload and
+    to the capacity ``n_blocks_max``."""
+    shape, block_shape, rptr, live_cols = block_pattern_meta(a)
+    h = hashlib.sha256()
+    h.update(np.asarray(tuple(shape) + tuple(block_shape),
+                        np.int64).tobytes())
+    h.update(np.ascontiguousarray(rptr, dtype=np.int64).tobytes())
+    h.update(np.ascontiguousarray(live_cols, dtype=np.int32).tobytes())
+    return h.hexdigest()
+
+
+def _chunk_candidates(row_lens: np.ndarray,
+                      n_lanes: int) -> List[Optional[int]]:
+    """Chunk values worth trying for one lane count: the planner default
+    (``None``), 1, 2, 4, 8 and the longest row, deduplicated against what
+    the default resolves to, in that order."""
+    nnzb = int(row_lens.sum())
+    max_len = int(row_lens.max(initial=0))
+    seen: List[Optional[int]] = [None]
+    resolved = {_default_chunk(nnzb, n_lanes)}
+    for c in (1, 2, 4, 8, max_len):
+        if 1 <= c <= max(max_len, 1) and c not in resolved:
+            resolved.add(c)
+            seen.append(c)
+    return seen
+
+
+def spmm_knob_space(a, *, n_lanes_max: int = 16,
+                    shard_counts: Sequence[int] = (1,),
+                    col_shard_counts: Sequence[int] = (1,),
+                    fused_layouts: Sequence[str] = ("rmw", "compact"),
+                    reorder: bool | str = False) -> List[Dict]:
+    """The SpMM schedule knob space of one pattern, in the reference's
+    deterministic order: ``reorder`` (``False``, ``True`` or both for
+    ``"auto"``) × ``n_lanes`` (powers of two up to ``n_lanes_max``) ×
+    (row-atomic, then each :func:`_chunk_candidates` chunk) × ``fused``.
+    Every entry carries the full knob set, the device axes at 1.  Shard
+    counts above 1 (partitioned plans) are not ported yet."""
+    if reorder not in (False, True, "auto"):
+        raise ValueError(f"reorder must be False | True | 'auto', "
+                         f"got {reorder!r}")
+    for n in (*shard_counts, *col_shard_counts):
+        if n < 1:
+            raise ValueError(f"shard count {n} < 1")
+        if n > 1:
+            raise NotImplementedError(
+                "partitioned plans (shard counts > 1) are not ported yet")
+    reorder_opts = {False: (False,), True: (True,),
+                    "auto": (False, True)}[reorder]
+    row_lens = np.diff(block_pattern_meta(a)[2])
+    lanes_all: List[int] = []
+    l = 1
+    while l <= max(n_lanes_max, 1):
+        lanes_all.append(l)
+        l *= 2
+    base = dict(n_shards=1, n_col_shards=1, device_chunk=None)
+    cfgs: List[Dict] = []
+    for ro in reorder_opts:
+        for n_lanes in lanes_all:
+            for fused in fused_layouts:
+                cfgs.append(dict(n_lanes=n_lanes, chunk=None,
+                                 row_atomic=True, fused=fused, **base,
+                                 reorder=ro))
+                for chunk in _chunk_candidates(row_lens, n_lanes):
+                    cfgs.append(dict(n_lanes=n_lanes, chunk=chunk,
+                                     row_atomic=False, fused=fused, **base,
+                                     reorder=ro))
+    return cfgs
 
 
 # --------------------------------------------------------------------------

@@ -314,7 +314,8 @@ def sparse_linear(w: BlockCSR, x: torch.Tensor, *, plan=None,
     ``x`` may be ``(d_in,)``, ``(T, d_in)`` or ``(B, S, d_in)``; tokens
     move to the minor axis (``(B, S, d) → (B, d, S)``) so they become the
     PSB columns, and each batch element is one right-hand side.  ``plan``
-    may be a forward ``SpmmPlan`` or a ``SpmmTrainPlan``; the call is
+    may be a forward ``SpmmPlan``, a ``SpmmTrainPlan`` or ``"auto"`` (the
+    memoized autotuner, passed to ``maple_spmm``); the call is
     differentiable in ``w.blocks`` and ``x`` either way."""
     d_out = w.shape[0]
     if x.dim() == 3:

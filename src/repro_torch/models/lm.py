@@ -19,8 +19,7 @@ The MoE family (``family="moe"``: a :mod:`~repro_torch.models.moe` layer
 in place of the MLP) serves through ``prefill`` and ``decode_step``; its
 training path is not ported yet.  Not ported either: SSM, RG-LRU,
 local-window and cross attention, QKV biases, the vision prefix, paged
-decode, two-level remat (``scan_remat_chunk > 1``) and the plan
-autotuner.
+decode and two-level remat (``scan_remat_chunk > 1``).
 """
 
 from __future__ import annotations
@@ -168,7 +167,10 @@ def sparse_mlp_plan(params, *, n_lanes: int = 8, chunk=None,
     """The shared ``SpmmTrainPlan`` of a sparse-MLP model, built on the
     host from the first :class:`BlockCSR` in the tree (every layer shares
     its pattern), or ``None`` when the tree holds no sparse weight.
-    Single-device only; ``autotune`` is not ported yet."""
+    ``autotune=True`` replaces ``n_lanes`` / ``chunk`` with a budgeted
+    ``kernels.autotune`` search over the pattern (memoized per pattern).
+    Single-device only."""
+    from repro_torch.kernels.autotune import auto_plan
     from repro_torch.kernels.schedule import plan_spmm_vjp
 
     def first_sparse(tree):
@@ -186,8 +188,8 @@ def sparse_mlp_plan(params, *, n_lanes: int = 8, chunk=None,
     if w is None:
         return None
     if autotune:
-        raise NotImplementedError("sparse_mlp_plan(autotune=True): the "
-                                  "plan autotuner is not ported yet")
+        return auto_plan(w.layer(0) if w.stacked else w, trainable=True,
+                         n_shards=n_shards, n_col_shards=n_col_shards)
     return plan_spmm_vjp(w, n_lanes=n_lanes, chunk=chunk, n_shards=n_shards,
                          n_col_shards=n_col_shards)
 

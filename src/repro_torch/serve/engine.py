@@ -5,8 +5,8 @@ Randomness: sampled decoding draws from an explicit ``torch.Generator``
 on the logits' device.  It cannot reproduce the reference's
 ``jax.random`` draws; greedy decoding (temperature 0) matches it.
 
-Not ported yet: the continuous batcher and paged decode, ``n_shards`` /
-``n_col_shards`` and ``plan="auto"``.
+Not ported yet: the continuous batcher and paged decode, and ``n_shards``
+/ ``n_col_shards`` above 1.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.csr import BlockCSR
+from repro_torch.kernels.autotune import auto_plan
 from repro_torch.kernels.schedule import (SpmmPlan, SpmmTrainPlan, plan_spmm,
                                           plan_spmm_vjp)
 from repro_torch.models import lm
@@ -42,12 +43,18 @@ class SparseLogitHead:
               chunk: int | None = None, n_shards: int | None = None,
               n_col_shards: int | None = None, trainable: bool = False,
               plan: str | None = None) -> "SparseLogitHead":
+        """``plan="auto"`` replaces the hand-tuned knobs with a budgeted
+        ``kernels.autotune`` search over the head's pattern (memoized:
+        rebuilding a head for a seen pattern never searches again);
+        ``n_lanes`` / ``chunk`` are then ignored."""
         if plan is not None:
             if plan != "auto":
                 raise ValueError(f"unknown plan {plan!r}; only 'auto' "
                                  f"(or drop it for the hand-tuned knobs)")
-            raise NotImplementedError("plan='auto' (the autotuner) is not "
-                                      "ported yet")
+            return cls(weight=weight,
+                       plan=auto_plan(weight, trainable=trainable,
+                                      n_shards=n_shards,
+                                      n_col_shards=n_col_shards))
         if (n_shards is not None and n_shards > 1) or \
                 (n_col_shards is not None and n_col_shards > 1):
             raise NotImplementedError("partitioned heads (n_shards / "

@@ -44,7 +44,8 @@ def test_the_scan_covers_the_package():
     assert "src/repro_torch/kernels/ops.py" in names
     for module in ("kernels/moe_gemm.py", "kernels/block_attn.py",
                    "kernels/ref.py", "models/moe.py",
-                   "configs/granite_moe_3b.py"):
+                   "configs/granite_moe_3b.py", "kernels/autotune.py",
+                   "kernels/reorder.py", "core/formats.py"):
         assert f"src/repro_torch/{module}" in names
     assert "chip_smoke.py" in names
     assert len(names) >= 15

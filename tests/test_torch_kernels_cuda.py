@@ -1,5 +1,5 @@
-"""The Hopper kernels (SpMM forward, block SDDMM and the maple_spmm
-backward; the SpGEMM numeric phase, its CSR SDDMM and dB, and the element
+"""The Hopper kernels (SpMM forward in the naive, compact and rmw
+layouts, block SDDMM and the maple_spmm backward; the SpGEMM numeric phase, its CSR SDDMM and dB, and the element
 walk with a dense B; the MoE grouped GEMM and block-sparse local
 attention) against their plain versions, on the card.
 
@@ -18,9 +18,11 @@ import torch
 
 from repro_torch.core.csr import BlockCSR
 from repro_torch.kernels import (maple_spmm, maple_spmm_compact,
-                                 maple_spmm_naive, plan_spmm)
+                                 maple_spmm_naive, maple_spmm_planned,
+                                 plan_spmm)
 from repro_torch.kernels.maple_spmm import (maple_spmm_compact_plain,
-                                            maple_spmm_naive_plain)
+                                            maple_spmm_naive_plain,
+                                            maple_spmm_planned_plain)
 from repro_torch.kernels.ops import _meta_on, _scatter_merge_f32
 
 pytestmark = pytest.mark.cuda
@@ -96,12 +98,61 @@ def test_compact_kernel_and_merge_match_plain(cuda, dtype, lanes, chunk,
            dtype)
 
 
-def test_maple_spmm_on_the_card_matches_the_cpu(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lanes,chunk,whole,block,bn,n", [
+    (8, 1, False, (8, 8), 16, 37), (8, None, True, (8, 8), 16, 1),
+    (3, 2, False, (8, 8), 16, 21), (1, None, False, (8, 8), 16, 16),
+    (8, 2, False, (64, 64), 128, 256), (8, None, False, (16, 32), 64, 70)])
+def test_planned_kernel_matches_plain_and_compact_merge(cuda, dtype, lanes,
+                                                        chunk, whole, block,
+                                                        bn, n):
+    """B4 against its plain version, bit-identical on rerun, and equal bit
+    for bit to B1 + the slot merge on the same plan (idle lanes, split
+    rows, empty rows, G > 1, ragged N)."""
+    a, rng = _operands(cuda, 11, 9, 8, block, 0.5, dtype)
+    plan = plan_spmm(a, n_lanes=lanes, chunk=chunk, row_atomic=whole)
+    b3 = torch.from_numpy(rng.standard_normal((2, a.shape[1], n))
+                          .astype(np.float32)).to(cuda, dtype)
+    dev = plan.on_device(cuda)
+    args = (a.blocks, dev["order"], dev["step_col"], dev["row_runs"],
+            dev["row_run_ptr"], b3)
+    before = maple_spmm_planned.launches
+    got = [maple_spmm_planned(*args, bn=bn) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert maple_spmm_planned.launches == before + 2
+    assert torch.equal(got[0], got[1])
+    _close(got[0], maple_spmm_planned_plain(*args), dtype)
+    n_slots = plan.n_lanes * plan.r_max
+    tiles = maple_spmm_compact(a.blocks, dev["order"], dev["step_col"],
+                               dev["runs"], b3, n_slots=n_slots, bn=bn)
+    merged = _scatter_merge_f32(tiles.view(2, n_slots, block[0], n),
+                                dev["merge"], gm=plan.n_block_rows)
+    assert torch.equal(got[0], merged)
+    empty = np.repeat(np.diff(a.row_ptr) == 0, block[0])
+    assert (got[0][:, torch.from_numpy(empty).to(cuda)] == 0).all()
+
+
+def test_planned_kernel_on_an_all_empty_matrix(cuda):
+    a, rng = _operands(cuda, 12, 5, 4, (8, 8), 0.0, torch.float32)
+    plan = plan_spmm(a, n_lanes=4)
+    assert plan.row_runs.shape[0] == 0
+    dev = plan.on_device(cuda)
+    b3 = torch.ones((1, a.shape[1], 9), device=cuda)
+    out = maple_spmm_planned(a.blocks, dev["order"], dev["step_col"],
+                             dev["row_runs"], dev["row_run_ptr"], b3, bn=16)
+    torch.cuda.synchronize()
+    assert out.shape == (1, a.shape[0], 9) and not out.any()
+
+
+@pytest.mark.parametrize("fused", ["rmw", "compact"])
+def test_maple_spmm_on_the_card_matches_the_cpu(cuda, fused):
     a, rng = _operands(cuda, 2, 10, 6, (8, 8), 0.4, torch.float32)
     a_cpu = dataclasses.replace(a, blocks=a.blocks.cpu(), device_meta={})
     b = rng.standard_normal((2, a.shape[1], 19)).astype(np.float32)
     for kw in (dict(schedule="naive"), dict(n_lanes=8, chunk=1),
-               dict(schedule="row_atomic")):
+               dict(n_lanes=3, row_atomic=True)):
+        if kw.get("schedule") != "naive":
+            kw = dict(plan=plan_spmm(a_cpu, fused=fused, **kw))
         got = maple_spmm(a, torch.from_numpy(b).to(cuda), bn=16, **kw)
         want = maple_spmm(a_cpu, torch.from_numpy(b), bn=16, **kw)
         _close(got.cpu(), want, torch.float32)
@@ -160,14 +211,17 @@ def test_maple_spmm_backward_on_the_card_matches_the_cpu(cuda):
         blocks = a.blocks.detach().to(dev).clone().requires_grad_()
         bt = torch.from_numpy(b).to(dev).requires_grad_()
         w = dataclasses.replace(a, blocks=blocks, device_meta={})
-        before = (maple_spmm_compact.launches, maple_sddmm_bsr.launches)
+        before = (maple_spmm_planned.launches, maple_spmm_compact.launches,
+                  maple_sddmm_bsr.launches)
         out = maple_spmm(w, bt, bn=16, plan=plan_spmm_vjp(w, n_lanes=4))
         (out * torch.from_numpy(cot).to(dev)).sum().backward()
         if dev == cuda:
             torch.cuda.synchronize()
-            # forward and dB on the compact kernel, dA on the SDDMM
-            assert (maple_spmm_compact.launches - before[0],
-                    maple_sddmm_bsr.launches - before[1]) == (2, 1)
+            # forward and dB on the rmw kernel (the default plans' layout),
+            # dA on the SDDMM
+            assert (maple_spmm_planned.launches - before[0],
+                    maple_spmm_compact.launches - before[1],
+                    maple_sddmm_bsr.launches - before[2]) == (2, 0, 1)
         grads[str(dev)] = (blocks.grad.cpu(), bt.grad.cpu())
     for got, want in zip(grads["cuda"], grads["cpu"]):
         _close(got, want, torch.float32)

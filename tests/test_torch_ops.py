@@ -3,9 +3,10 @@ through the kernels' plain versions) against ``repro.kernels.ops.maple_spmm``
 in Pallas interpret mode, at rtol = atol = 1e-5 (f32; only the order of
 summation differs), with 8×8 blocks and bn = 16.
 
-The reference runs a plan in its read-modify-write layout when the plan
-prefers it; the port always runs the compact layout, so prebuilt plans are
-built with ``fused="compact"`` on both sides to compare like with like.
+Both packages run a plan in the layout it carries: read-modify-write
+(``"rmw"``, the default) or compact.  The prebuilt-plan cases here build
+``fused="compact"`` plans on both sides; the default (rmw) plans are held
+against the reference in ``test_torch_planned.py``.
 """
 
 import jax.numpy as jnp
@@ -156,8 +157,8 @@ def test_plan_for_another_weight_raises_like_the_reference():
 def test_unported_features_and_gradients_raise():
     _, a, _ = _operands("uniform")
     b = torch.zeros((40, 8))
-    for kw in (dict(schedule="partitioned"), dict(plan="auto"),
-               dict(plan="auto", reorder=True),
+    for kw in (dict(schedule="partitioned"), dict(plan="auto", n_shards=2),
+               dict(plan="auto", reorder=True, n_col_shards=2),
                dict(schedule="partitioned", n_shards=2)):
         with pytest.raises(NotImplementedError, match="not ported"):
             maple_spmm(a, b, **kw)

@@ -23,7 +23,8 @@ from repro.models.layers import init_sparse_linear as ref_init_sparse_linear
 from repro.serve import engine as ref_engine
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import block_csr_from_numpy, params_from_numpy
-from repro_torch.kernels import maple_spmm_compact, maple_spmm_naive
+from repro_torch.kernels import (maple_spmm_compact, maple_spmm_naive,
+                                 maple_spmm_planned)
 from repro_torch.models import lm
 from repro_torch.serve import (SamplingConfig, SparseLogitHead,
                                complete_static, generate)
@@ -170,10 +171,15 @@ def test_entry_points_refuse_a_missing_cuda_device(models):
 
 
 def test_planned_head_launch_counter_stays_zero_on_cpu(models):
+    """The default head's plan carries the rmw layout, so a call goes
+    through ``maple_spmm_planned``: on the CPU it runs the plain version
+    and neither planned kernel counts a launch."""
     _, cfg, _, _, _, head = models
-    before = maple_spmm_compact.launches
+    assert head.plan.fused == "rmw"
+    before = (maple_spmm_compact.launches, maple_spmm_planned.launches)
     head(torch.zeros((1, 1, cfg.d_model)))
-    assert maple_spmm_compact.launches == before
+    assert (maple_spmm_compact.launches,
+            maple_spmm_planned.launches) == before
 
 
 def test_serve_cli_runs_on_cpu_and_refuses_checkpoints(capsys):

@@ -129,7 +129,7 @@ def test_plan_spgemm_of_blocked_operands_equals_reference():
     assert np.array_equal(got_e.value.numpy(), np.asarray(want_e.value))
     assert_plans_equal(plan_spgemm(a, b, n_lanes=3),
                        ref_plan_spgemm(ra, rb, n_lanes=3))
-    with pytest.raises(TypeError, match="not ported"):
+    with pytest.raises(TypeError, match="not a blocked sparse format"):
         formats.as_element_csr(np.zeros((2, 2)))
 
 

@@ -292,11 +292,14 @@ def test_train_step_grads_and_params_match_reference(smoke, n_micro,
 def test_remat_recomputes_each_sparse_layer_once(smoke, monkeypatch):
     """The count ``chip_smoke.py`` expects on the card, taken here by
     counting the calls into the kernels' wrappers: per layer and per
-    microbatch, the compact kernel runs for the forward, the remat
-    recompute and dB, and the SDDMM once for dA."""
+    microbatch, the planned kernel of the forward plan's layout runs for
+    the forward and the remat recompute, the one of the transpose-side
+    plan's layout for dB (rmw → ``maple_spmm_planned``, compact →
+    ``maple_spmm_compact``), and the SDDMM once for dA."""
     from repro_torch.kernels import ops
     _, cfg, params_ref, _, batch = smoke
-    calls = {"compact": 0, "sddmm": 0, "naive": 0}
+    names = {"rmw": "planned", "compact": "compact"}
+    calls = {"planned": 0, "compact": 0, "sddmm": 0, "naive": 0}
 
     def counting(name, fn):
         def wrapped(*args, **kw):
@@ -304,6 +307,8 @@ def test_remat_recomputes_each_sparse_layer_once(smoke, monkeypatch):
             return fn(*args, **kw)
         return wrapped
 
+    monkeypatch.setattr(ops, "maple_spmm_planned",
+                        counting("planned", ops.maple_spmm_planned))
     monkeypatch.setattr(ops, "maple_spmm_compact",
                         counting("compact", ops.maple_spmm_compact))
     monkeypatch.setattr(ops, "maple_sddmm_bsr",
@@ -313,13 +318,17 @@ def test_remat_recomputes_each_sparse_layer_once(smoke, monkeypatch):
     params = _port_params(cfg, params_ref)
     ocfg = OptimizerConfig(peak_lr=LR, warmup_steps=5, total_steps=10)
     plan = lm.sparse_mlp_plan(params)
+    assert (plan.fwd.fused, plan.bwd.fused) == ("rmw", "rmw")
     for remat, per_layer in ((True, 3), (False, 2)):
-        calls.update(compact=0, sddmm=0, naive=0)
+        calls.update(planned=0, compact=0, sddmm=0, naive=0)
         step = make_train_step(dataclasses.replace(cfg, remat=remat), ocfg,
                                2, mlp_plan=plan)
         step(params, init_opt_state(ocfg, params), batch)
-        assert calls == {"compact": 2 * cfg.n_layers * per_layer,
-                         "sddmm": 2 * cfg.n_layers, "naive": 0}
+        want = {"planned": 0, "compact": 0, "sddmm": 2 * cfg.n_layers,
+                "naive": 0}
+        want[names[plan.fwd.fused]] += 2 * cfg.n_layers * (per_layer - 1)
+        want[names[plan.bwd.fused]] += 2 * cfg.n_layers
+        assert calls == want
 
 
 def test_train_refuses_what_is_not_ported(smoke):
@@ -329,7 +338,7 @@ def test_train_refuses_what_is_not_ported(smoke):
         lm.forward(params, dataclasses.replace(cfg, scan_remat_chunk=2),
                    batch)
     with pytest.raises(NotImplementedError, match="not ported"):
-        lm.sparse_mlp_plan(params, autotune=True)
+        lm.sparse_mlp_plan(params, autotune=True, n_shards=2)
     with pytest.raises(NotImplementedError, match="not ported"):
         make_train_step(dataclasses.replace(cfg, grad_accum_dtype="bfloat16"),
                         OptimizerConfig())
