@@ -21,7 +21,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      row split over three or more lanes, a row split twice on one lane,
      empty rows, an all-empty A, row_atomic, chunk 1, 8×8 blocks with
      bn = 16, G > 1, ragged N), f32 and bf16, each twice for bit
-     identity and bitwise against the compact kernel + merge;
+     identity and bitwise against the compact kernel + merge; then B1
+     and B4 at 64 × 64 blocks on a row split into more runs than a
+     cluster has blocks and a run longer than the ring, N = 1, 4, 17 and
+     256 (every consumer and B-panel route of the run walk);
    - the serving shapes of the SpMM kernels (the qwen3-4b MLP
      down-projection and the sparse logit head);
    - the training shapes: the block SDDMM (dA) and both planned kernels
@@ -31,8 +34,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      power-law block pattern at the MLP's size, whose heavy rows the
      balanced plan splits over lanes;
    each in f32 and bf16, after an L2 flush.  Prints kernel, plain, library
-   (one dense ``torch.matmul``) and bound times, and for B4 the time of
-   the compact kernel + merge on the same plan.
+   (one dense ``torch.matmul``) and bound times, the kernel's share of its
+   bound (bound_ms / ms), and for B4 the time of the compact kernel +
+   merge on the same plan.
 3. reference — the qwen3-4b smoke config on the card against the same
    weights on the CPU (the plain path the CPU tests hold against the JAX
    reference): logits within 1e-4, equal greedy tokens.
@@ -354,13 +358,18 @@ def run_planned_case(a, plan, g, n, dtype, bn, rng):
             dev["row_run_ptr"], b3)
     got = [maple_spmm_planned(*args, bn=bn) for _ in range(2)]
     n_slots = plan.n_lanes * plan.r_max
-    tiles = maple_spmm_compact(a.blocks, dev["order"], dev["step_col"],
-                               dev["runs"], b3, n_slots=n_slots, bn=bn)
-    merged = _scatter_merge_f32(tiles.view(g, n_slots, plan.block_m, n),
+    tiles = [maple_spmm_compact(a.blocks, dev["order"], dev["step_col"],
+                                dev["runs"], b3, n_slots=n_slots, bn=bn)
+             for _ in range(2)]
+    merged = _scatter_merge_f32(tiles[0].view(g, n_slots, plan.block_m, n),
                                 dev["merge"], gm=plan.n_block_rows)
     torch.cuda.synchronize()
     if not torch.equal(got[0], got[1]):
         raise AssertionError("B4 is not bit-identical over two runs")
+    live = torch.from_numpy(plan.slot_row.reshape(-1) >= 0).cuda()
+    view = lambda t: t.view(g, n_slots, plan.block_m, n)[:, live]
+    if not torch.equal(view(tiles[0]), view(tiles[1])):
+        raise AssertionError("B1 is not bit-identical over two runs")
     if not torch.equal(got[0], merged):
         raise AssertionError("B4 differs from B1 + merge on one plan")
     return got[0], maple_spmm_planned_plain(*args), args, b3
@@ -416,9 +425,54 @@ def planned_edge_cases():
                 "empty_rows", "all_empty", "row_atomic", "chunk_1"}
     if seen != expected:
         raise AssertionError(f"edge plans missed {expected - seen}")
-    return {"phase": "planned_kernels", "cases": cases,
-            "plans_cover": sorted(seen), "bitwise_vs_compact_merge": True,
+    walk_cases, walk_seen = run_walk_edge_cases()
+    return {"phase": "planned_kernels", "cases": cases + walk_cases,
+            "plans_cover": sorted(seen | walk_seen),
+            "bitwise_vs_compact_merge": True, "rerun_bitwise": True,
             "ok": True}
+
+
+def run_walk_edge_cases():
+    """B1 and B4 at 64 × 64 blocks (the wgmma, skinny and 8 × 8 FFMA
+    consumers, every B-panel copy route), f32 and bf16, N = 1, 4, 17 and
+    256, G = 2: a row split into more runs than a cluster has blocks, a
+    run longer than the ring (its segments loop it), empty rows, a
+    one-block row; each launch twice (bit-identical), B4 bitwise against
+    B1 + merge and within tolerance of its plain version."""
+    from repro_torch.core.csr import BlockCSR
+    from repro_torch.kernels.maple_spmm import SEGMENTS
+    from repro_torch.kernels.schedule import plan_spmm
+    rng = np.random.default_rng(SEED + 14)
+    mask = np.zeros((6, 24), bool)
+    mask[0] = True                                  # 24 blocks
+    mask[2, ::8] = True
+    mask[3, 2:22] = True                            # 20 blocks
+    mask[5, 7] = True                               # one block
+    d = np.repeat(np.repeat(mask, 64, 0), 64, 1) * rng.standard_normal(
+        (6 * 64, 24 * 64)).astype(np.float32)
+    seen, cases = set(), 0
+    for dtype in (torch.float32, torch.bfloat16):
+        a = BlockCSR.from_dense(d, (64, 64), n_blocks_max=int(mask.sum())
+                                + 2, device="cuda")
+        a = dataclasses.replace(a, blocks=a.blocks.to(dtype))
+        for lanes, chunk, whole in ((16, 1, False), (1, None, True),
+                                    (8, None, False)):
+            plan = plan_spmm(a, n_lanes=lanes, chunk=chunk, row_atomic=whole)
+            runs_a_row = int(np.diff(plan.row_run_ptr).max())
+            longest = int((plan.runs[:, 2] - plan.runs[:, 1]).max())
+            if runs_a_row > SEGMENTS:
+                seen.add("row_over_cluster")
+            if longest > 4 * SEGMENTS:              # > 4 stages a segment
+                seen.add("run_over_ring")
+            for n in (1, 4, 17, 256):
+                got, want, _, _ = run_planned_case(a, plan, 2, n, dtype, 128,
+                                                   rng)
+                check_close(got, want, dtype,
+                            f"run walk L{lanes} n{n} {dtype}")
+                cases += 1
+    if seen != {"row_over_cluster", "run_over_ring"}:
+        raise AssertionError(f"run-walk plans cover only {seen}")
+    return cases, seen
 
 
 def measure(name, got, want, dtype, kernel, plain, library, nbytes, flops,
@@ -430,9 +484,11 @@ def measure(name, got, want, dtype, kernel, plain, library, nbytes, flops,
     plain_ms = time_ms(plain, max(3, reps // 4), flush)
     library_ms = time_ms(library, reps, flush)
     t_bytes, t_ops = nbytes / spec[0] * 1e3, flops / spec[1][dtype] * 1e3
+    bound = max(t_bytes, t_ops)
     return {"name": name, "dtype": str(dtype).replace("torch.", ""),
             **shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
+            "library_ms": library_ms, "bound_ms": bound,
+            "bound_share": bound / ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -890,7 +946,8 @@ def serve(card):
     profiles = {
         "decode_step": profile(lambda: lm.decode_step(params, cfg, state,
                                                       step_tok)),
-        "sparse_head": profile(lambda: head(hidden))}
+        "sparse_head": profile(lambda: head(hidden),
+                               totals=("run_kernel",))}
     _, rep = plan_search(head.weight, full=True)        # the cached search
     search = {"config": rep.best_config, "fused": auto.plan.fused,
               "n_candidates": rep.n_candidates, "n_built": rep.n_built,
@@ -1023,8 +1080,9 @@ def train(card):
     # one more step, outside the counted run, under the profiler
     from repro_torch.data import synth_batch
     batch = {k: v.cuda() for k, v in synth_batch(run.data, steps).items()}
+    # the run walk (B1 / B4) and the block SDDMM (B2), summed by name
     prof = profile(lambda: run.step_fn(run.params, run.opt, batch),
-                   warmup=False)
+                   warmup=False, totals=("run_kernel", "sddmm_bsr_kernel"))
     return launches, {
         "phase": "train", "config": "qwen3-4b sparse_mlp (64,64) d=0.25, "
         "f32, AdamW, remat per layer", "argv": TRAIN_ARGV,
@@ -1956,11 +2014,13 @@ def local_attention(spec, flush, card):
     return launches, [row], line
 
 
-def profile(fn, warmup: bool = True) -> dict:
+def profile(fn, warmup: bool = True, totals=()) -> dict:
     """One call of ``fn`` under torch.profiler (after one call outside it
     with ``warmup``): wall ms, the device time summed over kernels, the
-    kernels that took the most of it, and the host operators with the
-    most self time (inflated by the profiler's own cost)."""
+    kernels that took the most of it, the device ms and launches of the
+    kernels whose names contain each string of ``totals``, and the host
+    operators with the most self time (inflated by the profiler's own
+    cost)."""
     from torch.profiler import ProfilerActivity
     if warmup:
         fn()
@@ -1982,6 +2042,12 @@ def profile(fn, warmup: bool = True) -> dict:
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "launches": sum(e.count for e in kernels),
+            "totals": {sub: {"device_ms": sum(e.self_device_time_total
+                                              for e in kernels
+                                              if sub in e.key) / 1e3,
+                             "launches": sum(e.count for e in kernels
+                                             if sub in e.key)}
+                       for sub in totals},
             "top": [{"kernel": e.key[:80], "count": e.count,
                      "device_ms": e.self_device_time_total / 1e3}
                     for e in kernels[:8]],
@@ -2064,7 +2130,7 @@ def main() -> int:
                 **{k: f32(None) for k in SPGEMM_COUNTERS},
                 "moe_gemm": f32(None), "block_attention": f32(None)}
     keys = ("shape", "dtype", "G", "N", "bt", "ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_by", "max_abs_err", "compact_merge_ms",
+            "bound_ms", "bound_share", "bound_by", "max_abs_err", "compact_merge_ms",
             "merge_ms", "merge_bound_ms", "runs", "rows")
     summary = []
     for kname, pick in headline.items():

@@ -88,3 +88,30 @@ class ModelConfig:
     def block_kinds(self) -> Tuple[str, ...]:
         unit, g, tail = self.layer_plan()
         return unit * g + tail
+
+    def param_count(self, active_only: bool = False) -> int:
+        """Parameters of the model, as the reference counts them
+        (embedding and head, attention, cross-attention and encoder, the
+        FFN or the experts — ``active_only`` counts ``top_k`` of them — and
+        the router).  Recurrent and SSM blocks are not ported."""
+        kinds = self.block_kinds()
+        if any(k in ("rglru", "ssm") for k in kinds):
+            raise NotImplementedError("rglru and ssm blocks are not ported")
+        d, hd = self.d_model, self.head_dim
+        n_attn = sum(1 for k in kinds if k in ("attn", "local_attn"))
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+            + self.n_heads * hd * d
+        p = self.vocab_padded * d * 2                   # embed + head
+        p += n_attn * attn
+        if self.n_enc_layers > 0:   # cross-attention in every decoder layer
+            p += self.n_layers * attn
+            p += self.n_enc_layers * (attn + 2 * d * self.d_ff
+                                      + d * self.d_ff)
+        if self.ffn_kind == "dense":
+            gated = 3 if self.activation in ("silu", "gelu_glu") else 2
+            p += n_attn * gated * d * self.d_ff
+        elif self.ffn_kind == "moe":
+            experts = self.top_k if active_only else self.n_experts
+            p += n_attn * experts * 3 * d * self.d_expert
+            p += n_attn * d * self.n_experts
+        return p

@@ -162,6 +162,10 @@ class BlockCSR:
     def stacked(self) -> bool:
         return self.blocks.dim() == 4
 
+    def density(self) -> float:
+        """Host-side block density (fraction of non-zero blocks)."""
+        return self.nnzb / (self.n_block_rows * self.n_block_cols)
+
     def layer(self, i: int) -> "BlockCSR":
         """The i-th layer of a stacked container (shared metadata)."""
         if not self.stacked:

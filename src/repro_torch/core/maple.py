@@ -115,10 +115,15 @@ def maple_pe_cycles(stats: SpGEMMStats, macs_per_pe: int, n_pes: int) -> float:
     return max(mean_shard, max_row)
 
 
-def baseline_pe_cycles(stats: SpGEMMStats, n_pes: int) -> float:
-    """Single-MAC PE with rows pinned to PEs (the Matraptor bound)."""
+def baseline_pe_cycles(stats: SpGEMMStats, n_pes: int,
+                       row_atomic: bool = True) -> float:
+    """Single-MAC PE: one partial product per cycle.  ``row_atomic=True``
+    (Matraptor) pins each A row to one PE, so the heaviest row bounds the
+    schedule; ``False`` (Extensor) lets the tiling split a row's work."""
     if stats.partial_products == 0:
         return 0.0
     mean_shard = stats.partial_products / n_pes
+    if not row_atomic:
+        return mean_shard
     max_row = float(stats.row_partials.max(initial=0.0))
     return max(mean_shard, max_row)

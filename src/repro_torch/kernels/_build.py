@@ -95,11 +95,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.maple_spmm_naive.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
                                          i, p]
         lib.maple_spmm_naive.restype = i
-        lib.maple_spmm_compact.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                           i, i, i, i, i, p]
+        lib.maple_spmm_compact.argtypes = [p] * 6 + [i] * 12 + [p]
         lib.maple_spmm_compact.restype = i
-        lib.maple_spmm_planned.argtypes = [p] * 7 + [i] * 9 + [p]
+        lib.maple_spmm_planned.argtypes = [p] * 9 + [i] * 12 + [p]
         lib.maple_spmm_planned.restype = i
+        lib.maple_spmm_run_layout.argtypes = [i] * 6 + [p, p]
+        lib.maple_spmm_run_layout.restype = i
     elif name == "maple_sddmm":
         lib.maple_sddmm_bsr.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
                                         i, i, p]

@@ -22,6 +22,13 @@ wrapper's ``launches`` count.  Inputs are f32 or bf16 (both operands
 alike), accumulated in f32.  The kernel masks a ragged ``N`` itself, so
 no padded copy of ``B`` is made; ``bn`` is the widest N tile of a
 thread block (narrowed to the next power of two ≥ 16 above ``N``).
+
+B1 and B4 share one run walk on the card (``csrc/maple_spmm.cu``): a
+cluster of :data:`SEGMENTS` thread blocks per (run, N tile, batch), block
+j walking the run's segment j (:func:`run_segments`), the run's PSB
+``(p₀ + p₁) + (p₂ + p₃)``.  :func:`run_layout` is the host's side of the
+launch: the N tile, the tile count and the floats of one partial, which
+size B4's scratch buffer.
 """
 
 from __future__ import annotations
@@ -63,6 +70,121 @@ def _check_operands(blocks, b3, ints, bn):
 
 def _tile_n(bn: int, n: int) -> int:
     return min(bn, max(16, 1 << max(n - 1, 0).bit_length()))
+
+
+# --------------------------------------------------------------------------
+# the run walk of B1 and B4: the host's half
+# --------------------------------------------------------------------------
+
+SEGMENTS = 4                    # blocks of a cluster = segments of a run
+CONSUMERS = 128                 # consumer threads of a block
+_FFMA_TILES = ((8, 8), (4, 8), (4, 4), (2, 4), (1, 4), (1, 2), (1, 1))
+
+
+def run_segments(first: int, end: int) -> list:
+    """The steps ``[lo, hi)`` of each of a run's :data:`SEGMENTS`
+    segments: contiguous, in order, covering ``[first, end)``; block j of
+    the run's cluster walks segment j, and the run's PSB is
+    ``(p₀ + p₁) + (p₂ + p₃)`` over their partials."""
+    n = end - first
+    return [(first + n * j // SEGMENTS, first + n * (j + 1) // SEGMENTS)
+            for j in range(SEGMENTS)]
+
+
+def ffma_tile(bm: int, tile: int):
+    """The FFMA consumer's register tile ``(TM, TN)`` for a ``(bm, tile)``
+    output tile: the one that sets the most of the 128 consumer threads to
+    work (the larger tile on a tie); ``None`` when none fits."""
+    best, best_threads = None, 0
+    for tm, tn in _FFMA_TILES:
+        if bm % tm or tile % tn:
+            continue
+        threads = (bm // tm) * (tile // tn)
+        if best_threads < threads <= CONSUMERS:
+            best, best_threads = (tm, tn), threads
+    return best
+
+
+def run_layout(dtype: torch.dtype, n: int, bm: int, bk: int,
+               bn: int) -> dict:
+    """What a B1 / B4 launch on the card takes from the shapes: the
+    consumer — ``"wgmma"`` for bf16 at 64 × 64 blocks (8 columns for
+    N ≤ 8, else 64 or 128), ``"skinny"`` for N ≤ 4 (one row a thread, 4
+    columns), else ``"ffma"`` with the register tile of :func:`ffma_tile` —
+    its N tile (at most 128 columns), the number of N tiles and the floats
+    of one partial (128 threads × the registers of one tile), which size
+    B4's scratch: ``G · n_tiles · n_runs · frag``."""
+    tile = min(_tile_n(bn, n), 128)
+    if dtype == torch.bfloat16 and bm == 64 and bk == 64:
+        tile = 8 if n <= 8 else 64 if tile <= 64 else 128
+        consumer, regs = "wgmma", tile // 2
+    elif n <= 4 and bm <= CONSUMERS:
+        tile, consumer, regs = 4, "skinny", 4
+    else:
+        tiles = ffma_tile(bm, tile)
+        if tiles is None:
+            raise ValueError(f"no FFMA register tile fits a ({bm}, {tile}) "
+                             f"output tile")
+        consumer, regs = "ffma", tiles[0] * tiles[1]
+    return {"consumer": consumer, "tile": tile,
+            "n_tiles": -(-n // tile), "frag": regs * CONSUMERS}
+
+
+def walk_tile(dtype: torch.dtype, n: int, bm: int, bk: int, bn: int, *,
+              runs: int, g: int, sms: int) -> int:
+    """The N tile a B1 / B4 launch over ``runs`` runs asks for: ``bn``
+    narrowed to N (at most 128), then halved (down to 64 for wgmma, 32 for
+    the FFMA tile) while the grid — :data:`SEGMENTS` blocks a run, tile
+    and batch — would give fewer than 4 blocks for each of the ``sms``
+    SMs: a 40-row MLP plan at N = 256 fills 328 blocks with 128 columns,
+    656 with 64."""
+    tile = min(_tile_n(bn, n), 128)
+    floor = 64 if dtype == torch.bfloat16 and (bm, bk) == (64, 64) else 32
+    while tile > floor and runs * SEGMENTS * g * -(-n // tile) < 4 * sms:
+        tile //= 2
+    return tile
+
+
+def ring_stages(order_numel: int, runs: int) -> int:
+    """Stages of a block's ring: 4 where a segment averages more than 16
+    steps (the plan's ``L · steps`` slots over its runs and
+    :data:`SEGMENTS`; long bytes-bound walks keep more loads in flight),
+    else 2, which lets more blocks share an SM: the MLP's plans (2.5 to
+    9.5 steps a segment) and the head at decode (5)."""
+    return 4 if order_numel > 16 * SEGMENTS * max(runs, 1) else 2
+
+
+_SMS: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    count = _SMS.get(str(device))
+    if count is None:
+        count = torch.cuda.get_device_properties(device).multi_processor_count
+        _SMS[str(device)] = count
+    return count
+
+
+def _check_run_operands(blocks: torch.Tensor) -> None:
+    if blocks.is_cuda and (blocks.shape[1] * blocks.shape[2]
+                           * blocks.element_size()) % 16:
+        raise ValueError("the run walk copies whole weight blocks: "
+                         "bm·bk·size must be a multiple of 16 bytes")
+
+
+_COUNTERS: dict = {}
+
+
+def _row_counters(device: torch.device, n: int) -> torch.Tensor:
+    """B4's per-(batch, tile, row, quarter) arrival counters, zero between
+    launches (the last run of a split row resets its counter), kept per
+    device: B4 launches that share them run one after another on one
+    stream."""
+    have = _COUNTERS.get(str(device))
+    if have is None or have.numel() < n:
+        have = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[str(device)] = have
+    return have
 
 
 def _stream() -> int:
@@ -142,6 +264,7 @@ def maple_spmm_compact(blocks: torch.Tensor, order: torch.Tensor,
         raise ValueError("order and step_col must be one (lanes, steps) shape")
     if runs.dim() != 2 or runs.shape[1] != 4:
         raise ValueError(f"runs must be (n_runs, 4), got {tuple(runs.shape)}")
+    _check_run_operands(blocks)
     if not b3.is_cuda:
         return maple_spmm_compact_plain(blocks, order, step_col, runs, b3,
                                         n_slots=n_slots)
@@ -151,12 +274,14 @@ def maple_spmm_compact(blocks: torch.Tensor, order: torch.Tensor,
                       device=b3.device)
     if out.numel() == 0 or runs.shape[0] == 0:
         return out                      # no run: every slot is dead
+    tile = walk_tile(b3.dtype, n, bm, bk, bn, runs=runs.shape[0], g=g,
+                     sms=_sm_count(b3.device))
     lib = _build.library("maple_spmm")
     err = lib.maple_spmm_compact(
         blocks.data_ptr(), order.data_ptr(), step_col.data_ptr(),
         runs.data_ptr(), b3.data_ptr(), out.data_ptr(), _DTYPES[b3.dtype], g,
-        runs.shape[0], order.shape[1],
-        n_slots, k, n, bm, bk, _tile_n(bn, n), _stream())
+        nb, runs.shape[0], order.shape[1], n_slots, k, n, bm, bk, tile,
+        ring_stages(order.numel(), runs.shape[0]), _stream())
     _build.check(lib, err, "maple_spmm_compact")
     maple_spmm_compact.launches += 1
     return out
@@ -227,6 +352,7 @@ def maple_spmm_planned(blocks: torch.Tensor, order: torch.Tensor,
                          f"{tuple(row_runs.shape)}")
     if row_run_ptr.dim() != 1 or row_run_ptr.numel() < 1:
         raise ValueError("row_run_ptr must be (gm + 1,)")
+    _check_run_operands(blocks)
     if not b3.is_cuda:
         return maple_spmm_planned_plain(blocks, order, step_col, row_runs,
                                         row_run_ptr, b3)
@@ -236,12 +362,20 @@ def maple_spmm_planned(blocks: torch.Tensor, order: torch.Tensor,
     out = torch.empty((g, gm * bm, n), dtype=torch.float32, device=b3.device)
     if out.numel() == 0:
         return out
+    n_runs = row_runs.shape[0]
+    tile = walk_tile(b3.dtype, n, bm, bk, bn, runs=max(n_runs, 1), g=g,
+                     sms=_sm_count(b3.device))
+    lay = run_layout(b3.dtype, n, bm, bk, tile)
+    scratch = torch.empty(g * lay["n_tiles"] * n_runs * lay["frag"],
+                          dtype=torch.float32, device=b3.device)
+    counters = _row_counters(b3.device, g * lay["n_tiles"] * gm * SEGMENTS)
     lib = _build.library("maple_spmm")
     err = lib.maple_spmm_planned(
         blocks.data_ptr(), order.data_ptr(), step_col.data_ptr(),
         row_runs.data_ptr(), row_run_ptr.data_ptr(), b3.data_ptr(),
-        out.data_ptr(), _DTYPES[b3.dtype], g, gm, order.shape[1], k, n, bm,
-        bk, _tile_n(bn, n), _stream())
+        out.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
+        _DTYPES[b3.dtype], g, nb, gm, n_runs, order.shape[1], k, n, bm, bk,
+        tile, ring_stages(order.numel(), n_runs), _stream())
     _build.check(lib, err, "maple_spmm_planned")
     maple_spmm_planned.launches += 1
     return out

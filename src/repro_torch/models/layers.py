@@ -307,7 +307,7 @@ def init_sparse_linear(generator: torch.Generator, d_in: int, d_out: int, *,
                     shape=(d_out, d_in), block_shape=(bm, bk))
 
 
-def sparse_linear(w: BlockCSR, x: torch.Tensor, *, plan=None,
+def sparse_linear(w: BlockCSR, x: torch.Tensor, *, plan=None, bn: int = 128,
                   schedule: str = "balanced") -> torch.Tensor:
     """``y = x @ Wᵀ`` for block-sparse ``W`` in one batched kernel launch.
 
@@ -316,12 +316,13 @@ def sparse_linear(w: BlockCSR, x: torch.Tensor, *, plan=None,
     PSB columns, and each batch element is one right-hand side.  ``plan``
     may be a forward ``SpmmPlan``, a ``SpmmTrainPlan`` or ``"auto"`` (the
     memoized autotuner, passed to ``maple_spmm``); the call is
-    differentiable in ``w.blocks`` and ``x`` either way."""
+    differentiable in ``w.blocks`` and ``x`` either way.  ``bn`` is the
+    kernels' N tile, passed to ``maple_spmm``."""
     d_out = w.shape[0]
     if x.dim() == 3:
-        y = maple_spmm(w, x.transpose(1, 2), plan=plan,
+        y = maple_spmm(w, x.transpose(1, 2), plan=plan, bn=bn,
                        schedule=schedule)                 # (B, d_out, S)
         return y.transpose(1, 2)
     flat = x.reshape(-1, x.shape[-1])                     # (T, d_in)
-    y = maple_spmm(w, flat.t(), plan=plan, schedule=schedule)
+    y = maple_spmm(w, flat.t(), plan=plan, bn=bn, schedule=schedule)
     return y.t().reshape(*x.shape[:-1], d_out)

@@ -275,10 +275,15 @@ def _logits(params, x):
 
 
 def prefill(params, cfg: ModelConfig, batch, *, max_seq: Optional[int] = None,
+            cache_dtype=None, remat: bool = True,
             return_hidden: bool = False):
     """Process the prompt ``batch["tokens"]`` (B, S); return (last-position
     logits (B, 1, V) — or the final-norm hidden state with
-    ``return_hidden`` — and the decode state with ``pos = S``)."""
+    ``return_hidden`` — and the decode state with ``pos = S``).
+
+    The KV cache takes ``cache_dtype`` (default: the activations' dtype).
+    ``remat`` is the reference's checkpointing switch; prefill here runs
+    no backward, so it changes nothing and is accepted as given."""
     _check_ported(cfg)
     tok = batch["tokens"]
     x = params["embed_tokens"][tok]                        # (B, S, D)
@@ -290,8 +295,9 @@ def prefill(params, cfg: ModelConfig, batch, *, max_seq: Optional[int] = None,
     acfg = _attn_cfg(cfg)
     layers = _stacked_layers(params["groups"]["b0"])
     cache_shape = (len(layers), b, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    k_all = torch.empty(cache_shape, dtype=x.dtype, device=x.device)
-    v_all = torch.empty(cache_shape, dtype=x.dtype, device=x.device)
+    cache_dtype = x.dtype if cache_dtype is None else cache_dtype
+    k_all = torch.empty(cache_shape, dtype=cache_dtype, device=x.device)
+    v_all = torch.empty(cache_shape, dtype=cache_dtype, device=x.device)
     for li, p in enumerate(layers):
         h = L.apply_norm(x, p["norm1"], cfg.norm)
         h, kc, vc = L.attention_prefill(p["attn"], acfg, h, rope,

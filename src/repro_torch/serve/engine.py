@@ -113,15 +113,16 @@ def _default_generator(device: torch.device) -> torch.Generator:
 def complete_static(params, cfg: ModelConfig, tokens, max_new: int, *,
                     sampling: SamplingConfig,
                     generator: Optional[torch.Generator] = None,
+                    eos_id: int = -1,
                     head: Optional[SparseLogitHead] = None):
     """Finish ONE request on the static path: batch-1 prefill over the
     prompt, then one ``decode_step`` per token, scored by ``head`` when
     given (else the dense ``lm_head``).
 
     Returns ``(new_tokens, reason, generator)`` with ``reason`` in
-    ``("eos", "length", "error")``: the request ends at
-    ``sampling.eos_id`` (when ≥ 0), at ``max_new`` tokens, or with
-    ``"error"`` on non-finite logits."""
+    ``("eos", "length", "error")``: the request ends at ``eos_id`` (when
+    ≥ 0; ``sampling.eos_id`` is not read, as in the reference), at
+    ``max_new`` tokens, or with ``"error"`` on non-finite logits."""
     tokens = np.asarray(tokens, np.int64).reshape(-1)
     if max_new <= 0:
         return [], "length", generator
@@ -140,7 +141,7 @@ def complete_static(params, cfg: ModelConfig, tokens, max_new: int, *,
             return new_tokens, "error", generator
         tok = int(sample_token(row, generator, sampling, cfg.vocab_size)[0])
         new_tokens.append(tok)
-        if sampling.eos_id >= 0 and tok == sampling.eos_id:
+        if eos_id >= 0 and tok == eos_id:
             return new_tokens, "eos", generator
         if len(new_tokens) >= max_new:
             return new_tokens, "length", generator
@@ -153,16 +154,19 @@ def complete_static(params, cfg: ModelConfig, tokens, max_new: int, *,
 
 def generate(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
              sampling: SamplingConfig = SamplingConfig(),
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None,
+             max_seq: Optional[int] = None):
     """Prefill on ``batch`` then decode ``max_new_tokens`` greedily or
     sampled.  Returns (tokens (B, T), per-step entropy trace), T ≤
-    max_new_tokens; EOS is tracked per sequence as in the reference."""
+    max_new_tokens; EOS is tracked per sequence as in the reference.
+    ``max_seq`` sizes the KV cache (default: prompt + max_new_tokens)."""
     tokens = batch["tokens"]
     device = tokens.device
     if generator is None:
         generator = _default_generator(device)
-    logits, state = lm.prefill(
-        params, cfg, batch, max_seq=tokens.shape[1] + sampling.max_new_tokens)
+    if max_seq is None:
+        max_seq = tokens.shape[1] + sampling.max_new_tokens
+    logits, state = lm.prefill(params, cfg, batch, max_seq=max_seq)
     b = tokens.shape[0]
     done = torch.zeros((b,), dtype=torch.bool, device=device)
     outs = []

@@ -115,3 +115,11 @@ def test_stacked_layers_share_metadata():
     with pytest.raises(ValueError):
         one.layer(0)
 
+
+
+@pytest.mark.parametrize("kind", ["uniform", "empty_rows", "all_zero", "full"])
+def test_block_csr_density_equals_reference(kind):
+    d = _dense(kind, np.random.default_rng(7))
+    ref = RefBlockCSR.from_dense(d, (8, 8), n_blocks_max=40)
+    got = BlockCSR.from_dense(d, (8, 8), n_blocks_max=40, device="cpu")
+    assert got.density() == ref.density()

@@ -132,6 +132,73 @@ def test_planned_kernel_matches_plain_and_compact_merge(cuda, dtype, lanes,
     assert (got[0][:, torch.from_numpy(empty).to(cuda)] == 0).all()
 
 
+def _split_operands(cuda, dtype):
+    """64 × 64 blocks: a 24-block row, a 20-block row, a one-block row,
+    empty rows."""
+    rng = np.random.default_rng(31)
+    mask = np.zeros((6, 24), bool)
+    mask[0] = True
+    mask[3, 2:22] = True
+    mask[5, 7] = True
+    d = rng.standard_normal((6 * 64, 24 * 64)).astype(np.float32)
+    d *= np.repeat(np.repeat(mask, 64, 0), 64, 1)
+    a = BlockCSR.from_dense(d, (64, 64), device=cuda)
+    return dataclasses.replace(a, blocks=a.blocks.to(dtype)), rng
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 4, 17, 256])
+@pytest.mark.parametrize("lanes,chunk,whole", [(16, 1, False),
+                                               (1, None, True)])
+def test_run_walk_on_rows_over_a_cluster_and_runs_over_the_ring(
+        cuda, dtype, n, lanes, chunk, whole):
+    """B4 on rows split into more runs than a cluster has blocks, and on
+    runs longer than the ring: bit-identical on rerun, equal to B1 +
+    merge bit for bit, within tolerance of the plain version."""
+    from repro_torch.kernels.maple_spmm import SEGMENTS
+    a, rng = _split_operands(cuda, dtype)
+    plan = plan_spmm(a, n_lanes=lanes, chunk=chunk, row_atomic=whole)
+    if lanes > 1:
+        assert np.diff(plan.row_run_ptr).max() > SEGMENTS
+    else:
+        assert (plan.runs[:, 2] - plan.runs[:, 1]).max() > 4 * SEGMENTS
+    b3 = torch.from_numpy(rng.standard_normal((2, a.shape[1], n))
+                          .astype(np.float32)).to(cuda, dtype)
+    dev = plan.on_device(cuda)
+    args = (a.blocks, dev["order"], dev["step_col"], dev["row_runs"],
+            dev["row_run_ptr"], b3)
+    got = [maple_spmm_planned(*args) for _ in range(2)]
+    n_slots = plan.n_lanes * plan.r_max
+    tiles = maple_spmm_compact(a.blocks, dev["order"], dev["step_col"],
+                               dev["runs"], b3, n_slots=n_slots)
+    merged = _scatter_merge_f32(tiles.view(2, n_slots, 64, n), dev["merge"],
+                                gm=plan.n_block_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1]) and torch.equal(got[0], merged)
+    _close(got[0], maple_spmm_planned_plain(*args), dtype)
+
+
+def test_run_layout_matches_the_library(cuda):
+    """The wrapper sizes B4's scratch from ``run_layout``; the launcher
+    plans from its own C code: the two agree."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.maple_spmm import _tile_n, run_layout
+    lib = _build.library("maple_spmm")
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for bm, bk in ((8, 8), (64, 64), (16, 32)):
+            for n in (1, 4, 5, 8, 17, 21, 70, 256):
+                for bn in (16, 64, 128, 256):
+                    nt, fr = ctypes.c_int(), ctypes.c_int()
+                    err = lib.maple_spmm_run_layout(
+                        code, n, 64 * bk, bm, bk, _tile_n(bn, n),
+                        ctypes.byref(nt), ctypes.byref(fr))
+                    lay = run_layout(dtype, n, bm, bk, bn)
+                    assert err == 0
+                    assert (nt.value, fr.value) == (lay["n_tiles"],
+                                                    lay["frag"])
+
+
 def test_planned_kernel_on_an_all_empty_matrix(cuda):
     a, rng = _operands(cuda, 12, 5, 4, (8, 8), 0.0, torch.float32)
     plan = plan_spmm(a, n_lanes=4)

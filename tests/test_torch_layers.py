@@ -130,6 +130,30 @@ def test_sparse_linear_matches_reference(shape):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("bn", [16, 32])
+def test_sparse_linear_takes_bn_like_the_reference(bn):
+    w = _rand(43, 16, 24) * np.repeat(np.repeat(
+        np.random.default_rng(44).random((2, 3)) < 0.6, 8, 0), 8, 1)
+    x = _rand(45, 2, 5, 24)
+    want = RL.sparse_linear(RefBlockCSR.from_dense(w, (8, 8)), jnp.asarray(x),
+                            bn=bn)
+    got = L.sparse_linear(BlockCSR.from_dense(w, (8, 8), device="cpu"),
+                          torch.from_numpy(x), bn=bn)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("getter", ["full", "smoke"])
+def test_param_count_equals_reference(arch, getter):
+    get, ref_get = ((get_config, ref_get_config) if getter == "full"
+                    else (get_smoke_config, ref_get_smoke_config))
+    port, ref = get(arch), ref_get(arch)
+    for active in (False, True):
+        assert port.param_count(active_only=active) == \
+            ref.param_count(active_only=active)
+    assert port.param_count() == ref.param_count()
+
+
 def test_init_sparse_linear_fallback_pattern_equals_reference():
     """At density 0 every block-row keeps only its fallback block
     ``(i, i mod gk)`` — the one part of the draw both packages fix."""

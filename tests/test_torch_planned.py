@@ -27,7 +27,11 @@ from repro_torch.core.csr import BlockCSR
 from repro_torch.kernels import (maple_spmm, maple_spmm_compact,
                                  maple_spmm_planned, plan_spmm,
                                  plan_spmm_vjp)
-from repro_torch.kernels.maple_spmm import maple_spmm_planned_plain
+from repro_torch.kernels.maple_spmm import (SEGMENTS, ffma_tile,
+                                            maple_spmm_compact_plain,
+                                            maple_spmm_planned_plain,
+                                            ring_stages, run_layout,
+                                            run_segments, walk_tile)
 from repro_torch.kernels.ops import _planned_spmm_f32
 
 GM = GK = 8
@@ -195,3 +199,135 @@ def test_validate_gate_raises_on_a_broken_pad_contract(monkeypatch):
         maple_spmm(a, b)
     monkeypatch.setenv("MAPLE_VALIDATE", "0")
     maple_spmm(a, b)
+
+
+# --------------------------------------------------------------------------
+# the host's half of the run walk B1 and B4 share on the card
+# --------------------------------------------------------------------------
+
+def _split_plan(dtype=torch.float32, n_lanes=12):
+    """A power-law pattern whose heavy rows the plan splits over more
+    lanes than a cluster has blocks."""
+    rng = np.random.default_rng(61)
+    mask = block_pattern_mask("power_law", rng, 6, 24)
+    mask[0] = True
+    d = rng.standard_normal((6 * BM, 24 * BK)).astype(np.float32)
+    d *= np.repeat(np.repeat(mask, BM, 0), BK, 1)
+    a = BlockCSR.from_dense(d, (BM, BK), device="cpu")
+    blocks = a.blocks.to(dtype)
+    return a, blocks, plan_spmm(a, n_lanes=n_lanes, chunk=1)
+
+
+@pytest.mark.parametrize("n_lanes", [9, 12, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmw_equals_compact_plus_merge_on_rows_over_a_cluster(n_lanes,
+                                                              dtype):
+    """Rows split into more runs than a cluster has blocks (9 or more
+    lanes, power-law rows): the plain versions still agree bit for bit."""
+    a, blocks, plan = _split_plan(dtype, n_lanes)
+    assert np.diff(plan.row_run_ptr).max() >= 9 > SEGMENTS
+    b3 = torch.from_numpy(_rhs(8, (2, a.shape[1], 17))).to(dtype)
+    rmw = _planned_spmm_f32(blocks, b3, plan, bn=128)
+    compact = _planned_spmm_f32(
+        blocks, b3, plan_spmm(a, n_lanes=n_lanes, chunk=1,
+                              fused="compact"), bn=128)
+    assert torch.equal(rmw, compact)
+
+
+@pytest.mark.parametrize("first,end", [(0, 0), (3, 4), (0, 3), (5, 12),
+                                       (2, 154)])
+def test_run_segments_cover_the_run_in_order(first, end):
+    segs = run_segments(first, end)
+    assert len(segs) == SEGMENTS
+    assert segs[0][0] == first and segs[-1][1] == end
+    assert all(lo <= hi for lo, hi in segs)
+    assert all(segs[j][1] == segs[j + 1][0] for j in range(SEGMENTS - 1))
+    sizes = [hi - lo for lo, hi in segs]
+    assert max(sizes) - min(sizes) <= 1
+
+
+def test_segment_tree_sums_the_plain_psbs():
+    """The kernels' tree — four segment chains, ``(p0 + p1) + (p2 + p3)`` —
+    over every run of a split plan is the plain PSB within f32 rounding,
+    and each live step lands in exactly one segment."""
+    a, blocks, plan = _split_plan()
+    b3 = torch.from_numpy(_rhs(9, (1, a.shape[1], 5)))
+    n_slots = plan.n_lanes * plan.r_max
+    d = plan.on_device(b3.device)
+    want = maple_spmm_compact_plain(blocks, d["order"], d["step_col"],
+                                    d["runs"], b3, n_slots=n_slots)
+    want = want.view(1, n_slots, BM, 5)
+    panels = b3[0].reshape(a.shape[1] // BK, BK, 5)
+    steps = plan.order.shape[1]
+    for lane, first, end, slot in plan.runs.tolist():
+        parts, seen = [], 0
+        for lo, hi in run_segments(first, end):
+            p = torch.zeros(BM, 5)
+            for s in range(lo, hi):
+                col = int(plan.step_col.reshape(-1)[lane * steps + s])
+                if col >= 0:
+                    blk = int(plan.order.reshape(-1)[lane * steps + s])
+                    p = p + blocks[blk] @ panels[col]
+                    seen += 1
+            parts.append(p)
+        live = int((plan.step_col[lane, first:end] >= 0).sum())
+        assert seen == live
+        tree = (parts[0] + parts[1]) + (parts[2] + parts[3])
+        torch.testing.assert_close(tree, want[0, slot], rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("bm,tile,want", [
+    (64, 128, (8, 8)), (64, 64, (4, 8)), (64, 32, (4, 4)), (64, 16, (2, 4)),
+    (16, 64, (2, 4)), (8, 16, (1, 1)), (8, 32, (1, 2)), (128, 128, None)])
+def test_ffma_tile_uses_the_most_consumer_threads(bm, tile, want):
+    assert ffma_tile(bm, tile) == want
+    if want is not None:
+        assert (bm // want[0]) * (tile // want[1]) <= 128
+
+
+@pytest.mark.parametrize("dtype,n,block,bn,want", [
+    (torch.float32, 1, (64, 64), 128, ("skinny", 4, 1, 512)),
+    (torch.float32, 4, (64, 64), 128, ("skinny", 4, 1, 512)),
+    (torch.float32, 17, (64, 64), 128, ("ffma", 32, 1, 2048)),
+    (torch.float32, 256, (64, 64), 128, ("ffma", 128, 2, 8192)),
+    (torch.float32, 256, (64, 64), 256, ("ffma", 128, 2, 8192)),
+    (torch.bfloat16, 1, (64, 64), 128, ("wgmma", 8, 1, 512)),
+    (torch.bfloat16, 17, (64, 64), 128, ("wgmma", 64, 1, 4096)),
+    (torch.bfloat16, 256, (64, 64), 128, ("wgmma", 128, 2, 8192)),
+    (torch.bfloat16, 21, (8, 8), 16, ("ffma", 16, 2, 128)),
+    (torch.float32, 70, (16, 32), 64, ("ffma", 64, 2, 1024))])
+def test_run_layout_tiles_and_scratch(dtype, n, block, bn, want):
+    """The consumer, N tile, tile count and partial size of a launch; B4's
+    scratch is G · n_tiles · n_runs · frag floats."""
+    lay = run_layout(dtype, n, *block, bn)
+    assert (lay["consumer"], lay["tile"], lay["n_tiles"],
+            lay["frag"]) == want
+    assert lay["n_tiles"] * lay["tile"] >= n
+
+
+@pytest.mark.parametrize("dtype,n,bn,runs,g,want", [
+    (torch.float32, 256, 128, 41, 1, 64),     # the MLP's forward plan
+    (torch.float32, 256, 128, 152, 1, 128),   # its transpose-side plan
+    (torch.float32, 128, 128, 41, 1, 32),
+    (torch.float32, 1, 128, 2400, 1, 16),     # the head at decode
+    (torch.float32, 256, 128, 1, 1, 32),      # floor of the FFMA tile
+    (torch.bfloat16, 256, 128, 41, 1, 64),
+    (torch.bfloat16, 256, 128, 1, 4, 64),     # floor of wgmma
+    (torch.float32, 256, 256, 2400, 4, 128)])
+def test_walk_tile_narrows_until_the_grid_fills_the_card(dtype, n, bn, runs,
+                                                         g, want):
+    tile = walk_tile(dtype, n, 64, 64, bn, runs=runs, g=g, sms=132)
+    assert tile == want
+    if tile < min(bn, 128, 1 << max(n - 1, 0).bit_length()):
+        assert runs * SEGMENTS * g * -(-n // (2 * tile)) < 4 * 132
+
+
+@pytest.mark.parametrize("lanes,steps,runs,want", [
+    (8, 195, 41, 2),       # the MLP's forward plan: 9.5 steps a segment
+    (8, 190, 152, 2),      # its transpose-side plan: 2.5
+    (8, 6000, 2400, 2),    # the head at decode: 5
+    (8, 6000, 40, 4),      # the head's transpose-side plan: 300
+    (1, 65, 1, 4), (1, 64, 1, 2), (4, 10, 0, 2)])
+def test_ring_stages_follow_the_segment_length(lanes, steps, runs, want):
+    assert ring_stages(lanes * steps, runs) == want

@@ -164,3 +164,16 @@ def test_run_table_and_merge_ranks_cover_every_live_slot_once(kind, n_lanes,
         slots = [x for xs in per_rank for x in xs]
         assert slots == sorted(slots)
         assert per_rank[:len(slots)] == [[x] for x in slots]
+
+
+@pytest.mark.parametrize("kind", PATTERNS)
+@pytest.mark.parametrize("row_atomic", [True, False])
+def test_baseline_pe_cycles_equal_reference(kind, row_atomic):
+    from repro.core.maple import baseline_pe_cycles as ref_baseline
+    from repro.kernels.schedule import bsr_stats as ref_bsr_stats
+    from repro_torch.core.maple import baseline_pe_cycles
+    ref_a, a = _operands(kind, seed=3)
+    for n_pes in (1, 3, 8):
+        assert baseline_pe_cycles(bsr_stats(a), n_pes,
+                                  row_atomic=row_atomic) == \
+            ref_baseline(ref_bsr_stats(ref_a), n_pes, row_atomic=row_atomic)

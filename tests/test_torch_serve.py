@@ -131,6 +131,68 @@ def test_complete_static_greedy_tokens_match_reference(models, use_head):
     assert new == ref_new and reason == ref_reason == "length"
 
 
+@pytest.fixture(scope="module")
+def dense_models():
+    cfg_ref, cfg = ref_smoke_config("qwen3-4b"), get_smoke_config("qwen3-4b")
+    params_ref = ref_lm.init_params(cfg_ref, jax.random.PRNGKey(0))
+    return cfg_ref, cfg, params_ref, params_from_numpy(
+        flatten_ref(params_ref), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("where", ["sampling", "keyword"])
+def test_complete_static_ends_at_its_eos_keyword_like_the_reference(
+        dense_models, where):
+    """The request ends at the ``eos_id`` keyword; ``sampling.eos_id`` is
+    not read (qwen3-4b smoke, prompt seed 3, whose first greedy token is
+    489)."""
+    cfg_ref, cfg, params_ref, params = dense_models
+    prompt = _prompts(3, 1, 7, cfg.vocab_size)[0]
+    if where == "sampling":
+        ref_kw = dict(sampling=ref_engine.SamplingConfig(eos_id=489))
+        kw = dict(sampling=SamplingConfig(eos_id=489))
+    else:
+        ref_kw = dict(sampling=ref_engine.SamplingConfig(), eos_id=489)
+        kw = dict(sampling=SamplingConfig(), eos_id=489)
+    ref_new, ref_reason, _ = ref_engine.complete_static(
+        params_ref, cfg_ref, prompt, 5, key=jax.random.PRNGKey(0), **ref_kw)
+    new, reason, _ = complete_static(params, cfg, prompt, 5, **kw)
+    assert (new, reason) == (ref_new, ref_reason)
+    if where == "sampling":
+        assert len(new) == 5 and reason == "length"
+    else:
+        assert (new, reason) == ([489], "eos")
+
+
+def test_generate_takes_max_seq_like_the_reference(models):
+    cfg_ref, cfg, params_ref, params, _, _ = models
+    prompts = _prompts(4, 2, 6, cfg.vocab_size)
+    ref_tokens, _ = ref_engine.generate(
+        params_ref, cfg_ref, {"tokens": jnp.asarray(prompts, jnp.int32)},
+        ref_engine.SamplingConfig(max_new_tokens=4), max_seq=16)
+    tokens, _ = generate(params, cfg, {"tokens": torch.from_numpy(prompts)},
+                         SamplingConfig(max_new_tokens=4), max_seq=16)
+    np.testing.assert_array_equal(tokens.numpy(), np.asarray(ref_tokens))
+
+
+def test_prefill_cache_dtype_and_remat_match_reference(models):
+    """The KV cache takes ``cache_dtype``; decode over a bf16 cache gives
+    the reference's logits (both round the same f32 K/V once)."""
+    cfg_ref, cfg, params_ref, params, _, _ = models
+    prompts = _prompts(5, 2, 7, cfg.vocab_size)
+    ref_logits, ref_state = ref_lm.prefill(
+        params_ref, cfg_ref, {"tokens": jnp.asarray(prompts, jnp.int32)},
+        max_seq=9, cache_dtype=jnp.bfloat16, remat=False)
+    logits, state = lm.prefill(params, cfg, {"tokens": torch.from_numpy(
+        prompts)}, max_seq=9, cache_dtype=torch.bfloat16, remat=False)
+    assert state["groups"]["b0"]["k"].dtype == torch.bfloat16
+    np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), **TOL)
+    tok = _prompts(6, 2, 1, cfg.vocab_size)
+    ref_logits, _ = ref_lm.decode_step(params_ref, cfg_ref, ref_state,
+                                       jnp.asarray(tok, jnp.int32))
+    logits, _ = lm.decode_step(params, cfg, state, torch.from_numpy(tok))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), **TOL)
+
+
 def test_sparse_head_logits_match_reference(models):
     _, cfg, _, _, head_ref, head = models
     hidden = np.random.default_rng(4).standard_normal(

@@ -1,0 +1,74 @@
+#!/usr/bin/env python3
+"""Build the SpMM kernels, run their card tests and time B1 and B4.
+
+Run from the repository root on a machine with one H100::
+
+    python3 tools/spmm_walk/shapes.py
+
+Prints each B1 / B4 kernel's registers and spills (``ptxas -v``), the
+card tests of the SpMM kernels, ``chip_smoke.py``'s SpMM edge cases, then
+one JSON line per B1 / B4 row of ``chip_smoke.py``'s serving and training
+shapes (ms, plain, library, bound, B1 + merge).
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+os.chdir(ROOT)
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+
+
+def ptxas(source: Path, names=("run_kernel", "compact_kernel",
+                               "planned_kernel")) -> None:
+    """Registers and spills of every kernel in ``source`` named like one
+    of ``names``."""
+    out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+                          "-o", os.devnull, str(source)],
+                         capture_output=True, text=True)
+    lines = (out.stdout + out.stderr).splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and any(n in line
+                                                      for n in names):
+            fn = line.split("'")[1]
+            used = next((x for x in lines[i + 1:i + 5] if "Used" in x), "")
+            spill = next((x for x in lines[i + 1:i + 5] if "spill" in x), "")
+            print(fn[:110], "|", used.split(":")[-1].strip(), "|",
+                  spill.split(",", 1)[-1].strip(), flush=True)
+
+
+def main() -> int:
+    print(sys.version.split()[0], torch.__version__, torch.version.cuda)
+    ptxas(_build.CSRC / "maple_spmm.cu")
+    _build.build_all()
+    tests = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-x", "-m", "cuda",
+         "tests/test_torch_kernels_cuda.py", "-p", "no:cacheprovider", "-k",
+         "naive or compact or planned or maple_spmm or run_"],
+        capture_output=True, text=True, env={**os.environ,
+                                             "PYTHONPATH": "src"})
+    print(tests.stdout[-2000:], tests.stderr[-2000:], flush=True)
+    print("edge cases", cs.edge_cases(), flush=True)
+    print(json.dumps(cs.planned_edge_cases()), flush=True)
+    spec = cs.card_spec(torch.cuda.get_device_name(0))
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    keys = ("name", "dtype", "shape", "G", "N", "ms", "plain_ms",
+            "library_ms", "bound_ms", "compact_merge_ms", "runs")
+    rows = cs.serving_shapes(spec, flush)[0] + \
+        cs.training_shapes(spec, flush)[0]
+    for row in rows:
+        if row["name"] in ("maple_spmm_compact", "maple_spmm_planned"):
+            print(json.dumps({k: row[k] for k in keys if k in row}),
+                  flush=True)
+    return 0 if tests.returncode == 0 else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
