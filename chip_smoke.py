@@ -26,7 +26,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      cluster has blocks and a run longer than the ring, N = 1, 4, 17 and
      256 (every consumer and B-panel route of the run walk);
    - the serving shapes of the SpMM kernels (the qwen3-4b MLP
-     down-projection and the sparse logit head);
+     down-projection over 4 sequences at N = 1, 112 and 128 tokens, and
+     the sparse logit head);
    - the training shapes: the block SDDMM (dA) and both planned kernels
      on the transpose-side plan (dB) of the MLP down-projection at G=1,
      N=256 and of the head at G=1, N=4, and on the MLP's forward plan at
@@ -166,11 +167,11 @@ REPLACES = {"maple_spmm_naive": "src/repro/kernels/maple_spmm.py:91",
             "block_attention": "src/repro/kernels/block_attn.py:94"}
 # the serving shapes of the kernels: the qwen3-4b MLP down-projection
 # (d_ff -> d_model) as sparse_mlp builds it, over a batch of 4 sequences
-# (G) at decode (N = 1 token) and prefill (N = 128 tokens); the sparse
-# logit head (d_model -> padded vocab) as the serve benchmark builds it,
-# one request at a time
+# (G) at decode (N = 1 token) and prefill (N = 112 tokens, the serve
+# phase's prompts, and 128); the sparse logit head (d_model -> padded
+# vocab) as the serve benchmark builds it, one request at a time
 MLP = dict(name="mlp_down 2560x9728 (64,64) d=0.25", d_out=2560, d_in=9728,
-           block=(64, 64), density=0.25, G=4, N=(1, 128))
+           block=(64, 64), density=0.25, G=4, N=(1, 112, 128))
 HEAD = dict(name="logit_head 153600x2560 (64,64) d=0.5 L=8", d_out=153_600,
             d_in=2560, block=(64, 64), density=0.5, n_lanes=8, G=1, N=(1, 4))
 # the training shapes: the same weights at the activations of one

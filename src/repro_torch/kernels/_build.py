@@ -5,8 +5,10 @@ into its own shared library under ``build/kernels/`` at the repository
 root, loaded with ``ctypes``.  A source that includes no PyTorch header
 builds in seconds, where a ``torch.utils.cpp_extension`` binding file
 takes minutes of every fresh machine's time budget.  Libraries are
-named by the hash of their source and flags, so an edited source
-rebuilds and an unchanged one is reused.  Nothing builds at import:
+named by the hash of their source, of every header it includes from
+``csrc/`` (``hopper.cuh``, shared by the ring-fed kernels) and of the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused.  Nothing builds at import:
 the first CUDA launch calls :func:`library`, and :func:`build_all` starts
 one ``nvcc`` per source, all at once.
 """
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -45,9 +48,26 @@ def _nvcc() -> str:
     return str(path)
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every file it includes with quotes,
+    transitively, each once, in the order first met."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = b"".join(path.read_bytes() for path in _sources(name))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -92,9 +112,10 @@ def library(name: str) -> ctypes.CDLL:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "maple_spmm":
-        lib.maple_spmm_naive.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                                         i, p]
+        lib.maple_spmm_naive.argtypes = [p] * 5 + [i] * 10 + [p]
         lib.maple_spmm_naive.restype = i
+        lib.maple_spmm_naive_layout.argtypes = [i] * 8 + [p]
+        lib.maple_spmm_naive_layout.restype = i
         lib.maple_spmm_compact.argtypes = [p] * 6 + [i] * 12 + [p]
         lib.maple_spmm_compact.restype = i
         lib.maple_spmm_planned.argtypes = [p] * 9 + [i] * 12 + [p]
@@ -118,8 +139,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.maple_spmspm.argtypes = [p] * 4 + [i] * 5 + [p]
         lib.maple_spmspm.restype = i
     elif name == "moe_gemm":
-        lib.maple_moe_gemm.argtypes = [p] * 4 + [i] * 5 + [p]
+        lib.maple_moe_gemm.argtypes = [p] * 4 + [i] * 6 + [p]
         lib.maple_moe_gemm.restype = i
+        lib.maple_moe_layout.argtypes = [i] * 6 + [p]
+        lib.maple_moe_layout.restype = i
     elif name == "block_attn":
         lib.maple_block_attention.argtypes = [p] * 5 + [i] * 11 + \
             [ctypes.c_float, p]

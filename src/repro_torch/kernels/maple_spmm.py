@@ -23,15 +23,20 @@ alike), accumulated in f32.  The kernel masks a ragged ``N`` itself, so
 no padded copy of ``B`` is made; ``bn`` is the widest N tile of a
 thread block (narrowed to the next power of two ≥ 16 above ``N``).
 
-B1 and B4 share one run walk on the card (``csrc/maple_spmm.cu``): a
+All three share one run walk on the card (``csrc/maple_spmm.cu``): a
 cluster of :data:`SEGMENTS` thread blocks per (run, N tile, batch), block
 j walking the run's segment j (:func:`run_segments`), the run's PSB
-``(p₀ + p₁) + (p₂ + p₃)``.  :func:`run_layout` is the host's side of the
-launch: the N tile, the tile count and the floats of one partial, which
-size B4's scratch buffer.
+``(p₀ + p₁) + (p₂ + p₃)``; B3's runs are its block-rows.
+:func:`run_layout` and :func:`naive_route` are the host's side of a
+launch: the consumer, the N tile, the tile count, the floats of one
+partial (which size B4's scratch buffer), and for B3 how batches fold
+and how B's panels are copied.
 """
 
 from __future__ import annotations
+
+import functools
+import types
 
 import torch
 
@@ -73,7 +78,7 @@ def _tile_n(bn: int, n: int) -> int:
 
 
 # --------------------------------------------------------------------------
-# the run walk of B1 and B4: the host's half
+# the run walk of B1, B3 and B4: the host's half
 # --------------------------------------------------------------------------
 
 SEGMENTS = 4                    # blocks of a cluster = segments of a run
@@ -172,6 +177,64 @@ def _check_run_operands(blocks: torch.Tensor) -> None:
                          "bm·bk·size must be a multiple of 16 bytes")
 
 
+# BMode of csrc/maple_spmm.cu: 3 is B3's folded (G, K) box at N = 1
+_COPIES = ("tma", "bulk", "producer", "tma")
+
+
+@functools.lru_cache(maxsize=256)
+def naive_route(dtype: torch.dtype, g: int, gm: int, n: int, k: int,
+                bm: int, bk: int, bn: int, *, n_slots: int, sms: int,
+                aligned: bool = True) -> types.MappingProxyType:
+    """How a B3 launch runs on the card (``plan_naive`` in
+    ``csrc/maple_spmm.cu``).  Each of the ``gm`` block-rows is one run.
+    The N tile is :func:`walk_tile`'s over ``gm`` runs, and
+    :func:`run_layout` picks the consumer.  On the skinny tile and on
+    wgmma's n8 tile the batches fold: a cluster takes ``fold = tile // n``
+    of them side by side (column c is batch c // n, column c % n), in
+    ``groups = ceil(g / fold)`` clusters a row, so each weight block is read
+    once a group; each batch's panel comes by its own bulk copy where
+    every panel is 16-byte aligned, else the producer warp copies it.
+    At N = 1 the fold has its own layouts: bf16 on wgmma's n8 tile takes
+    8 batches' panels as one TMA box over B viewed as ``(G, K)`` (K-major,
+    swizzled: nothing to lay out), where K·size is a multiple of 16
+    bytes; the skinny tile splits its 4 columns over the 4 consumer warps
+    (``"split"``), and folds only where ``bm <= 64``.
+    Elsewhere ``fold`` is 0 and each batch has its own clusters
+    (``groups = g``), B's panel by TMA, one bulk copy or the producer.
+    ``stages`` caps the ring: 4 where the grid gives at most 2 CTAs an SM
+    (decode: 160), else :func:`ring_stages` over the slots.  Cached: the
+    serving path asks once a layer a step, with the same shapes; the
+    mapping is read-only, since every caller shares it."""
+    tile = walk_tile(dtype, n, bm, bk, bn, runs=gm, g=g, sms=sms)
+    lay = run_layout(dtype, n, bm, bk, tile)
+    isz = 2 if dtype == torch.bfloat16 else 4
+    consumer = lay["consumer"]
+    split = False
+    if (consumer == "skinny" and (n > 1 or bm <= 64)) or (
+            consumer == "wgmma" and lay["tile"] == 8):
+        fold = lay["tile"] // n
+        groups = -(-g // fold)
+        copy = ("bulk" if aligned and (bk * n * isz) % 16 == 0
+                and (k * n * isz) % 16 == 0 else "producer")
+        if consumer == "wgmma" and n == 1 and aligned and (k * isz) % 16 == 0:
+            copy = "tma"
+        split = consumer == "skinny" and n == 1 and bm <= 64
+    else:
+        fold, groups = 0, g
+        if aligned and (n * isz) % 16 == 0 and bk <= 256:
+            copy = "tma"
+        elif (aligned and n <= lay["tile"] and (bk * n * isz) % 16 == 0
+              and (consumer != "wgmma" or lay["tile"] == 8)):
+            copy = "bulk"
+        else:
+            copy = "producer"
+    ctas = SEGMENTS * gm * groups * lay["n_tiles"]
+    stages = 4 if ctas <= 2 * sms else ring_stages(n_slots, gm)
+    return types.MappingProxyType({
+        **lay, "bn": tile, "fold": fold, "groups": groups, "copy": copy,
+        "split": split, "ctas": ctas, "stages": stages})
+
+
 _COUNTERS: dict = {}
 
 
@@ -201,9 +264,11 @@ def maple_spmm_naive(blocks: torch.Tensor, row_ptr: torch.Tensor,
     """``(G, gm·bm, N)`` in B's dtype: block-row ``i`` of every batch ``g``
     is the f32 sum over slots ``row_ptr[i] .. row_ptr[i+1]`` (pads with
     ``block_col < 0`` masked) of ``blocks[s] @ B[g, col·bk : (col+1)·bk]``,
-    cast once."""
+    cast once.  On the card each block-row is one run of the run walk
+    (:func:`naive_route`), summed ``(p₀ + p₁) + (p₂ + p₃)``."""
     _check_operands(blocks, b3, (("row_ptr", row_ptr),
                                  ("block_col", block_col)), bn)
+    _check_run_operands(blocks)
     if not b3.is_cuda:
         return maple_spmm_naive_plain(blocks, row_ptr, block_col, b3)
     nb, bm, bk = blocks.shape
@@ -212,11 +277,14 @@ def maple_spmm_naive(blocks: torch.Tensor, row_ptr: torch.Tensor,
     out = torch.empty((g, gm * bm, n), dtype=b3.dtype, device=b3.device)
     if out.numel() == 0:
         return out
+    route = naive_route(b3.dtype, g, gm, n, k, bm, bk, bn,
+                        n_slots=block_col.numel(), sms=_sm_count(b3.device),
+                        aligned=b3.data_ptr() % 16 == 0)
     lib = _build.library("maple_spmm")
     err = lib.maple_spmm_naive(
         blocks.data_ptr(), row_ptr.data_ptr(), block_col.data_ptr(),
-        b3.data_ptr(), out.data_ptr(), _DTYPES[b3.dtype], g, gm, k, n, bm,
-        bk, _tile_n(bn, n), _stream())
+        b3.data_ptr(), out.data_ptr(), _DTYPES[b3.dtype], g, nb, gm, k, n,
+        bm, bk, route["bn"], route["stages"], _stream())
     _build.check(lib, err, "maple_spmm_naive")
     maple_spmm_naive.launches += 1
     return out

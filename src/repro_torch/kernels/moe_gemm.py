@@ -13,6 +13,8 @@ For CUDA tensors it launches the kernel or raises; each launch adds one
 to ``launches``.  The reference needs D and F to be multiples of its
 128-wide Pallas tiles; the kernel takes any D and F, and a token tile bt
 that is a multiple of 8 (the MoE layer's capacity always is).
+:func:`moe_route` is the host's side of a launch: the consumer, the token
+piece of a thread block, and whether the operands come by TMA.
 """
 
 from __future__ import annotations
@@ -20,8 +22,46 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.maple_spmm import ffma_tile
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+PIECES = (8, 16, 32, 64, 96, 128)   # token pieces a thread block can take
+F_TILE = 64                         # output columns of a thread block
+_RING = 48 * 1024                   # bytes of a block's ring
+_MAX_STAGES = 8
+
+
+def moe_route(dtype: torch.dtype, t: int, d: int, f: int, bt: int, *,
+              aligned: bool = True) -> dict:
+    """How a B8 launch runs on the card (``plan_moe`` in
+    ``csrc/moe_gemm.cu``).  A thread block owns ``piece`` tokens of one
+    token tile and :data:`F_TILE` columns of F: the smallest of
+    :data:`PIECES` that covers ``bt``, or 128 tokens at a time where
+    ``bt`` is wider (``pieces`` blocks a tile, the last one's rows past
+    the tile unwritten).  bf16 runs on ``"wgmma"`` (tokens as the
+    instruction's N), f32 on ``"ffma"`` with :func:`ffma_tile`'s register
+    tile.  Both operands come by ``"tma"`` where D·size and F·size are
+    multiples of 16 bytes and the pointers 16-byte aligned, else the
+    producer warp copies them (``"producer"``).  A stage holds ``kc``
+    rows of D (64; 32 for f32 pieces of 32 tokens or more, so that 3
+    blocks share an SM) of x's and w's panels,
+    ``(piece + 64) · kc`` elements; ``stages`` of them fill a 48 KB ring
+    (2 to 8)."""
+    if bt <= 0 or bt % 8 or t % bt:
+        raise ValueError(f"bt={bt} must be a positive multiple of 8 that "
+                         f"divides T={t}")
+    isz = 2 if dtype == torch.bfloat16 else 4
+    piece = next((p for p in PIECES if p >= bt), PIECES[-1])
+    tma = d > 0 and (d * isz) % 16 == 0 and (f * isz) % 16 == 0 and aligned
+    kc = 64 if dtype == torch.bfloat16 or piece < 32 else 32
+    stage = (piece + F_TILE) * kc * isz
+    return {"consumer": "wgmma" if dtype == torch.bfloat16 else "ffma",
+            "register_tile": (None if dtype == torch.bfloat16
+                              else ffma_tile(piece, F_TILE)),
+            "piece": piece, "pieces": -(-bt // piece), "kc": kc,
+            "copy": "tma" if tma else "producer",
+            "stages": min(max(_RING // stage, 2), _MAX_STAGES),
+            "f_tiles": -(-f // F_TILE)}
 
 
 def _check(x, expert_of_tile, w, bt: int) -> None:
@@ -66,7 +106,7 @@ def moe_gemm(x: torch.Tensor, expert_of_tile: torch.Tensor,
     lib = _build.library("moe_gemm")
     err = lib.maple_moe_gemm(x.data_ptr(), expert_of_tile.data_ptr(),
                              w.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], t,
-                             d, f, bt,
+                             d, f, w.shape[0], bt,
                              torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "moe_gemm")
     moe_gemm.launches += 1

@@ -73,6 +73,142 @@ def test_naive_kernel_matches_plain(cuda, dtype, block, bn, n):
     assert (got[:, torch.from_numpy(empty).to(cuda)] == 0).all()
 
 
+def _naive_twice(a, b3, **kw):
+    """B3 twice on the same inputs: bit-identical, one launch each."""
+    meta = _meta_on(a, b3.device)
+    args = (a.blocks, meta["row_ptr"], meta["block_col"], b3)
+    before = maple_spmm_naive.launches
+    got = [maple_spmm_naive(*args, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert maple_spmm_naive.launches == before + 2
+    assert torch.equal(got[0], got[1])
+    return got[0], args
+
+
+def _one_run_a_row(a, cuda):
+    """A run table with one run per non-empty block-row, its steps the
+    row's slots in construction order: B4's arguments beside B3's."""
+    ptr = np.asarray(a.row_ptr)
+    nnzb = int(ptr[-1])
+    rows = [i for i in range(len(ptr) - 1) if ptr[i + 1] > ptr[i]]
+    order = torch.arange(max(nnzb, 1), dtype=torch.int32)[None]
+    step_col = torch.from_numpy(np.asarray(a.block_col)[:max(nnzb, 1)]
+                                .astype(np.int32))[None]
+    if nnzb == 0:
+        step_col[:] = -1
+    runs = torch.tensor([(0, ptr[i], ptr[i + 1], i) for i in rows],
+                        dtype=torch.int32).reshape(-1, 4)
+    per_row = np.zeros(len(ptr), np.int32)
+    per_row[1:] = np.cumsum(np.diff(ptr) > 0)
+    return [t.to(cuda) for t in (order, step_col, runs,
+                                 torch.from_numpy(per_row))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,n", [(4, 1), (3, 1), (2, 2), (4, 8), (4, 64),
+                                 (4, 112), (4, 128)])
+def test_naive_kernel_routes_rerun_bit_identical(cuda, dtype, g, n):
+    """B3 at 64 × 64 blocks on each route: batches folded into the skinny
+    tile (f32, N <= 4) or wgmma's n8 tile (bf16, N <= 8; G 3 leaves columns
+    idle), and g kept in the grid (FFMA, wgmma n64 / n128, ragged N 112)."""
+    from repro_torch.kernels.maple_spmm import naive_route
+    a, rng = _operands(cuda, 5, 6, 10, (64, 64), 0.5, dtype)
+    b3 = torch.from_numpy(rng.standard_normal((g, a.shape[1], n))
+                          .astype(np.float32)).to(cuda, dtype)
+    route = naive_route(dtype, g, 6, n, a.shape[1], 64, 64, 128,
+                        n_slots=a.block_col.shape[0], sms=132)
+    narrow = n <= (8 if dtype == torch.bfloat16 else 4)
+    assert (route["fold"] > 0) == narrow
+    got, args = _naive_twice(a, b3)
+    _close(got, maple_spmm_naive_plain(*args), dtype)
+    empty = np.repeat(np.diff(a.row_ptr) == 0, 64)
+    assert (got[:, torch.from_numpy(empty).to(cuda)] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,n", [(4, 1), (3, 4), (2, 17), (4, 112)])
+def test_naive_kernel_on_rows_over_the_ring_and_one_slot_rows(cuda, dtype,
+                                                              g, n):
+    """A 24-block and a 20-block row (segments longer than the ring), a
+    one-slot row and empty rows."""
+    a, rng = _split_operands(cuda, dtype)
+    b3 = torch.from_numpy(rng.standard_normal((g, a.shape[1], n))
+                          .astype(np.float32)).to(cuda, dtype)
+    got, args = _naive_twice(a, b3)
+    _close(got, maple_spmm_naive_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_naive_kernel_on_an_all_pad_matrix(cuda, dtype):
+    a, rng = _operands(cuda, 13, 5, 4, (64, 64), 0.0, dtype, extra_pad=3)
+    assert int(a.row_ptr[-1]) == 0
+    for g, n in ((4, 1), (2, 40)):
+        b3 = torch.ones((g, a.shape[1], n), device=cuda, dtype=dtype)
+        got, _ = _naive_twice(a, b3)
+        assert got.shape == (g, a.shape[0], n) and not got.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block,g,n", [((64, 64), 4, 1), ((64, 64), 3, 2),
+                                       ((64, 64), 4, 112), ((8, 8), 3, 21),
+                                       ((64, 64), 2, 8), ((128, 16), 4, 1),
+                                       ((8, 8), 4, 1)])
+def test_naive_kernel_equals_planned_on_one_run_a_row(cuda, dtype, block, g,
+                                                      n):
+    """B3 sums a row as B4 sums a run: on a run table of one run per
+    non-empty row, B4's f32 result cast to B's dtype is B3's, bit for bit,
+    whether B3 folds the batches or keeps them in the grid."""
+    a, rng = _operands(cuda, 6, 7, 9, block, 0.5, dtype)
+    b3 = torch.from_numpy(rng.standard_normal((g, a.shape[1], n))
+                          .astype(np.float32)).to(cuda, dtype)
+    got, _ = _naive_twice(a, b3, bn=16 if block == (8, 8) else 128)
+    order, step_col, runs, ptr = _one_run_a_row(a, cuda)
+    want = maple_spmm_planned(a.blocks, order, step_col, runs, ptr, b3,
+                              bn=16 if block == (8, 8) else 128)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want.to(dtype))
+
+
+def test_naive_route_matches_the_library(cuda):
+    """The wrapper's route (tile, fold, batch groups, B's copy) is the one
+    the C launcher plans."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.maple_spmm import (_COPIES, naive_route,
+                                                walk_tile)
+    lib = _build.library("maple_spmm")
+    kinds = {"wgmma": (0, 1, 2), "skinny": (3,), "ffma": (4, 5, 6, 7, 8, 9,
+                                                          10)}
+    out = (ctypes.c_int * 6)()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for bm, bk in ((8, 8), (64, 64), (16, 32), (128, 16)):
+            for g in (1, 3, 4, 9):
+                for n in (1, 2, 3, 4, 5, 8, 17, 21, 112, 128):
+                    for aligned in (True, False):
+                        k = 40 * bk + (bk if n % 2 else 0)
+                        try:
+                            r = naive_route(dtype, g, 40, n, k, bm, bk, 128,
+                                            n_slots=400, sms=132,
+                                            aligned=aligned)
+                        except ValueError:     # no tile fits: both refuse
+                            tile = walk_tile(dtype, n, bm, bk, 128, runs=40,
+                                             g=g, sms=132)
+                            assert lib.maple_spmm_naive_layout(
+                                code, g, n, k, bm, bk, tile, int(aligned),
+                                out) != 0
+                            continue
+                        err = lib.maple_spmm_naive_layout(
+                            code, g, n, k, bm, bk, r["bn"], int(aligned),
+                            out)
+                        assert err == 0
+                        assert out[0] in kinds[r["consumer"]] or (
+                            out[0] == 11 and r["split"])
+                        assert (out[0] == 11) == r["split"]
+                        assert list(out[1:5]) == [r["tile"], r["n_tiles"],
+                                                  r["fold"], r["groups"]]
+                        assert _COPIES[out[5]] == r["copy"]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("lanes,chunk,whole", [(8, 1, False), (8, None, True),
                                                (3, 2, False)])
@@ -435,7 +571,15 @@ def test_spgemm_psb_wider_than_shared_memory_raises(cuda):
     ([96, 96, 0], 100, 36, 96),                 # a 32-row tile, ragged F
     ([24, 8, 0], 20, 12, 8),                    # D and F below one panel
     ([8] * 48, 1536, 512, 8),                   # granite decode gate/up
-    ([8] * 48, 512, 1536, 8)])                  # granite decode down
+    ([8] * 48, 512, 1536, 8),                   # granite decode down
+    ([96] * 48, 1536, 512, 96),                 # granite prefill gate/up
+    ([96] * 48, 512, 1536, 96),                 # granite prefill down
+    ([128, 0, 128], 192, 320, 128),             # two n64 atoms
+    ([384, 0, 384], 128, 64, 384),              # bt > 256: three pieces
+    ([200, 0, 200], 64, 72, 200),               # a piece past the tile
+    ([16, 16, 0], 72, 64, 16),                  # two n8 atoms
+    ([48, 0, 48], 40, 24, 48),                  # ragged D in f32 and bf16
+    ([32, 0, 32], 64, 64, 32)])                 # an n32 atom
 def test_moe_gemm_kernel_matches_plain(cuda, dtype, sizes, d, f, bt):
     from repro_torch.kernels import moe_expert_gemm
     from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain
@@ -454,6 +598,48 @@ def test_moe_gemm_kernel_matches_plain(cuda, dtype, sizes, d, f, bt):
     assert torch.equal(got[0], got[1])
     eot = expert_of_tile(gs, t // bt, bt)
     _close(got[0], moe_gemm_plain(x, eot, w, bt=bt), dtype)
+
+
+def test_moe_route_matches_the_library(cuda):
+    """The wrapper's route (piece, pieces, TMA or the producer's copies,
+    stages, F tiles) is the one the C launcher plans."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.moe_gemm import moe_route
+    lib = _build.library("moe_gemm")
+    out = (ctypes.c_int * 5)()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for bt in (8, 16, 24, 40, 96, 128, 136, 384):
+            for d, f in ((1536, 512), (100, 36), (20, 12), (0, 8)):
+                for aligned in (True, False):
+                    r = moe_route(dtype, 4 * bt, d, f, bt, aligned=aligned)
+                    assert lib.maple_moe_layout(code, 4 * bt, d, f, bt,
+                                                int(aligned), out) == 0
+                    assert list(out) == [r["piece"], r["pieces"],
+                                         int(r["copy"] == "tma"),
+                                         r["stages"], r["f_tiles"]]
+
+
+def test_moe_gemm_kernel_on_an_unaligned_input_and_zero_d(cuda):
+    """A 16-byte-misaligned x takes the producer's copies; D = 0 gives
+    zeros."""
+    from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain
+    rng = np.random.default_rng(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        big = torch.from_numpy(rng.standard_normal(32 * 64 + 2)
+                               .astype(np.float32)).to(cuda, dtype)
+        x = big[2:].view(32, 64)
+        w = torch.from_numpy(rng.standard_normal((2, 64, 48))
+                             .astype(np.float32)).to(cuda, dtype)
+        eot = torch.tensor([1, 0], dtype=torch.int32, device=cuda)
+        got = [moe_gemm(x, eot, w, bt=16) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], got[1])
+        _close(got[0], moe_gemm_plain(x, eot, w, bt=16), dtype)
+        y = moe_gemm(torch.zeros((16, 0), device=cuda, dtype=dtype), eot[:1],
+                     torch.zeros((2, 0, 24), device=cuda, dtype=dtype), bt=16)
+        torch.cuda.synchronize()
+        assert y.shape == (16, 24) and not y.any()
 
 
 def test_moe_gemm_kernel_refuses_a_tile_not_a_multiple_of_8(cuda):
