@@ -16,7 +16,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    - small edge cases: 8×8 blocks, bn = 16, ragged N, empty rows, pad
      blocks, an all-empty (all-pad) matrix, G > 1, a plan with idle lanes
      and split rows; the SpMM merge and the SDDMM each run twice for bit
-     identity;
+     identity; the SDDMM (B2) also at (64, 64) and (16, 32) blocks with 8
+     slots a CTA: rows longer than a chunk, chunks across rows, slots out
+     of row order, N = 1, 4, 21 and 37 (rows TMA cannot take), N = 256,
+     and G = 3 at N = 256 (the dC panel streamed);
    - planned_kernels: the rmw kernel (B4) on edge plans (idle lanes, a
      row split over three or more lanes, a row split twice on one lane,
      empty rows, an all-empty A, row_atomic, chunk 1, 8×8 blocks with
@@ -83,7 +86,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    versions on the card, f32 and bf16, over the element-pattern goldens
    and edge cases (empty rows, an all-zero A, nnz at capacity,
    zero-dimension operands, la = 1, lc = 1, pad steps, rows and panels
-   wider than a warp); B5, B6 and dB twice each for bit identity.
+   wider than a warp); B5, B6 and dB twice each for bit identity; B7 bit
+   for bit, and alone at L > 32 with a row all pad, N = 1, 37, 64, 300.
 9. spgemm  — the paper's protocol C = A×A on the cage12 clone at scale
    1.0 (seed 0; its n, nnz, la, lb, lc, P and nnz(C) are printed; the
    clone's rng takes the string hashes of the process, so the script
@@ -577,16 +581,18 @@ def serving_shapes(spec, flush):
     return rows, plan_s
 
 
-def run_sddmm_case(a, g, n, dtype, bn, rng):
-    """The SDDMM of ``a``'s pattern on random (dC, B); checks that two
-    launches give the same bits."""
+def run_sddmm_case(a, g, n, dtype, bn, rng, order=None):
+    """The SDDMM of ``a``'s pattern on random (dC, B), its slots in
+    ``order`` (default: the container's, by row); checks that two launches
+    give the same bits."""
     from repro_torch.kernels.maple_sddmm import (maple_sddmm_bsr,
                                                  maple_sddmm_bsr_plain)
     bm, bk = a.block_shape
     rand = lambda rows: torch.from_numpy(rng.standard_normal(
         (g, rows, n)).astype(np.float32)).cuda().to(dtype)
     dc, b3 = rand(a.shape[0]), rand(a.shape[1])
-    meta = {k: torch.from_numpy(getattr(a, k)).cuda()
+    order = np.arange(a.n_blocks_max) if order is None else order
+    meta = {k: torch.from_numpy(getattr(a, k)[order]).cuda()
             for k in ("block_row", "block_col")}
     args = (dc, b3, meta["block_row"], meta["block_col"])
     got = [maple_sddmm_bsr(*args, bm=bm, bk=bk, bn=bn) for _ in range(2)]
@@ -598,7 +604,21 @@ def run_sddmm_case(a, g, n, dtype, bn, rng):
     return got[0], maple_sddmm_bsr_plain(*args, bm=bm, bk=bk), args
 
 
+# B2 with 8 slots a CTA: (block, block grid, density, G, N, slots out of
+# row order).  Rows longer than a chunk and chunks that span rows (the dC
+# panel kept, then reloaded), rows TMA cannot take (N = 4, 37, 1 and 21),
+# N = 256, G = 3 at N = 256 (the panel streamed beside B)
+SDDMM_EDGE = (((64, 64), (6, 20), 0.7, 1, 256, False),
+              ((64, 64), (6, 20), 0.7, 1, 4, False),
+              ((64, 64), (6, 20), 0.7, 1, 37, False),
+              ((64, 64), (6, 20), 0.7, 1, 1, False),
+              ((64, 64), (4, 6), 0.5, 3, 256, False),
+              ((64, 64), (6, 20), 0.7, 1, 256, True),
+              ((16, 32), (6, 20), 0.7, 2, 21, True))
+
+
 def sddmm_edge_cases():
+    import repro_torch.kernels.maple_sddmm as sddmm
     rng = np.random.default_rng(SEED + 2)
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -610,6 +630,20 @@ def sddmm_edge_cases():
                 got, want, _ = run_sddmm_case(a, g, n, dtype, 16, rng)
                 check_close(got, want, dtype, f"sddmm edge {kw} g{g} n{n}")
                 cases += 1
+        sddmm.CHUNK = 8
+        try:
+            for block, grid, density, g, n, shuffle in SDDMM_EDGE:
+                a = bsr(rng, *grid, *block, density, empty_rows=True,
+                        extra_pad=2, dtype=dtype)
+                order = rng.permutation(a.n_blocks_max) if shuffle else None
+                got, want, _ = run_sddmm_case(a, g, n, dtype, 128, rng,
+                                              order=order)
+                check_close(got, want, dtype,
+                            f"sddmm edge {block} {grid} g{g} n{n} "
+                            f"shuffled={shuffle}")
+                cases += 1
+        finally:
+            sddmm.CHUNK = 0
     return cases
 
 
@@ -1083,7 +1117,7 @@ def train(card):
     batch = {k: v.cuda() for k, v in synth_batch(run.data, steps).items()}
     # the run walk (B1 / B4) and the block SDDMM (B2), summed by name
     prof = profile(lambda: run.step_fn(run.params, run.opt, batch),
-                   warmup=False, totals=("run_kernel", "sddmm_bsr_kernel"))
+                   warmup=False, totals=("run_kernel", "sddmm_kernel"))
     return launches, {
         "phase": "train", "config": "qwen3-4b sparse_mlp (64,64) d=0.25, "
         "f32, AdamW, remat per layer", "argv": TRAIN_ARGV,
@@ -1361,8 +1395,26 @@ def spgemm_kernels_edge():
             dense_b = b.to_dense()
             got = maple_spmspm_ell(values, col_ids, dense_b)
             torch.cuda.synchronize()
-            check_close(got, maple_spmspm_ell_plain(values, col_ids, dense_b),
-                        dtype, f"B7 {what}")
+            if not torch.equal(got, maple_spmspm_ell_plain(values, col_ids,
+                                                           dense_b)):
+                raise AssertionError(f"B7 {what}: not bit-equal to plain")
+            cases += 1
+        # B7 alone: L > 32 (two tiles of slots), a row all pad, N = 1,
+        # 37, 64 and 300 (scalar and 4-wide lanes, 16 and 32 lanes a row)
+        mask = rng.random((40, 90)) < 0.1
+        mask[7, :50] = True
+        mask[3] = False
+        a = element_csr(mask, rng, dtype, pad=2)
+        values, col_ids = csr_to_ell(a)
+        for n in (1, 37, 64, 300):
+            dense_b = torch.from_numpy(rng.standard_normal((90, n)).astype(
+                np.float32)).cuda().to(dtype)
+            got = maple_spmspm_ell(values, col_ids, dense_b)
+            torch.cuda.synchronize()
+            if not torch.equal(got, maple_spmspm_ell_plain(values, col_ids,
+                                                           dense_b)):
+                raise AssertionError(f"B7 L={values.shape[1]} N={n} "
+                                     f"{dtype}: not bit-equal to plain")
             cases += 1
     return {"phase": "spgemm_kernels", "cases": cases,
             "b5_bit_equal_to_plain": bit_equal_plain, "ok": True}

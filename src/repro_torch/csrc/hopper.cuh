@@ -1,14 +1,20 @@
 // Hopper (sm_90a) building blocks shared by the ring-fed kernels:
-// maple_spmm.cu (B1, B3, B4) and moe_gemm.cu (B8).
+// maple_spmm.cu (B1, B3, B4), maple_sddmm.cu (B2), moe_gemm.cu (B8) and,
+// for its element types, maple_spmspm.cu (B7).
 //
 // * element types: 4-wide vector loads, f32 widening and rounding;
 // * the ring: mbarriers, 1D bulk copies and 2D / 3D TMA loads that
 //   complete on them, the consumer warpgroup's named barrier;
+// * bulk stores: a contiguous tile from shared to global memory
+//   (cp.async.bulk.global.shared::cta) in bulk groups, and the waits for
+//   their reads of shared memory;
 // * wgmma: shared-memory descriptors (128-byte swizzle, or the plain
 //   interleaved layout) and the m64 n8 / n32 / n64 bf16 products with the
 //   transpose bits as template arguments;
 // * the FFMA register tile, one output tile of a warpgroup multiplied out
-//   of a stage of shared memory (A rows along k, B rows along n);
+//   of a stage of shared memory (A rows along k, B rows along n), and its
+//   k-major variant (both operands' rows along k, 16-byte units swizzled
+//   as the TMA's 128-byte swizzle lays them out: B2's dC·Bᵀ);
 // * host: cuTensorMapEncodeTiled through the runtime's driver entry point.
 //
 // Everything is in an anonymous namespace: each source that includes this
@@ -132,8 +138,31 @@ __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// ---- bulk stores: shared → global, tracked per thread in bulk groups
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               :: "l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" :: "n"(N) : "memory");
+}
+
+// until every bulk group of this thread has completed
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
 // generic-proxy stores to shared memory, read next by the async proxy
-// (wgmma)
+// (wgmma, bulk stores)
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
@@ -307,6 +336,97 @@ struct FfmaTile {
     if (!place(geo, t, tx, ty, tx_n, ty_n)) return false;
     r = ty + (i / TN) * ty_n;
     c = col(i % TN, tx, tx_n);
+    return true;
+  }
+};
+
+// ---- the k-major FFMA register tile: out(bm, bk) += A · Bᵀ with A's bm
+// rows and B's bk rows both along k (B2: dC rows and B rows, N
+// contiguous).  A row is `pitch` bytes; where `swz` is set (pitch 128)
+// the 16-byte units of row r are XOR-swizzled by r % 8, as the TMA's
+// 128-byte swizzle lays them out, so that 8 consecutive rows read at one
+// k fall in 8 distinct bank groups.  Thread (ty, tx) holds rows
+// ty + i·ty_n and columns tx + j·tx_n: a quarter warp shares ty (one A
+// row, broadcast) and reads 8 consecutive B rows.  Each output element is
+// one FFMA chain over k in order.  BM, BK and PITCH, where not 0, fix
+// bm, bk and pitch (swizzled at 128) at compile time, so that the rows'
+// offsets become immediates of the loads.
+
+template <typename T, int TM, int TN, int BM = 0, int BK = 0, int PITCH = 0>
+struct FfmaTileK {
+  static constexpr int R = TM * TN;
+
+  __device__ static bool place(int bm, int bk, int t, int& tx, int& ty,
+                               int& tx_n, int& ty_n) {
+    tx_n = (BK ? BK : bk) / TN;
+    ty_n = (BM ? BM : bm) / TM;
+    tx = t % tx_n;
+    ty = t / tx_n;
+    return t < tx_n * ty_n;
+  }
+
+  // acc += A[:, 0 : 4·quads] · B[:, 0 : 4·quads]ᵀ
+  __device__ static void step(float (&acc)[R], const unsigned char* a,
+                              const unsigned char* b, int bm, int bk,
+                              int pitch, bool swz, int quads, int t) {
+    int tx, ty, tx_n, ty_n;
+    if (!place(bm, bk, t, tx, ty, tx_n, ty_n)) return;
+    if (PITCH) {
+      pitch = PITCH;
+      swz = PITCH == 128;
+    }
+    // rows 8 apart share their swizzle: then one key serves all A rows of
+    // a thread and one all its B rows
+    if (!swz || (ty_n % 8 == 0 && tx_n % 8 == 0))
+      walk<true>(acc, a, b, pitch, swz, quads, tx, ty, tx_n, ty_n);
+    else
+      walk<false>(acc, a, b, pitch, swz, quads, tx, ty, tx_n, ty_n);
+  }
+
+  template <bool kShared>
+  __device__ static void walk(float (&acc)[R], const unsigned char* a,
+                              const unsigned char* b, int pitch, bool swz,
+                              int quads, int tx, int ty, int tx_n,
+                              int ty_n) {
+    using V = typename Vec4<T>::type;
+    const int m = swz ? 7 : 0;
+#pragma unroll 1
+    for (int q = 0; q < quads; ++q) {
+      // elements 4q .. 4q + 3 of a row: 16-byte unit u, byte w within it
+      const int byte = q * 4 * (int)sizeof(T), u = byte >> 4, w = byte & 15;
+      const int ua = ((u ^ (ty & m)) << 4) | w;
+      const int ub = ((u ^ (tx & m)) << 4) | w;
+      float av[TM][4], bv[TN][4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int r = ty + i * ty_n;
+        const int off = kShared ? ua : ((u ^ (r & m)) << 4) | w;
+        Vec4<T>::unpack(*reinterpret_cast<const V*>(a + r * pitch + off),
+                        av[i]);
+      }
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int r = tx + j * tx_n;
+        const int off = kShared ? ub : ((u ^ (r & m)) << 4) | w;
+        Vec4<T>::unpack(*reinterpret_cast<const V*>(b + r * pitch + off),
+                        bv[j]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            acc[i * TN + j] = fmaf(av[i][kk], bv[j][kk], acc[i * TN + j]);
+    }
+  }
+
+  // the row and column of register i
+  __device__ static bool at(int i, int bm, int bk, int t, int& r, int& c) {
+    int tx, ty, tx_n, ty_n;
+    if (!place(bm, bk, t, tx, ty, tx_n, ty_n)) return false;
+    r = ty + (i / TN) * ty_n;
+    c = tx + (i % TN) * tx_n;
     return true;
   }
 };

@@ -8,76 +8,143 @@
 //   C[i, n] = (((0 + a_0·B[c_0, n]) + a_1·B[c_1, n]) + ...)
 //
 // The TPU grid (M, L) walks one slot per step with a (1, N) f32 PSB in
-// VMEM, zeroed at t = 0 and flushed at t = L - 1.  Here one thread block
-// owns one (row, N tile), each thread one column of the tile, and the PSB
-// is one f32 register a thread: the block loops over the row's L slots
-// itself.  Pad slots are skipped (the reference multiplies them by 0).
-// Products and sums round as the plain version's do (__fmul_rn, then
-// __fadd_rn: no FMA contraction), so the two agree bit for bit.
+// VMEM, zeroed at t = 0 and flushed at t = L - 1.  Here a group of lanes
+// owns a row: 16 lanes where 16 vectors cover N (N ≤ 64 with 4-wide
+// loads: cage12 at N = 64 puts two rows in a warp), else the whole warp,
+// walking N in passes of 32 vectors.  A 256-thread CTA holds 8 warps, so
+// 8 or 16 rows.  Each lane holds 4 columns (4-wide loads where N·size and
+// the pointers allow, else one column) and their f32 PSB in registers.
+//   - The group loads its row's col_ids and values once per 32 slots,
+//     coalesced (slot t on lane t % group), and hands each slot out with
+//     __shfl_sync.
+//   - It issues the B-row loads of 4 slots before the first add, so 4
+//     loads a lane are in flight instead of one chain of dependent loads;
+//     the adds then follow in slot order.  Pad slots are skipped, loads and
+//     adds alike (the reference multiplies them by 0).  B is read through
+//     the read-only path (__ldg), so that the B rows a CTA's neighbouring
+//     rows share are found in L1.
+//   - Products and sums round as the plain version's do (__fmul_rn, then
+//     __fadd_rn: no FMA contraction), so the two agree bit for bit.
 //
 // What bounds it on the H100: bytes.  Each live slot reads one B row
-// (N values) and does 2N flops; neighbouring threads read neighbouring
-// columns, so each B row is read in whole sectors.  Rows that share B
-// rows read them again (through L2): the bound counts B once.  Not done
-// yet: several rows per block sharing staged B rows, vector loads.
+// (N values) and does 2N flops.  The bound counts B once; rows that share
+// B rows read them again, from L1 where they are close (a CTA's 8 to 16
+// consecutive rows of a banded matrix share most of their columns) and
+// from L2 otherwise, so the design is about loads in flight.
 //
 // Plain C interface (bound with ctypes); the launcher returns
 // cudaGetLastError() right after the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+constexpr int kWarps = 8;
+constexpr int kBatch = 4;        // B-row loads a lane issues before adding
 
-// grid: (M, ceil(N / blockDim.x)); thread n of the tile owns column
-// blockIdx.y · blockDim.x + n.
-template <typename T>
-__global__ void spmspm_kernel(const T* __restrict__ values,
-                              const int* __restrict__ col_ids,
-                              const T* __restrict__ b, T* __restrict__ out,
-                              int L, int N) {
-  const int64_t row = blockIdx.x;
-  const int n = blockIdx.y * blockDim.x + threadIdx.x;
-  const T* v = values + row * L;
-  const int* c = col_ids + row * L;
-  float acc = 0.0f;
-  if (n < N) {
-    for (int t = 0; t < L; ++t) {
-      const int col = c[t];
-      if (col < 0) continue;
-      acc = __fadd_rn(acc, __fmul_rn(to_f32(v[t]),
-                                     to_f32(b[(int64_t)col * N + n])));
+// grid: (ceil(M / (kWarps · 32 / G)),); G lanes a row, kV columns a lane
+template <typename T, int G, int kV>
+__global__ void __launch_bounds__(kWarps * 32)
+spmspm_kernel(const T* __restrict__ values, const int* __restrict__ col_ids,
+              const T* __restrict__ b, T* __restrict__ out, int M, int L,
+              int N) {
+  constexpr int kRows = 32 / G;                      // rows a warp
+  constexpr int kRegs = 32 / G;                      // slots a lane, a tile
+  const int lane = threadIdx.x % 32, j = lane % G;
+  const int64_t row = ((int64_t)blockIdx.x * kWarps + threadIdx.x / 32) *
+                          kRows + lane / G;
+  const bool live_row = row < M;                     // the warp stays whole
+  const T* v_row = values + row * L;
+  const int* c_row = col_ids + row * L;
+  for (int n0 = 0; n0 < N; n0 += G * kV) {
+    const int n = n0 + j * kV;
+    float acc[kV];
+#pragma unroll
+    for (int e = 0; e < kV; ++e) acc[e] = 0.0f;
+    for (int t0 = 0; t0 < L; t0 += 32) {
+      // slots t0 .. t0 + 31: slot t0 + j + G·r in register r of lane j
+      int cr[kRegs];
+      float vr[kRegs];
+#pragma unroll
+      for (int r = 0; r < kRegs; ++r) {
+        const int t = t0 + j + G * r;
+        const bool in = live_row && t < L;
+        cr[r] = in ? c_row[t] : -1;
+        vr[r] = in ? to_f32(v_row[t]) : 0.0f;
+      }
+      const int span = min(32, L - t0);
+      for (int u0 = 0; u0 < span; u0 += kBatch) {
+        // the batch's slots lie in one register: kBatch divides G
+        const int reg = u0 / G;
+        int c_sel = cr[0];
+        float v_sel = vr[0];
+#pragma unroll
+        for (int r = 1; r < kRegs; ++r)
+          if (reg == r) { c_sel = cr[r]; v_sel = vr[r]; }
+        int c[kBatch];
+        float a[kBatch], x[kBatch][kV];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          c[u] = __shfl_sync(0xffffffffu, c_sel, (u0 + u) % G, G);
+          a[u] = __shfl_sync(0xffffffffu, v_sel, (u0 + u) % G, G);
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const T* src = b + (int64_t)c[u] * N + n;
+          if constexpr (kV == 4) {
+            using V = typename Vec4<T>::type;
+            if (c[u] >= 0 && n < N)
+              Vec4<T>::unpack(__ldg(reinterpret_cast<const V*>(src)), x[u]);
+          } else if (c[u] >= 0 && n < N) {
+            x[u][0] = to_f32(__ldg(src));
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (c[u] >= 0)
+#pragma unroll
+            for (int e = 0; e < kV; ++e)
+              acc[e] = __fadd_rn(acc[e], __fmul_rn(a[u], x[u][e]));
+      }
     }
-    out[row * N + n] = from_f32<T>(acc);
+    if (live_row && n < N) {
+      T* o = out + row * N + n;
+      if constexpr (kV == 4) {
+        __align__(8) T w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[e] = from_f32<T>(acc[e]);
+        *reinterpret_cast<typename Vec4<T>::type*>(o) =
+            *reinterpret_cast<const typename Vec4<T>::type*>(w);
+      } else {
+        *o = from_f32<T>(acc[0]);
+      }
+    }
   }
 }
 
-template <typename T>
+template <typename T, int G, int kV>
 cudaError_t launch(const void* values, const int* col_ids, const void* b,
-                   void* out, int M, int L, int N, int tile,
-                   cudaStream_t st) {
-  const dim3 grid(M, (N + tile - 1) / tile);
-  spmspm_kernel<T><<<grid, tile, 0, st>>>((const T*)values, col_ids,
-                                          (const T*)b, (T*)out, L, N);
+                   void* out, int M, int L, int N, cudaStream_t st) {
+  const int rows = kWarps * 32 / G;
+  spmspm_kernel<T, G, kV><<<(M + rows - 1) / rows, kWarps * 32, 0, st>>>(
+      (const T*)values, col_ids, (const T*)b, (T*)out, M, L, N);
   return cudaGetLastError();
+}
+
+// 4-wide where every row of B and C starts on a vector; 16 lanes a row
+// where they cover N
+template <typename T>
+cudaError_t route(const void* values, const int* col_ids, const void* b,
+                  void* out, int M, int L, int N, cudaStream_t st) {
+  const size_t vec = 4 * sizeof(T);
+  const bool v4 = N % 4 == 0 && reinterpret_cast<uintptr_t>(b) % vec == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % vec == 0;
+  const int per = v4 ? 4 : 1;
+  if ((N + per - 1) / per <= 16)
+    return v4 ? launch<T, 16, 4>(values, col_ids, b, out, M, L, N, st)
+              : launch<T, 16, 1>(values, col_ids, b, out, M, L, N, st);
+  return v4 ? launch<T, 32, 4>(values, col_ids, b, out, M, L, N, st)
+            : launch<T, 32, 1>(values, col_ids, b, out, M, L, N, st);
 }
 
 }  // namespace
@@ -85,19 +152,15 @@ cudaError_t launch(const void* values, const int* col_ids, const void* b,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (values and B alike); out is (M, N) in
-// that dtype.  tile (threads per block) is a power of two in [32, 1024].
+// that dtype.
 int maple_spmspm(const void* values, const int* col_ids, const void* b,
-                 void* out, int dtype, int M, int L, int N, int tile,
-                 void* stream) {
+                 void* out, int dtype, int M, int L, int N, void* stream) {
   if (M == 0 || N == 0) return (int)cudaSuccess;
-  if (tile < 32 || tile > 1024 || (tile & (tile - 1)))
-    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return (int)launch<float>(values, col_ids, b, out, M, L, N, tile, st);
+    return (int)route<float>(values, col_ids, b, out, M, L, N, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(values, col_ids, b, out, M, L, N, tile,
-                                      st);
+    return (int)route<__nv_bfloat16>(values, col_ids, b, out, M, L, N, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -136,7 +136,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.maple_smem_optin.argtypes = [i]
         lib.maple_smem_optin.restype = i
     elif name == "maple_spmspm":
-        lib.maple_spmspm.argtypes = [p] * 4 + [i] * 5 + [p]
+        lib.maple_spmspm.argtypes = [p] * 4 + [i] * 4 + [p]
         lib.maple_spmspm.restype = i
     elif name == "moe_gemm":
         lib.maple_moe_gemm.argtypes = [p] * 4 + [i] * 6 + [p]

@@ -7,8 +7,9 @@
 sampled at A's block pattern, one f32 ``(bm, bk)`` tile per block slot,
 with pad slots (``block_col < 0``) zero.  A dense ``dC·Bᵀ`` is never
 formed.  ``dC`` and ``B`` are f32 or bf16 (alike), summed in f32 in a
-fixed order: two runs give the same bits.  ``N`` may be ragged; ``bn``
-caps the N columns the kernel stages in shared memory at a time.
+fixed order: two runs give the same bits.  ``N`` may be ragged.  ``bn``
+is the reference's N tile; the Hopper kernel stages N in 128-byte rows
+whatever it is (the CUDA source's header says how).
 
 :func:`maple_sddmm_csr` replaces ``maple_sddmm_csr_pallas``: the
 element-granular dA of the SpGEMM.  It reads the SpGEMM's device plan, so
@@ -29,7 +30,9 @@ from repro_torch.kernels.maple_spgemm import (  # noqa: F401  (re-export)
     maple_sddmm_csr, maple_sddmm_csr_plain)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_STAGE = 32          # N columns staged per step (the smem tile width)
+# slots a CTA (at most 32); 0 lets the launcher spread the slots evenly
+# over every CTA the card holds at once (at most 16 a CTA)
+CHUNK = 0
 
 
 def _check_operands(dc, b3, block_row, block_col, bm, bk):
@@ -69,21 +72,17 @@ def maple_sddmm_bsr(dc: torch.Tensor, b3: torch.Tensor,
     if not dc.is_cuda:
         return maple_sddmm_bsr_plain(dc, b3, block_row, block_col, bm=bm,
                                      bk=bk)
-    if bn < 16 or bn & (bn - 1):
-        raise ValueError(f"bn={bn}: the CUDA kernel takes a power-of-two N "
-                         f"tile of at least 16")
     g, m, n = dc.shape
     n_blocks = block_col.shape[0]
     out = torch.empty((n_blocks, bm, bk), dtype=torch.float32,
                       device=dc.device)
     if n_blocks == 0:
         return out
-    stage = min(bn, _MAX_STAGE, max(16, 1 << max(n - 1, 0).bit_length()))
     lib = _build.library("maple_sddmm")
     err = lib.maple_sddmm_bsr(
         dc.data_ptr(), b3.data_ptr(), block_row.data_ptr(),
         block_col.data_ptr(), out.data_ptr(), _DTYPES[dc.dtype], n_blocks,
-        g, m, b3.shape[1], n, bm, bk, stage,
+        g, m, b3.shape[1], n, bm, bk, CHUNK,
         torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "maple_sddmm_bsr")
     maple_sddmm_bsr.launches += 1

@@ -20,7 +20,6 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE = 128              # most N columns of one thread block
 
 
 def maple_spmspm_ell(values: torch.Tensor, col_ids: torch.Tensor,
@@ -51,9 +50,7 @@ def maple_spmspm_ell(values: torch.Tensor, col_ids: torch.Tensor,
     lib = _build.library("maple_spmspm")
     err = lib.maple_spmspm(
         values.data_ptr(), col_ids.data_ptr(), b.data_ptr(), out.data_ptr(),
-        _DTYPES[b.dtype], m, slots, n,
-        min(_TILE, max(32, 1 << max(n - 1, 0).bit_length())),
-        torch.cuda.current_stream().cuda_stream)
+        _DTYPES[b.dtype], m, slots, n, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "maple_spmspm")
     maple_spmspm_ell.launches += 1
     return out

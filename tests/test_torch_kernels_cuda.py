@@ -377,22 +377,52 @@ def test_wrappers_refuse_bad_tiles_on_the_card(cuda):
 # the block SDDMM (B2) and the maple_spmm backward
 # --------------------------------------------------------------------------
 
+# (block, bn, G, N, density, block grid, slots a CTA (0: the launcher's
+# choice), slots shuffled out of row order)
+SDDMM_CASES = [
+    ((8, 8), 16, 3, 21, 0.5, (6, 5), 0, False),
+    ((8, 8), 16, 1, 1, 0.5, (6, 5), 0, False),
+    ((64, 64), 128, 1, 256, 0.3, (6, 5), 0, False),
+    ((16, 32), 64, 2, 70, 0.4, (6, 5), 0, False),
+    ((8, 8), 16, 2, 40, 0.0, (6, 5), 0, False),         # all pad
+    # rows longer than a chunk, chunks that span rows: the dC panel kept
+    # from slot to slot and reloaded at each new row
+    ((64, 64), 128, 1, 256, 0.7, (6, 20), 8, False),
+    ((16, 32), 64, 1, 256, 0.7, (6, 20), 8, False),
+    # rows of N·size bytes that TMA cannot take: the producer's own loads
+    ((64, 64), 128, 1, 4, 0.7, (6, 20), 8, False),      # the head's N
+    ((64, 64), 128, 1, 37, 0.7, (6, 20), 8, False),
+    ((8, 8), 16, 1, 21, 0.7, (6, 20), 8, False),
+    ((64, 64), 128, 1, 1, 0.7, (6, 20), 8, False),
+    # G = 3 at N = 256: the panel streamed beside B in every stage
+    ((64, 64), 128, 3, 256, 0.5, (4, 6), 8, False),
+    # (4, 8) blocks: a thread's rows 4 apart, one swizzle key a row
+    ((4, 8), 16, 2, 40, 0.6, (12, 10), 8, False),
+    # slots out of row order: a new panel at almost every slot
+    ((64, 64), 128, 1, 256, 0.7, (6, 20), 8, True),
+    ((16, 32), 64, 2, 21, 0.7, (6, 20), 3, True),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("block,bn,g,n,density", [
-    ((8, 8), 16, 3, 21, 0.5), ((8, 8), 16, 1, 1, 0.5),
-    ((64, 64), 128, 1, 256, 0.3), ((16, 32), 64, 2, 70, 0.4),
-    ((8, 8), 16, 2, 40, 0.0)])
-def test_sddmm_kernel_matches_plain(cuda, dtype, block, bn, g, n, density):
+@pytest.mark.parametrize("block,bn,g,n,density,grid,chunk,shuffle",
+                         SDDMM_CASES)
+def test_sddmm_kernel_matches_plain(cuda, monkeypatch, dtype, block, bn, g,
+                                    n, density, grid, chunk, shuffle):
     from repro_torch.kernels import maple_sddmm_bsr
+    from repro_torch.kernels import maple_sddmm as module
     from repro_torch.kernels.maple_sddmm import maple_sddmm_bsr_plain
-    a, rng = _operands(cuda, 4, 6, 5, block, density, dtype)
+    monkeypatch.setattr(module, "CHUNK", chunk)
+    a, rng = _operands(cuda, 4, *grid, block, density, dtype)
     bm, bk = block
     dc = torch.from_numpy(rng.standard_normal((g, a.shape[0], n))
                           .astype(np.float32)).to(cuda, dtype)
     b3 = torch.from_numpy(rng.standard_normal((g, a.shape[1], n))
                           .astype(np.float32)).to(cuda, dtype)
-    br = torch.from_numpy(a.block_row).to(cuda)
-    bc = torch.from_numpy(a.block_col).to(cuda)
+    order = (rng.permutation(a.n_blocks_max) if shuffle
+             else np.arange(a.n_blocks_max))
+    br = torch.from_numpy(a.block_row[order]).to(cuda)
+    bc = torch.from_numpy(a.block_col[order]).to(cuda)
     before = maple_sddmm_bsr.launches
     got = [maple_sddmm_bsr(dc, b3, br, bc, bm=bm, bk=bk, bn=bn)
            for _ in range(2)]
@@ -503,24 +533,28 @@ def test_csr_sddmm_and_db_kernels_match_plain(cuda, kind, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [1, 37, 300])
-def test_spmspm_ell_kernel_matches_plain(cuda, dtype, n):
+@pytest.mark.parametrize("n", [1, 37, 64, 300])
+@pytest.mark.parametrize("k", [25, 80])
+def test_spmspm_ell_kernel_matches_plain(cuda, dtype, n, k):
     from repro_torch.core.formats import csr_to_ell
     from repro_torch.core.sparsity import element_pattern_mask
     from repro_torch.kernels.maple_spmspm import (maple_spmspm_ell,
                                                   maple_spmspm_ell_plain)
     rng = np.random.default_rng(2)
-    mask = element_pattern_mask("power_law", rng, 30, 25)
-    mask[3] = False
+    mask = element_pattern_mask("power_law", rng, 30, k)
+    mask[3] = False                                 # a row all pad
+    if k > 32:
+        mask[5, :45] = True                         # L > 32: two tiles
     a = _element_csr(cuda, mask, rng, dtype)
     values, col_ids = csr_to_ell(a)
-    b = torch.from_numpy(rng.standard_normal((25, n)).astype(
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(
         np.float32)).to(cuda, dtype)
     before = maple_spmspm_ell.launches
     got = maple_spmspm_ell(values, col_ids, b)
     torch.cuda.synchronize()
     assert maple_spmspm_ell.launches == before + 1
-    _close(got, maple_spmspm_ell_plain(values, col_ids, b), dtype)
+    # the same products and sums in the same order: the same bits
+    assert torch.equal(got, maple_spmspm_ell_plain(values, col_ids, b))
     assert not got[3].any()
 
 

@@ -10,11 +10,16 @@ the other tree into a git-ignored directory, for example::
 ``kernel`` names the rows to time (default: all of them):
 ``maple_spmm_compact`` and ``maple_spmm_planned`` (B1, B4: the serving
 and training shapes), ``maple_spmm_naive`` (B3: the MLP at G 4, N 1, 112
-and 128) and ``moe_gemm`` (B8: granite-moe-3b's four expert products).
-Each turn runs in its own process from that tree (its ``chip_smoke.py``
-and ``src/``, its own kernel build) and prints one JSON line per row,
-tagged with the tree.  Also prints ``ptxas -v`` registers and spills of
-each tree's ring kernels.
+and 128), ``moe_gemm`` (B8: granite-moe-3b's four expert products),
+``maple_sddmm_bsr`` (B2: dA of the MLP at N 256 and of the head at N 4,
+as ``chip_smoke.py``'s training shapes build them) and
+``maple_spmspm_ell`` (B7: the cage12 clone's ELL times a dense (n, 64)
+B).  Each turn runs in its own process from that tree (its
+``chip_smoke.py`` and ``src/``, its own kernel build) and prints one JSON
+line per row, tagged with the tree.  B2 and B7 are timed alone (events,
+after an L2 flush), the other rows with their plain, library and bound
+times.  Also prints ``ptxas -v`` registers and spills of each tree's
+kernels.
 """
 import json
 import os
@@ -23,9 +28,12 @@ import sys
 from pathlib import Path
 
 ALL = ("maple_spmm_compact", "maple_spmm_planned", "maple_spmm_naive",
-       "moe_gemm")
+       "moe_gemm", "maple_sddmm_bsr", "maple_spmspm_ell")
+SOURCES = ("maple_spmm.cu", "moe_gemm.cu", "maple_sddmm.cu",
+           "maple_spmspm.cu")
 TURN = r"""
 import json, os, sys
+import numpy as np
 root = os.path.abspath(sys.argv[1])
 names = sys.argv[2].split(",")
 sys.path[:0] = [os.path.join(root, "src"), root]
@@ -42,6 +50,35 @@ if {"maple_spmm_compact", "maple_spmm_planned"} & set(names):
     rows += cs.training_shapes(spec, flush)[0]
 if "moe_gemm" in names:
     rows += cs.moe_rows(spec, flush)
+if "maple_sddmm_bsr" in names:
+    from repro_torch.kernels.maple_sddmm import maple_sddmm_bsr
+    rng = np.random.default_rng(cs.SEED + 3)
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 3)
+        for shape in (cs.TRAIN_MLP, cs.TRAIN_HEAD):
+            w = cs.sparse_weight(gen, shape, dtype)
+            g, n = shape["G"], shape["N"][0]
+            args = cs.run_sddmm_case(w, g, n, dtype, 128, rng)[2]
+            fn = lambda: maple_sddmm_bsr(*args, bm=64, bk=64)
+            rows.append({"name": "maple_sddmm_bsr", "shape": shape["name"],
+                         "dtype": str(dtype)[6:], "G": g, "N": n,
+                         "ms": cs.time_ms(fn, cs.REPS, flush)})
+            del w, args
+if "maple_spmspm_ell" in names:
+    from repro_torch.core import sparsity
+    from repro_torch.core.formats import csr_to_ell
+    from repro_torch.kernels.maple_spmspm import maple_spmspm_ell
+    a = sparsity.generate(sparsity.TABLE_I[cs.CAGE12], scale=cs.CAGE12_SCALE,
+                          seed=cs.SEED, device="cuda")
+    values, col_ids = csr_to_ell(a)
+    dense_b = torch.from_numpy(np.random.default_rng(cs.SEED + 9)
+                               .standard_normal((a.shape[0], cs.SPMSPM_N))
+                               .astype(np.float32)).cuda()
+    fn = lambda: maple_spmspm_ell(values, col_ids, dense_b)
+    rows.append({"name": "maple_spmspm_ell", "dtype": "float32",
+                 "shape": f"{cs.CAGE12} ELL {tuple(values.shape)} x "
+                 f"({a.shape[0]}, {cs.SPMSPM_N})",
+                 "ms": cs.time_ms(fn, cs.REPS, flush)})
 for r in rows:
     if r["name"] in names:
         print(json.dumps({"tree": sys.argv[1], **{k: r[k] for k in (
@@ -56,7 +93,7 @@ def main() -> int:
     names = ",".join(sys.argv[3:] or ALL)
     here = Path(__file__).resolve().parent
     for tree in (a, b):
-        for src in ("maple_spmm.cu", "moe_gemm.cu"):
+        for src in SOURCES:
             path = Path(tree) / "src" / "repro_torch" / "csrc" / src
             print("ptxas", tree, src, flush=True)
             subprocess.run([sys.executable, "-c",
@@ -64,9 +101,12 @@ def main() -> int:
                             "import shapes; from pathlib import Path; "
                             "shapes.ptxas(Path(sys.argv[2]))",
                             str(here), str(path.resolve())], check=True)
+    # every turn plans the same cage12 clone (sparsity.generate seeds
+    # with the string hash of its name)
+    env = {**os.environ, "PYTHONHASHSEED": "0"}
     for tree in (a, b, b, a):
         subprocess.run([sys.executable, "-c", TURN, tree, names],
-                       check=False, timeout=900)
+                       check=False, timeout=900, env=env)
     return 0
 
 

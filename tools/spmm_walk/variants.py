@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Time a ring kernel under variants of its source, in one process.
+"""Time a kernel under variants of its source, in one process.
 
 Run from the repository root on a machine with one H100::
 
-    python3 tools/spmm_walk/variants.py [--kernel b4|b3|b8] [variant ...]
+    python3 tools/spmm_walk/variants.py [--kernel b4|b3|b8|b2|b7] [variant ...]
 
-Each variant is the kernel's source with some text replaced (``VARIANTS``
-below); all are built at once with ``nvcc`` into ``build/variants/`` and
+Each variant is the kernel's source (or ``hopper.cuh``) with some text
+replaced (``VARIANTS`` below); all are built at once with ``nvcc`` into
+``build/variants/`` and
 the kernel is timed on each after an L2 flush, twice over: CUDA events
 around the launch (``chip_smoke.time_ms``, what ``chip_smoke.py``
 reports) and the kernel's own device time from ``torch.profiler``.  The
 cases: B4 at the MLP forward and Aᵀ dB plans (N = 256) and the logit head
 (N = 1); B3 at the MLP over 4 batches, N = 1, 112 and 128; B8 at
-granite-moe-3b's four expert products; f32 and bf16.  A variant that takes
+granite-moe-3b's four expert products; B2 (dA) at the MLP (N = 256) and
+the head (N = 4); f32 and bf16; B7 at the cage12 clone's ELL times a
+dense (n, 64) B, f32.  A variant that takes
 work away (no reduction, no compute) gives wrong results: it only
 measures what that work costs.
 """
@@ -83,25 +86,96 @@ VARIANTS = {
         "lb2": [("__launch_bounds__(kThreads, 3)\nmoe_kernel",
                  "__launch_bounds__(kThreads, 2)\nmoe_kernel")]}),
 }
-KERNEL_NAME = {"b4": "run_kernel", "b3": "run_kernel", "b8": "moe_kernel"}
+VARIANTS.update({
+    "b2": ("maple_sddmm", {
+        "base": [],
+        "nocompute": [("        Tile::step(acc, a, stage, geo, "
+                       "chunk_live(geo, c), t);\n", "\n")],
+        # the stages never loaded (their bytes are garbage): what the
+        # products cost alone
+        "noload": [(
+            "        if (geo.tma && lane == 0) mbar_expect_tx(&full[st], "
+            "geo.tx_stage);\n        load_chunk<T>(stage, &b_map, b, geo.K, "
+            "col * geo.bk, geo.bk, c, geo,\n                      &full[st], "
+            "lane);\n        if (!geo.panels)                     // dC "
+            "streamed beside B\n          load_chunk<T>(stage + geo.b_bytes, "
+            "&dc_map, dc, geo.M,\n                        row * geo.bm, "
+            "geo.bm, c, geo, &full[st], lane);\n", "")],
+        # the f32 64 × 64 tile with its geometry read at run time
+        "generic64": [("kWgmmaKind : kFixedKind;",
+                       "kWgmmaKind : ffma_tile(bm, bk);")],
+        # whole runs of the same length (the last CTA short), as many
+        # CTAs as that takes, not an even share over every resident CTA
+        "whole": [("    if (grid < resident) grid = resident;",
+                   "    const int64_t c0 = (n + resident - 1) / resident;\n"
+                   "    const int64_t c = c0 < kMaxChunk ? c0 : kMaxChunk;\n"
+                   "    grid = (n + c - 1) / c;")],
+        # tiles never stored: what the bulk stores cost
+        "nostore": [("      bulk_store(out + (int64_t)(s0 + si) * geo.bm * "
+                     "geo.bk, o,\n                 geo.out_bytes);\n",
+                     "\n")],
+        # the dC panel reloaded at every slot, as before this design
+        "noreuse": [("      if (geo.panels && row != cur) {",
+                     "      if (geo.panels) {"),
+                    ("        if (row != cur) {", "        if (true) {")],
+        "chunk8": [("constexpr int kMaxChunk = 16;",
+                    "constexpr int kMaxChunk = 8;")],
+        "chunk32": [("constexpr int kMaxChunk = 16;",
+                     "constexpr int kMaxChunk = 32;")],
+        # the FFMA tile's swizzle keys computed row by row
+        "keyed": [("    if (!swz || (ty_n % 8 == 0 && tx_n % 8 == 0))",
+                   "    if (false)")],
+        # the layout aimed at fewer CTAs an SM
+        "ctas3": [("constexpr int kMaxCtas = 4;",
+                   "constexpr int kMaxCtas = 3;")],
+        "ctas2": [("constexpr int kMaxCtas = 4;",
+                   "constexpr int kMaxCtas = 2;")],
+        "unroll2": [("#pragma unroll 1\n    for (int q = 0; q < quads;",
+                     "#pragma unroll 2\n    for (int q = 0; q < quads;")]}),
+    "b7": ("maple_spmspm", {
+        "base": [],
+        # the loads kept, the products and sums taken away
+        "nocompute": [("              acc[e] = __fadd_rn(acc[e], "
+                       "__fmul_rn(a[u], x[u][e]));",
+                       "              acc[e] = x[u][e];")],
+        "batch8": [("constexpr int kBatch = 4;", "constexpr int kBatch = 8;")],
+        "batch2": [("constexpr int kBatch = 4;", "constexpr int kBatch = 2;")],
+        # B rows read past L1 (L2 only): what L1's hits are worth
+        "cg": [("__ldg(", "__ldcg(")],
+        "lb6": [("__launch_bounds__(kWarps * 32)",
+                 "__launch_bounds__(kWarps * 32, 6)")],
+
+        "warps4": [("constexpr int kWarps = 8;",
+                    "constexpr int kWarps = 4;")]}),
+})
+KERNEL_NAME = {"b4": "run_kernel", "b3": "run_kernel", "b8": "moe_kernel",
+               "b2": "sddmm_kernel", "b7": "spmspm_kernel"}
 
 
 def build(source, variants, names):
-    src = (_build.CSRC / f"{source}.cu").read_text()
+    """Each variant's source and a copy of ``hopper.cuh`` in a directory of
+    its own; a replacement applies to the source, or to the header where
+    the source does not hold its text."""
+    files = {f"{source}.cu": (_build.CSRC / f"{source}.cu").read_text(),
+             "hopper.cuh": (_build.CSRC / "hopper.cuh").read_text()}
     out = ROOT / "build" / "variants"
-    out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        text = src
+        texts = dict(files)
         for old, new in variants[name]:
-            if old not in text:
-                raise SystemExit(f"{name}: {old!r} is not in the source")
-            text = text.replace(old, new)
-        path = out / f"{source}-{name}.cu"
-        path.write_text(text)
+            where = next((f for f, t in texts.items() if old in t), None)
+            if where is None:
+                raise SystemExit(f"{name}: {old!r} is in neither the source "
+                                 f"nor hopper.cuh")
+            texts[where] = texts[where].replace(old, new)
+        folder = out / f"{source}-{name}"
+        folder.mkdir(parents=True, exist_ok=True)
+        for f, t in texts.items():
+            (folder / f).write_text(t)
+        path = folder / f"{source}.cu"
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-             "-o", str(path.with_suffix(".so")), str(path)],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+             str(out / f"{source}-{name}.so"), str(path)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     for name, proc in procs.items():
         log = proc.communicate()[0].decode()
@@ -163,6 +237,33 @@ def b8_cases():
                    moe_gemm(x, eot, w, bt=cap))
 
 
+def b2_cases():
+    from repro_torch.kernels.maple_sddmm import maple_sddmm_bsr
+    rng = np.random.default_rng(cs.SEED + 3)
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 3)
+        for shape in (cs.TRAIN_MLP, cs.TRAIN_HEAD):
+            w = cs.sparse_weight(gen, shape, dtype)
+            g, n = shape["G"], shape["N"][0]
+            args = cs.run_sddmm_case(w, g, n, dtype, 128, rng)[2]
+            yield (f"{shape['name'][:8]} N={n} {str(dtype)[6:]}",
+                   lambda args=args: maple_sddmm_bsr(*args, bm=64, bk=64))
+
+
+def b7_cases():
+    from repro_torch.core import sparsity
+    from repro_torch.core.formats import csr_to_ell
+    from repro_torch.kernels.maple_spmspm import maple_spmspm_ell
+    a = sparsity.generate(sparsity.TABLE_I[cs.CAGE12], scale=cs.CAGE12_SCALE,
+                          seed=cs.SEED, device="cuda")
+    values, col_ids = csr_to_ell(a)
+    dense_b = torch.from_numpy(np.random.default_rng(cs.SEED + 9)
+                               .standard_normal((a.shape[0], cs.SPMSPM_N))
+                               .astype(np.float32)).cuda()
+    yield (f"cage12 ELL {tuple(values.shape)} x N={cs.SPMSPM_N} float32",
+           lambda: maple_spmspm_ell(values, col_ids, dense_b))
+
+
 def device_ms(fn, flush, match, reps=10):
     """The mean device time of the kernels named like ``match`` over
     ``reps`` launches, each after an L2 flush (torch.profiler)."""
@@ -188,8 +289,8 @@ def main() -> int:
     names = args.variants or list(table)
     libs = build(source, table, names)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
-    cases = list({"b4": b4_cases, "b3": b3_cases, "b8": b8_cases}
-                 [args.kernel]())
+    cases = list({"b4": b4_cases, "b3": b3_cases, "b8": b8_cases,
+                  "b2": b2_cases, "b7": b7_cases}[args.kernel]())
     res = {name: {} for name, _ in cases}
     for variant, path in libs.items():
         lib = ctypes.CDLL(str(path))
