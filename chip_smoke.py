@@ -119,13 +119,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
     decode) against its plain version, f32 and bf16, timed beside its
     bound, plain version and ``torch.bmm``.
 13. block_attn_kernels — block-sparse local attention (B9) against its
-    plain version, f32 and bf16, over the reference sweep's shapes and
-    one with bq != bk; each twice for bit identity.
+    plain version, f32 and bf16 (bf16 also row by row, ``check_rows``),
+    over the reference sweep's shapes, one with bq != bk and one at hd
+    256; each twice for bit identity.
 14. local_attention — ``local_block_attention`` at recurrentgemma-9b's
     local-attention shape (B 2, S 8192, H 16, hd 256, window 2048,
-    128-blocks): exactly one B9 launch, held against the plain version and
-    the dense oracle one example at a time, then timed beside its bound,
-    plain version and ``scaled_dot_product_attention`` with a band mask.
+    128-blocks), in f32 and in bf16: exactly one B9 launch a call, held
+    against the plain version and the dense oracle one example at a time
+    (bf16 also row by row), then timed beside its bound, plain version
+    and ``scaled_dot_product_attention`` in its dtype with a band mask.
 15. the ``{"kernels": [...]}`` summary, then the final
     ``{"ok": true, ...}``.
 """
@@ -209,9 +211,11 @@ MOE_EDGE = (([256, 0, 384, 128], 256, 256, 128), ([128] * 4, 256, 256, 128),
             ([0, 0, 512, 0], 256, 256, 128),
             ([8, 0, 16, 8, 0, 8, 0, 8], 64, 32, 8))
 # block-sparse local attention: the reference sweep's (S, window, bq, bk)
-# and one with bq != bk; then recurrentgemma-9b's local attention
-ATTN_EDGE = ((256, 64, 64, 64), (512, 128, 128, 128), (256, 40, 64, 64),
-             (128, 128, 64, 64), (256, 40, 128, 64))
+# at hd 32, one with bq != bk, and one at recurrentgemma-9b's hd 256; then
+# recurrentgemma-9b's local attention
+ATTN_EDGE = ((256, 64, 64, 64, 32), (512, 128, 128, 128, 32),
+             (256, 40, 64, 64, 32), (128, 128, 64, 64, 32),
+             (256, 40, 128, 64, 32), (512, 200, 128, 128, 256))
 ATTN = dict(B=2, S=8192, H=16, hd=256, window=2048, bq=128, bk=128)
 REPS = 20
 # (HBM bytes/s, {operand type: peak FLOP/s}) from NVIDIA's data sheets:
@@ -263,6 +267,38 @@ def check_close(got, want, dtype, what):
     limit = (1e-5 * scale + 1e-6) if dtype == torch.float32 else 1e-2 * scale
     if not err <= limit:
         raise AssertionError(f"{what}: max|kernel - plain| = {err} > {limit}")
+    return err
+
+
+ROW_LIMIT = 2.0 ** -7
+
+
+def row_rel_err(got, want):
+    """The largest error of a run of max(hd, 64) consecutive output values
+    (one query row of one head at hd >= 64) over the run's norm; inf where
+    a run that should be 0 is not."""
+    import torch.nn.functional as F
+    n = max(want.shape[-1], 64)
+    d = (got.float() - want.float()).flatten()
+    w = want.float().flatten()
+    pad = -d.numel() % n
+    d = F.pad(d, (0, pad)).view(-1, n).norm(dim=1)
+    w = F.pad(w, (0, pad)).view(-1, n).norm(dim=1)
+    rel = torch.where(w > 0, d / w.clamp(min=1e-30),
+                      torch.where(d > 0, torch.inf, 0.0))
+    return float(rel.max()) if rel.numel() else 0.0
+
+
+def check_rows(got, want, what):
+    """bf16 B9, beside ``check_close``: ``row_rel_err`` within 2^-7.  P's
+    one rounding to bf16 and the output's leave about 2e-3 of a row; one
+    key too many or too few in a row of 2048 moves it about 1.3e-2, where
+    ``check_close``'s 1e-2·max lets through an error as large as a typical
+    output.  Returns ``row_rel_err``."""
+    err = row_rel_err(got, want)
+    if not err <= ROW_LIMIT:
+        raise AssertionError(f"{what}: a run of output values is off by "
+                             f"{err} of its norm > 2^-7")
     return err
 
 
@@ -1537,6 +1573,13 @@ def spgemm(spec, flush, card):
         c2 = maple_spgemm(op, op, plan=plan, nnz_max=cap)
         (c2.value * c2.value).sum().backward()
     fwd_bwd_warm = statistics.median(counted(fwd_bwd)[2] for _ in range(3))
+    # the host clock above spreads between calls; the device's own time
+    # over five forward + backward calls, kernel by kernel (B5 is the
+    # forward).  The profiler misses the kernels of about the first 2.5
+    # ms of its region: the first call's B5 is not counted.
+    prof = profile(lambda: [fwd_bwd() for _ in range(5)], warmup=False)
+    device = {k: prof[k] for k in ("wall_ms", "device_ms", "launches",
+                                   "top")}
     del c, want, want_grad, value, op
     torch.cuda.empty_cache()
 
@@ -1561,7 +1604,8 @@ def spgemm(spec, flush, card):
             "on_device_s": device_plan_s, "launches": launches,
             "launches_forward": fwd_launches, "forward_ms_first_call": fwd_ms,
             "backward_ms_first_call": bwd_ms, "forward_ms_warm": fwd_warm,
-            "fwd_bwd_ms_warm": fwd_bwd_warm, "peak_mem_gib": peak_gib,
+            "fwd_bwd_ms_warm": fwd_bwd_warm, "fwd_bwd_x5_profiled": device,
+            "peak_mem_gib": peak_gib,
             "scipy_max_abs_err": sci_err, "scipy_max_abs_c": scale,
             "plain_max_abs_err": fwd_err, "grad_max_abs_err": grad_err,
             "spmspm_n": SPMSPM_N, "spmspm_ms": mm_ms,
@@ -1957,17 +2001,17 @@ def moe_rows(spec, flush):
 # --------------------------------------------------------------------------
 
 def block_attn_kernels_edge():
-    """B9 against the plain version on the card, f32 and bf16: the
-    reference sweep's four shapes, and bq != bk; each twice for bit
-    identity."""
+    """B9 against the plain version on the card, f32 and bf16 (bf16 also
+    by ``check_rows``): the reference sweep's four shapes, bq != bk and
+    hd 256; each twice for bit identity."""
     from repro_torch.kernels import local_window_kv_map
     from repro_torch.kernels.block_attn import (block_attention,
                                                 block_attention_plain)
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
-        for s, w, bq, bk in ATTN_EDGE:
+        for s, w, bq, bk, hd in ATTN_EDGE:
             rng = np.random.default_rng(s + w + bq)
-            q, k, v = [torch.from_numpy(rng.standard_normal((2, s, 4, 32))
+            q, k, v = [torch.from_numpy(rng.standard_normal((2, s, 4, hd))
                                         .astype(np.float32)).cuda().to(dtype)
                        for _ in range(3)]
             kv_map = torch.from_numpy(local_window_kv_map(s, w, bq,
@@ -1975,14 +2019,17 @@ def block_attn_kernels_edge():
             got = [block_attention(q, k, v, kv_map, bq=bq, bk=bk, window=w)
                    for _ in range(2)]
             torch.cuda.synchronize()
-            what = f"block_attention S{s} w{w} bq{bq} bk{bk} {dtype}"
+            what = f"block_attention S{s} w{w} bq{bq} bk{bk} hd{hd} {dtype}"
             if not torch.equal(got[0], got[1]):
                 raise AssertionError(f"{what}: two runs differ")
-            err = check_close(got[0], block_attention_plain(
-                q, k, v, kv_map, bq=bq, bk=bk, window=w), dtype, what)
-            cases.append({"S": s, "window": w, "bq": bq, "bk": bk,
-                          "dtype": str(dtype).replace("torch.", ""),
-                          "max_abs_err": err})
+            want = block_attention_plain(q, k, v, kv_map, bq=bq, bk=bk,
+                                         window=w)
+            case = {"S": s, "window": w, "bq": bq, "bk": bk, "hd": hd,
+                    "dtype": str(dtype).replace("torch.", ""),
+                    "max_abs_err": check_close(got[0], want, dtype, what)}
+            if dtype == torch.bfloat16:
+                case["max_row_rel_err"] = check_rows(got[0], want, what)
+            cases.append(case)
     return {"phase": "block_attn_kernels", "cases": cases,
             "bit_identical": True, "ok": True}
 
@@ -1994,9 +2041,11 @@ def block_attn_kernels_edge():
 def local_attention(spec, flush, card):
     """``ops.local_block_attention`` at recurrentgemma-9b's local-attention
     shape (its one kv head repeated to the 16 query heads, as a model
-    would), one launch, held against the plain version and the dense
-    oracle (one example at a time); then timed beside the bound, the plain
-    version and ``scaled_dot_product_attention`` with a band mask."""
+    would), in f32 and bf16, one launch a call, each held against the
+    plain version and the dense oracle (one example at a time; bf16 also
+    by ``check_rows``); then each
+    timed beside the bound, the plain version and
+    ``scaled_dot_product_attention`` in the same dtype with a band mask."""
     import torch.nn.functional as F
     from repro_torch.kernels import local_block_attention, local_window_kv_map
     from repro_torch.kernels.block_attn import (block_attention,
@@ -2006,36 +2055,12 @@ def local_attention(spec, flush, card):
     b, s, h, hd = ATTN["B"], ATTN["S"], ATTN["H"], ATTN["hd"]
     window, bq, bk = ATTN["window"], ATTN["bq"], ATTN["bk"]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    q = torch.randn((b, s, h, hd), generator=gen, device="cuda")
-    k, v = [torch.randn((b, s, 1, hd), generator=gen, device="cuda")
-            .expand(b, s, h, hd).contiguous() for _ in range(2)]
-    block_attention.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = local_block_attention(q, k, v, window=window, bq=bq, bk=bk)
-    torch.cuda.synchronize()
-    first_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"block_attention": block_attention.launches}
-    if launches != {"block_attention": 1}:
-        raise AssertionError(f"local_block_attention launches {launches}, "
-                             f"expected one")
-    if not bool(torch.isfinite(out).all()):
-        raise AssertionError("non-finite attention output")
+    q32 = torch.randn((b, s, h, hd), generator=gen, device="cuda")
+    k32, v32 = [torch.randn((b, s, 1, hd), generator=gen, device="cuda")
+                .expand(b, s, h, hd).contiguous() for _ in range(2)]
     kv_map_np = local_window_kv_map(s, window, bq, bk)
     kv_map = torch.from_numpy(kv_map_np).cuda()
-    plain = block_attention_plain(q, k, v, kv_map, bq=bq, bk=bk,
-                                  window=window)
-    plain_err = check_close(out, plain, torch.float32, "B9 against plain")
-    del plain
-    dense_err = max(
-        check_close(out[i:i + 1], local_attention_ref(
-            q[i:i + 1], k[i:i + 1], v[i:i + 1], window=window),
-            torch.float32, f"B9 against the dense oracle, example {i}")
-        for i in range(b))
-    torch.cuda.empty_cache()
-
     live = int((kv_map_np >= 0).sum())
-    nbytes = 4 * q.numel() * 4 + kv_map_np.size * 4
     # the (q, k) pairs the function needs: key k is visible from query q
     # when 0 <= q - k < window; QK^T and PV take 2·hd FLOPs each a pair
     pairs = int(np.minimum(np.arange(1, s + 1), window).sum())
@@ -2043,28 +2068,73 @@ def local_attention(spec, flush, card):
     qpos = torch.arange(s, device="cuda")
     band = ((qpos[:, None] >= qpos[None, :])
             & (qpos[:, None] - qpos[None, :] < window))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    row = measure_sparse(
-        "block_attention",
-        lambda: block_attention(q, k, v, kv_map, bq=bq, bk=bk,
-                                window=window),
-        lambda: block_attention_plain(q, k, v, kv_map, bq=bq, bk=bk,
-                                      window=window),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band),
-        nbytes, flops, torch.float32, spec, flush,
-        shape=f"recurrentgemma-9b local attention B={b} S={s} H={h} "
-        f"hd={hd} window={window} bq={bq} bk={bk}, live tiles {live}, "
-        f"visible pairs {pairs}")
+    launches, first_ms, plain_err, dense_err, rows = {}, {}, {}, {}, []
+    row_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        q, k, v = (x.to(dtype) for x in (q32, k32, v32))
+        block_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = local_block_attention(q, k, v, window=window, bq=bq, bk=bk)
+        torch.cuda.synchronize()
+        first_ms[name] = (time.perf_counter() - t0) * 1e3
+        launches[name] = block_attention.launches
+        if launches[name] != 1:
+            raise AssertionError(f"local_block_attention {name} launches "
+                                 f"{launches[name]}, expected one")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"non-finite attention output ({name})")
+        plain = block_attention_plain(q, k, v, kv_map, bq=bq, bk=bk,
+                                      window=window)
+        plain_err[name] = check_close(out, plain, dtype,
+                                      f"B9 {name} against plain")
+        if dtype == torch.bfloat16:
+            row_err["plain"] = check_rows(out, plain, "B9 bf16 against "
+                                          "plain")
+        del plain
+        dense_err[name] = 0.0
+        for i in range(b):
+            what = f"B9 {name} against the dense oracle, example {i}"
+            want = local_attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                       window=window)
+            dense_err[name] = max(dense_err[name], check_close(
+                out[i:i + 1], want, dtype, what))
+            if dtype == torch.bfloat16:
+                row_err["dense_oracle"] = max(row_err.get(
+                    "dense_oracle", 0.0), check_rows(out[i:i + 1], want,
+                                                     what))
+            del want
+        del out
+        torch.cuda.empty_cache()
+        # q, k and v read once, the output written once, and kv_map
+        nbytes = 4 * q.numel() * q.element_size() + kv_map_np.size * 4
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        rows.append(measure_sparse(
+            "block_attention",
+            lambda: block_attention(q, k, v, kv_map, bq=bq, bk=bk,
+                                    window=window),
+            lambda: block_attention_plain(q, k, v, kv_map, bq=bq, bk=bk,
+                                          window=window),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=band),
+            nbytes, flops, dtype, spec, flush,
+            shape=f"recurrentgemma-9b local attention B={b} S={s} H={h} "
+            f"hd={hd} window={window} bq={bq} bk={bk}, live tiles {live}, "
+            f"visible pairs {pairs}"))
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
     line = {"phase": "local_attention", **ATTN, "nq": kv_map_np.shape[0],
             "max_nb": kv_map_np.shape[1], "live_tiles_per_head": live,
             "visible_pairs_per_head": pairs,
-            "launches": launches, "first_call_ms": first_ms,
+            "launches_per_call": launches, "first_call_ms": first_ms,
             "plain_max_abs_err": plain_err,
-            "dense_oracle_max_abs_err": dense_err, "ms": row["ms"],
-            "card": card}
-    del q, k, v, out, qt, kt, vt, band
+            "dense_oracle_max_abs_err": dense_err,
+            "bf16_max_row_rel_err": row_err, "row_limit": ROW_LIMIT,
+            "ms": {r["dtype"]: r["ms"] for r in rows}, "card": card}
+    del q32, k32, v32, band
     torch.cuda.empty_cache()
-    return launches, [row], line
+    return {"block_attention": sum(launches.values())}, rows, line
 
 
 def profile(fn, warmup: bool = True, totals=()) -> dict:

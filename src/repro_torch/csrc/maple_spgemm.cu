@@ -25,16 +25,21 @@
 //    Products and sums round as the plain version's do (__fmul_rn then
 //    __fadd_rn: no FMA contraction), so the two agree bit for bit in f32.
 //  * B6: dA[s] = Σ_u B[k', u] · dC[out_rptr[i] + pos[part_ptr[s] + u]],
-//    lane u one term, a fixed xor-shuffle tree for the sum, written into
-//    A's value layout at s.
+//    written into A's value layout at s.  A group of kCsrGroup = 8 lanes
+//    owns row i (three steps of 8 cover cage12's B rows of about 15
+//    entries; four rows a warp).  Lane j takes the terms j, j + 8, ... of
+//    each slot's B row, the first kCsrSteps terms of kCsrDepth slots loaded together
+//    (pos, B and the dC gathers through __ldg: a row's dC values are a
+//    few lines of L1 that all its slots reuse), and a fixed xor-shuffle
+//    tree sums each slot: reruns give the same bits.
 //  * dB: one warp per B row k'; lane u owns B[k', u] and sums
 //    A[s] · dC[out_rptr[row(s)] + pos[part_ptr[s] + u]] over A's column
 //    fiber k' (t_perm[t_ptr[k'] .. t_ptr[k'+1]], in row order): a fixed
 //    order, no atomics, so two runs give the same bits.
 //
 // Each lane first fetches one slot's metadata and the warp broadcasts it
-// with __shfl_sync; kDepth slots' operand loads are issued before their
-// updates, so each lane keeps 2·kDepth loads in flight.
+// with __shfl_sync; B5 and dB issue kDepth slots' operand loads before
+// their updates, so each lane keeps 2·kDepth loads in flight.
 //
 // What bounds it on the H100: bytes.  Per partial product a 4-byte
 // position and a B value (B5, B6) or a dC value (B6, dB) are read once;
@@ -53,6 +58,9 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kDepth = 8;        // slots whose loads are issued together
+constexpr int kCsrGroup = 8;     // B6: lanes an output row and a slot,
+constexpr int kCsrDepth = 2;     // slots a lane group has in flight,
+constexpr int kCsrSteps = 3;     // the first steps of 8 terms of each
 constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
@@ -158,44 +166,83 @@ __global__ void spgemm_kernel(const T* __restrict__ a_val,
 }
 
 // ---------------------------------------------------------------- B6 ----
-// grid: (ceil(m / warps),), block: warps · 32.
+// grid: (ceil(m / (warps · 4)),), block: warps · 32.  A group of G = 8
+// lanes owns one output row (4 rows a warp) and walks the row's
+// slots one at a time: lane j takes terms j, j + G, ... of the slot's B
+// row, the first kCsrSteps terms of kCsrDepth slots loaded together, and
+// the group's terms meet in a fixed xor-shuffle tree.  The row's dC
+// values are gathered through L1 (__ldg): they are a few cache lines
+// that every slot of the row reuses.
 template <typename T>
-__global__ void sddmm_csr_kernel(const T* __restrict__ dc,
-                                 const T* __restrict__ b_val, Plan plan,
-                                 float* __restrict__ da, int m) {
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int row = blockIdx.x * (blockDim.x / kWarp) + warp;
-  if (row >= m) return;
-  const long long c0 = plan.out_rptr[row];
-  const int s0 = plan.a_rptr[row], s1 = plan.a_rptr[row + 1];
-  for (int base = s0; base < s1; base += kWarp) {
-    const Slot mine = base + lane < s1
-                          ? fetch_slot<T>(nullptr, plan, base + lane)
-                          : Slot{0.0f, 0, 0, 0};
-    const int cnt = min(kWarp, s1 - base);
-    for (int j0 = 0; j0 < cnt; j0 += kDepth) {
-      float acc[kDepth];
+__global__ void __launch_bounds__(256)
+sddmm_csr_kernel(const T* __restrict__ dc, const T* __restrict__ b_val,
+                 Plan plan, float* __restrict__ da, int m) {
+  constexpr int G = kCsrGroup, D = kCsrDepth, KS = kCsrSteps;
+  const int lane = threadIdx.x % kWarp, j = lane % G;
+  const int row = blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
+  int s0 = 0, n_s = 0;
+  long long pp_row = 0;
+  const T* dc_row = dc;
+  if (row < m) {
+    s0 = __ldg(plan.a_rptr + row);
+    n_s = __ldg(plan.a_rptr + row + 1) - s0;
+    dc_row = dc + __ldg(plan.out_rptr + row);
+    if (n_s) pp_row = __ldg(plan.part_ptr + s0);
+  }
+  // the warp walks as many slots as its longest row has
+  int n_max = n_s;
 #pragma unroll
-      for (int d = 0; d < kDepth; ++d) {
-        const Slot sl = shfl(mine, (j0 + d) & (kWarp - 1));
-        acc[d] = 0.0f;
-        if (j0 + d < cnt)
-          for (int u = lane; u < sl.bn; u += kWarp)
-            acc[d] = fmaf(to_f32(b_val[sl.b0 + u]),
-                          to_f32(dc[c0 + plan.pos[sl.pp + u]]), acc[d]);
+  for (int off = G; off < kWarp; off *= 2)
+    n_max = max(n_max, __shfl_xor_sync(kFull, n_max, off));
+  const int* pos_row = plan.pos + pp_row;     // partials from the row's first
+  for (int t0 = 0; t0 < n_max; t0 += G) {
+    // lane j fetches slot t0 + j of its row: its B row and first partial
+    int my_b0 = 0, my_bn = 0, my_pp = 0;
+    if (t0 + j < n_s) {
+      const int s = s0 + t0 + j;
+      const int col = __ldg(plan.a_cols + s);
+      my_pp = (int)(__ldg(plan.part_ptr + s) - pp_row);
+      my_b0 = __ldg(plan.b_rptr + col);
+      my_bn = __ldg(plan.b_rptr + col + 1) - my_b0;
+    }
+    const int span = min(G, n_max - t0);
+    for (int d0 = 0; d0 < span; d0 += D) {
+      int b0[D], bn[D], pp[D], at[D][KS];
+      float bv[D][KS];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const int src = (d0 + d) & (G - 1);
+        b0[d] = __shfl_sync(kFull, my_b0, src, G);
+        bn[d] = __shfl_sync(kFull, my_bn, src, G);
+        pp[d] = __shfl_sync(kFull, my_pp, src, G);
+        if (d0 + d >= span || t0 + d0 + d >= n_s) bn[d] = 0;
+#pragma unroll
+        for (int k = 0; k < KS; ++k) {
+          const int u = j + k * G;
+          at[d][k] = -1;
+          if (u < bn[d]) {
+            at[d][k] = __ldg(pos_row + pp[d] + u);
+            bv[d][k] = to_f32(__ldg(b_val + b0[d] + u));
+          }
+        }
       }
 #pragma unroll
-      for (int d = 0; d < kDepth; ++d) {
+      for (int d = 0; d < D; ++d) {
+        float acc = at[d][0] >= 0
+                        ? bv[d][0] * to_f32(__ldg(dc_row + at[d][0])) : 0.0f;
 #pragma unroll
-        for (int off = kWarp / 2; off > 0; off /= 2)
-          acc[d] += __shfl_xor_sync(kFull, acc[d], off);
-      }
-      if (lane < kDepth && j0 + lane < cnt) {
-        float v = acc[0];
+        for (int k = 1; k < KS; ++k)
+          if (at[d][k] >= 0)
+            acc = fmaf(bv[d][k], to_f32(__ldg(dc_row + at[d][k])), acc);
+        for (int u = j + KS * G; u < bn[d]; u += G)   // rows over KS·G
+          acc = fmaf(to_f32(__ldg(b_val + b0[d] + u)),
+                     to_f32(__ldg(dc_row + __ldg(pos_row + pp[d] + u))),
+                     acc);
 #pragma unroll
-        for (int d = 1; d < kDepth; ++d)
-          if (lane == d) v = acc[d];
-        da[base + j0 + lane] = v;
+        for (int off = G / 2; off > 0; off /= 2)
+          acc += __shfl_xor_sync(kFull, acc, off);
+        const int t = t0 + d0 + d;
+        if (j == 0 && d0 + d < span && t < n_s) da[s0 + t] = acc;
       }
     }
   }
@@ -273,7 +320,8 @@ cudaError_t launch_spgemm(const void* a_val, const void* b_val,
 template <typename T>
 cudaError_t launch_sddmm(const void* dc, const void* b_val, const Plan& plan,
                          float* da, int m, int warps, cudaStream_t st) {
-  sddmm_csr_kernel<T><<<(m + warps - 1) / warps, warps * kWarp, 0, st>>>(
+  const int rows = warps * kWarp / kCsrGroup;     // rows a CTA
+  sddmm_csr_kernel<T><<<(m + rows - 1) / rows, warps * kWarp, 0, st>>>(
       (const T*)dc, (const T*)b_val, plan, da, m);
   return cudaGetLastError();
 }
@@ -322,7 +370,7 @@ int maple_sddmm_csr(const void* dc, const void* b_val, const int* a_rptr,
                     const long long* out_rptr, float* da, int dtype, int m,
                     int warps, void* stream) {
   if (m == 0) return (int)cudaSuccess;
-  if (bad_warps(warps)) return (int)cudaErrorInvalidValue;
+  if (bad_warps(warps) || warps > 8) return (int)cudaErrorInvalidValue;
   const Plan plan{a_rptr, a_cols, b_rptr, part_ptr, pos, out_rptr};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)

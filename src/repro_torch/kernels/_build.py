@@ -147,6 +147,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.maple_block_attention.argtypes = [p] * 5 + [i] * 11 + \
             [ctypes.c_float, p]
         lib.maple_block_attention.restype = i
+        lib.maple_block_attention_layout.argtypes = [i, i, i, p]
+        lib.maple_block_attention_layout.restype = i
     lib.maple_error_string.argtypes = [i]
     lib.maple_error_string.restype = ctypes.c_char_p
 

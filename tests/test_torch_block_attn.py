@@ -97,6 +97,34 @@ def test_block_attention_matches_pallas_kernel_on_any_kv_map(causal, window,
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,bq,bk,causal,window", [
+    (20, 64, 32, True, 50), (64, 96, 48, True, 100),
+    (256, 64, 128, True, 150), (64, 128, 128, False, 0),
+    (128, 32, 64, False, 70)])
+def test_block_attention_matches_pallas_kernel_on_every_geometry(
+        hd, bq, bk, causal, window, dtype):
+    """The geometries the card tests hold B9 to this plain version on:
+    head dims over 1 to 8 of its 128-byte column blocks, bq != bk, no
+    causality with and without a window, live entries in any slot of a
+    kv_map row, and a q-block with no live entry (its output is 0)."""
+    s = 384
+    (jq, jk, jv), (q, k, v) = _qkv(hd + bq + bk, (2, s, 2, hd), dtype)
+    rng = np.random.default_rng(window)
+    nq, nk = s // bq, s // bk
+    kv_map = np.full((nq, 5), -1, np.int32)
+    for i in range(nq - 1):
+        ids = rng.choice(nk, size=min(4, nk), replace=False)
+        kv_map[i, rng.choice(5, size=len(ids), replace=False)] = ids
+    want = jax.vmap(lambda a, b, c: block_attention_pallas(
+        a, b, c, jnp.asarray(kv_map), bq=bq, bk=bk, causal=causal,
+        window=window, interpret=True))(jq, jk, jv)
+    got = block_attention(q, k, v, torch.from_numpy(kv_map), bq=bq, bk=bk,
+                          causal=causal, window=window)
+    assert got.dtype == q.dtype and _err(got, want) <= TOL[dtype]
+    assert not got[:, (nq - 1) * bq:].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_dense_oracle_matches_reference(dtype):
     (jq, jk, jv), (q, k, v) = _qkv(3, (2, 96, 2, 16), dtype)
     got = local_attention_ref(q, k, v, window=40)

@@ -54,6 +54,23 @@ def _close(got, want, dtype):
     assert float((got - want).abs().max()) <= limit
 
 
+def _close_attn(got, want, dtype):
+    """B9: ``_close``, and in bf16 each run of max(hd, 64) consecutive
+    output values (one query row of one head at hd >= 64) within 2^-7 of
+    the run's norm: P's one rounding to bf16 leaves about 2e-3, and one
+    key too many or too few in a row of 2048 moves it about 1.3e-2."""
+    _close(got, want, dtype)
+    if dtype == torch.float32:
+        return
+    n = max(want.shape[-1], 64)
+    d = (got.float() - want.float()).flatten()
+    w = want.float().flatten()
+    pad = -d.numel() % n
+    d = torch.nn.functional.pad(d, (0, pad)).view(-1, n).norm(dim=1)
+    w = torch.nn.functional.pad(w, (0, pad)).view(-1, n).norm(dim=1)
+    assert bool((d <= 2.0 ** -7 * w).all())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("block,bn,n", [((8, 8), 16, 21), ((64, 64), 128, 1),
                                         ((64, 64), 128, 128),
@@ -725,8 +742,8 @@ def test_block_attention_kernel_matches_plain(cuda, dtype, s, w, bq, bk, h,
     torch.cuda.synchronize()
     assert block_attention.launches == before + 2
     assert torch.equal(got[0], got[1])
-    _close(got[0], block_attention_plain(q, k, v, kv_map, bq=bq, bk=bk,
-                                         window=w), dtype)
+    _close_attn(got[0], block_attention_plain(
+        q, k, v, kv_map, bq=bq, bk=bk, window=w), dtype)
 
 
 def test_block_attention_kernel_skips_pads_and_empty_rows(cuda):
@@ -756,3 +773,143 @@ def test_block_attention_kernel_refuses_wide_heads(cuda):
     q = torch.zeros((1, 64, 1, 260), device=cuda)
     with pytest.raises(ValueError, match="multiple of 4 up to 256"):
         local_block_attention(q, q, q, window=16, bq=16, bk=16)
+
+
+# --------------------------------------------------------------------------
+# B9 and B6 on their Hopper layouts: every geometry branch, both dtypes
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,bq,bk,causal,w", [
+    (20, 64, 32, True, 50), (64, 96, 48, True, 100),
+    (128, 128, 64, True, 0), (256, 64, 128, True, 150),
+    (256, 256, 128, True, 300),            # a q-block of two 128-row CTAs
+    (64, 128, 128, False, 0), (128, 32, 64, False, 70),
+    (256, 128, 96, False, 200)])
+def test_block_attention_kernel_on_every_geometry(cuda, dtype, hd, bq, bk,
+                                                  causal, w):
+    """Head dims over 1, 2, 4 and 8 column blocks (hd 20 in bf16: the
+    producer's own loads), bq != bk, slices, no causality with and
+    without a window, any kv_map row: rerun bit-identical."""
+    from repro_torch.kernels.block_attn import (block_attention,
+                                                block_attention_plain)
+    s = 768
+    rng = np.random.default_rng(hd + bq + bk + w)
+    q, k, v = [torch.from_numpy(rng.standard_normal((2, s, 3, hd))
+                                .astype(np.float32)).to(cuda, dtype)
+               for _ in range(3)]
+    nq, nk = s // bq, s // bk
+    kv = np.full((nq, 5), -1, np.int32)
+    for i in range(nq):                    # live entries in any order, pads
+        ids = rng.choice(nk, size=min(4, nk), replace=False)
+        kv[i, rng.choice(5, size=len(ids), replace=False)] = ids
+    kv_map = torch.from_numpy(kv).to(cuda)
+    got = [block_attention(q, k, v, kv_map, bq=bq, bk=bk, causal=causal,
+                           window=w) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1])
+    _close_attn(got[0], block_attention_plain(
+        q, k, v, kv_map, bq=bq, bk=bk, causal=causal, window=w), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_attention_kernel_rows_that_see_no_key(cuda, dtype):
+    """A CTA whose rows see no key (only blocks above the diagonal, or
+    behind the window), a warpgroup that sees none of a chunk its CTA
+    walks, and a q-block with no live entry: their outputs are 0."""
+    from repro_torch.kernels.block_attn import (block_attention,
+                                                block_attention_plain)
+    rng = np.random.default_rng(11)
+    q, k, v = [torch.from_numpy(rng.standard_normal((1, 512, 2, 256))
+                                .astype(np.float32)).to(cuda, dtype)
+               for _ in range(3)]
+    kv_map = torch.tensor([[3, 2, -1], [0, 1, -1], [-1, -1, -1], [3, 0, -1]],
+                          dtype=torch.int32, device=cuda)
+    got = block_attention(q, k, v, kv_map, bq=128, bk=128, window=200)
+    torch.cuda.synchronize()
+    _close_attn(got, block_attention_plain(q, k, v, kv_map, bq=128,
+                                           bk=128, window=200), dtype)
+    assert not got[:, :128].any() and not got[:, 256:384].any()
+
+
+# B9's layout (csrc/block_attn.cu::layout): 1 KB of alignment slack, Q
+# (blocks × 128 rows × 128 B), in f32 the P, correction and row-sum
+# buffers (32 768 + 1 536 B), 13 mbarriers (104 B), then as many K / V
+# stages (blocks × keys × 128 B) as fit in 232 448 B, at most 6.
+@pytest.mark.parametrize("dtype,hd,bq,blocks,keys,stages,smem,ctas,tma", [
+    # recurrentgemma-9b: 1024 + 131072 + 34304 + 104 = 166504, and two
+    # 32 KB stages of 32 keys × 8 blocks
+    (torch.float32, 256, 128, 8, 32, 2, 166504 + 2 * 32768, 1, 1),
+    # bf16: 1024 + 65536 + 104 = 66664, five 32 KB stages of 64 keys
+    (torch.bfloat16, 256, 128, 4, 64, 5, 66664 + 5 * 32768, 1, 1),
+    (torch.float32, 128, 64, 4, 32, 6,
+     1024 + 65536 + 34304 + 104 + 6 * 16384, 1, 1),
+    (torch.float32, 96, 256, 4, 32, 6, 199272, 2, 1),   # 3 blocks: 4
+    (torch.float32, 20, 96, 1, 32, 6,
+     1024 + 16384 + 34304 + 104 + 6 * 4096, 1, 1),
+    (torch.bfloat16, 64, 32, 1, 64, 6, 1024 + 16384 + 104 + 6 * 8192, 1, 1),
+    # hd 20 in bf16: 40-byte rows, which TMA cannot stride
+    (torch.bfloat16, 20, 48, 1, 64, 6, 1024 + 16384 + 104 + 6 * 8192, 1, 0),
+    (torch.bfloat16, 200, 384, 4, 64, 5, 230504, 3, 1)])
+def test_block_attention_layout_by_hand(cuda, dtype, hd, bq, blocks, keys,
+                                        stages, smem, ctas, tma):
+    import ctypes
+    from repro_torch.kernels import _build
+    lib = _build.library("block_attn")
+    code = 0 if dtype == torch.float32 else 1
+    out = (ctypes.c_int * 6)()
+    assert lib.maple_block_attention_layout(code, hd, bq, out) == 0
+    assert list(out) == [blocks, keys, stages, smem, ctas, tma]
+
+
+def test_block_attention_layout_fits_and_refuses(cuda):
+    """Every head dim the kernel takes fits one CTA with a ring of 2 to 6
+    stages; the rest are refused."""
+    import ctypes
+    from repro_torch.kernels import _build
+    lib = _build.library("block_attn")
+    out = (ctypes.c_int * 6)()
+    for code in (0, 1):
+        for hd in range(4, 257, 4):
+            assert lib.maple_block_attention_layout(code, hd, 128, out) == 0
+            assert 2 <= out[2] <= 6 and out[3] <= 232448
+        for hd, bq in ((260, 128), (30, 128), (0, 128), (64, 0)):
+            assert lib.maple_block_attention_layout(code, hd, bq, out) != 0
+    assert lib.maple_block_attention_layout(2, 64, 128, out) != 0
+
+
+def _long_row_operands(cuda, dtype, b_density, seed):
+    """A (30 × 40) with empty rows and B (40 × 120) whose rows hold
+    about 120·b_density entries (some over 32)."""
+    from repro_torch.kernels import plan_spgemm
+    rng = np.random.default_rng(seed)
+    am = rng.random((30, 40)) < 0.3
+    am[::7] = False                                  # empty A rows
+    bm = rng.random((40, 120)) < b_density
+    bm[3] = True                                     # a 120-entry B row
+    a = _element_csr(cuda, am, rng, dtype)
+    b = _element_csr(cuda, bm, rng, dtype)
+    return a, b, plan_spgemm(a, b, n_lanes=3), rng
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b_density", [0.1, 0.3, 0.6])
+def test_csr_sddmm_kernel_long_b_rows(cuda, dtype, b_density):
+    """B6's lane groups of 8 on B rows longer than their three steps (24
+    terms) and than a warp, and on empty A rows (4 rows a warp, some of
+    them empty): against the plain version, rerun bit-identical."""
+    from repro_torch.kernels.maple_sddmm import (maple_sddmm_csr,
+                                                 maple_sddmm_csr_plain)
+    a, b, plan, rng = _long_row_operands(cuda, dtype, b_density, 7)
+    assert plan.lb > 3 * 8 and plan.lb > 32
+    dc = torch.from_numpy(rng.standard_normal(plan.nnz_c).astype(
+        np.float32)).to(cuda, dtype)
+    before = maple_sddmm_csr.launches
+    got = [maple_sddmm_csr(dc, b.value, plan, n_slots=a.nnz_max)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert maple_sddmm_csr.launches == before + 2
+    assert torch.equal(got[0], got[1])
+    _close(got[0], maple_sddmm_csr_plain(dc, b.value, plan,
+                                         n_slots=a.nnz_max), dtype)
+    assert not got[0][a.nnz:].any()

@@ -177,8 +177,8 @@ def test_build_target_covers_the_headers_a_source_includes(tmp_path,
 
 
 def test_build_target_of_the_ring_kernels_names_the_shared_header():
-    for name in ("maple_spmm", "moe_gemm"):
+    for name in ("maple_spmm", "moe_gemm", "block_attn"):
         assert [p.name for p in _build._sources(name)] == [f"{name}.cu",
                                                            "hopper.cuh"]
-    assert [p.name for p in _build._sources("block_attn")] == [
-        "block_attn.cu"]
+    assert [p.name for p in _build._sources("maple_spgemm")] == [
+        "maple_spgemm.cu"]

@@ -329,6 +329,25 @@ def test_csr_sddmm_equals_pallas_kernel(kind):
     """B6's wrapper writes dA in A's value layout; the reference kernel's
     per-ELL-slot output, mapped through ``a_gather``, must agree."""
     _, _, (ra, a), (rb, b) = golden(kind, seed=11)
+    _csr_sddmm_against_pallas(ra, a, rb, b)
+
+
+@pytest.mark.parametrize("b_density", [0.1, 0.3, 0.6])
+def test_csr_sddmm_equals_pallas_kernel_on_long_b_rows(b_density):
+    """The card tests' B6 operands: B rows longer than a lane group's
+    three steps (24 terms) and than a warp, and empty A rows."""
+    rng = np.random.default_rng(7)
+    am = rng.random((30, 40)) < 0.3
+    am[::7] = False                                  # empty A rows
+    bm = rng.random((40, 120)) < b_density
+    bm[3] = True                                     # a 120-entry B row
+    (ra, a), (rb, b) = (pair(rand_dense(rng, *x.shape, mask=x), pad=2)
+                        for x in (am, bm))
+    assert plan_spgemm(a, b, n_lanes=3).lb > 32
+    _csr_sddmm_against_pallas(ra, a, rb, b)
+
+
+def _csr_sddmm_against_pallas(ra, a, rb, b):
     rp, plan = ref_plan_spgemm(ra, rb, n_lanes=3), plan_spgemm(a, b,
                                                                n_lanes=3)
     m, cap = ra.shape[0], plan.nnz_c

@@ -14,12 +14,14 @@ and 128), ``moe_gemm`` (B8: granite-moe-3b's four expert products),
 ``maple_sddmm_bsr`` (B2: dA of the MLP at N 256 and of the head at N 4,
 as ``chip_smoke.py``'s training shapes build them) and
 ``maple_spmspm_ell`` (B7: the cage12 clone's ELL times a dense (n, 64)
-B).  Each turn runs in its own process from that tree (its
-``chip_smoke.py`` and ``src/``, its own kernel build) and prints one JSON
-line per row, tagged with the tree.  B2 and B7 are timed alone (events,
-after an L2 flush), the other rows with their plain, library and bound
-times.  Also prints ``ptxas -v`` registers and spills of each tree's
-kernels.
+B), ``block_attention`` (B9 at recurrentgemma-9b's local attention, f32
+and bf16) and ``maple_spgemm_numeric``, ``maple_sddmm_csr`` and
+``maple_spgemm_db`` (B5, B6 and dB of C = A×A on the cage12 clone).  Each
+turn runs in its own process from that tree (its ``chip_smoke.py`` and
+``src/``, its own kernel build) and prints one JSON line per row, tagged
+with the tree.  B2, B5, B6, dB, B7 and B9 are timed alone (events, after
+an L2 flush), the other rows with their plain, library and bound times.
+Also prints ``ptxas -v`` registers and spills of each tree's kernels.
 """
 import json
 import os
@@ -28,9 +30,10 @@ import sys
 from pathlib import Path
 
 ALL = ("maple_spmm_compact", "maple_spmm_planned", "maple_spmm_naive",
-       "moe_gemm", "maple_sddmm_bsr", "maple_spmspm_ell")
+       "moe_gemm", "maple_sddmm_bsr", "maple_spmspm_ell", "block_attention",
+       "maple_spgemm_numeric", "maple_sddmm_csr", "maple_spgemm_db")
 SOURCES = ("maple_spmm.cu", "moe_gemm.cu", "maple_sddmm.cu",
-           "maple_spmspm.cu")
+           "maple_spmspm.cu", "maple_spgemm.cu", "block_attn.cu")
 TURN = r"""
 import json, os, sys
 import numpy as np
@@ -79,6 +82,48 @@ if "maple_spmspm_ell" in names:
                  "shape": f"{cs.CAGE12} ELL {tuple(values.shape)} x "
                  f"({a.shape[0]}, {cs.SPMSPM_N})",
                  "ms": cs.time_ms(fn, cs.REPS, flush)})
+if "block_attention" in names:
+    from repro_torch.kernels import local_window_kv_map
+    from repro_torch.kernels.block_attn import block_attention
+    a = cs.ATTN
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    q = torch.randn((a["B"], a["S"], a["H"], a["hd"]), generator=gen,
+                    device="cuda")
+    k, v = [torch.randn((a["B"], a["S"], 1, a["hd"]), generator=gen,
+                        device="cuda").expand(q.shape).contiguous()
+            for _ in range(2)]
+    kv_map = torch.from_numpy(local_window_kv_map(
+        a["S"], a["window"], a["bq"], a["bk"])).cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [x.to(dtype) for x in (q, k, v)] + [kv_map]
+        fn = lambda: block_attention(*args, bq=a["bq"], bk=a["bk"],
+                                     window=a["window"])
+        rows.append({"name": "block_attention", "dtype": str(dtype)[6:],
+                     "shape": "recurrentgemma-9b local attention",
+                     "ms": cs.time_ms(fn, cs.REPS, flush)})
+        del args
+    del q, k, v
+    torch.cuda.empty_cache()
+spgemm_names = ("maple_spgemm_numeric", "maple_sddmm_csr", "maple_spgemm_db")
+if set(spgemm_names) & set(names):
+    from repro_torch.core import sparsity
+    from repro_torch.kernels import plan_spgemm
+    from repro_torch.kernels.maple_sddmm import maple_sddmm_csr
+    from repro_torch.kernels.maple_spgemm import (maple_spgemm_db,
+                                                  maple_spgemm_numeric)
+    a = sparsity.generate(sparsity.TABLE_I[cs.CAGE12], scale=cs.CAGE12_SCALE,
+                          seed=cs.SEED, device="cuda")
+    plan = plan_spgemm(a, a)
+    dc = torch.from_numpy(np.random.default_rng(cs.SEED + 10).standard_normal(
+        plan.nnz_c).astype(np.float32)).cuda()
+    for name, fn in zip(spgemm_names, (
+            lambda: maple_spgemm_numeric(a.value, a.value, plan,
+                                         cap=plan.nnz_c),
+            lambda: maple_sddmm_csr(dc, a.value, plan, n_slots=a.nnz),
+            lambda: maple_spgemm_db(dc, a.value, plan, n_slots=a.nnz))):
+        rows.append({"name": name, "dtype": "float32",
+                     "shape": f"{cs.CAGE12} C=A×A", "ms": cs.time_ms(
+                         fn, cs.REPS, flush)})
 for r in rows:
     if r["name"] in names:
         print(json.dumps({"tree": sys.argv[1], **{k: r[k] for k in (

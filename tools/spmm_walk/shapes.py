@@ -34,7 +34,9 @@ def ptxas(source: Path, names=("run_kernel", "compact_kernel",
                                "planned_kernel", "naive_kernel",
                                "moe_kernel", "moe_gemm_kernel",
                                "sddmm_kernel", "sddmm_bsr_kernel",
-                               "spmspm_kernel")) -> None:
+                               "spmspm_kernel", "block_attn_kernel",
+                               "sddmm_csr_kernel", "spgemm_kernel",
+                               "spgemm_db_kernel")) -> None:
     """Registers and spills of every kernel in ``source`` named like one
     of ``names``."""
     out = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",

@@ -3,7 +3,8 @@
 
 Run from the repository root on a machine with one H100::
 
-    python3 tools/spmm_walk/variants.py [--kernel b4|b3|b8|b2|b7] [variant ...]
+    python3 tools/spmm_walk/variants.py [--kernel b4|b3|b8|b2|b7|b9|b6] \
+        [variant ...]
 
 Each variant is the kernel's source (or ``hopper.cuh``) with some text
 replaced (``VARIANTS`` below); all are built at once with ``nvcc`` into
@@ -15,9 +16,14 @@ cases: B4 at the MLP forward and Aᵀ dB plans (N = 256) and the logit head
 (N = 1); B3 at the MLP over 4 batches, N = 1, 112 and 128; B8 at
 granite-moe-3b's four expert products; B2 (dA) at the MLP (N = 256) and
 the head (N = 4); f32 and bf16; B7 at the cage12 clone's ELL times a
-dense (n, 64) B, f32.  A variant that takes
-work away (no reduction, no compute) gives wrong results: it only
-measures what that work costs.
+dense (n, 64) B, f32; B9 at recurrentgemma-9b's local attention, f32
+and bf16; B6 (the SpGEMM's dA) on C = A×A over the cage12 clone, f32.
+A variant that takes work away (no reduction, no compute) gives wrong
+results: it only measures what that work costs.  For B9 each variant's
+output is also held against the plain version, as ``chip_smoke.py`` holds
+it (``check_close``, and ``check_rows`` in bf16), and the two ratios to
+their limits are printed: the planted faults ``skipchunk`` and ``wide1``
+show what each check catches.
 """
 import argparse
 import ctypes
@@ -148,8 +154,92 @@ VARIANTS.update({
         "warps4": [("constexpr int kWarps = 8;",
                     "constexpr int kWarps = 4;")]}),
 })
+B9_NOS = [("for (int b = 0; b < NB; ++b) {\n          const int",
+           "for (int b = 0; b < 0; ++b) {\n          const int")]
+B9_NOPV = [("for (int kq = 0; kq < KT; kq += 4) {",
+            "for (int kq = 0; kq < 0; kq += 4) {"),
+           ("for (int j = 0; j < 4; ++j) pv_atoms<NB>",
+            "for (int j = 0; j < 0; ++j) pv_atoms<NB>")]
+VARIANTS.update({
+    "b9": ("block_attn", {
+        "base": [],
+        # both products taken away (f32 and bf16): loads, softmax, syncs
+        "nocompute": B9_NOS + B9_NOPV,
+        "nos": B9_NOS,
+        "nopv": B9_NOPV,
+        # the producer warpgroup down to 24 registers, the consumers 240
+        "regs240": [("constexpr int kProducerRegs = 40;\nconstexpr int "
+                     "kConsumerRegs = 232;", "constexpr int kProducerRegs = "
+                     "24;\nconstexpr int kConsumerRegs = 240;")],
+        # f32 P·V: one or all of a chunk's 4-key steps a loop turn
+        "pvunroll1": [("#pragma unroll 2\n        for (int kq = 0; kq < KT; "
+                       "kq += 4) {", "#pragma unroll 1\n        for (int kq "
+                       "= 0; kq < KT; kq += 4) {")],
+        "pvunroll8": [("#pragma unroll 2\n        for (int kq = 0; kq < KT; "
+                       "kq += 4) {", "#pragma unroll\n        for (int kq "
+                       "= 0; kq < KT; kq += 4) {")],
+        # planted faults, to show what the checks catch: the second chunk
+        # of each CTA's walk skipped, or the window one key wider
+        "skipchunk": [("  int e = 0, c0 = 0;\n",
+                       "  int e = 0, c0 = 0, n = 0;\n"),
+                      ("      if (visible(g, lo, hi, k_lo, k_n)) return true;",
+                       "      if (visible(g, lo, hi, k_lo, k_n) && ++cur.n "
+                       "!= 2)\n        return true;")],
+        "wide1": [("(g.window <= 0 || qpos - kpos < g.window);",
+                   "(g.window <= 0 || qpos - kpos <= g.window);")],
+        "stages2": [("  if (g.stages > kMaxStages) g.stages = kMaxStages;",
+                     "  if (g.stages > 2) g.stages = 2;")],
+        "stages3": [("  if (g.stages > kMaxStages) g.stages = kMaxStages;",
+                     "  if (g.stages > 3) g.stages = 3;")],
+        "stages4": [("  if (g.stages > kMaxStages) g.stages = kMaxStages;",
+                     "  if (g.stages > 4) g.stages = 4;")],
+        # the V chunks never loaded (their stages complete on the
+        # producer's arrivals): what half the K / V stream costs
+        "nov": [("        load_tile<T, NB>(smem + g.ring_off + st * "
+                 "g.tile_bytes,\n", "        if (kv) mbar_arrive(&full[st]);"
+                 "\n        else load_tile<T, NB>(smem + g.ring_off + st * "
+                 "g.tile_bytes,\n")]}),
+    "b6": ("maple_spgemm", {
+        "base": [],
+        # the pos and B loads kept, the dC gathers and products taken away
+        "nocompute": [("bv[d][0] * to_f32(__ldg(dc_row + at[d][0]))",
+                       "bv[d][0] + at[d][0]"),
+                      ("acc = fmaf(bv[d][k], to_f32(__ldg(dc_row + "
+                       "at[d][k])), acc);",
+                       "acc += bv[d][k] + at[d][k];")],
+        "depth1": [("constexpr int kCsrDepth = 2;",
+                    "constexpr int kCsrDepth = 1;")],
+        "depth4": [("constexpr int kCsrDepth = 2;",
+                    "constexpr int kCsrDepth = 4;")],
+        # 4 lanes a row and 6 steps a slot
+        "group4": [("constexpr int kCsrGroup = 8;",
+                    "constexpr int kCsrGroup = 4;"),
+                   ("constexpr int kCsrSteps = 3;",
+                    "constexpr int kCsrSteps = 6;")],
+        "steps2": [("constexpr int kCsrSteps = 3;",
+                    "constexpr int kCsrSteps = 2;")],
+        "steps4": [("constexpr int kCsrSteps = 3;",
+                    "constexpr int kCsrSteps = 4;")],
+        # 32 registers a thread: 8 CTAs an SM
+        "lb8": [("__launch_bounds__(256)\nsddmm_csr_kernel",
+                 "__launch_bounds__(256, 8)\nsddmm_csr_kernel")],
+        # 4 warps a block
+        "warps4": [("  const int rows = warps * kWarp / G;",
+                    "  warps = 4;\n  const int rows = warps * kWarp / G;")],
+        # lane groups of 16 or 32 (2 or 1 rows a warp)
+        "group16": [("constexpr int kCsrGroup = 8;",
+                     "constexpr int kCsrGroup = 16;")],
+        "group32": [("constexpr int kCsrGroup = 8;",
+                     "constexpr int kCsrGroup = 32;")],
+        # pos, B and dC read past L1 (L2 only): what L1's hits are worth
+        "cg": [("__ldg(", "__ldcg(")]}),
+})
+# the plain version of a case, where its errors are reported (B9), and its
+# output, computed once
+PLAIN, WANT = {}, {}
 KERNEL_NAME = {"b4": "run_kernel", "b3": "run_kernel", "b8": "moe_kernel",
-               "b2": "sddmm_kernel", "b7": "spmspm_kernel"}
+               "b2": "sddmm_kernel", "b7": "spmspm_kernel",
+               "b9": "block_attn_kernel", "b6": "sddmm_csr_kernel"}
 
 
 def build(source, variants, names):
@@ -264,6 +354,52 @@ def b7_cases():
            lambda: maple_spmspm_ell(values, col_ids, dense_b))
 
 
+def b9_cases():
+    from repro_torch.kernels import local_window_kv_map
+    from repro_torch.kernels.block_attn import (block_attention,
+                                                block_attention_plain)
+    a = cs.ATTN
+    b, s, h, hd = a["B"], a["S"], a["H"], a["hd"]
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    q = torch.randn((b, s, h, hd), generator=gen, device="cuda")
+    k, v = [torch.randn((b, s, 1, hd), generator=gen, device="cuda")
+            .expand(b, s, h, hd).contiguous() for _ in range(2)]
+    kv_map = torch.from_numpy(local_window_kv_map(
+        s, a["window"], a["bq"], a["bk"])).cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [x.to(dtype) for x in (q, k, v)] + [kv_map]
+        name = f"recurrentgemma-9b {str(dtype)[6:]}"
+        PLAIN[name] = lambda args=args: block_attention_plain(
+            *args, bq=a["bq"], bk=a["bk"], window=a["window"])
+        yield (name, lambda args=args: block_attention(
+            *args, bq=a["bq"], bk=a["bk"], window=a["window"]))
+
+
+def b6_cases():
+    from repro_torch.core import sparsity
+    from repro_torch.kernels import plan_spgemm
+    from repro_torch.kernels.maple_sddmm import maple_sddmm_csr
+    a = sparsity.generate(sparsity.TABLE_I[cs.CAGE12], scale=cs.CAGE12_SCALE,
+                          seed=cs.SEED, device="cuda")
+    plan = plan_spgemm(a, a)
+    dc = torch.from_numpy(np.random.default_rng(cs.SEED + 10).standard_normal(
+        plan.nnz_c).astype(np.float32)).cuda()
+    yield ("cage12 C=A×A dA float32",
+           lambda: maple_sddmm_csr(dc, a.value, plan, n_slots=a.nnz))
+
+
+def errors(got, want):
+    """A variant's output against the plain version: max|got - want| over
+    ``chip_smoke.check_close``'s limit, and in bf16 ``row_rel_err`` over
+    ``check_rows``'s (above 1: the check fails)."""
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max())
+    if got.dtype == torch.float32:
+        return {"close": float((g - w).abs().max()) / (1e-5 * scale + 1e-6)}
+    return {"close": float((g - w).abs().max()) / (1e-2 * scale),
+            "rows": cs.row_rel_err(got, want) / cs.ROW_LIMIT}
+
+
 def device_ms(fn, flush, match, reps=10):
     """The mean device time of the kernels named like ``match`` over
     ``reps`` launches, each after an L2 flush (torch.profiler)."""
@@ -290,7 +426,8 @@ def main() -> int:
     libs = build(source, table, names)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     cases = list({"b4": b4_cases, "b3": b3_cases, "b8": b8_cases,
-                  "b2": b2_cases, "b7": b7_cases}[args.kernel]())
+                  "b2": b2_cases, "b7": b7_cases, "b9": b9_cases,
+                  "b6": b6_cases}[args.kernel]())
     res = {name: {} for name, _ in cases}
     for variant, path in libs.items():
         lib = ctypes.CDLL(str(path))
@@ -301,9 +438,14 @@ def main() -> int:
                 res[name][variant] = [
                     round(cs.time_ms(fn, cs.REPS, flush), 5),
                     round(device_ms(fn, flush, KERNEL_NAME[args.kernel]), 5)]
+                if name in PLAIN:
+                    if name not in WANT:
+                        WANT[name] = PLAIN[name]()
+                    res[name][variant].append(errors(fn(), WANT[name]))
             except RuntimeError as err:               # e.g. a ring too small
                 res[name][variant] = str(err)[:80]
-    print("variant: [events ms, profiler device ms]", flush=True)
+    print("variant: [events ms, profiler device ms, errors against the "
+          "plain version (B9)]", flush=True)
     for name, row in res.items():
         print(name, json.dumps(row), flush=True)
     return 0
