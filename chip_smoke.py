@@ -86,7 +86,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    versions on the card, f32 and bf16, over the element-pattern goldens
    and edge cases (empty rows, an all-zero A, nnz at capacity,
    zero-dimension operands, la = 1, lc = 1, pad steps, rows and panels
-   wider than a warp); B5, B6 and dB twice each for bit identity; B7 bit
+   wider than a warp, B rows of 48 and 120 entries, A column fibers of 60,
+   B rows no slot consumes, a row whose slots take only empty B rows, an
+   output row of lc > 256); B5 on each of its routes (8 lanes a row, a
+   warp a row), B6 and dB twice each for bit identity,
+   B5 in f32 bit-equal to its plain version, dB 0 on unused B rows; B7 bit
    for bit, and alone at L > 32 with a row all pad, N = 1, 37, 64, 300.
 9. spgemm  — the paper's protocol C = A×A on the cage12 clone at scale
    1.0 (seed 0; its n, nnz, la, lb, lc, P and nnz(C) are printed; the
@@ -95,11 +99,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    timed, ``maple_spgemm`` forward and the backward of sum(C²) with the
    launch counts zeroed just before and read just after (one B5, one B6,
    one dB), C held against scipy's A @ A (pattern and values) and against
-   the plain path on the card, the gradient against the plain versions,
-   and warm forward and forward + backward times; then
+   the plain path on the card (B5 bit for bit), the gradient against the
+   plain versions, and warm forward and forward + backward times; then
    ``maple_spmspm(A, B)`` with a dense (n, 64) B (one B7 launch, against
    scipy); then the four kernels timed at these shapes beside
-   their bounds, plain versions and ``torch.sparse.mm`` (cuSPARSE).
+   their bounds, plain versions and ``torch.sparse.mm`` (cuSPARSE), and
+   B5, B6 and dB again on C = A×A over the poisson3Da clone (B rows of 25
+   entries on average, up to 48).
 10. moe_kernels — the MoE grouped GEMM (B8) against its plain version, f32
     and bf16: the reference sweep's groups (empty groups included) at
     D = F = 256, bt = 128, and decode's bt = 8 at the smoke widths; each
@@ -134,6 +140,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -194,6 +201,10 @@ SERVE_ARCH = "qwen3-4b"
 # the SpGEMM slice: C = A×A on the paper's cage12 clone at full size
 # (Table I: n 130 000, nnz 2.0 M), and A times a dense (n, 64) B
 CAGE12, CAGE12_SCALE = "cg", 1.0
+# the second timed SpGEMM shape: poisson3Da (Table I, n 14 000, nnz 353 000,
+# banded), whose B rows average 25 entries and reach 48 where cage12's
+# average 15 and reach 36
+POISSON = "p3"
 SPMSPM_N = 64
 TRAIN_ARGV = ["--arch", "qwen3-4b", "--sparse-mlp", "--steps", "3",
               "--global-batch", "4", "--seq-len", "256", "--seed", "0",
@@ -1339,8 +1350,11 @@ def spgemm_edge_operands(rng):
     """(name, A mask, B mask, n_lanes, at capacity): the element-pattern
     goldens, empty rows, an all-zero A, nnz exactly at capacity,
     zero-dimension operands, la = 1, lc = 1, pad steps (more lanes than
-    rows), and rows and panels wider than a warp (la, lb > 32)."""
-    from repro_torch.core.sparsity import element_pattern_mask
+    rows), rows and panels wider than a warp (la, lb > 32), then the cases
+    past each split of B5 and dB (``sparsity.spgemm_split_masks``)."""
+    from repro_torch.core.sparsity import (SPGEMM_SPLIT_CASES,
+                                           element_pattern_mask,
+                                           spgemm_split_masks)
     cases = [(f"{kind}", element_pattern_mask(kind, rng, 40, 36),
               element_pattern_mask(kind, rng, 36, 44), 8, False)
              for kind in ("uniform", "power_law", "banded")]
@@ -1367,7 +1381,24 @@ def spgemm_edge_operands(rng):
          8, False),
         ("wide", rng.random((6, 80)) < 0.9, rng.random((80, 90)) < 0.9, 3,
          False)]
+    # past each split of B5 and dB
+    cases += [(name, *spgemm_split_masks(name, rng), 3, False)
+              for name in SPGEMM_SPLIT_CASES]
     return cases
+
+
+@contextlib.contextmanager
+def pinned_route(route):
+    """B5 on ``route`` (an index of its routes) whatever the plan: the
+    edge cases are too small for the route the card would pick at
+    scale."""
+    mod = sys.modules["repro_torch.kernels.maple_spgemm"]
+    pick = mod.numeric_route
+    mod.numeric_route = lambda plan, device: route
+    try:
+        yield
+    finally:
+        mod.numeric_route = pick
 
 
 def spgemm_kernels_edge():
@@ -1381,7 +1412,8 @@ def spgemm_kernels_edge():
     from repro_torch.kernels.maple_spgemm import (maple_spgemm_db,
                                                   maple_spgemm_db_plain,
                                                   maple_spgemm_numeric,
-                                                  maple_spgemm_numeric_plain)
+                                                  maple_spgemm_numeric_plain,
+                                                  numeric_routes)
     from repro_torch.kernels.maple_spmspm import (maple_spmspm_ell,
                                                   maple_spmspm_ell_plain)
     rng = np.random.default_rng(SEED + 8)
@@ -1402,17 +1434,23 @@ def spgemm_kernels_edge():
                                          f"or gave a non-zero value")
                 cases += 1
                 continue
-            got = [maple_spgemm_numeric(a.value, b.value, plan, cap=cap)
-                   for _ in range(2)]
-            torch.cuda.synchronize()
             want = maple_spgemm_numeric_plain(a.value, b.value, plan,
                                               cap=cap)
-            if not torch.equal(got[0], got[1]):
-                raise AssertionError(f"B5 {what}: two runs differ")
-            if bool(got[0][plan.nnz_c:].any()):
-                raise AssertionError(f"B5 {what}: non-zero capacity slot")
-            check_close(got[0], want, dtype, f"B5 {what}")
-            bit_equal_plain += bool(torch.equal(got[0], want))
+            for route, shape in enumerate(numeric_routes()):   # B5's all
+                with pinned_route(route):
+                    got = [maple_spgemm_numeric(a.value, b.value, plan,
+                                                cap=cap) for _ in range(2)]
+                torch.cuda.synchronize()
+                where = f"B5 route {shape} {what}"
+                if not torch.equal(got[0], got[1]):
+                    raise AssertionError(f"{where}: two runs differ")
+                if bool(got[0][plan.nnz_c:].any()):
+                    raise AssertionError(f"{where}: non-zero capacity slot")
+                check_close(got[0], want, dtype, where)
+                bit_equal = bool(torch.equal(got[0], want))
+                if dtype == torch.float32 and not bit_equal:
+                    raise AssertionError(f"{where}: not bit-equal to plain")
+                bit_equal_plain += bit_equal
             dc = torch.from_numpy(rng.standard_normal(cap).astype(
                 np.float32)).cuda().to(dtype)
             for kernel, plain, other, n in (
@@ -1427,6 +1465,12 @@ def spgemm_kernels_edge():
                                          f"runs differ")
                 check_close(got[0], plain(dc, other, plan, n_slots=n),
                             dtype, f"{kernel.__name__} {what}")
+            # dB on the B rows no A slot consumes: 0
+            b_rows = np.repeat(np.arange(bm.shape[0]), bm.sum(axis=1))
+            unused = torch.from_numpy((~am.any(axis=0))[b_rows]).cuda()
+            if bool(got[0][:b.nnz][unused].any()):
+                raise AssertionError(f"maple_spgemm_db {what}: non-zero on "
+                                     f"a B row no slot consumes")
             values, col_ids = csr_to_ell(a)
             dense_b = b.to_dense()
             got = maple_spmspm_ell(values, col_ids, dense_b)
@@ -1516,9 +1560,8 @@ def spgemm(spec, flush, card):
     plan.on_device(a.value.device)
     torch.cuda.synchronize()
     device_plan_s = time.perf_counter() - t0
-    stats = {"n": a.shape[0], "nnz": a.nnz, "la": plan.la, "lb": plan.lb,
-             "lc": plan.lc, "P": plan.stats.partial_products,
-             "nnz_c": plan.nnz_c}
+    t_cpos_s = fiber_positions_s(plan, a.value.device)
+    stats = spgemm_stats(a, plan)
     cap = plan.nnz_c
 
     value = a.value.clone().requires_grad_()
@@ -1558,6 +1601,8 @@ def spgemm(spec, flush, card):
     want = maple_spgemm_numeric_plain(a.value, a.value, plan, cap=cap)
     fwd_err = check_close(c.value.detach(), want, torch.float32,
                           "C against plain")
+    if not torch.equal(c.value.detach(), want):
+        raise AssertionError("B5 at cage12: C not bit-equal to plain")
     dc = (2 * want).contiguous()
     want_grad = (maple_sddmm_csr_plain(dc, a.value, plan, n_slots=a.nnz_max)
                  + maple_spgemm_db_plain(dc, a.value, plan,
@@ -1596,21 +1641,67 @@ def spgemm(spec, flush, card):
     if not mm_err <= 1e-5 * float(np.abs(ref_mm).max()) + 1e-6:
         raise AssertionError(f"maple_spmspm against scipy: {mm_err}")
     del out
-    rows = spgemm_rows(a, plan, dense_b, spec, flush)
+    rows = spgemm_rows(CAGE12, a, plan, spec, flush, dense_b)
+    del dense_b
+    # the second timed shape: B5, B6 and dB on the poisson3Da clone
+    p3 = sparsity.generate(sparsity.TABLE_I[POISSON], scale=1.0, seed=SEED,
+                           device="cuda")
+    t0 = time.perf_counter()
+    p3_plan = plan_spgemm(p3, p3)
+    p3_plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p3_plan.on_device(p3.value.device)
+    torch.cuda.synchronize()
+    p3_device_s = time.perf_counter() - t0
+    p3_t_cpos_s = fiber_positions_s(p3_plan, p3.value.device)
+    rows += spgemm_rows(POISSON, p3, p3_plan, spec, flush)
     line = {"phase": "spgemm", "matrix": f"{CAGE12} clone, scale "
             f"{CAGE12_SCALE}, seed {SEED}, PYTHONHASHSEED "
             f"{os.environ.get('PYTHONHASHSEED')}", **stats, "generate_s": gen_s,
             "plan_spgemm_s": plan_s,
-            "on_device_s": device_plan_s, "launches": launches,
+            "on_device_s": device_plan_s, "t_cpos_s": t_cpos_s,
+            "on_device_mb": device_plan_mb(plan, a.value.device),
+            "poisson3Da": {**spgemm_stats(p3, p3_plan),
+                           "plan_spgemm_s": p3_plan_s,
+                           "on_device_s": p3_device_s,
+                           "t_cpos_s": p3_t_cpos_s,
+                           "on_device_mb": device_plan_mb(p3_plan,
+                                                          p3.value.device)},
+            "launches": launches,
             "launches_forward": fwd_launches, "forward_ms_first_call": fwd_ms,
             "backward_ms_first_call": bwd_ms, "forward_ms_warm": fwd_warm,
             "fwd_bwd_ms_warm": fwd_bwd_warm, "fwd_bwd_x5_profiled": device,
             "peak_mem_gib": peak_gib,
             "scipy_max_abs_err": sci_err, "scipy_max_abs_c": scale,
-            "plain_max_abs_err": fwd_err, "grad_max_abs_err": grad_err,
+            "plain_max_abs_err": fwd_err, "b5_bit_equal_to_plain": True,
+            "grad_max_abs_err": grad_err,
             "spmspm_n": SPMSPM_N, "spmspm_ms": mm_ms,
             "spmspm_scipy_max_abs_err": mm_err, "card": card}
     return {"spgemm": launches, "spmspm": mm_launches}, rows, line
+
+
+def spgemm_stats(a, plan):
+    return {"n": a.shape[0], "nnz": a.nnz, "la": plan.la, "lb": plan.lb,
+            "lc": plan.lc, "P": plan.stats.partial_products,
+            "nnz_c": plan.nnz_c}
+
+
+def fiber_positions_s(plan, device):
+    """Seconds to build the plan's ``t_cpos`` (dB's fiber-ordered C
+    positions) on ``device``, which the first dB launch would take."""
+    t0 = time.perf_counter()
+    plan.fiber_positions(device)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def device_plan_mb(plan, device):
+    """MB of the plan's device arrays: all of them, ``t_cpos`` (the
+    fiber-ordered C positions dB reads) included, and its own part."""
+    mb = lambda t: t.numel() * t.element_size() / 1e6
+    t_cpos = mb(plan.fiber_positions(device))
+    return {"total": sum(mb(t) for t in plan.on_device(device).values())
+            + t_cpos, "t_cpos": t_cpos}
 
 
 def time_library(fn, flush):
@@ -1621,10 +1712,11 @@ def time_library(fn, flush):
         return None, str(err)[:200]
 
 
-def spgemm_rows(a, plan, dense_b, spec, flush):
-    """B5, B6, dB and B7 at the cage12 shapes, f32: each held against its
-    plain version and timed after an L2 flush beside its bound, the plain
-    version and, for B5 and B7, ``torch.sparse.mm`` (cuSPARSE)."""
+def spgemm_rows(tag, a, plan, spec, flush, dense_b=None):
+    """B5, B6 and dB of C = A×A, and B7 where ``dense_b`` is given, f32:
+    each held against its plain version and timed after an L2 flush beside
+    its bound, the plain version and, for B5 and B7, ``torch.sparse.mm``
+    (cuSPARSE)."""
     from repro_torch.core.formats import csr_to_ell
     from repro_torch.kernels.maple_sddmm import (maple_sddmm_csr,
                                                  maple_sddmm_csr_plain)
@@ -1637,22 +1729,23 @@ def spgemm_rows(a, plan, dense_b, spec, flush):
     dtype, isz = torch.float32, 4
     m, n = a.shape
     cap, nnz, p = plan.nnz_c, a.nnz, plan.stats.partial_products
-    # plan bytes each kernel reads: row pointers (int32 / int64), per-slot
-    # int32 arrays, part_ptr (int64), one int32 position per partial
-    meta = {"a_rptr": 4 * (m + 1), "a_cols": 4 * nnz, "a_rows": 4 * nnz,
-            "b_rptr": 4 * (n + 1), "part_ptr": 8 * (nnz + 1), "pos": 4 * p,
-            "out_rptr": 8 * (m + 1), "t_ptr": 4 * (n + 1), "t_perm": 4 * nnz}
-    fwd_meta = sum(meta[k] for k in ("a_rptr", "a_cols", "b_rptr",
-                                     "part_ptr", "pos", "out_rptr"))
-    db_meta = sum(meta[k] for k in ("a_rows", "part_ptr", "pos", "out_rptr",
-                                    "b_rptr", "t_ptr", "t_perm"))
+    k = plan.shape_b[0]
+    # the plan arrays each kernel reads, in bytes.  B5: a record an output
+    # row (row_meta int32 × 4, row_base int64 × 2), each slot's B row
+    # (slot_b int32 × 2), one int32 position a partial.  B6: the CSR
+    # pointers (int32, part_ptr / out_rptr int64), one position a partial.
+    # dB: a record a B row (fiber_meta int32 × 4, fiber_base int64), each
+    # fiber entry's A slot (t_perm), one int32 C slot a partial (t_cpos).
+    b5_meta = 32 * m + 8 * nnz + 4 * p
+    b6_meta = (4 * (m + 1) + 4 * nnz + 4 * (k + 1) + 8 * (nnz + 1) + 4 * p
+               + 8 * (m + 1))
+    db_meta = 24 * k + 4 * nnz + 4 * p
     crow = torch.from_numpy(a.row_ptr.astype(np.int64)).cuda()
     col = torch.from_numpy(a.col_id[:nnz].astype(np.int64)).cuda()
     a_sparse = torch.sparse_csr_tensor(crow, col, a.value[:nnz], a.shape)
     rng = np.random.default_rng(SEED + 10)
     dc = torch.from_numpy(rng.standard_normal(cap).astype(np.float32)).cuda()
-    values, col_ids = csr_to_ell(a)
-    shape = f"{CAGE12} C=A×A n={m} nnz={nnz} P={p} nnz_c={cap}"
+    shape = f"{tag} C=A×A n={m} nnz={nnz} P={p} nnz_c={cap}"
     rows = []
     for name, kernel, plain, library, nbytes in (
             ("maple_spgemm_numeric",
@@ -1660,11 +1753,11 @@ def spgemm_rows(a, plan, dense_b, spec, flush):
              lambda: maple_spgemm_numeric_plain(a.value, a.value, plan,
                                                 cap=cap),
              lambda: torch.sparse.mm(a_sparse, a_sparse),
-             nnz * isz + fwd_meta + cap * isz),      # A's values once
+             nnz * isz + b5_meta + cap * isz),      # A's values once
             ("maple_sddmm_csr",
              lambda: maple_sddmm_csr(dc, a.value, plan, n_slots=nnz),
              lambda: maple_sddmm_csr_plain(dc, a.value, plan, n_slots=nnz),
-             None, (cap + nnz) * isz + fwd_meta + nnz * 4),
+             None, (cap + nnz) * isz + b6_meta + nnz * 4),
             ("maple_spgemm_db",
              lambda: maple_spgemm_db(dc, a.value, plan, n_slots=nnz),
              lambda: maple_spgemm_db_plain(dc, a.value, plan, n_slots=nnz),
@@ -1672,8 +1765,11 @@ def spgemm_rows(a, plan, dense_b, spec, flush):
         rows.append(measure_sparse(
             name, kernel, plain, library, nbytes, 2 * p, dtype, spec, flush,
             shape=shape))
+    if dense_b is None:
+        return rows
     # B7 reads every ELL column id (to find the pads) but only the live
     # values
+    values, col_ids = csr_to_ell(a)
     rows.append(measure_sparse(
         "maple_spmspm_ell", lambda: maple_spmspm_ell(values, col_ids, dense_b),
         lambda: maple_spmspm_ell_plain(values, col_ids, dense_b),
@@ -1681,7 +1777,7 @@ def spgemm_rows(a, plan, dense_b, spec, flush):
         nnz * isz + col_ids.numel() * 4 + dense_b.numel() * isz
         + m * SPMSPM_N * isz,
         2 * nnz * SPMSPM_N, dtype, spec, flush,
-        shape=f"{CAGE12} A (ELL {m}x{values.shape[1]}) x dense ({n}, "
+        shape=f"{tag} A (ELL {m}x{values.shape[1]}) x dense ({n}, "
         f"{SPMSPM_N})"))
     return rows
 

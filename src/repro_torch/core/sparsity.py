@@ -204,3 +204,43 @@ def element_pattern_mask(kind: str, rng: np.random.Generator,
     if not mask.any():
         mask[0, 0] = True
     return mask
+
+
+SPGEMM_SPLIT_CASES = ("long_b_rows", "long_fibers", "unused_and_empty",
+                      "long_row")
+
+
+def spgemm_split_masks(case: str, rng: np.random.Generator):
+    """Element masks ``(A, B)`` of a SpGEMM that reach past each split of
+    its CUDA kernels (a group of 8 lanes, three steps of 8 terms loaded at
+    once, a warp, slot and fiber batches), for the card tests and the chip
+    smoke alike:
+
+    * ``long_b_rows`` — B rows of 48 and 120 entries, empty A rows;
+    * ``long_fibers`` — A column fibers of 60 and 20 slots;
+    * ``unused_and_empty`` — B rows no A slot consumes, empty A rows, and
+      an A row whose slots take only empty B rows (slots, no C entry);
+    * ``long_row`` — one output row of more than 256 entries.
+    """
+    if case == "long_b_rows":
+        am, bm = rng.random((30, 40)) < 0.3, rng.random((40, 120)) < 0.15
+        am[::6] = False
+        am[:, 3] = True
+        bm[3], bm[7, :48] = True, True
+    elif case == "long_fibers":
+        am, bm = rng.random((60, 30)) < 0.1, rng.random((30, 40)) < 0.3
+        am[:, 4] = True
+        am[:20, 9] = True
+    elif case == "unused_and_empty":
+        am, bm = rng.random((24, 24)) < 0.4, rng.random((24, 30)) < 0.4
+        am[:, ::3] = False
+        am[::5] = False
+        bm[1] = bm[2] = False
+        am[7] = False
+        am[7, [1, 2]] = True
+    elif case == "long_row":
+        am, bm = rng.random((12, 50)) < 0.1, rng.random((50, 400)) < 0.05
+        am[0] = True
+    else:
+        raise ValueError(case)
+    return am, bm

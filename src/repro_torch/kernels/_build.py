@@ -127,11 +127,15 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                                         i, i, p]
         lib.maple_sddmm_bsr.restype = i
     elif name == "maple_spgemm":
-        lib.maple_spgemm.argtypes = [p] * 9 + [i] * 4 + [p]
+        lib.maple_spgemm.argtypes = [p] * 7 + [i] * 5 + [p]
         lib.maple_spgemm.restype = i
+        lib.maple_spgemm_route.argtypes = [i, i]
+        lib.maple_spgemm_route.restype = i
+        lib.maple_spgemm_route_shape.argtypes = [i, p]
+        lib.maple_spgemm_route_shape.restype = i
         lib.maple_sddmm_csr.argtypes = [p] * 9 + [i] * 3 + [p]
         lib.maple_sddmm_csr.restype = i
-        lib.maple_spgemm_db.argtypes = [p] * 10 + [i] * 3 + [p]
+        lib.maple_spgemm_db.argtypes = [p] * 7 + [i] * 3 + [p]
         lib.maple_spgemm_db.restype = i
         lib.maple_smem_optin.argtypes = [i]
         lib.maple_smem_optin.restype = i

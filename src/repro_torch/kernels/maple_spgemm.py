@@ -28,12 +28,15 @@ the same bits; two runs of any of them give the same bits.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_WARPS = 8               # output rows (B5, B6) or B rows (dB) per block
+_WARPS = 8               # warps a block of B6 and dB (4 rows a warp)
+_ROWS = 16               # output rows a block of B5 (8 lanes a row)
 _SMEM_DEFAULT = 48 * 1024
 
 
@@ -69,7 +72,8 @@ def maple_spgemm_numeric(a_value: torch.Tensor, b_value: torch.Tensor,
     """C's padded-CSR value vector ``(cap,)`` in A's dtype: slot
     ``out_row_ptr[i] + p`` holds the f32 sum, in A-slot order, of the
     partials the plan scatters to position p of row i, cast once; slots
-    past ``nnz_c`` hold 0."""
+    past ``nnz_c`` hold 0.  On the card :func:`numeric_route` picks the
+    kernel's route; every route gives the same bits."""
     check_values(("A values", "B values"), a_value, b_value,
                  plan.stats.nnz_a, plan.stats.nnz_b)
     if cap < plan.nnz_c:
@@ -88,20 +92,46 @@ def maple_spgemm_numeric(a_value: torch.Tensor, b_value: torch.Tensor,
             f"the longest output row has {plan.lc} entries: its f32 PSB "
             f"({psb} bytes) exceeds the {optin} bytes of shared memory a "
             f"block can have on this card")
-    warps = max(1, min(_WARPS, _SMEM_DEFAULT // psb))
+    rows = max(1, min(_ROWS, _SMEM_DEFAULT // psb))
+    route = numeric_route(plan, a_value.device)
     d = plan.on_device(a_value.device)
     err = lib.maple_spgemm(
-        a_value.data_ptr(), b_value.data_ptr(), d["a_rptr"].data_ptr(),
-        d["a_cols"].data_ptr(), d["b_rptr"].data_ptr(),
-        d["part_ptr"].data_ptr(), d["pos"].data_ptr(),
-        d["out_rptr"].data_ptr(), out.data_ptr(), _DTYPES[a_value.dtype],
-        plan.shape_a[0], plan.lc, warps, _stream())
+        a_value.data_ptr(), b_value.data_ptr(), d["row_meta"].data_ptr(),
+        d["row_base"].data_ptr(), d["slot_b"].data_ptr(),
+        d["pos"].data_ptr(), out.data_ptr(), _DTYPES[a_value.dtype],
+        plan.shape_a[0], plan.lc, rows, route, _stream())
     _build.check(lib, err, "maple_spgemm")
     maple_spgemm_numeric.launches += 1
     return out
 
 
 maple_spgemm_numeric.launches = 0
+
+
+def numeric_route(plan, device: torch.device) -> int:
+    """B5's route for ``plan`` on ``device``: an index of
+    ``csrc/maple_spgemm.cu``'s ``MAPLE_SPGEMM_ROUTES``, picked by the C
+    side from the plan's rows and the card's threads."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    route = _build.library("maple_spgemm").maple_spgemm_route(
+        plan.shape_a[0], index)
+    if route < 0:
+        raise RuntimeError(f"maple_spgemm_route failed on {device}")
+    return route
+
+
+def numeric_routes() -> list:
+    """B5's routes as the C side holds them: ``(lanes a row, slots in
+    flight, steps of that many terms of a slot loaded at once)``, by
+    index."""
+    lib = _build.library("maple_spgemm")
+    shapes = []
+    for route in range(lib.maple_spgemm_route_shape(0, None)):
+        shape = (ctypes.c_int * 3)()
+        lib.maple_spgemm_route_shape(route, shape)
+        shapes.append(tuple(shape))
+    return shapes
 
 
 def partials(plan, device) -> dict:
@@ -209,10 +239,9 @@ def maple_spgemm_db(dc: torch.Tensor, a_value: torch.Tensor, plan, *,
     d = plan.on_device(dc.device)
     lib = _build.library("maple_spgemm")
     err = lib.maple_spgemm_db(
-        dc.data_ptr(), a_value.data_ptr(), d["a_rows"].data_ptr(),
-        d["part_ptr"].data_ptr(), d["pos"].data_ptr(),
-        d["out_rptr"].data_ptr(), d["b_rptr"].data_ptr(),
-        d["t_ptr"].data_ptr(), d["t_perm"].data_ptr(), out.data_ptr(),
+        dc.data_ptr(), a_value.data_ptr(), d["fiber_meta"].data_ptr(),
+        d["fiber_base"].data_ptr(), d["t_perm"].data_ptr(),
+        plan.fiber_positions(dc.device).data_ptr(), out.data_ptr(),
         _DTYPES[dc.dtype], kb, _WARPS, _stream())
     _build.check(lib, err, "maple_spgemm_db")
     maple_spgemm_db.launches += 1

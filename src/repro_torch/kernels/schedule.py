@@ -569,8 +569,8 @@ class SpgemmPlan(ExecutionPlan):
 
     Pad steps point ``step_row`` at the sacrificial row ``n_rows``.  Rows
     are atomic (``chunk = 0``).  The Hopper kernels do not walk lanes: they
-    take one warp per row, and :meth:`on_device` gives them the plan in
-    A's CSR slot order.
+    take a group of lanes per row, and :meth:`on_device` gives them the
+    plan in A's CSR slot order and in fiber order.
     """
 
     out_row_ptr: np.ndarray   # (n_rows + 1,) int64 — exact C pattern
@@ -591,6 +591,8 @@ class SpgemmPlan(ExecutionPlan):
                                          compare=False)
     _patterns: dict = dataclasses.field(default_factory=dict, repr=False,
                                         compare=False)
+    _t_cpos: dict = dataclasses.field(default_factory=dict, repr=False,
+                                      compare=False)
 
     @property
     def nnz_c(self) -> int:
@@ -629,9 +631,29 @@ class SpgemmPlan(ExecutionPlan):
           ``pos[part_ptr[s] : part_ptr[s + 1]]``, one per entry of its B
           row, so dead entries take no bytes on the card;
         * ``out_rptr`` (m + 1,) int64 — C's row pointer;
-        * ``t_ptr`` (k + 1,) int32 and ``t_perm`` (nnz_a,) int32 — A's
-          column fibers (the rows of Aᵀ): the slots that consume B row k'
-          are ``t_perm[t_ptr[k'] : t_ptr[k' + 1]]``, in row order.
+        * ``t_perm`` (nnz_a,) int32 — A's column fibers (the rows of Aᵀ)
+          one after another: the slots that consume B row k' are
+          ``t_perm[t_ptr[k'] : t_ptr[k' + 1]]``, in row order, where
+          ``t_ptr`` counts the slots of the B rows before.
+
+        Derived for the kernels' short load chains:
+
+        * ``row_meta`` (m, 4) int32 and ``row_base`` (m, 2) int64 — B5's
+          record of each output row: ``(a_rptr[i], slots, C length,
+          partials)`` and ``(out_rptr[i], part_ptr[a_rptr[i]])``;
+        * ``slot_b`` (nnz_a, 2) int32 — slot s's B row start and length,
+          ``(b_rptr[a_cols[s]], b_len[a_cols[s]])`` (B5);
+        * ``fiber_meta`` (k, 4) int32 and ``fiber_base`` (k,) int64 — dB's
+          record of each B row: ``(b_rptr[k'], b_len[k'], t_ptr[k'], fiber
+          length)`` and ``q0(k')``, the partials of the fibers before (its
+          first index into :meth:`fiber_positions`).
+
+        The records list the rows within each window of
+        :data:`SPGEMM_ROW_WINDOW` consecutive rows (a block of dB, two of
+        B5) in descending order of their slot counts (B5) or fiber lengths
+        (dB), ties in row order: a warp's rows end nearly together, and a
+        block keeps neighbouring rows, which share B rows (B5) or C rows
+        (dB) in L1.
         """
         key = str(device)
         cached = self._on_device.get(key)
@@ -661,6 +683,17 @@ class SpgemmPlan(ExecutionPlan):
         t_perm, t_rows, _ = transpose_perm(a_rows, a_cols)
         t_ptr = np.zeros(k + 1, np.int64)
         np.cumsum(np.bincount(t_rows, minlength=k), out=t_ptr[1:])
+        rows = _window_order(a_len)
+        row_pp = part_ptr[a_rptr[:-1]]
+        row_meta = np.stack([a_rptr[:-1], a_len,
+                             np.diff(self.out_row_ptr),
+                             part_ptr[a_rptr[1:]] - row_pp], axis=1)[rows]
+        row_base = np.stack([self.out_row_ptr[:-1], row_pp], axis=1)[rows]
+        t_len = np.diff(t_ptr)
+        q0 = np.cumsum(t_len * b_len) - t_len * b_len
+        fibers = _window_order(t_len)
+        fiber_meta = np.stack([b_rptr[:-1], b_len, t_ptr[:-1], t_len],
+                              axis=1)[fibers]
         as_t = lambda arr, dt: torch.from_numpy(
             np.ascontiguousarray(arr, dtype=dt)).to(device)
         cached = {"a_rptr": as_t(a_rptr, np.int32),
@@ -670,10 +703,55 @@ class SpgemmPlan(ExecutionPlan):
                   "part_ptr": as_t(part_ptr, np.int64),
                   "pos": as_t(pos, np.int32),
                   "out_rptr": as_t(self.out_row_ptr, np.int64),
-                  "t_ptr": as_t(t_ptr, np.int32),
-                  "t_perm": as_t(t_perm, np.int32)}
+                  "t_perm": as_t(t_perm, np.int32),
+                  "row_meta": as_t(row_meta, np.int32),
+                  "row_base": as_t(row_base, np.int64),
+                  "slot_b": as_t(np.stack([b_rptr[:-1][a_cols],
+                                           b_len[a_cols]], axis=1), np.int32),
+                  "fiber_meta": as_t(fiber_meta, np.int32),
+                  "fiber_base": as_t(q0[fibers], np.int64)}
         self._on_device[key] = cached
         return cached
+
+    def fiber_positions(self, device: torch.device) -> torch.Tensor:
+        """``t_cpos`` (P,) int32 on ``device``, the partials in fiber order
+        (dB's kernel alone reads it, so it is built on its first launch):
+        fiber entry f of B row k' (slot ``s = t_perm[t_ptr[k'] + f]``) has
+        its B entry u's partial at ``t_cpos[q0(k') + f · b_len[k'] + u] =
+        out_rptr[row(s)] + pos[part_ptr[s] + u]``, the C slot it lands in.
+        Built on the device from :meth:`on_device`'s arrays and cached."""
+        key = str(device)
+        cached = self._t_cpos.get(key)
+        if cached is None:
+            if self.nnz_c > np.iinfo(np.int32).max:
+                raise ValueError(f"nnz(C) = {self.nnz_c} does not fit dB's "
+                                 f"32-bit C positions")
+            cached = _fiber_positions(self.on_device(device))
+            self._t_cpos[key] = cached
+        return cached
+
+
+SPGEMM_ROW_WINDOW = 32
+
+
+def _window_order(count: np.ndarray) -> np.ndarray:
+    """Row indices, window by window of :data:`SPGEMM_ROW_WINDOW`, each
+    window's rows in descending order of ``count`` (ties in row order)."""
+    i = np.arange(count.size)
+    return np.lexsort((i, -count, i // SPGEMM_ROW_WINDOW))
+
+
+def _fiber_positions(d: dict) -> torch.Tensor:
+    """:meth:`SpgemmPlan.fiber_positions` from the device plan ``d``: each
+    fiber entry's partials, in fiber order."""
+    s = d["t_perm"].long()
+    n_part = (d["part_ptr"][1:] - d["part_ptr"][:-1])[s]
+    first = torch.cumsum(n_part, 0) - n_part
+    s = torch.repeat_interleave(s, n_part)
+    u = torch.arange(s.numel(), device=s.device) - torch.repeat_interleave(
+        first, n_part)
+    return (d["out_rptr"][d["a_rows"].long()[s]]
+            + d["pos"].long()[d["part_ptr"][s] + u]).to(torch.int32)
 
 
 def plan_spgemm(a: CSR, b: CSR, *, n_lanes: int = 8,

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch.core.csr import BlockCSR
+from repro_torch.core.sparsity import SPGEMM_SPLIT_CASES, spgemm_split_masks
 from repro_torch.kernels import (maple_spmm, maple_spmm_compact,
                                  maple_spmm_naive, maple_spmm_planned,
                                  plan_spmm)
@@ -608,6 +609,72 @@ def test_spgemm_psb_wider_than_shared_memory_raises(cuda):
     b = _element_csr(cuda, np.ones((1, 60_000), bool), rng, torch.float32)
     with pytest.raises(ValueError, match="shared memory"):
         maple_spgemm(a, b)
+
+
+def test_numeric_route_follows_the_rows_against_the_card(cuda):
+    """B5's routes as the C side holds them, and its pick: 8 lanes a row
+    where the rows at 8 lanes fill the card's threads at least once
+    (cage12's 130 000 rows on an H100), else a warp a row (poisson3Da's
+    14 000)."""
+    from types import SimpleNamespace
+    from repro_torch.kernels.maple_spgemm import numeric_route, numeric_routes
+    assert numeric_routes() == [(8, 2, 3), (32, 4, 1)]
+    props = torch.cuda.get_device_properties(cuda)
+    fill = props.multi_processor_count * props.max_threads_per_multi_processor
+    route = lambda m: numeric_route(SimpleNamespace(shape_a=(m, m)), cuda)
+    assert [route(m) for m in (-(-fill // 8), fill // 8 - 1, 0)] == [0, 1, 1]
+    if props.multi_processor_count == 132:
+        assert [route(m) for m in (130_000, 14_000)] == [0, 1]
+
+
+@pytest.mark.parametrize("route", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SPGEMM_SPLIT_CASES)
+def test_spgemm_kernels_past_every_split(cuda, monkeypatch, case, dtype,
+                                         route):
+    """B5 on each of its routes (pinned: the plan would pick a warp a row
+    at these sizes; ``numeric_routes`` lists them), B6 and dB, twice each (same bits), against their
+    plain versions; B5 bit for bit (it rounds as its plain version does);
+    dB writes 0 on the B rows no A slot consumes."""
+    import sys
+    monkeypatch.setattr(sys.modules["repro_torch.kernels.maple_spgemm"],
+                        "numeric_route", lambda plan, device: route)
+    from repro_torch.kernels import plan_spgemm
+    from repro_torch.kernels.maple_sddmm import (maple_sddmm_csr,
+                                                 maple_sddmm_csr_plain)
+    from repro_torch.kernels.maple_spgemm import (maple_spgemm_db,
+                                                  maple_spgemm_db_plain,
+                                                  maple_spgemm_numeric,
+                                                  maple_spgemm_numeric_plain)
+    rng = np.random.default_rng(SPGEMM_SPLIT_CASES.index(case) + 40)
+    am, bm = spgemm_split_masks(case, rng)
+    a, b = _element_csr(cuda, am, rng, dtype), _element_csr(cuda, bm, rng,
+                                                             dtype)
+    plan = plan_spgemm(a, b, n_lanes=3)
+    if case == "long_b_rows":
+        assert plan.lb >= 48
+    if case == "long_row":
+        assert plan.lc > 256
+    cap = plan.nnz_c + 5
+    got = [maple_spgemm_numeric(a.value, b.value, plan, cap=cap)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1])
+    assert torch.equal(got[0], maple_spgemm_numeric_plain(
+        a.value, b.value, plan, cap=cap))
+    dc = torch.from_numpy(rng.standard_normal(cap).astype(np.float32)).to(
+        cuda, dtype)
+    for kernel, plain, other, n in (
+            (maple_sddmm_csr, maple_sddmm_csr_plain, b.value, a.nnz_max),
+            (maple_spgemm_db, maple_spgemm_db_plain, a.value, b.nnz_max)):
+        got = [kernel(dc, other, plan, n_slots=n) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], got[1])
+        _close(got[0], plain(dc, other, plan, n_slots=n), dtype)
+    unused = ~am.any(axis=0)
+    b_rows = np.repeat(np.arange(bm.shape[0]), bm.sum(axis=1))
+    assert not got[0][:b.nnz][torch.from_numpy(unused[b_rows]).to(
+        cuda)].any()
 
 
 # --------------------------------------------------------------------------

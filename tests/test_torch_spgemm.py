@@ -41,6 +41,7 @@ from repro_torch.kernels.maple_spgemm import (maple_spgemm_numeric,
                                               maple_spgemm_numeric_plain)
 from repro_torch.kernels.maple_spmspm import maple_spmspm_ell
 from repro_torch.kernels.ops import _spgemm_compaction_maps
+from repro_torch.kernels.schedule import SPGEMM_ROW_WINDOW
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 KINDS = ("uniform", "power_law", "banded")
@@ -516,3 +517,111 @@ def test_spgemm_plan_reuse_with_new_values():
     dev = plan.on_device(torch.device("cpu"))
     assert plan.on_device(torch.device("cpu")) is dev
     assert dev["pos"].numel() == plan.stats.partial_products
+
+
+# --------------------------------------------------------------------------
+# the device plan's derived arrays against a derivation by hand
+# --------------------------------------------------------------------------
+
+def derived_by_hand(plan):
+    """``row_meta``, ``row_base``, ``slot_b``, ``t_cpos``, ``fiber_meta``
+    and ``fiber_base`` from the host plan alone (``scatter_pos``,
+    ``a_gather``, ``order`` / ``step_col``, ``b_live``, ``out_row_ptr``),
+    with loops: slot s = a_gather[e] of live ELL slot e consumes the B row
+    its lane step names; a row's partials follow its slots' B rows; a
+    fiber lists the slots of one B row in row order, each with one partial
+    per entry of that row; the records list each window of 32 rows by
+    slot count or fiber length, longest first."""
+    m, k, la = plan.shape_a[0], plan.shape_b[0], plan.la
+    b_len = plan.b_live.sum(axis=1)
+    b_start = np.concatenate([[0], np.cumsum(b_len)])
+    col_of = {int(e): int(c) for e, c in zip(plan.order.ravel(),
+                                            plan.step_col.ravel()) if c >= 0}
+    live = [e for e in range(m * la) if plan.a_live[e]]
+    slot_b = np.zeros((len(live), 2), np.int32)
+    for e in live:
+        slot_b[plan.a_gather[e]] = (b_start[col_of[e]], b_len[col_of[e]])
+    meta, base, first = [], [], 0
+    for i in range(m):
+        mine = [e for e in live if e // la == i]
+        parts = sum(int(b_len[col_of[e]]) for e in mine)
+        meta.append((plan.a_gather[mine[0]] if mine else len(
+            [e for e in live if e // la < i]), len(mine),
+            plan.out_row_ptr[i + 1] - plan.out_row_ptr[i], parts))
+        base.append((plan.out_row_ptr[i], first))
+        first += parts
+    w = SPGEMM_ROW_WINDOW
+    order = sorted(range(m), key=lambda i: (i // w, -meta[i][1], i))
+    fmeta, fbase, t_cpos = [], [], []
+    for kk in range(k):
+        fiber = sorted((e for e in live if col_of[e] == kk),
+                       key=lambda e: e // la)
+        fmeta.append((b_start[kk], b_len[kk],
+                      len([e for e in live if col_of[e] < kk]), len(fiber)))
+        fbase.append(len(t_cpos))
+        for e in fiber:
+            for u in range(b_len[kk]):
+                assert plan.scatter_pos[e, u] >= 0
+                t_cpos.append(plan.out_row_ptr[e // la]
+                              + plan.scatter_pos[e, u])
+    fibers = sorted(range(k), key=lambda kk: (kk // w, -fmeta[kk][3], kk))
+    return {"row_meta": np.asarray([meta[i] for i in order],
+                                   np.int32).reshape(-1, 4),
+            "row_base": np.asarray([base[i] for i in order],
+                                   np.int64).reshape(-1, 2),
+            "slot_b": slot_b, "t_cpos": np.asarray(t_cpos, np.int32),
+            "fiber_meta": np.asarray([fmeta[kk] for kk in fibers],
+                                     np.int32).reshape(-1, 4),
+            "fiber_base": np.asarray([fbase[kk] for kk in fibers],
+                                     np.int64)}
+
+
+@pytest.mark.parametrize("case", ["uniform", "power_law", "banded",
+                                  "empty_rows", "all_zero_a", "wide"])
+def test_device_plan_derived_arrays_equal_a_derivation_by_hand(case):
+    rng = np.random.default_rng(31)
+    if case in KINDS:
+        _, _, (_, a), (_, b) = golden(case, seed=32)
+    else:
+        am, bm = {"empty_rows": (rng.random((70, 40)) < 0.2,
+                                 rng.random((40, 22)) < 0.3),
+                  "all_zero_a": (np.zeros((9, 7), bool),
+                                 rng.random((7, 8)) < 0.5),
+                  "wide": (rng.random((6, 80)) < 0.9,
+                           rng.random((80, 90)) < 0.9)}[case]
+        if case == "empty_rows":
+            am[::3] = False                   # empty A rows and output rows
+            bm[2] = False                     # an empty B row some slots take
+            am[:, 5] = False                  # a B row no slot consumes
+        _, a = pair(rand_dense(rng, *am.shape, mask=am), pad=2)
+        _, b = pair(rand_dense(rng, *bm.shape, mask=bm), pad=1)
+    plan = plan_spgemm(a, b, n_lanes=3)
+    if case == "wide":
+        assert plan.lb > 32 and plan.la > 32
+    dev = plan.on_device(torch.device("cpu"))
+    for name, want in derived_by_hand(plan).items():
+        got = (plan.fiber_positions(torch.device("cpu")) if name == "t_cpos"
+               else dev[name])
+        assert got.dtype == torch.from_numpy(want).dtype, name
+        assert torch.equal(got, torch.from_numpy(want)), name
+    assert plan.fiber_positions(torch.device("cpu")).numel() \
+        == plan.stats.partial_products
+
+
+def test_fiber_positions_are_built_on_demand_and_refuse_past_32_bits():
+    """``t_cpos`` is not part of the shared device plan: it is built on
+    dB's first call and cached.  Only it holds C slots in 32 bits, so only
+    it refuses a C of more than 2^31 - 1 values."""
+    rng = np.random.default_rng(33)
+    _, a = pair(rand_dense(rng, 20, 20, mask=rng.random((20, 20)) < 0.3))
+    plan = plan_spgemm(a, a)
+    cpu = torch.device("cpu")
+    assert "t_cpos" not in plan.on_device(cpu)
+    assert plan.fiber_positions(cpu) is plan.fiber_positions(cpu)
+    ptr = plan.out_row_ptr.copy()
+    ptr[-1] = 2 ** 31
+    big = dataclasses.replace(plan, out_row_ptr=ptr, _on_device={},
+                              _patterns={}, _t_cpos={})
+    big.on_device(cpu)
+    with pytest.raises(ValueError, match="32-bit"):
+        big.fiber_positions(cpu)

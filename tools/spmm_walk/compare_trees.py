@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Kernels of two trees timed in turns in one call: A, B, B, A.
+"""Kernels of two or more trees timed in turns in one call: A, B, B, A
+(or A, B, C, C, B, A).
 
 Run from the repository root on a machine with one H100, after unpacking
-the other tree into a git-ignored directory, for example::
+the other trees into git-ignored directories, for example::
 
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
     python3 tools/spmm_walk/compare_trees.py build/parent . [kernel ...]
+
+The leading arguments that are directories are the trees.
 
 ``kernel`` names the rows to time (default: all of them):
 ``maple_spmm_compact`` and ``maple_spmm_planned`` (B1, B4: the serving
@@ -16,7 +19,8 @@ as ``chip_smoke.py``'s training shapes build them) and
 ``maple_spmspm_ell`` (B7: the cage12 clone's ELL times a dense (n, 64)
 B), ``block_attention`` (B9 at recurrentgemma-9b's local attention, f32
 and bf16) and ``maple_spgemm_numeric``, ``maple_sddmm_csr`` and
-``maple_spgemm_db`` (B5, B6 and dB of C = A×A on the cage12 clone).  Each
+``maple_spgemm_db`` (B5, B6 and dB of C = A×A on the cage12 and
+poisson3Da clones).  Each
 turn runs in its own process from that tree (its ``chip_smoke.py`` and
 ``src/``, its own kernel build) and prints one JSON line per row, tagged
 with the tree.  B2, B5, B6, dB, B7 and B9 are timed alone (events, after
@@ -111,19 +115,22 @@ if set(spgemm_names) & set(names):
     from repro_torch.kernels.maple_sddmm import maple_sddmm_csr
     from repro_torch.kernels.maple_spgemm import (maple_spgemm_db,
                                                   maple_spgemm_numeric)
-    a = sparsity.generate(sparsity.TABLE_I[cs.CAGE12], scale=cs.CAGE12_SCALE,
-                          seed=cs.SEED, device="cuda")
-    plan = plan_spgemm(a, a)
-    dc = torch.from_numpy(np.random.default_rng(cs.SEED + 10).standard_normal(
-        plan.nnz_c).astype(np.float32)).cuda()
-    for name, fn in zip(spgemm_names, (
-            lambda: maple_spgemm_numeric(a.value, a.value, plan,
-                                         cap=plan.nnz_c),
-            lambda: maple_sddmm_csr(dc, a.value, plan, n_slots=a.nnz),
-            lambda: maple_spgemm_db(dc, a.value, plan, n_slots=a.nnz))):
-        rows.append({"name": name, "dtype": "float32",
-                     "shape": f"{cs.CAGE12} C=A×A", "ms": cs.time_ms(
-                         fn, cs.REPS, flush)})
+    for tag in ("cg", "p3"):         # cage12, poisson3Da
+        a = sparsity.generate(sparsity.TABLE_I[tag], scale=1.0, seed=cs.SEED,
+                              device="cuda")
+        plan = plan_spgemm(a, a)
+        dc = torch.from_numpy(np.random.default_rng(cs.SEED + 10)
+                              .standard_normal(plan.nnz_c)
+                              .astype(np.float32)).cuda()
+        for name, fn in zip(spgemm_names, (
+                lambda: maple_spgemm_numeric(a.value, a.value, plan,
+                                             cap=plan.nnz_c),
+                lambda: maple_sddmm_csr(dc, a.value, plan, n_slots=a.nnz),
+                lambda: maple_spgemm_db(dc, a.value, plan, n_slots=a.nnz))):
+            rows.append({"name": name, "dtype": "float32",
+                         "shape": f"{tag} C=A×A", "ms": cs.time_ms(
+                             fn, cs.REPS, flush)})
+        del a, plan, dc
 for r in rows:
     if r["name"] in names:
         print(json.dumps({"tree": sys.argv[1], **{k: r[k] for k in (
@@ -134,10 +141,11 @@ for r in rows:
 
 
 def main() -> int:
-    a, b = sys.argv[1:3]
-    names = ",".join(sys.argv[3:] or ALL)
+    trees = [arg for arg in sys.argv[1:] if Path(arg).is_dir()]
+    names = ",".join(arg for arg in sys.argv[1:] if arg not in trees) \
+        or ",".join(ALL)
     here = Path(__file__).resolve().parent
-    for tree in (a, b):
+    for tree in trees:
         for src in SOURCES:
             path = Path(tree) / "src" / "repro_torch" / "csrc" / src
             print("ptxas", tree, src, flush=True)
@@ -149,7 +157,7 @@ def main() -> int:
     # every turn plans the same cage12 clone (sparsity.generate seeds
     # with the string hash of its name)
     env = {**os.environ, "PYTHONHASHSEED": "0"}
-    for tree in (a, b, b, a):
+    for tree in trees + trees[::-1]:
         subprocess.run([sys.executable, "-c", TURN, tree, names],
                        check=False, timeout=900, env=env)
     return 0

@@ -3,8 +3,8 @@
 
 Run from the repository root on a machine with one H100::
 
-    python3 tools/spmm_walk/variants.py [--kernel b4|b3|b8|b2|b7|b9|b6] \
-        [variant ...]
+    python3 tools/spmm_walk/variants.py \
+        [--kernel b4|b3|b8|b2|b7|b9|b6|b5|db] [variant ...]
 
 Each variant is the kernel's source (or ``hopper.cuh``) with some text
 replaced (``VARIANTS`` below); all are built at once with ``nvcc`` into
@@ -17,13 +17,14 @@ cases: B4 at the MLP forward and Aᵀ dB plans (N = 256) and the logit head
 granite-moe-3b's four expert products; B2 (dA) at the MLP (N = 256) and
 the head (N = 4); f32 and bf16; B7 at the cage12 clone's ELL times a
 dense (n, 64) B, f32; B9 at recurrentgemma-9b's local attention, f32
-and bf16; B6 (the SpGEMM's dA) on C = A×A over the cage12 clone, f32.
+and bf16; B5 (the SpGEMM's numeric phase), B6 (its dA) and dB on C = A×A
+over the cage12 and poisson3Da clones, f32.
 A variant that takes work away (no reduction, no compute) gives wrong
 results: it only measures what that work costs.  For B9 each variant's
 output is also held against the plain version, as ``chip_smoke.py`` holds
 it (``check_close``, and ``check_rows`` in bf16), and the two ratios to
 their limits are printed: the planted faults ``skipchunk`` and ``wide1``
-show what each check catches.
+show what each check catches; B5's and dB's likewise (``check_close``).
 """
 import argparse
 import ctypes
@@ -42,6 +43,26 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+
+# B5's and dB's source texts that the variants replace
+B5_POS = """            at[d][k] = __ldg(pos_row + pp[d] + u);
+            pr[d][k] = __fmul_rn(a[d], to_f32(__ldg(b_val + b0[d] + u)));"""
+B5_NOPOS = """            at[d][k] = u;
+            pr[d][k] = a[d] * u;"""
+B5_TAIL = """          const int p = __ldg(pos_row + pp[d] + u);
+          psb[p] = __fadd_rn(psb[p],
+                             __fmul_rn(a[d], to_f32(__ldg(b_val + b0[d] + u))));"""
+B5_NOTAIL = """          psb[u] += a[d];"""
+DB_GATHER = ("g[d][q] = at[d][q] >= 0 ? to_f32(__ldg(dc + at[d][q])) "
+             ": 0.0f;")
+DB_NOGATHER = "g[d][q] = (float)at[d][q];"
+DB_META = "my_a = to_f32(a_val[__ldg(t_perm + f0 + t0 + j)]);"
+DB_NOMETA = "my_a = 1.0f;"
+B5_PREFETCH = "  prefetch_l2<G>(pos_row, n_p, j);\n"
+B5_LB = "__launch_bounds__(256)\nspgemm_kernel"
+B5_ENTRY = "  if (rows < 1 || lc < 1) return (int)cudaErrorInvalidValue;\n"
+B5_NARROW, B5_WIDE = "X(0, 8, 2, 3)", "X(1, 32, 4, 1)"   # MAPLE_SPGEMM_ROUTES
+DB_LB = "__launch_bounds__(256)\nspgemm_db_kernel"
 
 WALK = {
     "base": [],
@@ -224,8 +245,9 @@ VARIANTS.update({
         "lb8": [("__launch_bounds__(256)\nsddmm_csr_kernel",
                  "__launch_bounds__(256, 8)\nsddmm_csr_kernel")],
         # 4 warps a block
-        "warps4": [("  const int rows = warps * kWarp / G;",
-                    "  warps = 4;\n  const int rows = warps * kWarp / G;")],
+        "warps4": [("  const int rows = warps * kWarp / kCsrGroup;",
+                    "  warps = 4;\n  const int rows = warps * kWarp / "
+                    "kCsrGroup;")],
         # lane groups of 16 or 32 (2 or 1 rows a warp)
         "group16": [("constexpr int kCsrGroup = 8;",
                      "constexpr int kCsrGroup = 16;")],
@@ -233,13 +255,73 @@ VARIANTS.update({
                      "constexpr int kCsrGroup = 32;")],
         # pos, B and dC read past L1 (L2 only): what L1's hits are worth
         "cg": [("__ldg(", "__ldcg(")]}),
+    "b5": ("maple_spgemm", {
+        "base": [],
+        # the pos and B gathers taken away (metadata, updates, flush kept)
+        "nogather": [(B5_POS, B5_NOPOS), (B5_TAIL, B5_NOTAIL)],
+        # also each slot's B row (15 entries from B's first): no metadata
+        # chain past the row's record
+        "skeleton": [(B5_POS, B5_NOPOS), (B5_TAIL, B5_NOTAIL),
+                     ("const int2 sb = __ldg(slot_b + s0 + t0 + j);",
+                      "const int2 sb = make_int2(0, 15);")],
+        # a route, whatever the plan's rows: 8 lanes a row at 3 to 5
+        # steps; a warp a row with 2, 4 or 8 slots in flight
+        "narrow": [(B5_ENTRY, B5_ENTRY + "  route = 0;\n")],
+        "narrow4": [(B5_ENTRY, B5_ENTRY + "  route = 0;\n"),
+                    (B5_NARROW, "X(0, 8, 2, 4)")],
+        "narrow5": [(B5_ENTRY, B5_ENTRY + "  route = 0;\n"),
+                    (B5_NARROW, "X(0, 8, 2, 5)")],
+        "wide": [(B5_ENTRY, B5_ENTRY + "  route = 1;\n")],
+        "wide2": [(B5_ENTRY, B5_ENTRY + "  route = 1;\n"),
+                  (B5_WIDE, "X(1, 32, 2, 1)")],
+        "wide8": [(B5_ENTRY, B5_ENTRY + "  route = 1;\n"),
+                  (B5_WIDE, "X(1, 32, 8, 1)")],
+        # the most rows a block (256 threads)
+        "rowsmax": [("  rows = rows < 256 / G ? rows : 256 / G;",
+                     "  rows = 256 / G;")],
+        # no L2 prefetch of the row's positions
+        "noprefetch": [(B5_PREFETCH, "")],
+        # C's values not written (the PSB still read): what the flush costs
+        "noflush": [("out[c0 + p] = from_f32<T>(psb[p]);",
+                     "if (psb[p] == 1.5f) out[c0 + p] = from_f32<T>(psb[p]);")],
+        # registers capped for 5 blocks of 256 threads an SM
+        "lb5": [(B5_LB, B5_LB.replace("(256)", "(256, 5)"))]}),
+    "db": ("maple_spgemm", {
+        "base": [],
+        # the dC gathers taken away (index loads and FMAs kept)
+        "nogather": [(DB_GATHER, DB_NOGATHER)],
+        # the fiber's A values (t_perm -> A) taken away
+        "nometa": [(DB_META, DB_NOMETA)],
+        # both, and the index loads: the loops alone
+        "skeleton": [(DB_GATHER, DB_NOGATHER), (DB_META, DB_NOMETA),
+                     ("? __ldg(cpos + (size_t)t * bn + u) : -1;",
+                      "? u : -1;")],
+        "depth4": [("constexpr int kDbDepth = 8;",
+                    "constexpr int kDbDepth = 4;")],
+        "steps2": [("constexpr int kDbSteps = 3;",
+                    "constexpr int kDbSteps = 2;")],
+        "steps5": [("constexpr int kDbSteps = 3;",
+                    "constexpr int kDbSteps = 5;")],
+        # 16 lanes a B row (2 a warp)
+        "group16": [("constexpr int kDbGroup = 8;",
+                     "constexpr int kDbGroup = 16;")],
+        "steps4": [("constexpr int kDbSteps = 3;",
+                    "constexpr int kDbSteps = 4;")],
+
+        # registers capped for 6 blocks of 256 threads an SM
+        "lb6": [(DB_LB, DB_LB.replace("(256)", "(256, 6)"))],
+        # 4 warps a block
+        "warps4": [("  const int rows = warps * kWarp / kDbGroup;",
+                    "  warps = 4;\n  const int rows = warps * kWarp / "
+                    "kDbGroup;")]}),
 })
 # the plain version of a case, where its errors are reported (B9), and its
 # output, computed once
 PLAIN, WANT = {}, {}
 KERNEL_NAME = {"b4": "run_kernel", "b3": "run_kernel", "b8": "moe_kernel",
                "b2": "sddmm_kernel", "b7": "spmspm_kernel",
-               "b9": "block_attn_kernel", "b6": "sddmm_csr_kernel"}
+               "b9": "block_attn_kernel", "b6": "sddmm_csr_kernel",
+               "b5": "spgemm_kernel", "db": "spgemm_db_kernel"}
 
 
 def build(source, variants, names):
@@ -375,17 +457,54 @@ def b9_cases():
             *args, bq=a["bq"], bk=a["bk"], window=a["window"]))
 
 
-def b6_cases():
+SPGEMM = {}
+
+
+def spgemm_operands():
+    """C = A×A on the cage12 and poisson3Da clones: (tag, A, plan, dC),
+    planned once per process."""
     from repro_torch.core import sparsity
     from repro_torch.kernels import plan_spgemm
+    if not SPGEMM:
+        for tag in (cs.CAGE12, "p3"):
+            a = sparsity.generate(sparsity.TABLE_I[tag], scale=1.0,
+                                  seed=cs.SEED, device="cuda")
+            plan = plan_spgemm(a, a)
+            dc = torch.from_numpy(np.random.default_rng(cs.SEED + 10)
+                                  .standard_normal(plan.nnz_c)
+                                  .astype(np.float32)).cuda()
+            SPGEMM[tag] = (a, plan, dc)
+    return SPGEMM.items()
+
+
+def b6_cases():
     from repro_torch.kernels.maple_sddmm import maple_sddmm_csr
-    a = sparsity.generate(sparsity.TABLE_I[cs.CAGE12], scale=cs.CAGE12_SCALE,
-                          seed=cs.SEED, device="cuda")
-    plan = plan_spgemm(a, a)
-    dc = torch.from_numpy(np.random.default_rng(cs.SEED + 10).standard_normal(
-        plan.nnz_c).astype(np.float32)).cuda()
-    yield ("cage12 C=A×A dA float32",
-           lambda: maple_sddmm_csr(dc, a.value, plan, n_slots=a.nnz))
+    for tag, (a, plan, dc) in spgemm_operands():
+        yield (f"{tag} C=A×A dA float32",
+               lambda a=a, plan=plan, dc=dc: maple_sddmm_csr(
+                   dc, a.value, plan, n_slots=a.nnz))
+
+
+def b5_cases():
+    from repro_torch.kernels.maple_spgemm import (maple_spgemm_numeric,
+                                                  maple_spgemm_numeric_plain)
+    for tag, (a, plan, _) in spgemm_operands():
+        name = f"{tag} C=A×A float32"
+        PLAIN[name] = lambda a=a, plan=plan: maple_spgemm_numeric_plain(
+            a.value, a.value, plan, cap=plan.nnz_c)
+        yield (name, lambda a=a, plan=plan: maple_spgemm_numeric(
+            a.value, a.value, plan, cap=plan.nnz_c))
+
+
+def db_cases():
+    from repro_torch.kernels.maple_spgemm import (maple_spgemm_db,
+                                                  maple_spgemm_db_plain)
+    for tag, (a, plan, dc) in spgemm_operands():
+        name = f"{tag} C=A×A dB float32"
+        PLAIN[name] = lambda a=a, plan=plan, dc=dc: maple_spgemm_db_plain(
+            dc, a.value, plan, n_slots=a.nnz)
+        yield (name, lambda a=a, plan=plan, dc=dc: maple_spgemm_db(
+            dc, a.value, plan, n_slots=a.nnz))
 
 
 def errors(got, want):
@@ -427,7 +546,8 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     cases = list({"b4": b4_cases, "b3": b3_cases, "b8": b8_cases,
                   "b2": b2_cases, "b7": b7_cases, "b9": b9_cases,
-                  "b6": b6_cases}[args.kernel]())
+                  "b6": b6_cases, "b5": b5_cases,
+                  "db": db_cases}[args.kernel]())
     res = {name: {} for name, _ in cases}
     for variant, path in libs.items():
         lib = ctypes.CDLL(str(path))
