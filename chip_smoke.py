@@ -74,6 +74,29 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    ``SparseLogitHead.build(trainable=True)``, its launches counted by
    the plans' layouts, its grads held against the kernels' plain
    versions on the card.
+7a. partitioned — the mesh-partitioned SpMM (``kernels/partition.py``;
+   B1 + the row-offset merge per shard, B2 per shard for dA), f32 at
+   full width: the head built by ``SparseLogitHead.build(n_shards=D,
+   n_col_shards=C)`` at (D, C) = (1, 1), (2, 1), (4, 1), (2, 2), at
+   N = 1 and 4, each call twice bit for bit, (1, 1) bit-equal to the
+   single-device compact head, the others within ``check_close`` of it
+   and of the plain versions; the MLP's forward + backward at G 1,
+   N 256 under ``plan_spmm_vjp(n_shards=D, n_col_shards=C)`` at (1, 1)
+   (bit-equal to the compact plan), (4, 1) and (2, 2); then
+   ``complete_static`` answers the serve phase's 4 requests through the
+   head at (4, 1), greedy tokens against the default head's (a mismatch
+   fails only where that step's top-2 logit margin exceeds the f32
+   tolerance; margins reported). Launches are zeroed just before the
+   MLP runs and the served run and read just after (the kernels line's
+   ``"partitioned"``). Prints host plan seconds, ``padding_waste``,
+   per-shard steps, launches and merge steps a call, events ms of each
+   case, B1 alone and the epilogue apart, and the single-device B4 and
+   B1 + merge on the same weight; ``device_count``: with one card every
+   (D, C) above 1 runs as the stacked loop.  The mesh branch runs once on
+   the one card (the head at (4, 1), N = 4, under a bound mesh of
+   ``"cuda"`` entries, another device name than the payload's), bit-equal
+   to the loop, each shard's own blocks kept from the first call to the
+   second; a mesh of several cards is not run.
 7b. autotune — ``plan_search(measure=True, top_k=3)`` on the MLP
    down-projection and the head weights (each finalist's config, layout
    and measured µs); both layouts of the default knobs through
@@ -1260,6 +1283,318 @@ def head_backward():
 
 
 # --------------------------------------------------------------------------
+# the mesh-partitioned SpMM: B1 + the row-offset merge and B2 per shard
+# --------------------------------------------------------------------------
+
+# (n_shards, n_col_shards) of the head and of the MLP at its train shape
+PARTITION_HEAD = ((1, 1), (2, 1), (4, 1), (2, 2))
+PARTITION_MLP = ((1, 1), (4, 1), (2, 2))
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """Device ms a call of ``fn`` with the host kept ahead: a sleep kernel
+    holds the card while the host enqueues ``calls`` back-to-back calls,
+    so the events around them time the card alone (no L2 flush between
+    calls).  ``time_ms`` on a call whose host dispatch outlasts its
+    kernels times the host instead."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(400_000_000)          # at least 0.2 s at 1.98 GHz
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if host_s > 0.15:
+        raise AssertionError(f"enqueueing {calls} calls took {host_s} s: "
+                             f"the card may have waited for the host")
+    return start.elapsed_time(end) / calls
+
+
+class RecordingHead:
+    """A logit head that keeps each call's last-position logits (f32, on
+    the card) beside what it returns."""
+
+    def __init__(self, head):
+        self.head, self.rows = head, []
+
+    def __call__(self, hidden):
+        logits = self.head(hidden)
+        self.rows.append(logits[0, -1].float())
+        return logits
+
+
+def partitioned(spec, flush, card):
+    """The mesh-partitioned SpMM on the card at full width (module
+    docstring, phase 7a): the head at every (D, C) of
+    :data:`PARTITION_HEAD`, the MLP's forward and backward at
+    :data:`PARTITION_MLP`, and served tokens through the head at (4, 1)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (maple_sddmm_bsr, maple_spmm,
+                                     plan_partitioned_spmm,
+                                     plan_partitioned_spmm_vjp, plan_spmm,
+                                     plan_spmm_vjp)
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.ops import (_partitioned_tiles, _planned_spmm_f32,
+                                         _scatter_merge_f32)
+    from repro_torch.models import lm
+    from repro_torch.models.layers import init_sparse_linear
+    from repro_torch.serve import (SamplingConfig, SparseLogitHead,
+                                   complete_static)
+
+    def counters():
+        return {**spmm_counters(), "maple_sddmm_bsr": maple_sddmm_bsr.launches}
+
+    def zero():
+        zero_spmm_counters()
+        maple_sddmm_bsr.launches = 0
+
+    def bound(w, n, plan):
+        nbytes, flops = spmm_cost(
+            w, 1, n, 4, out_bytes=w.shape[0] * n * 4,
+            meta_bytes=4 * 2 * plan.order.size + 16 * plan.runs.shape[0])
+        return max(nbytes / spec[0], flops / spec[1][torch.float32]) * 1e3
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rng = np.random.default_rng(SEED + 7)
+    hw = init_sparse_linear(gen, HEAD["d_in"], HEAD["d_out"],
+                            block_shape=HEAD["block"],
+                            block_density=HEAD["density"])
+    lanes = HEAD["n_lanes"]
+    single = {"rmw": plan_spmm(hw, n_lanes=lanes),
+              "compact": plan_spmm(hw, n_lanes=lanes, fused="compact")}
+    compact_head = SparseLogitHead(weight=hw, plan=single["compact"])
+    hiddens = {n: torch.from_numpy(rng.standard_normal((1, n, HEAD["d_in"]))
+                                   .astype(np.float32)).cuda()
+               for n in HEAD["N"]}
+    # the plain versions: the port's executor on CPU copies of the head
+    cpu_blocks = hw.blocks.cpu()
+    cases, heads = [], {}
+    for d_, c_ in PARTITION_HEAD:
+        t0 = time.perf_counter()
+        # build keeps one shard single-device, as the reference does, so
+        # (1, 1) asks the partitioned planner itself
+        head = (SparseLogitHead.build(hw, n_lanes=lanes, n_shards=d_,
+                                      n_col_shards=c_) if d_ * c_ > 1 else
+                SparseLogitHead(weight=hw, plan=plan_partitioned_spmm(
+                    hw, n_shards=1, n_lanes=lanes)))
+        plan_s = time.perf_counter() - t0
+        plan = head.plan
+        heads[(d_, c_)] = head
+        for n, hidden in hiddens.items():
+            b3 = hidden.transpose(1, 2).contiguous()          # (1, D, N)
+            zero()
+            got = head(hidden)
+            torch.cuda.synchronize()
+            per_call = counters()
+            if not torch.equal(head(hidden), got):
+                raise AssertionError(f"partitioned head {(d_, c_)} N={n} "
+                                     f"is not bit-identical over two runs")
+            want = compact_head(hidden)
+            if (d_, c_) == (1, 1):
+                if not torch.equal(got, want):
+                    raise AssertionError("the one-shard head differs from "
+                                         "the single-device compact head")
+                err = 0.0
+            else:
+                err = check_close(got, want, torch.float32,
+                                  f"partitioned head {(d_, c_)} N={n}")
+            plain = _planned_spmm_f32(cpu_blocks, b3.cpu(), plan, bn=128)
+            plain_err = check_close(got, plain.transpose(1, 2).cuda(),
+                                    torch.float32,
+                                    f"partitioned head {(d_, c_)} N={n} "
+                                    f"against the plain versions")
+            del plain
+            tiles = _partitioned_tiles(hw.blocks, b3, plan, bn=128)
+            merge = plan.on_device(b3.device)["merge"]
+            cases.append({
+                "case": "head", "D": d_, "C": c_, "N": n, "plan_s": plan_s,
+                "padding_waste": plan.padding_waste,
+                "shard_steps": list(plan.shard_steps),
+                "shard_runs": [int(p.runs.shape[0]) for p in plan.shards],
+                "launches_per_call": per_call,
+                "merge_steps_per_call": len(plan.merge_ranks),
+                "max_abs_err_vs_compact": err,
+                "max_abs_err_vs_plain": plain_err,
+                "ms": time_ms(lambda: _planned_spmm_f32(
+                    hw.blocks, b3, plan, bn=128), REPS, flush),
+                "b1_ms": time_ms(lambda: _partitioned_tiles(
+                    hw.blocks, b3, plan, bn=128), REPS, flush),
+                "epilogue_ms": time_ms(lambda: _scatter_merge_f32(
+                    tiles, merge, gm=plan.n_block_rows), REPS, flush),
+                "bound_ms": bound(hw, n, single["compact"])})
+            del tiles
+    del cpu_blocks
+    # the mesh branch on the one card: a mesh of "cuda" entries is another
+    # device than the payload's cuda:0, so every shard takes its own blocks
+    head, hidden = heads[(4, 1)], hiddens[max(HEAD["N"])]
+    loop = head(hidden)
+    mesh = sharding.Mesh([torch.device("cuda")] * 4,
+                         (sharding.PARTITION_AXIS,))
+    with sharding.use_mesh(mesh):
+        on_mesh = head(hidden)
+        kept = [sd["payload"][hw.blocks][1] for sd in
+                head.plan.on_device(torch.device("cuda"))["shards"]]
+        again = head(hidden)
+        reused = all(sd["payload"][hw.blocks][1] is k for sd, k in zip(
+            head.plan.on_device(torch.device("cuda"))["shards"], kept))
+    if not (torch.equal(on_mesh, loop) and torch.equal(again, loop)):
+        raise AssertionError("the mesh branch of the head at (4, 1) differs "
+                             "from the stacked loop")
+    if not reused:
+        raise AssertionError("the mesh branch copied a shard's blocks again "
+                             "for an unchanged payload")
+    mesh_check = {"head": [4, 1], "N": max(HEAD["N"]),
+                  "bit_equal_to_loop": True, "payload_kept": reused,
+                  "kept_bytes": sum(k.numel() * k.element_size()
+                                    for k in kept)}
+    del kept, on_mesh, again, loop
+    singles = []
+    for n, hidden in hiddens.items():
+        b3 = hidden.transpose(1, 2).contiguous()
+        singles.append({
+            "case": "head single-device", "N": n,
+            "b4_ms": time_ms(lambda: _planned_spmm_f32(
+                hw.blocks, b3, single["rmw"], bn=128), REPS, flush),
+            "b1_merge_ms": time_ms(lambda: _planned_spmm_f32(
+                hw.blocks, b3, single["compact"], bn=128), REPS, flush),
+            "bound_ms": bound(hw, n, single["compact"])})
+
+    # the MLP down-projection at its train shape, forward and backward
+    mw = init_sparse_linear(gen, MLP["d_in"], MLP["d_out"],
+                            block_shape=MLP["block"],
+                            block_density=MLP["density"])
+    n_tok = TRAIN_MLP["N"][0]
+    blocks = mw.blocks.detach().requires_grad_()
+    w_leaf = dataclasses.replace(mw, blocks=blocks)
+    x = torch.from_numpy(rng.standard_normal((1, MLP["d_in"], n_tok))
+                         .astype(np.float32)).cuda().requires_grad_()
+    cot = torch.from_numpy(rng.standard_normal((1, MLP["d_out"], n_tok))
+                           .astype(np.float32)).cuda()
+
+    def fwd_bwd(plan):
+        out = maple_spmm(w_leaf, x, plan=plan)
+        return (out.detach(), *torch.autograd.grad(out, (blocks, x), cot))
+
+    mlp_single = plan_spmm_vjp(mw, fused="compact")
+    want = fwd_bwd(mlp_single)
+    single_ms = time_ms(lambda: fwd_bwd(mlp_single), REPS, flush)
+    default_plan = plan_spmm_vjp(mw)
+    default_ms = time_ms(lambda: fwd_bwd(default_plan), REPS, flush)
+    mlp_device = {"single_compact": device_ms(lambda: fwd_bwd(mlp_single)),
+                  "single_default": device_ms(lambda: fwd_bwd(default_plan))}
+    path = {k: 0 for k in counters()}
+    for d_, c_ in PARTITION_MLP:
+        t0 = time.perf_counter()
+        # lm.sparse_mlp_plan's route; plan_spmm_vjp keeps one shard
+        # single-device, so (1, 1) asks the partitioned planner itself
+        tp = (plan_spmm_vjp(mw, n_shards=d_, n_col_shards=c_)
+              if d_ * c_ > 1 else plan_partitioned_spmm_vjp(mw, n_shards=1))
+        plan_s = time.perf_counter() - t0
+        zero()
+        got = fwd_bwd(tp)
+        torch.cuda.synchronize()
+        per_call = counters()
+        if (d_, c_) != (1, 1):
+            path = {k: path[k] + per_call[k] for k in path}
+        again = fwd_bwd(tp)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"partitioned MLP {(d_, c_)} is not "
+                                 f"bit-identical over two runs")
+        if (d_, c_) == (1, 1):
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError("the one-shard MLP differs from the "
+                                     "single-device compact plan")
+            errs = [0.0, 0.0, 0.0]
+        else:
+            errs = [check_close(a, b, torch.float32,
+                                f"partitioned MLP {(d_, c_)} {what}")
+                    for a, b, what in zip(got, want, ("out", "dA", "dB"))]
+        cases.append({
+            "case": "mlp fwd+bwd", "D": d_, "C": c_, "G": 1, "N": n_tok,
+            "plan_s": plan_s, "padding_waste": [tp.fwd.padding_waste,
+                                                tp.bwd.padding_waste],
+            "shard_steps": [list(tp.fwd.shard_steps),
+                            list(tp.bwd.shard_steps)],
+            "launches_per_call": per_call,
+            "merge_steps_per_call": (len(tp.fwd.merge_ranks)
+                                     + len(tp.bwd.merge_ranks)),
+            "max_abs_err_vs_compact": dict(zip(("out", "dA", "dB"), errs)),
+            "ms": time_ms(lambda: fwd_bwd(tp), REPS, flush),
+            "single_compact_ms": single_ms, "single_default_ms": default_ms,
+            "device_ms": device_ms(lambda: fwd_bwd(tp)),
+            "single_device_ms": mlp_device})
+        del got, again
+
+    # served tokens through the head at (4, 1) against the default head
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), sparse_mlp=True)
+    params = lm.init_params(cfg, gen, device="cuda")
+    prompt_len = int(rng.integers(16, 129))
+    prompts = rng.integers(0, cfg.vocab_size, (4, prompt_len))
+    new = 16
+    base = RecordingHead(SparseLogitHead.build(hw, n_lanes=lanes))
+    part = RecordingHead(heads[(4, 1)])
+    want_tok = [complete_static(params, cfg, p, new,
+                                sampling=SamplingConfig(), head=base)[0]
+                for p in prompts]
+    zero()
+    got_tok = [complete_static(params, cfg, p, new,
+                               sampling=SamplingConfig(), head=part)[0]
+               for p in prompts]
+    torch.cuda.synchronize()
+    served = counters()
+    path = {k: path[k] + served[k] for k in path}
+    runs = sum(p.runs.shape[0] > 0 for p in heads[(4, 1)].plan.shards)
+    expect = {"maple_spmm_naive": cfg.n_layers * 4 * new,
+              "maple_spmm_compact": runs * 4 * new,
+              "maple_spmm_planned": 0, "maple_sddmm_bsr": 0}
+    if served != expect:
+        raise AssertionError(f"served run through the partitioned head "
+                             f"launched {served}, expected {expect}")
+    steps = []
+    for r, (w_t, g_t) in enumerate(zip(want_tok, got_tok)):
+        for t in range(new):
+            row = base.rows[r * new + t][:cfg.vocab_size]
+            top2 = torch.topk(row, 2).values
+            margin = float(top2[0] - top2[1])
+            limit = 1e-5 * float(row.abs().max()) + 1e-6
+            same = w_t[t] == g_t[t]
+            steps.append({"request": r, "step": t, "margin": margin,
+                          "equal": same})
+            if not same:
+                if margin > limit:
+                    raise AssertionError(
+                        f"request {r} step {t}: the partitioned head chose "
+                        f"{g_t[t]}, the default {w_t[t]}, top-2 margin "
+                        f"{margin} > {limit}")
+                break                     # the requests diverge from here
+    del params
+    torch.cuda.empty_cache()
+    n_dev = torch.cuda.device_count()
+    return path, {
+        "phase": "partitioned", "card": card,
+        "head": HEAD["name"], "mlp": MLP["name"], "dtype": "float32",
+        "device_count": n_dev,
+        "mesh": ("one card: every (D, C) above 1 ran as the stacked "
+                 "loop; a mesh of several cards was not run" if n_dev < 2
+                 else "partition_mesh builds a private mesh where "
+                 "device_count >= D·C"),
+        "mesh_branch_on_one_card": mesh_check,
+        "cases": cases, "single_device": singles,
+        "served": {"arch": SERVE_ARCH, "requests": 4, "prompt_len":
+                   prompt_len, "new_tokens": new, "head": [4, 1],
+                   "tokens_equal": got_tok == want_tok,
+                   "min_margin": min(s["margin"] for s in steps),
+                   "steps_compared": len(steps),
+                   "mismatches": [s for s in steps if not s["equal"]],
+                   "launches": served}}
+
+
+# --------------------------------------------------------------------------
 # the autotuned plan path on the MLP and head weights
 # --------------------------------------------------------------------------
 
@@ -2315,10 +2650,12 @@ def main() -> int:
     train_launches, train_line = train(smi)
     emit(train_line)
     emit(head_backward())
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    part_launches, part_line = partitioned(spec, flush, smi)
+    emit(part_line)
     autotune_launches, autotune_line = autotune(smi)
     emit(autotune_line)
     emit(spgemm_kernels_edge())
-    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     spgemm_launches, spgemm_kernel_rows, spgemm_line = spgemm(spec, flush,
                                                               smi)
     emit(spgemm_line)
@@ -2340,6 +2677,7 @@ def main() -> int:
 
     # launches: each path's run, counted from 0
     by_path = {**serve_launches, "train": train_launches,
+               "partitioned": part_launches,
                "autotune": autotune_launches, **spgemm_launches,
                "moe_serve": moe_launches, "local_attention": attn_launches}
     f32 = lambda n: lambda r: r["dtype"] == "float32" and r.get("N") == n

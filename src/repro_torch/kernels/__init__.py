@@ -3,7 +3,8 @@ kernels (naive, compact and rmw layouts) and the block SDDMM of its
 backward, the SpGEMM numeric phase with the CSR SDDMM and dB of its
 backward, the element walk with a dense B, the MoE grouped GEMM,
 block-sparse local attention, their plain PyTorch versions, the plan
-layer, row reordering, the plan autotuner and the public wrappers."""
+layer (single-device and mesh-partitioned), row reordering, the plan
+autotuner and the public wrappers."""
 
 from repro_torch.kernels.autotune import (SearchReport, auto_plan,
                                           fit_calibration, load_calibration,
@@ -20,6 +21,9 @@ from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.kernels.ops import (csr_to_ell, local_block_attention,
                                      maple_spgemm, maple_spmm, maple_spmspm,
                                      moe_expert_gemm)
+from repro_torch.kernels.partition import (PartitionedSpmmPlan,
+                                           plan_partitioned_spmm,
+                                           plan_partitioned_spmm_vjp)
 from repro_torch.kernels.reorder import (RowReorder, apply_reorder,
                                          plan_reordered_spmm, reorder_rows)
 from repro_torch.kernels.schedule import (ExecutionPlan, SpgemmPlan,
@@ -28,7 +32,7 @@ from repro_torch.kernels.schedule import (ExecutionPlan, SpgemmPlan,
                                           plan_spmm, plan_spmm_vjp,
                                           spmm_knob_space)
 
-__all__ = ["ExecutionPlan", "RowReorder", "SearchReport", "SpgemmPlan",
+__all__ = ["ExecutionPlan", "PartitionedSpmmPlan", "RowReorder", "SearchReport", "SpgemmPlan",
            "SpmmPlan", "SpmmTrainPlan", "apply_reorder", "auto_plan",
            "block_attention", "bsr_stats", "csr_to_ell", "fit_calibration",
            "load_calibration", "local_block_attention",
@@ -36,7 +40,8 @@ __all__ = ["ExecutionPlan", "RowReorder", "SearchReport", "SpgemmPlan",
            "maple_spgemm", "maple_spmm", "maple_spmm_compact",
            "maple_spmm_naive", "maple_spmm_planned", "maple_spmspm",
            "moe_expert_gemm", "moe_gemm", "pattern_fingerprint",
-           "plan_cache_clear", "plan_cache_stats", "plan_reordered_spmm",
+           "plan_cache_clear", "plan_cache_stats", "plan_partitioned_spmm",
+           "plan_partitioned_spmm_vjp", "plan_reordered_spmm",
            "plan_search", "plan_search_vjp", "plan_spgemm", "plan_spmm",
            "plan_spmm_vjp", "reorder_rows", "spmm_knob_space",
            "time_interleaved"]

@@ -1,5 +1,5 @@
 """Schedule autotuner: search the SpMM plan knob space, cache per-pattern
-plans (port of ``repro.kernels.autotune``, single-device).
+plans (port of ``repro.kernels.autotune``).
 
 A successive halving over :func:`~repro_torch.kernels.schedule
 .spmm_knob_space`: (1) a free analytic makespan bound ranks the whole
@@ -14,8 +14,9 @@ the slot merge), meet on the hardware.
 The reference's three guarantees hold: never worse than the default
 config under the surrogate, deterministic for one pattern, seed and
 parameter set, and memoized per pattern fingerprint (a hit returns the
-same plan object).  Partitioned plans are not ported yet: shard counts
-above 1 raise.
+same plan object).  The shard axis is searched as in the reference:
+shard counts come from the bound mesh (``distributed.sharding``) or the
+caller, and a partitioned winner is a ``PartitionedSpmmPlan``.
 
 ``python -m repro_torch.kernels.autotune --smoke`` runs the surrogate-only
 searches over the golden patterns on the CPU and checks those guarantees.
@@ -33,9 +34,14 @@ import torch
 
 from repro_torch.core.csr import BlockCSR
 from repro_torch.core.formats import as_block_csr
+from repro_torch.distributed.sharding import (COL_AXIS, PARTITION_AXIS,
+                                              active_mesh)
+from repro_torch.kernels.partition import (PartitionedSpmmPlan,
+                                           plan_partitioned_spmm,
+                                           plan_partitioned_spmm_vjp)
 from repro_torch.kernels.reorder import (occupancy_digest, pattern_standin,
                                          plan_reordered_spmm, reorder_rows)
-from repro_torch.kernels.schedule import (SpmmPlan, SpmmTrainPlan,
+from repro_torch.kernels.schedule import (SpmmTrainPlan,
                                           _default_chunk, pattern_fingerprint,
                                           plan_spmm, plan_spmm_vjp,
                                           spmm_knob_space)
@@ -79,14 +85,16 @@ def time_interleaved(fns: Dict, args: Dict, reps: int = 8) -> Dict[str, float]:
 # surrogate: predicted cycles + output traffic, optionally calibrated to µs
 # --------------------------------------------------------------------------
 
-def plan_traffic_bytes(plan: SpmmPlan, *, g: int = 1,
-                       n_cols: int = 128) -> int:
+def plan_traffic_bytes(plan, *, g: int = 1, n_cols: int = 128) -> int:
     """Output-side HBM bytes of the plan's own layout (the reference's
-    model; partitioned plans are not ported)."""
+    model): a partitioned plan sums its shards' compact layouts."""
+    if isinstance(plan, PartitionedSpmmPlan):
+        return sum(p.output_traffic_bytes(g, n_cols, mode="compact")
+                   for p in plan.shards)
     return plan.output_traffic_bytes(g, n_cols)
 
 
-def surrogate_cost(plan: SpmmPlan, *, objective: str = "cycles",
+def surrogate_cost(plan, *, objective: str = "cycles",
                    n_cols: int = 128,
                    calibration: Optional[Dict] = None) -> Tuple[float, float]:
     """Deterministic ``(primary, secondary)`` cost of a built plan:
@@ -130,21 +138,26 @@ def _prescore(row_lens: np.ndarray, cfg: Dict) -> float:
     return float(max(-(-nnzb // (shards * lanes)), item))
 
 
-def _single_device(cfg: Dict) -> None:
-    if int(cfg["n_shards"]) > 1 or int(cfg.get("n_col_shards", 1)) > 1:
-        raise NotImplementedError("partitioned plans (n_shards / "
-                                  "n_col_shards > 1) are not ported yet")
-
-
-def build_plan(a, cfg: Dict, rr=None) -> SpmmPlan:
-    """Materialize one knob config into its plan; reorder configs plan on
-    the permuted pattern and carry their ``RowReorder`` (pass ``rr`` to
-    share one similarity pass)."""
-    _single_device(cfg)
+def build_plan(a, cfg: Dict, rr=None):
+    """Materialize one knob config into its plan, single-device or
+    partitioned as its ``n_shards`` / ``n_col_shards`` say; reorder
+    configs plan on the permuted pattern and carry their ``RowReorder``
+    (pass ``rr`` to share one similarity pass)."""
+    col = int(cfg.get("n_col_shards", 1))
     if cfg.get("reorder"):
+        if int(cfg["n_shards"]) > 1 or col > 1:
+            raise ValueError(
+                "reorder is a single-device knob (spmm_knob_space never "
+                "pairs it with shard counts)")
         return plan_reordered_spmm(
             a, rr, n_lanes=int(cfg["n_lanes"]), chunk=cfg["chunk"],
             row_atomic=bool(cfg["row_atomic"]), fused=cfg["fused"])
+    if int(cfg["n_shards"]) > 1 or col > 1:
+        return plan_partitioned_spmm(
+            as_block_csr(a), n_shards=int(cfg["n_shards"]),
+            n_lanes=int(cfg["n_lanes"]), chunk=cfg["chunk"],
+            device_chunk=cfg["device_chunk"],
+            row_atomic=bool(cfg["row_atomic"]), n_col_shards=col)
     return plan_spmm(a, n_lanes=int(cfg["n_lanes"]), chunk=cfg["chunk"],
                      row_atomic=bool(cfg["row_atomic"]), fused=cfg["fused"])
 
@@ -190,8 +203,35 @@ def plan_cache_stats() -> Dict[str, int]:
 
 
 def _mesh_shard_counts() -> Tuple[int, ...]:
-    """Shard counts worth searching: the port has no mesh yet."""
+    """Shard counts worth searching: 1, plus the bound mesh's
+    ``PARTITION_AXIS`` extent where a bound mesh reserves one."""
+    mesh = active_mesh()
+    if mesh is not None and mesh.shape.get(PARTITION_AXIS, 1) > 1:
+        return (1, int(mesh.shape[PARTITION_AXIS]))
     return (1,)
+
+
+def _mesh_col_shard_counts() -> Tuple[int, ...]:
+    """The column split to pin: the bound mesh's ``COL_AXIS`` extent, else
+    1 (a memory layout, never searched: the cycle model does not see
+    it)."""
+    mesh = active_mesh()
+    if mesh is not None and mesh.shape.get(COL_AXIS, 1) > 1:
+        return (int(mesh.shape[COL_AXIS]),)
+    return (1,)
+
+
+def _default_config_for(shard_counts: Sequence[int],
+                        col_shard_counts: Sequence[int] = (1,)) -> Dict:
+    """The hand-tuned baseline inside this search's space: the plain
+    defaults where single-device is searched, else the defaults on the
+    smallest shard count, compact, at the pinned column split."""
+    cfg = dict(DEFAULT_CONFIG)
+    if 1 not in shard_counts:
+        cfg["n_shards"] = int(min(shard_counts))
+        cfg["fused"] = "compact"
+        cfg["n_col_shards"] = int(min(col_shard_counts))
+    return cfg
 
 
 def _same_config(x: Dict, y: Dict) -> bool:
@@ -226,9 +266,9 @@ def plan_search(a, *, objective: str = "cycles",
     if shard_counts is None:
         shard_counts = _mesh_shard_counts()
     shard_counts = tuple(int(s) for s in shard_counts)
-    col_shard_counts = tuple(int(s) for s in (col_shard_counts or (1,)))
-    _single_device(dict(n_shards=max(shard_counts),
-                        n_col_shards=max(col_shard_counts)))
+    if col_shard_counts is None:
+        col_shard_counts = _mesh_col_shard_counts()
+    col_shard_counts = tuple(int(s) for s in col_shard_counts)
     if reorder not in (False, True, "auto"):
         raise ValueError(f"reorder must be False, True or 'auto', "
                          f"got {reorder!r}")
@@ -250,7 +290,7 @@ def plan_search(a, *, objective: str = "cycles",
                            shard_counts=shard_counts,
                            col_shard_counts=col_shard_counts,
                            reorder=reorder)
-    default_cfg = dict(DEFAULT_CONFIG)
+    default_cfg = _default_config_for(shard_counts, col_shard_counts)
     row_lens = np.diff(np.asarray(as_block_csr(a).row_ptr).astype(np.int64))
     rr = None
     row_lens_r = row_lens
@@ -275,7 +315,7 @@ def plan_search(a, *, objective: str = "cycles",
             survivors[-1] = len(cfgs) - 1
 
     # ---- rung 2: build + surrogate-score the survivors ----
-    scored: List[Tuple[Tuple[float, float], int, SpmmPlan]] = []
+    scored: List[Tuple[Tuple[float, float], int, object]] = []
     default_score = None
     for i in survivors:
         plan = build_plan(a, cfgs[i], rr=rr)
@@ -311,7 +351,7 @@ def plan_search(a, *, objective: str = "cycles",
     return (best_plan, report) if full else best_plan
 
 
-def _measure_finalists(a, finalists: List[Tuple[int, SpmmPlan]], *,
+def _measure_finalists(a, finalists: List[Tuple[int, object]], *,
                        n_cols: int, seed: int,
                        reps: int) -> Dict[int, float]:
     """Rung 3: each finalist through ``maple_spmm`` (forward only) on a
@@ -348,11 +388,20 @@ def plan_search_vjp(a, **kw) -> SpmmTrainPlan:
         hit = _PLAN_CACHE[key]
         rep = dataclasses.replace(hit.report, cache_hit=True)
         return (hit.plan, rep) if full else hit.plan
-    base = pattern_standin(fwd_plan.reorder) if cfg.get("reorder") else a
-    tp = plan_spmm_vjp(as_block_csr(base), n_lanes=int(cfg["n_lanes"]),
-                       chunk=cfg["chunk"],
-                       row_atomic=bool(cfg["row_atomic"]),
-                       fused=cfg["fused"], fwd=fwd_plan)
+    if int(cfg["n_shards"]) > 1 or int(cfg.get("n_col_shards", 1)) > 1:
+        tp = plan_partitioned_spmm_vjp(
+            as_block_csr(a), n_shards=int(cfg["n_shards"]),
+            n_lanes=int(cfg["n_lanes"]), chunk=cfg["chunk"],
+            device_chunk=cfg["device_chunk"],
+            row_atomic=bool(cfg["row_atomic"]),
+            n_col_shards=int(cfg.get("n_col_shards", 1)), fwd=fwd_plan)
+    else:
+        base = pattern_standin(fwd_plan.reorder) if cfg.get("reorder") \
+            else a
+        tp = plan_spmm_vjp(as_block_csr(base), n_lanes=int(cfg["n_lanes"]),
+                           chunk=cfg["chunk"],
+                           row_atomic=bool(cfg["row_atomic"]),
+                           fused=cfg["fused"], fwd=fwd_plan)
     if use_cache:
         _PLAN_CACHE[key] = _CacheEntry(plan=tp, config=dict(cfg),
                                        report=report)
@@ -366,7 +415,7 @@ def auto_plan(a, *, trainable: bool = False,
     """The ``plan="auto"`` entry point of ``maple_spmm``, the sparse
     layers and the serving head.  ``n_shards`` bounds the searched device
     axis and ``n_col_shards`` pins the column split, as in the reference;
-    above 1 they raise (not ported yet).  ``trainable=True`` returns an
+    ``None`` reads both from the bound mesh.  ``trainable=True`` returns an
     :class:`~repro_torch.kernels.schedule.SpmmTrainPlan`."""
     if n_shards is not None:
         kw["shard_counts"] = (1, int(n_shards)) if n_shards > 1 else (1,)
@@ -435,9 +484,15 @@ def _plans_bit_identical(x, y) -> bool:
         return (_plans_bit_identical(x.fwd, y.fwd)
                 and _plans_bit_identical(x.bwd, y.bwd)
                 and np.array_equal(x.t_perm, y.t_perm))
-    return all(np.array_equal(getattr(x, f), getattr(y, f))
-               for f in ("order", "step_row", "step_col", "written",
-                         "flush_slot", "slot_row"))
+    fields = ("order", "step_row", "step_col", "written", "flush_slot",
+              "slot_row")
+    if isinstance(x, PartitionedSpmmPlan):
+        if x.n_col_shards != y.n_col_shards:
+            return False
+        # a stacked plan keeps no written map of its own (its shards do)
+        fields = ("order", "step_row", "step_col", "flush_slot", "slot_row",
+                  "gather", "gather_live", "row_shard")
+    return all(np.array_equal(getattr(x, f), getattr(y, f)) for f in fields)
 
 
 def _smoke(budget: int = 24, seed: int = 0) -> int:

@@ -16,6 +16,10 @@ element-granular dA of the SpGEMM.  It reads the SpGEMM's device plan, so
 it is defined in :mod:`repro_torch.kernels.maple_spgemm` beside B5 and
 re-exported here, where the reference keeps it.
 
+:func:`sddmm_shard_meta` is the host's half of the partitioned dA
+(``ops._partitioned_sddmm_f32``): each shard's local slots named by block
+row and column.
+
 A wrapper runs its plain PyTorch version only for tensors on the CPU.
 For CUDA tensors it launches the kernel or raises; each launch adds one
 to its ``launches`` count.
@@ -23,6 +27,7 @@ to its ``launches`` count.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -33,6 +38,25 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # slots a CTA (at most 32); 0 lets the launcher spread the slots evenly
 # over every CTA the card holds at once (at most 16 a CTA)
 CHUNK = 0
+
+
+def sddmm_shard_meta(gather: np.ndarray, gather_live: np.ndarray,
+                     block_row: np.ndarray, block_col: np.ndarray,
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """Per-shard block metadata of the partitioned dA (the reference's).
+
+    ``gather`` / ``gather_live`` are a ``PartitionedSpmmPlan``'s
+    ``(D, slot_cap)`` payload maps, ``block_row`` / ``block_col`` the
+    global pattern.  Returns ``(sd_row, sd_col)``, ``(D, slot_cap)`` int32:
+    the row and column each shard's local slot names, dead slots at row 0
+    and column -1 (the pad B2 computes zeros for)."""
+    gat = np.asarray(gather)
+    live = np.asarray(gather_live)
+    br = np.asarray(block_row)[gat]
+    bc = np.asarray(block_col)[gat]
+    sd_row = np.where(live, br, 0).astype(np.int32)
+    sd_col = np.where(live, bc, -1).astype(np.int32)
+    return sd_row, sd_col
 
 
 def _check_operands(dc, b3, block_row, block_col, bm, bk):

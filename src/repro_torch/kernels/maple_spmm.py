@@ -318,14 +318,17 @@ def maple_spmm_naive_plain(blocks, row_ptr, block_col, b3) -> torch.Tensor:
 
 def maple_spmm_compact(blocks: torch.Tensor, order: torch.Tensor,
                        step_col: torch.Tensor, runs: torch.Tensor,
-                       b3: torch.Tensor, *, n_slots: int,
-                       bn: int = 128) -> torch.Tensor:
+                       b3: torch.Tensor, *, n_slots: int, bn: int = 128,
+                       out: torch.Tensor | None = None) -> torch.Tensor:
     """The f32 compact slot buffer ``(G, n_slots·bm, N)``: for each run
     ``(lane, first, end, slot)`` of the plan's run table, slot ``slot``
     holds the f32 sum over steps ``first .. end`` of lane ``lane`` (pad
     steps with ``step_col < 0`` add nothing) of
     ``blocks[order] @ B[g, step_col·bk : (step_col+1)·bk]``.  Slots no run
-    names are not written."""
+    names are not written: given ``out`` (contiguous f32 of that shape
+    on B's device), the runs write their slots of it and leave the rest
+    as they were, so several run tables can fill one buffer (the
+    partitioned executor's shards)."""
     _check_operands(blocks, b3, (("order", order), ("step_col", step_col),
                                  ("runs", runs)), bn)
     if order.shape != step_col.shape or order.dim() != 2:
@@ -333,13 +336,20 @@ def maple_spmm_compact(blocks: torch.Tensor, order: torch.Tensor,
     if runs.dim() != 2 or runs.shape[1] != 4:
         raise ValueError(f"runs must be (n_runs, 4), got {tuple(runs.shape)}")
     _check_run_operands(blocks)
-    if not b3.is_cuda:
-        return maple_spmm_compact_plain(blocks, order, step_col, runs, b3,
-                                        n_slots=n_slots)
     nb, bm, bk = blocks.shape
     g, k, n = b3.shape
-    out = torch.empty((g, n_slots * bm, n), dtype=torch.float32,
-                      device=b3.device)
+    if out is not None and (
+            out.shape != (g, n_slots * bm, n) or out.dtype != torch.float32
+            or out.device != b3.device or not out.is_contiguous()):
+        raise ValueError(f"out must be contiguous float32 "
+                         f"{(g, n_slots * bm, n)} on {b3.device}, got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
+    if not b3.is_cuda:
+        return maple_spmm_compact_plain(blocks, order, step_col, runs, b3,
+                                        n_slots=n_slots, out=out)
+    if out is None:
+        out = torch.empty((g, n_slots * bm, n), dtype=torch.float32,
+                          device=b3.device)
     if out.numel() == 0 or runs.shape[0] == 0:
         return out                      # no run: every slot is dead
     tile = walk_tile(b3.dtype, n, bm, bk, bn, runs=runs.shape[0], g=g,
@@ -385,15 +395,17 @@ def _run_psbs(blocks, order, step_col, runs, b3) -> torch.Tensor:
 
 
 def maple_spmm_compact_plain(blocks, order, step_col, runs, b3, *,
-                             n_slots: int) -> torch.Tensor:
+                             n_slots: int, out=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`maple_spmm_compact`.  Slots no run
-    names hold NaN, so a merge that reads one shows it."""
+    names hold NaN (or, given ``out``, what they held), so a merge that
+    reads one shows it."""
     g, n = b3.shape[0], b3.shape[2]
-    tiles = torch.full((g, n_slots, blocks.shape[1], n), float("nan"),
-                       dtype=torch.float32, device=b3.device)
-    tiles[:, runs[:, 3].long()] = _run_psbs(blocks, order, step_col, runs,
-                                            b3)
-    return tiles.reshape(g, n_slots * blocks.shape[1], n)
+    if out is None:
+        out = torch.full((g, n_slots * blocks.shape[1], n), float("nan"),
+                         dtype=torch.float32, device=b3.device)
+    out.view(g, n_slots, blocks.shape[1], n)[:, runs[:, 3].long()] = \
+        _run_psbs(blocks, order, step_col, runs, b3)
+    return out
 
 
 # --------------------------------------------------------------------------

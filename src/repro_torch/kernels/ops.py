@@ -8,25 +8,31 @@ reference's raises, same types and messages), format lowering, schedule
 selection, planning and autotuning, row reordering, device copies of the
 metadata, the deterministic f32 merge of the SpMM's compact layout, and
 the backwards.  :class:`_SpmmFunction`: dB = Aᵀ·dC on the planned kernel
-of the transpose-side plan's layout, dA through the block SDDMM kernel.
+of the transpose-side plan's layout, dA through the block SDDMM kernel;
+a mesh-partitioned plan runs the same two kernels per shard
+(:func:`_partitioned_spmm_f32`, :func:`_partitioned_sddmm_f32`).
 :class:`_SpgemmValueFunction`: dA through the CSR SDDMM kernel, dB through
 the fiber-order dB kernel.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import List, Tuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core import formats
 from repro_torch.core.csr import (CSR, BlockCSR, grow_nnz_max,
                                   transpose_payload)
+from repro_torch.distributed.sharding import local_devices, partition_mesh
 from repro_torch.kernels.block_attn import (block_attention,
                                            local_window_kv_map)
-from repro_torch.kernels.maple_sddmm import maple_sddmm_bsr, maple_sddmm_csr
+from repro_torch.kernels.maple_sddmm import (maple_sddmm_bsr, maple_sddmm_csr,
+                                             sddmm_shard_meta)
 from repro_torch.kernels.maple_spgemm import (maple_spgemm_db,
                                               maple_spgemm_numeric)
 from repro_torch.kernels.maple_spmm import (maple_spmm_compact,
@@ -34,6 +40,9 @@ from repro_torch.kernels.maple_spmm import (maple_spmm_compact,
                                             maple_spmm_planned)
 from repro_torch.kernels.maple_spmspm import maple_spmspm_ell
 from repro_torch.kernels.moe_gemm import moe_gemm
+from repro_torch.kernels.partition import (PartitionedSpmmPlan,
+                                           plan_partitioned_spmm,
+                                           plan_partitioned_spmm_vjp)
 from repro_torch.kernels.reorder import apply_reorder
 from repro_torch.kernels.schedule import (SpgemmPlan, SpmmPlan, SpmmTrainPlan,
                                           plan_spgemm, plan_spmm,
@@ -83,6 +92,12 @@ def maple_spmm(a: "formats.BlockFormat", b_dense: torch.Tensor, *,
       order; both round to the output type once.
     * ``"naive"`` — the construction-order walk: one kernel launch, no
       plan, no host work per call beyond argument checks.
+    * ``"partitioned"`` — plan with
+      :func:`~repro_torch.kernels.partition.plan_partitioned_spmm` over
+      ``n_shards`` devices (default: every card ``partition_mesh`` can
+      see, so 1 on one card) and ``n_col_shards`` column panels, and run
+      it as a prebuilt :class:`PartitionedSpmmPlan` runs: B1 per shard
+      (and per column panel), then the row-offset merge.
 
     ``plan="auto"`` searches the schedule knob space instead
     (:func:`~repro_torch.kernels.autotune.auto_plan`, memoized per
@@ -101,9 +116,12 @@ def maple_spmm(a: "formats.BlockFormat", b_dense: torch.Tensor, *,
     forward plan (the naive schedule plans afresh), as the reference does
     eagerly.
 
-    ``MAPLE_VALIDATE=1`` checks A's pad contract at entry.  Not ported yet
-    (raise ``NotImplementedError``): ``schedule="partitioned"`` and
-    ``n_shards`` / ``n_col_shards`` above 1.
+    ``n_shards`` / ``n_col_shards`` are never ignored: with a prebuilt
+    plan they are checked against its mesh shape, without one they need
+    ``schedule="partitioned"`` (the reference's raises).  A partitioned
+    train plan takes dB per shard of its transpose side and dA per shard
+    of its forward's block ownership.  ``MAPLE_VALIDATE=1`` checks A's
+    pad contract at entry.
     """
     _maybe_validate(a)
     if not isinstance(a, BlockCSR):
@@ -132,25 +150,30 @@ def maple_spmm(a: "formats.BlockFormat", b_dense: torch.Tensor, *,
         auto_planned = True
     if (n_shards is not None or n_col_shards is not None) \
             and not auto_planned:
-        if plan is not None:
-            raise ValueError(
-                "n_shards/n_col_shards was given but the prebuilt "
-                "plan is single-device — build it with "
-                "plan_partitioned_spmm / plan_spmm_vjp(n_shards=...) "
-                "instead")
-        if schedule != "partitioned":
+        got = plan.fwd if isinstance(plan, SpmmTrainPlan) else plan
+        if got is not None:
+            if not isinstance(got, PartitionedSpmmPlan):
+                raise ValueError(
+                    "n_shards/n_col_shards was given but the prebuilt "
+                    "plan is single-device — build it with "
+                    "plan_partitioned_spmm / plan_spmm_vjp(n_shards=...) "
+                    "instead")
+            if n_shards is not None and got.n_shards != n_shards:
+                raise ValueError(
+                    f"n_shards={n_shards} but the prebuilt plan has "
+                    f"{got.n_shards} shards")
+            if n_col_shards is not None \
+                    and got.n_col_shards != n_col_shards:
+                raise ValueError(
+                    f"n_col_shards={n_col_shards} but the prebuilt plan "
+                    f"has {got.n_col_shards} column shards")
+        elif schedule != "partitioned":
             raise ValueError("n_shards/n_col_shards only applies to "
                              "schedule='partitioned' (or pass a prebuilt "
                              "PartitionedSpmmPlan)")
-    if schedule == "partitioned":
-        raise NotImplementedError("schedule='partitioned' is not ported yet")
     train = plan if isinstance(plan, SpmmTrainPlan) else None
     if train is not None:
         plan = train.fwd
-    if plan is not None and not isinstance(plan, SpmmPlan):
-        raise NotImplementedError(
-            f"{type(plan).__name__} plans are not ported yet; pass a "
-            f"plan_spmm plan")
     if b_dense.dim() not in (2, 3):
         raise ValueError(
             f"B must be (K, N) or (G, K, N), got {tuple(b_dense.shape)}")
@@ -175,7 +198,14 @@ def maple_spmm(a: "formats.BlockFormat", b_dense: torch.Tensor, *,
             raise ValueError(
                 f"plan is for {plan.n_block_rows} block-rows, "
                 f"operand has {a.n_block_rows}")
-        if plan.order.size and int(plan.order.max()) >= a.n_blocks_max:
+        if isinstance(plan, PartitionedSpmmPlan):
+            # order names shard-local slots; the global capacity bound
+            # lives on the payload gather map
+            if plan.gather_live.any() and int(
+                    plan.gather[plan.gather_live].max()) >= a.n_blocks_max:
+                raise ValueError("plan gathers blocks beyond the operand's "
+                                 "capacity — was it built for this weight?")
+        elif plan.order.size and int(plan.order.max()) >= a.n_blocks_max:
             raise ValueError("plan indexes blocks beyond the operand's "
                              "capacity — was it built for this weight?")
         if (plan.block_m, plan.block_k) != a.block_shape:
@@ -183,11 +213,26 @@ def maple_spmm(a: "formats.BlockFormat", b_dense: torch.Tensor, *,
                 f"plan was built for blocks "
                 f"({plan.block_m}, {plan.block_k}), operand blocks are "
                 f"{a.block_shape} — was it built for this weight?")
+    if plan is None and schedule == "partitioned":
+        col = n_col_shards if n_col_shards is not None else 1
+        shards = n_shards if n_shards is not None \
+            else max(len(local_devices()) // col, 1)
+        plan = plan_partitioned_spmm(a, n_shards=shards, n_lanes=n_lanes,
+                                     chunk=chunk, n_col_shards=col)
     if plan is None and schedule != "naive":
         plan = plan_spmm(a, n_lanes=n_lanes, chunk=chunk,
                          row_atomic=(schedule == "row_atomic"))
     if train is not None:
         train_thunk = lambda: train
+    elif isinstance(plan, PartitionedSpmmPlan):
+        memo = []
+
+        def train_thunk(fwd=plan):
+            if not memo:
+                memo.append(plan_partitioned_spmm_vjp(
+                    a, n_shards=fwd.n_shards, n_lanes=n_lanes, chunk=chunk,
+                    fwd=fwd))
+            return memo[0]
     else:
         # built on the first backward only, from the plan this call ran
         memo = []
@@ -240,16 +285,25 @@ class _SpmmFunction(torch.autograd.Function):
         da = db = None
         if need_db:
             # dB = Aᵀ·dC: gather the payload into Aᵀ slot order, swap each
-            # block, and run the transpose-side plan in its layout
-            at_blocks = transpose_payload(blocks, d["t_perm"],
-                                          train.n_blocks_max)
-            db = _planned_spmm_f32(at_blocks, dc, train.bwd,
-                                   bn=ctx.bn).to(b3.dtype)
+            # block, and run the transpose-side plan in its layout (a
+            # partitioned one gathers per shard: on a mesh card, once per
+            # payload version)
+            transposed = (d["t_perm"], train.n_blocks_max)
+            if isinstance(train.bwd, PartitionedSpmmPlan):
+                db = _partitioned_spmm_f32(blocks, dc, train.bwd, bn=ctx.bn,
+                                           transposed=transposed)
+            else:
+                db = _planned_spmm_f32(transpose_payload(blocks, *transposed),
+                                       dc, train.bwd, bn=ctx.bn)
+            db = db.to(b3.dtype)
         if need_da:
             # dA = (dC·Bᵀ) sampled at A's pattern; pads masked in-kernel
             # and again here, as the reference does
-            da = maple_sddmm_bsr(dc, b3, d["block_row"], d["block_col"],
-                                 bm=bm, bk=bk, bn=ctx.bn)
+            if isinstance(train.fwd, PartitionedSpmmPlan):
+                da = _partitioned_sddmm_f32(dc, b3, train, bn=ctx.bn)
+            else:
+                da = maple_sddmm_bsr(dc, b3, d["block_row"], d["block_col"],
+                                     bm=bm, bk=bk, bn=ctx.bn)
             live = (d["block_col"] >= 0)[:, None, None]
             da = torch.where(live, da, 0.0).to(blocks.dtype)
         return da, db, None, None, None, None
@@ -266,14 +320,17 @@ def _meta_on(a: BlockCSR, device: torch.device) -> dict:
     return meta
 
 
-def _planned_spmm_f32(blocks, b3, plan: SpmmPlan, *, bn: int) -> torch.Tensor:
+def _planned_spmm_f32(blocks, b3, plan, *, bn: int) -> torch.Tensor:
     """Planned SpMM → merged ``(G, M, N)`` f32 (the cast is the caller's),
     in the layout the plan carries, on every device: ``"rmw"`` runs B4,
     which sums each row's runs in lane order; ``"compact"`` runs B1 into
     per-run slots and merges them in slot order.  The two agree bit for
     bit on one plan.  (The reference runs rmw only interpreted: Mosaic
     cannot re-read a revisited output tile, so its compiled calls take
-    compact.)"""
+    compact.)  A :class:`PartitionedSpmmPlan` runs
+    :func:`_partitioned_spmm_f32`."""
+    if isinstance(plan, PartitionedSpmmPlan):
+        return _partitioned_spmm_f32(blocks, b3, plan, bn=bn)
     d = plan.on_device(b3.device)
     if plan.fused == "rmw":
         return maple_spmm_planned(blocks, d["order"], d["step_col"],
@@ -307,6 +364,205 @@ def _scatter_merge_f32(tiles: torch.Tensor,
         merged.index_copy_(1, rows, merged.index_select(1, rows)
                            + tiles.index_select(1, slots))
     return merged.reshape(g, gm * bm, n)
+
+
+# --------------------------------------------------------------------------
+# mesh-partitioned execution: B1 and B2 per shard, the row-offset merge
+# --------------------------------------------------------------------------
+
+def _on(device: torch.device):
+    """Launch on ``device``: the kernels' wrappers take the current
+    device's stream."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _mesh_for(n_shards: int, n_col: int, *operands: torch.Tensor):
+    """``partition_mesh``'s mesh for a plan run on ``operands``.  A mesh
+    device of another type than the operands' raises: card tensors never
+    send a shard's work to the CPU (nor CPU tensors to a card)."""
+    mesh, _ = partition_mesh(n_shards, n_col)
+    if mesh is not None:
+        types = {t.device.type for t in operands}
+        for dev in mesh.devices.reshape(-1):
+            if types != {dev.type}:
+                raise ValueError(
+                    f"the bound mesh holds {dev} but the operands are on "
+                    f"{sorted(types)}: a partitioned plan runs its shards "
+                    f"on devices of the operands' type")
+    return mesh
+
+
+def _col_panels(n: int, n_col: int) -> List[Tuple[int, int]]:
+    """The ``[lo, hi)`` columns of each of ``n_col`` panels of N:
+    contiguous, in order, as even as they go."""
+    return [(n * c // n_col, n * (c + 1) // n_col) for c in range(n_col)]
+
+
+def _panel(x: torch.Tensor, lo: int, hi: int, n_col: int,
+           device: torch.device) -> torch.Tensor:
+    """Columns ``[lo, hi)`` of ``x`` on ``device``, contiguous; the whole
+    of ``x`` (no copy on its own device) when N is not split."""
+    x = x if n_col == 1 else x[..., lo:hi]
+    return x.to(device).contiguous()
+
+
+def _shard_payload(blocks, plan: PartitionedSpmmPlan, d: int,
+                   device: torch.device, transposed=None) -> torch.Tensor:
+    """Shard ``d``'s own blocks on a mesh ``device`` that does not hold
+    the payload: its live local slots, in local order (with
+    ``transposed = (t_perm, cap)``, the dB side's: Aᵀ's blocks, gathered
+    from A's payload ``blocks`` and each swapped).  Copied once per
+    payload version and kept with the plan's tensors on ``device``, keyed
+    weakly by the payload tensor, so the mesh card does not receive the
+    weight on every call; a payload changed in place (an optimizer step)
+    is copied again at its next call."""
+    cache = plan.on_device(device)["shards"][d].setdefault(
+        "payload", WeakIdKeyDictionary())
+    hit = cache.get(blocks)
+    if hit is not None and hit[0] == blocks._version:
+        return hit[1]
+    own = plan.on_device(blocks.device)["shards"][d]["own"]
+    if transposed is None:
+        part = blocks.index_select(0, own)
+    else:
+        part = blocks.index_select(
+            0, transposed[0].index_select(0, own)).transpose(1, 2)
+    part = part.to(device).contiguous()
+    cache[blocks] = (blocks._version, part)
+    return part
+
+
+def _partitioned_tiles(blocks, b3, plan: PartitionedSpmmPlan, *, bn: int,
+                       transposed=None) -> torch.Tensor:
+    """Every shard's B1 (:func:`maple_spmm_compact`) on its own compact
+    plan into its slots of one stacked slot buffer ``(G, n_slots, bm, N)``
+    (``plan.slot_offsets``), once per column panel of N
+    (``plan.n_col_shards``; the panels' buffers concatenate along N).
+    With ``transposed = (t_perm, cap)`` the operand is Aᵀ, whose payload
+    is A's ``blocks`` gathered by ``t_perm`` and swapped
+    (:func:`transpose_payload`, as the single-device dB gathers it).
+
+    ``partition_mesh`` places the work: on a mesh, shard ``d``'s panel
+    ``c`` runs on the mesh's ``(d, c)`` device; without one (fewer cards
+    than the plan's shards) the same calls run one after another on B's
+    device.  On the payload's own device B1 reads the payload through the
+    shard's global-slot order and writes its slots in place; a mesh
+    device elsewhere takes the shard's own blocks (:func:`_shard_payload`)
+    and B's panel, and its slots come back into the buffer.  Both run the
+    same kernel on the same operands, so the bits agree.  A kernel's
+    failure raises."""
+    mesh = _mesh_for(plan.n_shards, plan.n_col_shards, blocks, b3)
+    home = b3.device
+    g, n = b3.shape[0], b3.shape[-1]
+    n_col = plan.n_col_shards
+    payload = None if transposed is not None else blocks
+    bufs = []
+    for c, (lo, hi) in enumerate(_col_panels(n, n_col)):
+        buf = torch.empty((g, plan.n_slots * plan.block_m, hi - lo),
+                          dtype=torch.float32, device=home)
+        bb = _panel(b3, lo, hi, n_col, home)
+        for d in range(plan.n_shards):
+            dev = home if mesh is None else mesh.device(d, c)
+            sd = plan.on_device(dev)["shards"][d]
+            if dev == home == blocks.device:
+                if payload is None:
+                    payload = transpose_payload(blocks, *transposed)
+                maple_spmm_compact(payload, sd["order"], sd["step_col"],
+                                   sd["stacked_runs"], bb,
+                                   n_slots=plan.n_slots, bn=bn, out=buf)
+                continue
+            p = plan.shards[d]
+            with _on(dev):
+                part = maple_spmm_compact(
+                    _shard_payload(blocks, plan, d, dev, transposed),
+                    sd["local_order"], sd["step_col"], sd["runs"],
+                    bb.to(dev).contiguous(), n_slots=p.n_lanes * p.r_max,
+                    bn=bn)
+            s0 = plan.slot_offsets[d] * plan.block_m
+            buf[:, s0:s0 + part.shape[1]].copy_(part)
+        bufs.append(buf)
+    tiles = bufs[0] if n_col == 1 else torch.cat(bufs, -1)
+    return tiles.view(g, plan.n_slots, plan.block_m, n)
+
+
+def _partitioned_spmm_f32(blocks, b3, plan: PartitionedSpmmPlan, *,
+                          bn: int, transposed=None) -> torch.Tensor:
+    """Mesh-partitioned planned SpMM → merged ``(G, M, N)`` f32 (the
+    reference's ``_partitioned_spmm_f32``): B1 per shard
+    (:func:`_partitioned_tiles`), then the row-offset merge
+    (:func:`_scatter_merge_f32` over ``plan.merge_ranks``), which adds
+    every slot into its row in f32 in the stacked ``(shard, lane, slot)``
+    order: no atomics, a split row sums its partials in one fixed order,
+    and the result rounds once (the caller's cast)."""
+    tiles = _partitioned_tiles(blocks, b3, plan, bn=bn,
+                               transposed=transposed)
+    return _scatter_merge_f32(tiles, plan.on_device(b3.device)["merge"],
+                              gm=plan.n_block_rows)
+
+
+def _sddmm_shards_on(train: SpmmTrainPlan, device: torch.device) -> list:
+    """Per shard of a partitioned train plan's forward: the block rows and
+    columns of its local slots (``sddmm_shard_meta``: dead slots at row 0,
+    column -1) and the global slots of its live ones, on ``device``,
+    built once per device.  Each shard's live slots must come first: the
+    placement in :func:`_partitioned_sddmm_f32` relies on it."""
+    key = ("sddmm_shards", str(device))
+    cached = train._on_device.get(key)
+    if cached is None:
+        fwd = train.fwd
+        if (np.diff(fwd.gather_live.astype(np.int8), axis=1) > 0).any():
+            raise ValueError("a shard of the plan has a pad slot before a "
+                             "live one: its live slots must come first")
+        sd_row, sd_col = sddmm_shard_meta(fwd.gather, fwd.gather_live,
+                                          train.block_row, train.block_col)
+        as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        cached = [(as_t(sd_row[d]), as_t(sd_col[d]),
+                   as_t(fwd.gather[d][fwd.gather_live[d]].astype(np.int64)))
+                  for d in range(fwd.n_shards)]
+        train._on_device[key] = cached
+    return cached
+
+
+def _partitioned_sddmm_f32(dc, b3, train: SpmmTrainPlan, *,
+                           bn: int) -> torch.Tensor:
+    """Mesh-partitioned dA → ``(n_blocks_max, bm, bk)`` f32 (the
+    reference's ``_partitioned_sddmm_f32``).
+
+    dA ownership follows the forward plan's ``gather``: each shard runs
+    B2 (:func:`maple_sddmm_bsr`) over its local slots, reading the dC rows
+    it owns.  N is the SDDMM's contraction axis, so with column panels
+    each panel gives a partial and the partials add in panel order (the
+    reference's ``psum`` over ``COL_AXIS``; here the same order on the
+    mesh and in the loop).  The shards' live slots are disjoint and come
+    first in each shard, so the merge back to A's slots is an
+    ``index_copy`` of each shard's live prefix into zeros: placement, no
+    ``+ 0.0`` on a live value.  Mesh placement as in
+    :func:`_partitioned_tiles`; only dC and B go to a mesh device."""
+    fwd = train.fwd
+    bm, bk = train.block_shape
+    mesh = _mesh_for(fwd.n_shards, fwd.n_col_shards, dc, b3)
+    home = dc.device
+    n_col = fwd.n_col_shards
+    panels = _col_panels(dc.shape[-1], n_col)
+    da = torch.zeros((train.n_blocks_max, bm, bk), dtype=torch.float32,
+                     device=home)
+    for d, (_, _, own) in enumerate(_sddmm_shards_on(train, home)):
+        acc = None
+        for c, (lo, hi) in enumerate(panels):
+            if hi == lo:
+                continue                  # N < n_col: an empty panel adds 0
+            dev = home if mesh is None else mesh.device(d, c)
+            with _on(dev):
+                row, col, _ = _sddmm_shards_on(train, dev)[d]
+                part = maple_sddmm_bsr(
+                    _panel(dc, lo, hi, n_col, dev),
+                    _panel(b3, lo, hi, n_col, dev), row, col, bm=bm, bk=bk,
+                    bn=bn).to(home)
+            acc = part if acc is None else acc + part
+        if acc is not None:               # N = 0: dA is 0
+            da.index_copy_(0, own, acc[:own.numel()])
+    return da
 
 
 # --------------------------------------------------------------------------

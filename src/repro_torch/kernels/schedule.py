@@ -11,7 +11,9 @@ held against it with ``np.array_equal``, and ``predicted_cycles()`` with
 fingerprint and the autotuner's knob space.  The port adds the derived
 tables the Hopper executors need (``SpmmPlan.runs``, ``row_runs`` /
 ``row_run_ptr`` and ``merge_ranks``; ``SpgemmPlan.on_device``), built once
-per plan.  Partitioned (multi-device) plans are not ported yet.
+per plan.  Mesh-partitioned plans live in
+:mod:`repro_torch.kernels.partition`; :func:`plan_spmm_vjp` routes shard
+counts above 1 there, and :func:`spmm_knob_space` enumerates them.
 """
 
 from __future__ import annotations
@@ -401,38 +403,56 @@ def spmm_knob_space(a, *, n_lanes_max: int = 16,
     """The SpMM schedule knob space of one pattern, in the reference's
     deterministic order: ``reorder`` (``False``, ``True`` or both for
     ``"auto"``) × ``n_lanes`` (powers of two up to ``n_lanes_max``) ×
-    (row-atomic, then each :func:`_chunk_candidates` chunk) × ``fused``.
-    Every entry carries the full knob set, the device axes at 1.  Shard
-    counts above 1 (partitioned plans) are not ported yet."""
+    (row-atomic, then each :func:`_chunk_candidates` chunk) × ``fused``,
+    the whole of it once per entry of ``shard_counts`` (outermost), as in
+    the reference.  A shard count above 1 is a partitioned entry: compact
+    layout only, never reordered, once per ``col_shard_counts`` entry,
+    and with ``device_chunk`` ``None`` plus half a balanced shard where a
+    row outgrows the balanced shard.  Single-device entries carry
+    ``n_col_shards=1``."""
     if reorder not in (False, True, "auto"):
         raise ValueError(f"reorder must be False | True | 'auto', "
                          f"got {reorder!r}")
-    for n in (*shard_counts, *col_shard_counts):
-        if n < 1:
-            raise ValueError(f"shard count {n} < 1")
-        if n > 1:
-            raise NotImplementedError(
-                "partitioned plans (shard counts > 1) are not ported yet")
     reorder_opts = {False: (False,), True: (True,),
                     "auto": (False, True)}[reorder]
-    row_lens = np.diff(block_pattern_meta(a)[2])
+    rptr = block_pattern_meta(a)[2]
+    row_lens = np.diff(rptr)
+    nnzb = int(rptr[-1])
     lanes_all: List[int] = []
     l = 1
     while l <= max(n_lanes_max, 1):
         lanes_all.append(l)
         l *= 2
-    base = dict(n_shards=1, n_col_shards=1, device_chunk=None)
     cfgs: List[Dict] = []
-    for ro in reorder_opts:
-        for n_lanes in lanes_all:
-            for fused in fused_layouts:
-                cfgs.append(dict(n_lanes=n_lanes, chunk=None,
-                                 row_atomic=True, fused=fused, **base,
-                                 reorder=ro))
-                for chunk in _chunk_candidates(row_lens, n_lanes):
-                    cfgs.append(dict(n_lanes=n_lanes, chunk=chunk,
-                                     row_atomic=False, fused=fused, **base,
-                                     reorder=ro))
+    for n_shards in shard_counts:
+        if n_shards < 1:
+            raise ValueError(f"shard count {n_shards} < 1")
+        dev_chunks: List[Optional[int]] = [None]
+        if n_shards > 1:
+            balanced = max(1, -(-nnzb // n_shards))
+            if int(row_lens.max(initial=0)) > balanced:
+                dev_chunks.append(max(1, balanced // 2))
+        layouts = fused_layouts if n_shards == 1 else ("compact",)
+        col_counts = [1] if n_shards == 1 else list(col_shard_counts)
+        ro_opts = reorder_opts if n_shards == 1 else (False,)
+        for n_col_shards in col_counts:
+            if n_col_shards < 1:
+                raise ValueError(f"col shard count {n_col_shards} < 1")
+            for ro in ro_opts:
+                for device_chunk in dev_chunks:
+                    for n_lanes in lanes_all:
+                        for fused in layouts:
+                            base = dict(fused=fused, n_shards=n_shards,
+                                        n_col_shards=n_col_shards,
+                                        device_chunk=device_chunk,
+                                        reorder=ro)
+                            cfgs.append(dict(n_lanes=n_lanes, chunk=None,
+                                             row_atomic=True, **base))
+                            for chunk in _chunk_candidates(row_lens,
+                                                           n_lanes):
+                                cfgs.append(dict(n_lanes=n_lanes,
+                                                 chunk=chunk,
+                                                 row_atomic=False, **base))
     return cfgs
 
 
@@ -449,7 +469,8 @@ class SpmmTrainPlan:
     block pattern (``bwd``); ``dA = (dC·Bᵀ)`` sampled at A's pattern runs
     the block SDDMM over ``block_row`` / ``block_col``.
 
-    * ``fwd`` / ``bwd`` — lane schedules for A and Aᵀ;
+    * ``fwd`` / ``bwd`` — lane schedules for A and Aᵀ (both
+      ``PartitionedSpmmPlan`` s for a partitioned train plan);
     * ``t_perm`` — gather taking ``a.blocks`` slots to Aᵀ live-slot order;
     * ``t_block_row`` / ``t_block_col`` / ``t_row_ptr`` — Aᵀ metadata at
       the source capacity, pads per the container contract;
@@ -500,13 +521,6 @@ class SpmmTrainPlan:
         return cached
 
 
-def _single_device_only(n_shards, n_col_shards) -> None:
-    if (n_shards is not None and n_shards > 1) or \
-            (n_col_shards is not None and n_col_shards > 1):
-        raise NotImplementedError("partitioned training plans (n_shards / "
-                                  "n_col_shards > 1) are not ported yet")
-
-
 def plan_spmm_vjp(a: BlockCSR, *, n_lanes: int = 8,
                   chunk: Optional[int] = None,
                   row_atomic: bool = False,
@@ -516,8 +530,23 @@ def plan_spmm_vjp(a: BlockCSR, *, n_lanes: int = 8,
                   fwd: Optional[SpmmPlan] = None) -> SpmmTrainPlan:
     """Build the forward plan (or take the given ``fwd``) and the
     transpose-side plan with it, on the host, as the reference does.
-    Single-device only."""
-    _single_device_only(n_shards, n_col_shards)
+    ``n_shards`` or ``n_col_shards`` above 1 makes both sides
+    mesh-partitioned (:func:`~repro_torch.kernels.partition
+    .plan_partitioned_spmm_vjp`); a single-device ``fwd`` is then
+    refused, never dropped."""
+    if (n_shards is not None and n_shards > 1) or \
+            (n_col_shards is not None and n_col_shards > 1):
+        from repro_torch.kernels.partition import (  # builds on this module
+            PartitionedSpmmPlan, plan_partitioned_spmm_vjp)
+        if fwd is not None and not isinstance(fwd, PartitionedSpmmPlan):
+            raise ValueError(
+                "n_shards>1 needs a partitioned fwd plan; the one passed "
+                "is single-device — build it with plan_partitioned_spmm, "
+                "or drop fwd to re-plan here")
+        return plan_partitioned_spmm_vjp(
+            a, n_shards=n_shards if n_shards is not None else 1,
+            n_col_shards=n_col_shards if n_col_shards is not None else 1,
+            n_lanes=n_lanes, chunk=chunk, row_atomic=row_atomic, fwd=fwd)
     if fwd is None:
         fwd = plan_spmm(a, n_lanes=n_lanes, chunk=chunk,
                         row_atomic=row_atomic, fused=fused)

@@ -131,6 +131,16 @@ def _project(x, w):
         *x.shape[:-1], *w.shape[1:])
 
 
+def _rope_of(cfg: AttnConfig, positions, rope):
+    """The RoPE tables of ``positions``, or the cached ``rope``."""
+    if isinstance(positions, tuple):
+        raise TypeError("positions must be the tokens' int positions; pass "
+                        "cached rope_tables by the rope= keyword")
+    if rope is None:
+        rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    return rope
+
+
 def _project_qkv(p, cfg: AttnConfig, x, rope):
     q, k, v = _project(x, p["wq"]), _project(x, p["wk"]), _project(x, p["wv"])
     if cfg.qk_norm:                      # qk-norm comes before RoPE
@@ -170,36 +180,44 @@ def _causal_mask(s: int, device) -> torch.Tensor:
     return pos[:, None] >= pos[None, :]
 
 
-def attention(p, cfg: AttnConfig, x, rope):
+def attention(p, cfg: AttnConfig, x, positions, *, rope=None):
     """Full-sequence causal self-attention (prefill without a cache).
-    ``rope`` is :func:`rope_tables` of the tokens' positions."""
-    q, k, v = _project_qkv(p, cfg, x, rope)
+    ``positions`` (B, S) int are the tokens' positions, as in the
+    reference; a caller that already holds their :func:`rope_tables` may
+    pass them as ``rope`` (every layer of a forward pass rotates by the
+    same angles)."""
+    q, k, v = _project_qkv(p, cfg, x, _rope_of(cfg, positions, rope))
     out = _gqa_attend(q, k, v, _causal_mask(x.shape[1], x.device), cfg)
     return _out_proj(out, p["wo"])
 
 
-def attention_prefill(p, cfg: AttnConfig, x, rope, *, cache_len: int):
+def attention_prefill(p, cfg: AttnConfig, x, positions, *, cache_len: int,
+                      rope=None):
     """Full-sequence attention that also returns the K/V cache
-    ``(B, cache_len, KVH, hd)`` (zero past the prompt)."""
+    ``(B, cache_len, KVH, hd)`` (zero past the prompt).  ``positions`` and
+    ``rope`` as in :func:`attention`."""
     s = x.shape[1]
     if cache_len < s:
         raise ValueError(f"cache_len={cache_len} < prompt length {s}")
-    q, k, v = _project_qkv(p, cfg, x, rope)
+    q, k, v = _project_qkv(p, cfg, x, _rope_of(cfg, positions, rope))
     out = _gqa_attend(q, k, v, _causal_mask(s, x.device), cfg)
     k_cache = F.pad(k, (0, 0, 0, 0, 0, cache_len - s))
     v_cache = F.pad(v, (0, 0, 0, 0, 0, cache_len - s))
     return _out_proj(out, p["wo"]), k_cache, v_cache
 
 
-def attention_decode(p, cfg: AttnConfig, x, cache_k, cache_v, pos: int,
-                     rope):
+def attention_decode(p, cfg: AttnConfig, x, cache_k, cache_v, pos: int, *,
+                     rope=None):
     """One-token decode step against a static KV cache.
 
     x: (B, 1, D); cache_k/v: (B, S_cache, KVH, hd); ``pos`` the absolute
-    position of the new token and ``rope`` its :func:`rope_tables`.  The
-    new K/V are written into the caches **in place** (the reference
-    returns updated copies; updating in place keeps one cache buffer).
-    Returns (out, cache_k, cache_v)."""
+    position of the new token (``rope``, optional, its
+    :func:`rope_tables`).  The new K/V are written into the caches **in
+    place** (the reference returns updated copies; updating in place keeps
+    one cache buffer).  Returns (out, cache_k, cache_v)."""
+    if rope is None:
+        rope = rope_tables(torch.full((x.shape[0], 1), pos, device=x.device),
+                           cfg.head_dim, cfg.rope_theta)
     q, k_new, v_new = _project_qkv(p, cfg, x, rope)
     cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
     cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
@@ -317,7 +335,14 @@ def sparse_linear(w: BlockCSR, x: torch.Tensor, *, plan=None, bn: int = 128,
     may be a forward ``SpmmPlan``, a ``SpmmTrainPlan`` or ``"auto"`` (the
     memoized autotuner, passed to ``maple_spmm``); the call is
     differentiable in ``w.blocks`` and ``x`` either way.  ``bn`` is the
-    kernels' N tile, passed to ``maple_spmm``."""
+    kernels' N tile, passed to ``maple_spmm``.
+
+    A ``PartitionedSpmmPlan`` (``plan_partitioned_spmm``, or
+    ``plan_spmm_vjp(..., n_shards=D)`` for training) runs the layer over
+    ``D`` shards of ``W``'s block-rows (output features), on a mesh of
+    cards where ``partition_mesh`` finds one, else one after another on
+    ``x``'s device; a plan with ``n_col_shards=C`` splits the tokens into
+    ``C`` column panels.  ``schedule="partitioned"`` plans it here."""
     d_out = w.shape[0]
     if x.dim() == 3:
         y = maple_spmm(w, x.transpose(1, 2), plan=plan, bn=bn,

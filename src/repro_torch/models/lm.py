@@ -168,8 +168,11 @@ def sparse_mlp_plan(params, *, n_lanes: int = 8, chunk=None,
     host from the first :class:`BlockCSR` in the tree (every layer shares
     its pattern), or ``None`` when the tree holds no sparse weight.
     ``autotune=True`` replaces ``n_lanes`` / ``chunk`` with a budgeted
-    ``kernels.autotune`` search over the pattern (memoized per pattern).
-    Single-device only."""
+    ``kernels.autotune`` search over the pattern (memoized per pattern);
+    ``n_shards`` then bounds the searched device axis.  Otherwise
+    ``n_shards`` / ``n_col_shards`` above 1 make both sides
+    mesh-partitioned (the backward re-partitioned on the transposed
+    pattern), as in the reference."""
     from repro_torch.kernels.autotune import auto_plan
     from repro_torch.kernels.schedule import plan_spmm_vjp
 
@@ -194,10 +197,10 @@ def sparse_mlp_plan(params, *, n_lanes: int = 8, chunk=None,
                          n_col_shards=n_col_shards)
 
 
-def _apply_block(p, cfg: ModelConfig, acfg: L.AttnConfig, x, rope,
-                 mlp_plan):
+def _apply_block(p, cfg: ModelConfig, acfg: L.AttnConfig, x, positions,
+                 rope, mlp_plan):
     h = L.apply_norm(x, p["norm1"], cfg.norm)
-    x = x + L.attention(p["attn"], acfg, h, rope)
+    x = x + L.attention(p["attn"], acfg, h, positions, rope=rope)
     h = L.apply_norm(x, p["norm2"], cfg.norm)
     return x + L.mlp(p["mlp"], h, cfg.activation, sparse_plan=mlp_plan)
 
@@ -220,8 +223,8 @@ def forward(params, cfg: ModelConfig, batch, *, remat: bool = True,
     tok = batch["tokens"]
     x = params["embed_tokens"][tok]                        # (B, S, D)
     b, s, _ = x.shape
-    rope = L.rope_tables(torch.arange(s, device=x.device).expand(b, s),
-                         cfg.head_dim, cfg.rope_theta)
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     acfg = _attn_cfg(cfg)
     layers = params["groups"]["b0"]
     if not isinstance(layers, list):
@@ -229,10 +232,10 @@ def forward(params, cfg: ModelConfig, batch, *, remat: bool = True,
                         "pass lm.unstack_layers(params)")
     for p in layers:
         if remat:
-            x = checkpoint(_apply_block, p, cfg, acfg, x, rope, mlp_plan,
-                           use_reentrant=False)
+            x = checkpoint(_apply_block, p, cfg, acfg, x, positions, rope,
+                           mlp_plan, use_reentrant=False)
         else:
-            x = _apply_block(p, cfg, acfg, x, rope, mlp_plan)
+            x = _apply_block(p, cfg, acfg, x, positions, rope, mlp_plan)
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
     return _logits(params, x)
 
@@ -290,8 +293,8 @@ def prefill(params, cfg: ModelConfig, batch, *, max_seq: Optional[int] = None,
     b, s, _ = x.shape
     if max_seq is None:
         max_seq = s
-    rope = L.rope_tables(torch.arange(s, device=x.device).expand(b, s),
-                         cfg.head_dim, cfg.rope_theta)
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     acfg = _attn_cfg(cfg)
     layers = _stacked_layers(params["groups"]["b0"])
     cache_shape = (len(layers), b, max_seq, cfg.n_kv_heads, cfg.head_dim)
@@ -300,8 +303,8 @@ def prefill(params, cfg: ModelConfig, batch, *, max_seq: Optional[int] = None,
     v_all = torch.empty(cache_shape, dtype=cache_dtype, device=x.device)
     for li, p in enumerate(layers):
         h = L.apply_norm(x, p["norm1"], cfg.norm)
-        h, kc, vc = L.attention_prefill(p["attn"], acfg, h, rope,
-                                        cache_len=max_seq)
+        h, kc, vc = L.attention_prefill(p["attn"], acfg, h, positions,
+                                        cache_len=max_seq, rope=rope)
         k_all[li] = kc
         v_all[li] = vc
         x = _ffn(p, cfg, x + h)
@@ -328,7 +331,7 @@ def decode_step(params, cfg: ModelConfig, state, tokens, *,
     for li, p in enumerate(_stacked_layers(params["groups"]["b0"])):
         h = L.apply_norm(x, p["norm1"], cfg.norm)
         h, _, _ = L.attention_decode(p["attn"], acfg, h, caches["k"][li],
-                                     caches["v"][li], pos, rope)
+                                     caches["v"][li], pos, rope=rope)
         x = _ffn(p, cfg, x + h)
     new_state = {"groups": state["groups"], "pos": pos + 1}
     x = L.apply_norm(x, params["final_norm"], cfg.norm)

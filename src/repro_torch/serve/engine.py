@@ -5,8 +5,7 @@ Randomness: sampled decoding draws from an explicit ``torch.Generator``
 on the logits' device.  It cannot reproduce the reference's
 ``jax.random`` draws; greedy decoding (temperature 0) matches it.
 
-Not ported yet: the continuous batcher and paged decode, and ``n_shards``
-/ ``n_col_shards`` above 1.
+Not ported yet: the continuous batcher and paged decode.
 """
 
 from __future__ import annotations
@@ -20,6 +19,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.csr import BlockCSR
 from repro_torch.kernels.autotune import auto_plan
+from repro_torch.kernels.partition import (PartitionedSpmmPlan,
+                                           plan_partitioned_spmm)
 from repro_torch.kernels.schedule import (SpmmPlan, SpmmTrainPlan, plan_spmm,
                                           plan_spmm_vjp)
 from repro_torch.models import lm
@@ -33,10 +34,17 @@ class SparseLogitHead:
     step; a call scores ``(B, S, D)`` hidden states in one planned kernel
     launch plus the deterministic slot merge.  ``trainable=True`` builds
     the training plan (``plan_spmm_vjp``), so a call is differentiable in
-    the weight's payload and the hidden states through the kernels."""
+    the weight's payload and the hidden states through the kernels.
+
+    ``n_shards=D`` partitions the head's block-rows (the vocabulary)
+    across ``D`` shards (``kernels.partition``): each scores its slice of
+    the vocabulary on B1 and the row-offset merge reassembles the logits,
+    on a mesh of cards where ``partition_mesh`` finds one, else one shard
+    after another on the hidden states' card.  ``n_col_shards=C`` splits
+    the hidden states' tokens into ``C`` column panels."""
 
     weight: BlockCSR         # (vocab, d_model) block-sparse
-    plan: SpmmPlan | SpmmTrainPlan
+    plan: SpmmPlan | SpmmTrainPlan | PartitionedSpmmPlan
 
     @classmethod
     def build(cls, weight: BlockCSR, *, n_lanes: int = 8,
@@ -46,7 +54,9 @@ class SparseLogitHead:
         """``plan="auto"`` replaces the hand-tuned knobs with a budgeted
         ``kernels.autotune`` search over the head's pattern (memoized:
         rebuilding a head for a seen pattern never searches again);
-        ``n_lanes`` / ``chunk`` are then ignored."""
+        ``n_shards`` then bounds the searched device axis,
+        ``n_col_shards`` pins the column split, and ``n_lanes`` /
+        ``chunk`` are ignored."""
         if plan is not None:
             if plan != "auto":
                 raise ValueError(f"unknown plan {plan!r}; only 'auto' "
@@ -55,16 +65,17 @@ class SparseLogitHead:
                        plan=auto_plan(weight, trainable=trainable,
                                       n_shards=n_shards,
                                       n_col_shards=n_col_shards))
-        if (n_shards is not None and n_shards > 1) or \
-                (n_col_shards is not None and n_col_shards > 1):
-            raise NotImplementedError("partitioned heads (n_shards / "
-                                      "n_col_shards) are not ported yet")
+        col = n_col_shards if n_col_shards is not None else 1
         if trainable:
-            return cls(weight=weight,
-                       plan=plan_spmm_vjp(weight, n_lanes=n_lanes,
-                                          chunk=chunk))
-        return cls(weight=weight,
-                   plan=plan_spmm(weight, n_lanes=n_lanes, chunk=chunk))
+            plan = plan_spmm_vjp(weight, n_lanes=n_lanes, chunk=chunk,
+                                 n_shards=n_shards, n_col_shards=n_col_shards)
+        elif (n_shards is not None and n_shards > 1) or col > 1:
+            plan = plan_partitioned_spmm(
+                weight, n_shards=n_shards if n_shards is not None else 1,
+                n_lanes=n_lanes, chunk=chunk, n_col_shards=col)
+        else:
+            plan = plan_spmm(weight, n_lanes=n_lanes, chunk=chunk)
+        return cls(weight=weight, plan=plan)
 
     @property
     def predicted_cycles(self):

@@ -23,7 +23,8 @@ from repro.kernels.schedule import plan_spmm_vjp as ref_plan_spmm_vjp
 from repro.models.layers import sparse_linear as ref_sparse_linear
 from repro.serve.engine import SparseLogitHead as RefSparseLogitHead
 from repro_torch.core.csr import BlockCSR, bsr_transpose, bsr_transpose_meta
-from repro_torch.kernels import SpmmTrainPlan, maple_spmm, plan_spmm_vjp
+from repro_torch.kernels import (PartitionedSpmmPlan, SpmmTrainPlan,
+                                 maple_spmm, plan_spmm_vjp)
 from repro_torch.kernels import schedule
 from repro_torch.models.layers import sparse_linear
 from repro_torch.serve import SparseLogitHead
@@ -101,10 +102,25 @@ def test_plan_spmm_vjp_arrays_equal_reference(kind, kw):
 
 
 def test_plan_spmm_vjp_refuses_partitioned_plans():
-    _, a, _ = _operands("uniform")
+    """Shard counts above 1 route to the partitioned train plan, as in the
+    reference; what it still refuses is a single-device ``fwd`` there."""
+    ref_a, a, _ = _operands("uniform")
     for kw in ({"n_shards": 2}, {"n_col_shards": 2}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            plan_spmm_vjp(a, **kw)
+        got, want = plan_spmm_vjp(a, **kw), ref_plan_spmm_vjp(ref_a, **kw)
+        assert isinstance(got.fwd, PartitionedSpmmPlan)
+        assert isinstance(got.bwd, PartitionedSpmmPlan)
+        for side in ("fwd", "bwd"):
+            g, w = getattr(got, side), getattr(want, side)
+            for f in ("gather", "order", "step_col", "slot_row"):
+                assert np.array_equal(getattr(g, f), np.asarray(getattr(w,
+                                                                        f)))
+            assert (g.n_shards, g.n_col_shards) == (w.n_shards,
+                                                    w.n_col_shards)
+        single = plan_spmm_vjp(a).fwd
+        with pytest.raises(ValueError, match="single-device"):
+            plan_spmm_vjp(a, fwd=single, **kw)
+        with pytest.raises(ValueError, match="single-device"):
+            ref_plan_spmm_vjp(ref_a, fwd=ref_plan_spmm_vjp(ref_a).fwd, **kw)
 
 
 def _grads_both(ref_a, a, b, cot, **kw):

@@ -35,6 +35,7 @@ from repro.serve import engine as ref_engine
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import block_csr_from_numpy, params_from_numpy
 from repro_torch.core.csr import BlockCSR
+from repro_torch.kernels import PartitionedSpmmPlan
 from repro_torch.kernels import autotune as at
 from repro_torch.kernels import maple_spmm, pattern_fingerprint, plan_spmm
 from repro_torch.kernels import spmm_knob_space
@@ -223,17 +224,34 @@ def test_measured_rung_on_cpu_returns_a_finalist():
 
 
 def test_partitioned_search_is_not_ported():
-    _, a = _both("uniform")
-    b = torch.zeros((GK * BK, 4))
-    for call in (lambda: at.plan_search(a, shard_counts=(1, 2)),
-                 lambda: at.plan_search(a, col_shard_counts=(2,)),
-                 lambda: at.auto_plan(a, n_shards=2),
-                 lambda: spmm_knob_space(a, shard_counts=(2,)),
-                 lambda: maple_spmm(a, b, plan="auto", n_shards=2),
-                 lambda: SparseLogitHead.build(a, plan="auto",
-                                               n_col_shards=2)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            call()
+    """The shard axis is ported: each call that used to refuse returns
+    what the reference's does (the searched config, the knob space), a
+    partitioned winner is a partitioned plan, and the argument checks
+    below still raise."""
+    ref_a, a = _both("uniform")
+    for kw in (dict(shard_counts=(1, 2)), dict(col_shard_counts=(2,)),
+               dict(shard_counts=(2,), col_shard_counts=(2,))):
+        plan, rep = at.plan_search(a, budget=16, full=True, use_cache=False,
+                                   **kw)
+        _, want = ref_at.plan_search(ref_a, budget=16, full=True,
+                                     use_cache=False, **kw)
+        assert rep.best_config == want.best_config
+        assert (rep.n_candidates, rep.best_score, rep.default_score) == (
+            want.n_candidates, want.best_score, want.default_score)
+        assert isinstance(plan, PartitionedSpmmPlan) == (
+            rep.best_config["n_shards"] > 1)
+    assert spmm_knob_space(a, shard_counts=(2,)) == ref_knob_space(
+        ref_a, shard_counts=(2,))
+    at.plan_cache_clear()
+    assert at.auto_plan(a, n_shards=2) is at.auto_plan(a, n_shards=2)
+    b = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (GK * BK, 4)).astype(np.float32))
+    want = maple_spmm(a, b)
+    torch.testing.assert_close(maple_spmm(a, b, plan="auto", n_shards=2),
+                               want, rtol=1e-5, atol=1e-5)
+    head = SparseLogitHead.build(a, plan="auto", n_col_shards=2)
+    torch.testing.assert_close(head(b.t()[None]), want.t()[None],
+                               rtol=1e-5, atol=1e-5)
     for kw, match in ((dict(budget=0), "budget"),
                       (dict(objective="x"), "objective"),
                       (dict(reorder="always"), "reorder")):

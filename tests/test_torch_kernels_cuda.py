@@ -478,6 +478,116 @@ def test_maple_spmm_backward_on_the_card_matches_the_cpu(cuda):
         _close(got, want, torch.float32)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,shards,cols,device_chunk", [
+    ("uniform", 3, 1, None), ("power_law", 4, 2, None),
+    ("banded", 2, 1, None), ("power_law", 4, 1, 2),
+    ("empty_rows", 8, 1, None)])
+def test_partitioned_maple_spmm_on_the_card_matches_plain(
+        cuda, dtype, kind, shards, cols, device_chunk):
+    """Partitioned forward, dA and dB (B1 and B2 per shard, the
+    row-offset merge) on the card against the same plan on the CPU (the
+    plain versions) over the golden patterns; ``empty_rows`` at 8 shards
+    leaves shards that own no row, ``device_chunk=2`` splits rows over
+    shards.  One shard equals the single-device compact layout bit for
+    bit."""
+    from repro_torch.core.sparsity import block_pattern_mask
+    from repro_torch.kernels import (maple_sddmm_bsr,
+                                     plan_partitioned_spmm_vjp,
+                                     plan_spmm_vjp)
+    rng = np.random.default_rng(7)
+    gm, gk = 9, 8
+    if kind == "empty_rows":
+        mask = rng.random((gm, gk)) < 0.5
+        mask[::2] = False
+    else:
+        mask = block_pattern_mask(kind, rng, gm, gk)
+    d = rng.standard_normal((gm * 8, gk * 8)).astype(np.float32)
+    d *= np.repeat(np.repeat(mask, 8, 0), 8, 1)
+    a = BlockCSR.from_dense(d, (8, 8), n_blocks_max=int(mask.sum()) + 3,
+                            device="cpu")
+    plan = plan_partitioned_spmm_vjp(a, n_shards=shards, n_col_shards=cols,
+                                     n_lanes=3, device_chunk=device_chunk)
+    if kind == "empty_rows":
+        assert any(not s.written.any() for s in plan.fwd.shards)
+    if device_chunk:
+        assert plan.fwd.split_rows
+    b = rng.standard_normal((2, a.shape[1], 21)).astype(np.float32)
+    cot = rng.standard_normal((2, a.shape[0], 21)).astype(np.float32)
+
+    def run(dev, train):
+        blocks = a.blocks.to(dev, dtype).clone().requires_grad_()
+        bt = torch.from_numpy(b).to(dev, dtype).requires_grad_()
+        w = dataclasses.replace(a, blocks=blocks, device_meta={})
+        out = maple_spmm(w, bt, bn=16, plan=train)
+        (out.float() * torch.from_numpy(cot).to(dev)).sum().backward()
+        return [t.detach().float().cpu() for t in (out, blocks.grad,
+                                                   bt.grad)]
+
+    before = (maple_spmm_compact.launches, maple_sddmm_bsr.launches)
+    got = run(cuda, plan)
+    torch.cuda.synchronize()
+    # B1 per shard that owns a run and per panel, forward and dB; B2 per
+    # shard and panel
+    runs = sum(p.runs.shape[0] > 0 for side in (plan.fwd, plan.bwd)
+               for p in side.shards)
+    assert maple_spmm_compact.launches - before[0] == cols * runs
+    assert maple_sddmm_bsr.launches - before[1] == shards * cols
+    want = run("cpu", plan)
+    for g, w in zip(got, want):
+        _close(g, w, dtype)
+    assert torch.equal(run(cuda, plan)[0], got[0])        # rerun: same bits
+    if dtype == torch.float32:
+        one = plan_partitioned_spmm_vjp(a, n_shards=1, n_lanes=3)
+        single = plan_spmm_vjp(a, n_lanes=3, fused="compact")
+        for g, w in zip(run(cuda, one), run(cuda, single)):
+            assert torch.equal(g, w)
+
+
+def test_partitioned_mesh_on_the_card(cuda):
+    """A bound mesh of ``"cuda"`` entries (another device name than the
+    payload's ``cuda:0``) sends every shard down the mesh branch on the
+    one card: each shard's own blocks, kept once per payload version; the
+    same bits as the stacked loop, forward, dA and dB.  A mesh of CPU
+    devices around card tensors raises."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import plan_partitioned_spmm_vjp
+    rng = np.random.default_rng(11)
+    mask = rng.random((9, 8)) < 0.4
+    d = rng.standard_normal((72, 64)).astype(np.float32)
+    d *= np.repeat(np.repeat(mask, 8, 0), 8, 1)
+    a = BlockCSR.from_dense(d, (8, 8), n_blocks_max=int(mask.sum()) + 3,
+                            device=cuda)
+    plan = plan_partitioned_spmm_vjp(a, n_shards=2, n_col_shards=2,
+                                     n_lanes=3)
+    blocks = a.blocks.clone().requires_grad_()
+    w = dataclasses.replace(a, blocks=blocks, device_meta={})
+    bt = torch.from_numpy(rng.standard_normal((2, 64, 21)).astype(
+        np.float32)).to(cuda).requires_grad_()
+    cot = torch.from_numpy(rng.standard_normal((2, 72, 21)).astype(
+        np.float32)).to(cuda)
+
+    def grads():
+        blocks.grad = bt.grad = None
+        out = maple_spmm(w, bt, bn=16, plan=plan)
+        (out * cot).sum().backward()
+        return [out.detach(), blocks.grad, bt.grad]
+
+    with sh.use_mesh(sh.Mesh([["cuda"] * 2] * 2,
+                             (sh.PARTITION_AXIS, sh.COL_AXIS))):
+        on_mesh = grads()
+        kept = plan.fwd.on_device(torch.device("cuda"))["shards"][0]
+        assert kept["payload"][blocks][0] == blocks._version
+        with sh.local_partition_execution():
+            loop = grads()
+    for g, want in zip(on_mesh, loop):
+        assert torch.equal(g, want)
+    with sh.use_mesh(sh.Mesh(["cpu"] * 2, (sh.PARTITION_AXIS,))), \
+            pytest.raises(ValueError, match="devices of the operands' type"):
+        maple_spmm(w, bt, bn=16, plan=plan_partitioned_spmm_vjp(
+            a, n_shards=2, n_lanes=3))
+
+
 # --------------------------------------------------------------------------
 # the SpGEMM kernels (B5, B6, dB) and the element walk (B7)
 # --------------------------------------------------------------------------

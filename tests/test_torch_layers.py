@@ -76,23 +76,58 @@ def test_attention_prefill_and_decode_match_reference():
     pj, pt = _to(p, jnp.asarray), _to(p, torch.from_numpy)
     x = _rand(20, 2, s, d)
     pos = np.broadcast_to(np.arange(s), (2, s))
-    rope = L.rope_tables(torch.from_numpy(pos.copy()), hd, 1e6)
+    pos_t = torch.from_numpy(pos.copy())
+    rope = L.rope_tables(pos_t, hd, 1e6)
     want = RL.attention(pj, ref_cfg, jnp.asarray(x), jnp.asarray(pos))
-    got = L.attention(pt, cfg, torch.from_numpy(x), rope)
+    got = L.attention(pt, cfg, torch.from_numpy(x), pos_t, rope=rope)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     want, wk, wv = RL.attention_prefill(pj, ref_cfg, jnp.asarray(x),
                                         jnp.asarray(pos), cache_len=s + 2)
-    got, gk, gv = L.attention_prefill(pt, cfg, torch.from_numpy(x), rope,
-                                      cache_len=s + 2)
+    got, gk, gv = L.attention_prefill(pt, cfg, torch.from_numpy(x), pos_t,
+                                      cache_len=s + 2, rope=rope)
     for g, w in ((got, want), (gk, wk), (gv, wv)):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
     xt = _rand(21, 2, 1, d)
     want, _, _ = RL.attention_decode(pj, ref_cfg, jnp.asarray(xt), wk, wv, s)
     rope1 = L.rope_tables(torch.full((2, 1), s), hd, 1e6)
     got, gk2, _ = L.attention_decode(pt, cfg, torch.from_numpy(xt), gk, gv,
-                                     s, rope1)
+                                     s, rope=rope1)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     assert gk2 is gk and bool(gk[:, s].abs().sum() > 0)   # updated in place
+
+
+@pytest.mark.parametrize("batch", [1, 2, 3])
+def test_attention_takes_positions_like_the_reference(batch):
+    """Both packages called the same positional way, positions in the
+    reference's slot: the port computes RoPE from them (a (B, S) int
+    tensor must never be read as a (cos, sin) pair), and refuses a tuple
+    there."""
+    d, h, kvh, hd, s = 64, 4, 2, 16, 8
+    ref_cfg = RL.AttnConfig(d_model=d, n_heads=h, n_kv_heads=kvh,
+                            head_dim=hd)
+    cfg = L.AttnConfig(d_model=d, n_heads=h, n_kv_heads=kvh, head_dim=hd)
+    p = _attn_params(30 + batch, d, h, kvh, hd)
+    del p["q_norm"], p["k_norm"]
+    pj, pt = _to(p, jnp.asarray), _to(p, torch.from_numpy)
+    x = _rand(40 + batch, batch, s, d)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (batch, s)).copy()
+    tol = dict(rtol=1e-4, atol=1e-4)
+    want = RL.attention(pj, ref_cfg, jnp.asarray(x), jnp.asarray(pos))
+    got = L.attention(pt, cfg, torch.from_numpy(x), torch.from_numpy(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+    want, wk, wv = RL.attention_prefill(pj, ref_cfg, jnp.asarray(x),
+                                        jnp.asarray(pos), cache_len=s + 1)
+    got, gk, gv = L.attention_prefill(pt, cfg, torch.from_numpy(x),
+                                      torch.from_numpy(pos), cache_len=s + 1)
+    for g, w in ((got, want), (gk, wk), (gv, wv)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **tol)
+    xt = _rand(50 + batch, batch, 1, d)
+    want, _, _ = RL.attention_decode(pj, ref_cfg, jnp.asarray(xt), wk, wv, s)
+    got, _, _ = L.attention_decode(pt, cfg, torch.from_numpy(xt), gk, gv, s)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+    rope = L.rope_tables(torch.from_numpy(pos), hd, cfg.rope_theta)
+    with pytest.raises(TypeError, match="rope="):
+        L.attention(pt, cfg, torch.from_numpy(x), rope)
 
 
 @pytest.mark.parametrize("sparse", [False, True])

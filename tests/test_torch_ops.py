@@ -157,11 +157,17 @@ def test_plan_for_another_weight_raises_like_the_reference():
 def test_unported_features_and_gradients_raise():
     _, a, _ = _operands("uniform")
     b = torch.zeros((40, 8))
+    # the partitioned schedule is ported: each of these runs and equals
+    # the single-device walk within f32 rounding
+    rhs = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (40, 8)).astype(np.float32))
+    want = maple_spmm(a, rhs)
     for kw in (dict(schedule="partitioned"), dict(plan="auto", n_shards=2),
                dict(plan="auto", reorder=True, n_col_shards=2),
-               dict(schedule="partitioned", n_shards=2)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            maple_spmm(a, b, **kw)
+               dict(schedule="partitioned", n_shards=2),
+               dict(schedule="partitioned", n_shards=2, n_col_shards=2)):
+        torch.testing.assert_close(maple_spmm(a, rhs, **kw), want,
+                                   rtol=1e-5, atol=1e-5)
     # gradients are ported: both operands get one (held against jax.grad
     # in test_torch_autodiff.py)
     b_grad = b.clone().requires_grad_()

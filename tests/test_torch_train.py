@@ -337,8 +337,11 @@ def test_train_refuses_what_is_not_ported(smoke):
     with pytest.raises(NotImplementedError, match="not ported"):
         lm.forward(params, dataclasses.replace(cfg, scan_remat_chunk=2),
                    batch)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        lm.sparse_mlp_plan(params, autotune=True, n_shards=2)
+    # the partitioned (and autotuned partitioned) MLP plan is ported
+    searched = lm.sparse_mlp_plan(params, autotune=True, n_shards=2)
+    assert searched.fwd.n_block_rows == \
+        lm.sparse_mlp_plan(params).fwd.n_block_rows
+    assert lm.sparse_mlp_plan(params, n_shards=2).fwd.n_shards == 2
     with pytest.raises(NotImplementedError, match="not ported"):
         make_train_step(dataclasses.replace(cfg, grad_accum_dtype="bfloat16"),
                         OptimizerConfig())
