@@ -147,6 +147,32 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
     granite's four expert-product shapes (gate/up and down, prefill and
     decode) against its plain version, f32 and bf16, timed beside its
     bound, plain version and ``torch.bmm``.
+12a. batcher — the continuous batcher (``serve/batcher.py``) over paged
+    decode, f32, weights from seed 0, full width and depth.  Run A:
+    qwen3-4b with the sparse MLP and head, 16 greedy requests (Poisson
+    0.5 a round on the step clock, prompts 16 to 128, 8 to 32 new
+    tokens; the serve bench's workload and pool sizing,
+    ``serve.workload``), 8 slots, pages of 16, ``max_seq`` 160: every request ends by length,
+    peak pages under the static equivalent, no page left, the head's plan
+    unchanged (the planners raise during the run), launches exactly B3
+    36 × (fused steps + admissions) and B4 fused steps + admissions, each
+    request's tokens against ``complete_static`` through the same head
+    under the margin rule; then fused steps at full occupancy (8 rounds'
+    wall, the host syncs of one and where they happen, one profiled).
+    Run B: the bench's chaos (schedule seed 7, malformed prompts,
+    deadlines, the pool at 0.6 of the worst case), 12 requests: statuses
+    in ``STATUSES``, the chaos bites, every ok completion against an
+    uninterrupted ``complete_static``.  Run D: run A's first 4 requests
+    sampled (temperature 0.8, top-k 50, seed 0): every B3 and B4 launch
+    of the first run held against its plain version on its inputs (B3 at
+    G 8, N 1 and G 1, N = each prompt; B4 at N 8 and N 1), two runs
+    equal, request 0 alone bit-equal logits at every draw and the same
+    tokens.  Run E: round 2's fused step fails past the retry budget with
+    two requests live: both finish on the static path (a fallback drain),
+    greedy tokens against ``complete_static`` under the margin rule,
+    sampled tokens equal to an uninterrupted run's.  Run C:
+    granite-moe-3b, 6 greedy requests, 4 slots: B8 launches exactly
+    3 × 32 × (fused steps + admissions), every request ends by length.
 13. block_attn_kernels — block-sparse local attention (B9) against its
     plain version, f32 and bf16 (bf16 also row by row, ``check_rows``),
     over the reference sweep's shapes, one with bq != bk and one at hd
@@ -1315,6 +1341,31 @@ def device_ms(fn, calls: int = 10) -> float:
     return start.elapsed_time(end) / calls
 
 
+def greedy_steps(r, want, got, rows, vocab, what):
+    """Request ``r``'s greedy tokens ``got`` against ``want``, whose
+    step-t logits are ``rows[t]``, step by step: a differing token fails
+    unless that step's top-2 margin is within the f32 tolerance
+    (1e-5·max|row| + 1e-6; the two paths sum in different orders), and
+    from it on the two may diverge.  Returns the steps compared."""
+    steps = []
+    for t in range(len(want)):
+        row = rows[t][:vocab]
+        top2 = torch.topk(row, 2).values
+        margin = float(top2[0] - top2[1])
+        limit = 1e-5 * float(row.abs().max()) + 1e-6
+        same = t < len(got) and want[t] == got[t]
+        steps.append({"request": r, "step": t, "margin": margin,
+                      "equal": same})
+        if not same:
+            if margin > limit:
+                raise AssertionError(
+                    f"request {r} step {t}: {what} chose "
+                    f"{got[t] if t < len(got) else None}, the reference "
+                    f"path {want[t]}, top-2 margin {margin} > {limit}")
+            break                         # the requests diverge from here
+    return steps
+
+
 class RecordingHead:
     """A logit head that keeps each call's last-position logits (f32, on
     the card) beside what it returns."""
@@ -1557,21 +1608,8 @@ def partitioned(spec, flush, card):
                              f"launched {served}, expected {expect}")
     steps = []
     for r, (w_t, g_t) in enumerate(zip(want_tok, got_tok)):
-        for t in range(new):
-            row = base.rows[r * new + t][:cfg.vocab_size]
-            top2 = torch.topk(row, 2).values
-            margin = float(top2[0] - top2[1])
-            limit = 1e-5 * float(row.abs().max()) + 1e-6
-            same = w_t[t] == g_t[t]
-            steps.append({"request": r, "step": t, "margin": margin,
-                          "equal": same})
-            if not same:
-                if margin > limit:
-                    raise AssertionError(
-                        f"request {r} step {t}: the partitioned head chose "
-                        f"{g_t[t]}, the default {w_t[t]}, top-2 margin "
-                        f"{margin} > {limit}")
-                break                     # the requests diverge from here
+        steps += greedy_steps(r, w_t, g_t, base.rows[r * new:(r + 1) * new],
+                              cfg.vocab_size, "the partitioned head")
     del params
     torch.cuda.empty_cache()
     n_dev = torch.cuda.device_count()
@@ -2428,6 +2466,490 @@ def moe_rows(spec, flush):
 
 
 # --------------------------------------------------------------------------
+# phase 12a: the continuous batcher over paged decode
+# --------------------------------------------------------------------------
+
+# the serve bench's Poisson workload (benchmarks/serve_bench.py:71-102,
+# ``serve.workload``) at full-size prompt and new-token ranges; the engine
+# geometry of each run
+BATCH_A = dict(n_req=16, rate=0.5, prompt=(16, 128), new=(8, 32))
+BATCH_B = dict(n_req=12, rate=0.5, prompt=(16, 64), new=(4, 16))
+BATCH_C = dict(n_req=6, rate=0.5, prompt=(16, 64), new=(8, 8))
+BATCH_GEOMETRY = dict(max_slots=8, page_size=16, max_seq=160)
+SAMPLED = dict(temperature=0.8, top_k=50)
+# run E: requests 0 and 1 are live when round DRAIN_ROUND's fused step
+# fails once more than the retry budget allows (both finish on the static
+# path); request 2 arrives after it and is served by fused steps
+FALLBACK = dict(prompt=(24, 40, 16), new=(12, 8, 6), arrival=(0.0, 0.0, 4.0))
+DRAIN_ROUND = 2
+
+
+def drive(eng):
+    """Drive ``eng`` to the end with ``ContinuousBatcher.run`` on the step
+    clock, reading the wall clock and the engine's counters as each round
+    starts (where ``run`` reads its clock).  Returns the wall s and, for
+    each round, (wall s, fused steps, admissions).  A round that does
+    device work ends in its draw's read, so its wall holds that work."""
+    marks = []
+
+    def clock():
+        marks.append((time.perf_counter(), eng.steps, eng.admitted))
+        return float(len(marks) - 1)
+
+    eng.run(max_steps=10_000, clock=clock)
+    rounds = [(b[0] - a[0], b[1] - a[1], b[2] - a[2])
+              for a, b in zip(marks, marks[1:])]
+    return marks[-1][0] - marks[0][0], rounds
+
+
+def round_times(rounds):
+    """From ``drive``'s rounds: the walls (s) of the rounds that ran one
+    fused step and admitted nothing, after the first two of them, and the
+    prefill s an admission of each admitting round after the first (whose
+    fused step is the engine's first, cold): its wall less its fused step
+    at that median, over its admissions."""
+    fused = [w for w, s, a in rounds if s == 1 and a == 0][2:]
+    step = statistics.median(fused)
+    admit = [(w - s * step) / a for w, s, a in rounds if a][1:]
+    return fused, admit
+
+
+def recording_batcher():
+    """A ``ContinuousBatcher`` that keeps on the host each request's
+    logits row of every draw (prefill and fused step), keyed by the seed
+    of the request's generator (``batcher.request_generator``)."""
+    from repro_torch.serve import ContinuousBatcher
+
+    class RecordingBatcher(ContinuousBatcher):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.rows = {}
+
+        def _draw(self, rows, generators):
+            host = rows.float().cpu()
+            for j, g in enumerate(generators):
+                if g is not None:
+                    self.rows.setdefault(g.initial_seed(), []).append(
+                        host[j])
+            return super()._draw(rows, generators)
+
+    return RecordingBatcher
+
+
+@contextlib.contextmanager
+def held_against_plain(errors):
+    """Inside the block every B3 and B4 launch of the model path is held
+    against the kernel's plain version on the same inputs (``check_close``
+    at the f32 tolerance); ``errors`` maps each (kernel, G, K, N) seen to
+    its largest error.  No launch is added: the kernel's own output goes
+    on down the path."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.maple_spmm import (maple_spmm_naive,
+                                                maple_spmm_naive_plain,
+                                                maple_spmm_planned,
+                                                maple_spmm_planned_plain)
+
+    def held(kernel, plain):
+        def call(*args, **kw):
+            out = kernel(*args, **kw)
+            b3 = args[-1]
+            key = (kernel.__name__, *b3.shape)
+            err = check_close(out, plain(*args), b3.dtype,
+                              f"{kernel.__name__} at (G, K, N) = "
+                              f"{tuple(b3.shape)} in the batcher")
+            errors[key] = max(errors.get(key, 0.0), err)
+            return out
+        return call
+
+    saved = ops.maple_spmm_naive, ops.maple_spmm_planned
+    ops.maple_spmm_naive = held(maple_spmm_naive, maple_spmm_naive_plain)
+    ops.maple_spmm_planned = held(maple_spmm_planned,
+                                  maple_spmm_planned_plain)
+    try:
+        yield
+    finally:
+        ops.maple_spmm_naive, ops.maple_spmm_planned = saved
+
+
+@contextlib.contextmanager
+def no_replan():
+    """Every planner the port has raises inside the block."""
+    from repro_torch.kernels import autotune, partition, schedule
+    from repro_torch.serve import engine as engine_mod
+
+    def boom(*a, **kw):
+        raise AssertionError("the engine replanned the head")
+
+    saved = []
+    for mod, names in ((schedule, ("plan_spmm", "plan_spmm_vjp")),
+                       (autotune, ("plan_search", "auto_plan")),
+                       (partition, ("plan_partitioned_spmm",)),
+                       (engine_mod, ("plan_spmm", "plan_spmm_vjp",
+                                     "auto_plan", "plan_partitioned_spmm"))):
+        for name in names:
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, boom)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def static_check(params, cfg, head, comps, reqs, what):
+    """Each completion's greedy tokens against ``complete_static`` of the
+    same prompt through the same head, under the margin rule
+    (``greedy_steps``).  Returns (steps compared, mismatches, smallest
+    margin)."""
+    from repro_torch.serve import SamplingConfig, complete_static
+    by_rid = {r.rid: r for r in reqs}
+    steps = []
+    for c in comps:
+        req = by_rid[c.rid]
+        rec = RecordingHead(head)
+        want, reason, _ = complete_static(
+            params, cfg, req.tokens, req.max_new_tokens,
+            sampling=SamplingConfig(), head=rec)
+        if reason != "length":
+            raise AssertionError(f"{what}: complete_static of request "
+                                 f"{c.rid} ended by {reason!r}")
+        steps += greedy_steps(c.rid, want, c.tokens, rec.rows,
+                              cfg.vocab_size, what)
+    return {"steps_compared": len(steps),
+            "mismatches": [s for s in steps if not s["equal"]],
+            "min_margin": min(s["margin"] for s in steps)}
+
+
+def full_step_profile(params, cfg, head, bcfg_kw):
+    """Fused steps at full occupancy: ``max_slots`` requests of 128
+    prompt tokens admitted at round 0, then the wall of 8 rounds with no
+    admission, the host syncs of one more round (CUDA's sync debug mode: how many, and the innermost repo
+    frames of each), and one round under ``profile``."""
+    import traceback
+    import warnings
+    from repro_torch.serve import (BatcherConfig, ContinuousBatcher, Request,
+                                   RequestQueue)
+    from repro_torch.serve.workload import worst_pool
+    n = bcfg_kw["max_slots"]
+    rng = np.random.default_rng(SEED + 1)
+    reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, 128)
+                    .astype(np.int32), max_new_tokens=32, rid=i)
+            for i in range(n)]
+    queue = RequestQueue()
+    queue.submit_all(reqs)
+    bcfg = BatcherConfig(n_pages=worst_pool(reqs, n, bcfg_kw["page_size"]),
+                         **bcfg_kw)
+    eng = ContinuousBatcher(params, cfg, queue, bcfg, head=head)
+    eng.step(0.0)
+    if eng.live() != n:
+        raise AssertionError(f"{eng.live()} of {n} slots live")
+    walls = []
+    for t in range(1, 9):
+        t0 = time.perf_counter()
+        eng.step(float(t))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    syncs, stepping = [], []
+
+    def on_warning(message, *a, **kw):   # the repo's frames of each sync
+        if stepping and "synchroniz" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if f.filename.startswith(str(ROOT / "src"))]
+            syncs.append(" < ".join(f"{Path(f.filename).name}:{f.lineno}"
+                                    for f in frames[::-1][:3]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        try:                  # only the step's syncs: not the mode's own
+            stepping.append(True)
+            eng.step(9.0)
+            stepping.clear()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    prof = profile(lambda: eng.step(10.0), totals=("run_kernel",))
+    if eng.live() != n or eng.steps != 12:
+        raise AssertionError("the full-occupancy rounds admitted or retired")
+    return {"slots": n, "wall_ms_median": statistics.median(walls),
+            "wall_ms": walls,
+            "host_syncs_per_step": len(syncs), "host_syncs_at": syncs,
+            "profile": prof}
+
+
+def batcher(card):
+    """The continuous batcher (``serve/batcher.py``) on qwen3-4b with the
+    sparse MLP and head (runs A, B, D, E) and on granite-moe-3b (run C),
+    f32, weights from seed 0, at full width and depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.models import lm
+    from repro_torch.models.layers import init_sparse_linear
+    from repro_torch.serve import (STATUSES, BatcherConfig, ContinuousBatcher,
+                                   FaultSchedule, Request, RequestQueue,
+                                   SamplingConfig, SparseLogitHead,
+                                   apply_malformed)
+    from repro_torch.serve.batcher import request_generator
+    from repro_torch.serve.paged_cache import pages_for
+    from repro_torch.serve.workload import poisson_requests, worst_pool
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), sparse_mlp=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = lm.init_params(cfg, gen, device="cuda")
+    head = SparseLogitHead.build(init_sparse_linear(
+        gen, cfg.d_model, cfg.vocab_padded, block_shape=(64, 64),
+        block_density=0.5))
+    plan0 = head.plan
+    torch.cuda.synchronize()
+
+    def engine(reqs, bcfg, cls=ContinuousBatcher, **kw):
+        queue = RequestQueue()
+        if queue.submit_all(reqs) != len(reqs):
+            raise AssertionError("the queue rejected a request")
+        return cls(params, cfg, queue, bcfg, head=head, **kw)
+
+    # ---- run A: the slice's main path, greedy, counted ------------------
+    reqs = poisson_requests(cfg.vocab_size, SEED, **BATCH_A)
+    bcfg_a = BatcherConfig(n_pages=worst_pool(
+        reqs, BATCH_GEOMETRY["max_slots"], BATCH_GEOMETRY["page_size"]),
+        **BATCH_GEOMETRY)
+    eng = engine(reqs, bcfg_a)
+    torch.cuda.reset_peak_memory_stats()
+    zero_spmm_counters()
+    with no_replan():
+        wall_s, rounds = drive(eng)
+    torch.cuda.synchronize()
+    launches = spmm_counters()
+    passes = eng.steps + eng.admitted      # forward passes, no fallback
+    expect = {"maple_spmm_naive": cfg.n_layers * passes,
+              "maple_spmm_compact": 0, "maple_spmm_planned": 0}
+    expect[PLANNED[head.plan.fused]] += passes
+    comps = eng.completions
+    mem = eng.memory_stats()
+    if launches != expect:
+        raise AssertionError(f"run A launched {launches}, expected {expect} "
+                             f"({eng.steps} fused steps, {eng.admitted} "
+                             f"admissions)")
+    if head.plan is not plan0:
+        raise AssertionError("the head's plan changed during the run")
+    if len(comps) != len(reqs) or any(c.status != "length" for c in comps):
+        raise AssertionError(f"run A statuses {[c.status for c in comps]}")
+    if eng.fallbacks or not 0 < mem["peak_pages"] < \
+            mem["static_equiv_pages"] or eng.allocator.in_use:
+        raise AssertionError(f"run A pages {mem}, in use "
+                             f"{eng.allocator.in_use}")
+    fused, admit = round_times(rounds)
+    tokens = sum(len(c.tokens) for c in comps)
+    run_a = {
+        "requests": len(reqs), "geometry": BATCH_GEOMETRY, "workload":
+        BATCH_A, "n_pages": bcfg_a.n_pages, "rounds": eng.rounds,
+        "fused_steps": eng.steps, "admissions": eng.admitted,
+        "mean_occupancy": eng.occupancy_sum / eng.steps, "tokens": tokens,
+        "wall_s": wall_s, "tok_per_s": tokens / wall_s,
+        "fused_step_wall_ms_median": statistics.median(fused) * 1e3,
+        "fused_step_wall_ms_p90": float(np.percentile(fused, 90)) * 1e3,
+        "prefill_ms_per_admission": statistics.mean(admit) * 1e3,
+        "prefill_ms_by_round": [x * 1e3 for x in admit],
+        "peak_pages": mem["peak_pages"],
+        "static_equiv_pages": mem["static_equiv_pages"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches, "launches_expected": expect,
+        "head_plan_unchanged": True}
+    run_a["vs_complete_static"] = static_check(params, cfg, head, comps, reqs,
+                                               "run A")
+    run_a["full_occupancy"] = full_step_profile(params, cfg, head,
+                                                BATCH_GEOMETRY)
+    del eng
+
+    # ---- run B: chaos ----------------------------------------------------
+    reqs = poisson_requests(cfg.vocab_size, 7, **BATCH_B)
+    faults = FaultSchedule.sample(
+        7, 64, p_transient=0.1, max_burst=3, p_poison=0.08, max_slot=8,
+        p_deny=0.08, n_requests=len(reqs), p_malformed=0.15)
+    apply_malformed(reqs, faults, cfg.vocab_size, seed=7)
+    for i, r in enumerate(reqs):
+        if i % 3 == 1:
+            r.deadline = r.arrival + 12.0
+    page = BATCH_GEOMETRY["page_size"]
+    biggest = max(pages_for(r.prompt_len + r.max_new_tokens, page)
+                  for r in reqs)
+    n_pages = max(biggest + 3, int(0.6 * worst_pool(reqs, 8, page)))
+    max_seq = pages_for(max(r.prompt_len + r.max_new_tokens for r in reqs),
+                        page) * page
+    bcfg_b = BatcherConfig(max_slots=8, page_size=page, n_pages=n_pages,
+                           max_seq=max_seq)
+    eng = engine(reqs, bcfg_b, faults=faults)
+    zero_spmm_counters()
+    wall_s, _ = drive(eng)
+    chaos_launches = spmm_counters()
+    comps = eng.completions
+    fs = eng.fault_stats()
+    if len(comps) != len(reqs) or any(c.status not in STATUSES
+                                      for c in comps):
+        raise AssertionError(f"run B completions {comps}")
+    if not (fs["quarantined"] + fs["retries"] + fs["preemptions"]
+            + fs["sheds"] + fs["errors"]):
+        raise AssertionError(f"the chaos did not bite: {fs}")
+    if eng.allocator.in_use:
+        raise AssertionError(f"run B left {eng.allocator.in_use} pages")
+    run_b = {"requests": len(reqs), "n_pages": n_pages, "max_seq": max_seq,
+             "rounds": eng.rounds, "fused_steps": eng.steps,
+             "admissions": eng.admitted, "wall_s": wall_s,
+             "fault_stats": fs,
+             "statuses": {s: sum(c.status == s for c in comps)
+                          for s in STATUSES},
+             "launches": chaos_launches,
+             "vs_complete_static": static_check(
+                 params, cfg, head, [c for c in comps if c.ok], reqs,
+                 "run B")}
+    del eng
+
+    # ---- run D: sampled, per-request generators; B3 and B4 held against
+    # their plain versions at the engine's shapes ---------------------------
+    sampling = SamplingConfig(**SAMPLED)
+    Recording = recording_batcher()
+    held = {}
+
+    def sampled_run(reqs, check=False):
+        eng = engine(reqs, bcfg_a, cls=Recording, sampling=sampling,
+                     seed=SEED)
+        zero_spmm_counters()
+        with (held_against_plain(held) if check
+              else contextlib.nullcontext()):
+            drive(eng)
+        eng.launches = spmm_counters()
+        return eng
+
+    first4 = lambda: poisson_requests(cfg.vocab_size, SEED,  # noqa: E731
+                                      **BATCH_A)[:4]
+    runs = [sampled_run(first4(), check=True), sampled_run(first4())]
+    slots, d_ff = BATCH_GEOMETRY["max_slots"], cfg.d_ff
+    shapes = {("maple_spmm_naive", slots, d_ff, 1),
+              ("maple_spmm_planned", 1, cfg.d_model, slots),
+              ("maple_spmm_planned", 1, cfg.d_model, 1),
+              *(("maple_spmm_naive", 1, d_ff, r.prompt_len)
+                for r in first4())}
+    if not shapes <= set(held):
+        raise AssertionError(f"run D held {sorted(held)}, not every shape "
+                             f"of {sorted(shapes)}")
+    if [dataclasses.asdict(c) for c in runs[0].completions] != \
+            [dataclasses.asdict(c) for c in runs[1].completions]:
+        raise AssertionError("two sampled runs differ")
+    alone = sampled_run(first4()[:1])
+    key0 = request_generator(SEED, 0, "cuda").initial_seed()
+    rows_b, rows_a = runs[0].rows[key0], alone.rows[key0]
+    if len(rows_a) != len(rows_b) or not all(
+            torch.equal(a, b) for a, b in zip(rows_a, rows_b)):
+        raise AssertionError("request 0's logits alone differ from its "
+                             "logits in the batch")
+    tok_b = {c.rid: c.tokens for c in runs[0].completions}
+    if alone.completions[0].tokens != tok_b[0]:
+        raise AssertionError("request 0 samples other tokens alone")
+    run_d = {"requests": 4, "sampling": SAMPLED, "seed": SEED,
+             "launches": [e.launches for e in runs + [alone]],
+             "runs_equal": True, "logit_rows_bit_equal_alone": len(rows_a),
+             "tokens_equal_alone": True,
+             "held_against_plain": {" ".join(map(str, k)): v
+                                    for k, v in sorted(held.items())},
+             "distinct_tokens": len({t for c in runs[0].completions
+                                     for t in c.tokens})}
+    del runs, alone
+
+    # ---- run E: retry exhaustion drains the live slots on the static path
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in FALLBACK["prompt"]]
+
+    def drain_reqs():
+        return [Request(tokens=p, max_new_tokens=m, arrival=a, rid=i)
+                for i, (p, m, a) in enumerate(zip(
+                    prompts, FALLBACK["new"], FALLBACK["arrival"]))]
+
+    drain = FaultSchedule(transient={DRAIN_ROUND: bcfg_a.max_retries + 1})
+
+    def drained(eng, what):
+        drive(eng)
+        done = {c.rid: c for c in eng.completions}
+        if (eng.fallbacks, eng.retries) != (1, bcfg_a.max_retries) or \
+                [done[i].t_done for i in (0, 1)] != [DRAIN_ROUND] * 2 or \
+                done[2].t_done <= DRAIN_ROUND or eng.allocator.in_use or \
+                any(c.status != "length" for c in done.values()):
+            raise AssertionError(f"{what}: fallbacks {eng.fallbacks}, "
+                                 f"retries {eng.retries}, completions "
+                                 f"{eng.completions}")
+        return done
+
+    eng = engine(drain_reqs(), bcfg_a, faults=drain)
+    done = drained(eng, "run E")
+    run_e = {"requests": 3, "drain_round": DRAIN_ROUND, **FALLBACK,
+             "fused_steps": eng.steps, "fault_stats": eng.fault_stats(),
+             "vs_complete_static": static_check(
+                 params, cfg, head, list(done.values()), drain_reqs(),
+                 "run E")}
+    eng = engine(drain_reqs(), bcfg_a, sampling=sampling, seed=SEED,
+                 faults=drain)
+    got = drained(eng, "run E sampled")
+    eng = engine(drain_reqs(), bcfg_a, sampling=sampling, seed=SEED)
+    drive(eng)
+    want = {c.rid: c for c in eng.completions}
+    if {r: c.tokens for r, c in got.items()} != \
+            {r: c.tokens for r, c in want.items()}:
+        raise AssertionError("run E sampled: the drained requests draw "
+                             "other tokens than uninterrupted")
+    run_e["sampled_tokens_equal_uninterrupted"] = sum(
+        len(c.tokens) for c in got.values())
+    del eng, params, head
+    torch.cuda.empty_cache()
+
+    # ---- run C: granite-moe-3b through the same engine --------------------
+    mcfg = get_config(MOE_ARCH)
+    mparams = lm.init_params(mcfg, torch.Generator(device="cuda")
+                             .manual_seed(SEED), device="cuda")
+    reqs = poisson_requests(mcfg.vocab_size, SEED, **BATCH_C)
+    max_seq = pages_for(max(r.prompt_len + r.max_new_tokens for r in reqs),
+                        page) * page
+    bcfg_c = BatcherConfig(max_slots=4, page_size=page, max_seq=max_seq,
+                           n_pages=worst_pool(reqs, 4, page))
+    queue = RequestQueue()
+    queue.submit_all(reqs)
+    eng = ContinuousBatcher(mparams, mcfg, queue, bcfg_c)
+    moe_gemm.launches = 0
+    wall_s, rounds = drive(eng)
+    torch.cuda.synchronize()
+    moe_launches = {"moe_gemm": moe_gemm.launches}
+    moe_expect = {"moe_gemm": 3 * mcfg.n_layers * (eng.steps + eng.admitted)}
+    comps = eng.completions
+    if moe_launches != moe_expect:
+        raise AssertionError(f"run C launched {moe_launches}, expected "
+                             f"{moe_expect}")
+    if len(comps) != len(reqs) or any(
+            c.status != "length" or not all(0 <= t < mcfg.vocab_size
+                                            for t in c.tokens)
+            for c in comps) or eng.allocator.in_use:
+        raise AssertionError(f"run C completions {comps}")
+    fused_c, admit_c = round_times(rounds)
+    run_c = {"arch": MOE_ARCH, "requests": len(reqs), "max_slots": 4,
+             "max_seq": max_seq, "n_pages": bcfg_c.n_pages,
+             "rounds": eng.rounds, "fused_steps": eng.steps,
+             "admissions": eng.admitted,
+             "mean_occupancy": eng.occupancy_sum / eng.steps,
+             "wall_s": wall_s,
+             "tok_per_s": sum(len(c.tokens) for c in comps) / wall_s,
+             "fused_step_wall_ms_median": statistics.median(fused_c) * 1e3,
+             "fused_step_wall_ms": [w * 1e3 for w in fused_c],
+             "prefill_ms_per_admission": statistics.mean(admit_c) * 1e3,
+             "prefill_ms_by_round": [x * 1e3 for x in admit_c],
+             "launches": moe_launches, "launches_expected": moe_expect}
+    del eng, mparams
+    torch.cuda.empty_cache()
+    return ({"batcher": launches, "batcher_moe": moe_launches}, {
+        "phase": "batcher", "config": f"{SERVE_ARCH} sparse_mlp (64,64) "
+        f"d=0.25, sparse head (64,64) d=0.5; {MOE_ARCH}; f32, random "
+        f"weights from seed {SEED}", "n_layers": cfg.n_layers,
+        "depth_reduced": False, "card": card, "A": run_a, "B": run_b,
+        "C": run_c, "D": run_d, "E": run_e})
+
+# --------------------------------------------------------------------------
 # phase 13: block-sparse local attention (B9) against its plain version
 # --------------------------------------------------------------------------
 
@@ -2667,6 +3189,8 @@ def main() -> int:
     emit(moe_reference())
     moe_launches, moe_line = moe_serve(smi)
     emit(moe_line)
+    batcher_launches, batcher_line = batcher(smi)
+    emit(batcher_line)
     moe_kernel_rows = moe_rows(spec, flush)
     emit(block_attn_kernels_edge())
     attn_launches, attn_rows, attn_line = local_attention(spec, flush, smi)
@@ -2679,7 +3203,8 @@ def main() -> int:
     by_path = {**serve_launches, "train": train_launches,
                "partitioned": part_launches,
                "autotune": autotune_launches, **spgemm_launches,
-               "moe_serve": moe_launches, "local_attention": attn_launches}
+               "moe_serve": moe_launches, **batcher_launches,
+               "local_attention": attn_launches}
     f32 = lambda n: lambda r: r["dtype"] == "float32" and r.get("N") == n
     headline = {"maple_spmm_naive": f32(1), "maple_spmm_compact": f32(1),
                 "maple_spmm_planned": f32(1),

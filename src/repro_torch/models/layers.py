@@ -1,6 +1,6 @@
 """Transformer layers: norms, RoPE, GQA attention (full, prefill,
-decode), the SwiGLU MLP and the block-sparse projection (port of
-``repro.models.layers``).  Every layer is differentiable; the
+decode, paged decode), the SwiGLU MLP and the block-sparse projection
+(port of ``repro.models.layers``).  Every layer is differentiable; the
 block-sparse projection through ``maple_spmm``'s autograd Function.
 
 Parameters are plain dicts of tensors.  Every ``init_*`` takes an explicit
@@ -158,7 +158,9 @@ def _gqa_attend(q, k, v, valid, cfg: AttnConfig) -> torch.Tensor:
     """Softmax attention in f32 without repeating K/V over head groups.
 
     q: (B, Sq, H, hd); k/v: (B, Sk, KVH, hd); valid: bool mask
-    broadcastable to (Sq, Sk).  Returns (B, Sq, H, hd) in q's dtype."""
+    broadcastable to (B, KVH, G, Sq, Sk) (a (Sq, Sk) one for every row, or
+    a per-row (B, 1, 1, 1, Sk) one).  Returns (B, Sq, H, hd) in q's
+    dtype."""
     b, sq = q.shape[:2]
     kvh = cfg.n_kv_heads
     grp = cfg.n_heads // kvh
@@ -224,6 +226,47 @@ def attention_decode(p, cfg: AttnConfig, x, cache_k, cache_v, pos: int, *,
     valid = torch.arange(cache_k.shape[1], device=x.device) <= pos
     out = _gqa_attend(q, cache_k, cache_v, valid, cfg)
     return _out_proj(out, p["wo"]), cache_k, cache_v
+
+
+def attention_decode_paged(p, cfg: AttnConfig, x, pool_k, pool_v, table,
+                           pos, *, rope=None):
+    """One fused decode step against a paged KV pool.
+
+    x: (B, 1, D), one new token per engine slot; pool_k/v: (n_pages, P,
+    KVH, hd), the physical pages every slot shares (page 0 is the dead
+    page free slots write into); table: (B, max_pages) int, each slot's
+    block table (logical page ``t // P`` → physical page); pos: (B,) int
+    on the device, each slot's absolute position (the one this token is
+    written to), so slots at different depths share one step.  ``rope``,
+    optional, holds the :func:`rope_tables` of ``pos[:, None]``.
+
+    The new K/V are written into the pool **in place** at ``(table[b,
+    pos // P], pos % P)`` (the reference returns updated copies; free
+    slots all write page 0, offset 0, which is only ever read masked).
+    Reads gather the slot's pages into a (B, max_pages·P, KVH, hd) view
+    in logical order; entries past the slot's position are masked to
+    -inf, so a recycled page's stale tokens get softmax weight exactly
+    0.0.  Nothing here reads a device value on the host.  Returns (out,
+    pool_k, pool_v)."""
+    psize = pool_k.shape[1]
+    if rope is None:
+        rope = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+    q, k_new, v_new = _project_qkv(p, cfg, x, rope)
+
+    page_idx = torch.div(pos, psize, rounding_mode="floor").long()
+    phys = table.gather(1, page_idx[:, None])[:, 0]
+    off = pos.long() % psize
+    pool_k[phys, off] = k_new[:, 0].to(pool_k.dtype)
+    pool_v[phys, off] = v_new[:, 0].to(pool_v.dtype)
+
+    b = x.shape[0]
+    s_len = table.shape[1] * psize
+    gk = pool_k[table].reshape(b, s_len, cfg.n_kv_heads, cfg.head_dim)
+    gv = pool_v[table].reshape(b, s_len, cfg.n_kv_heads, cfg.head_dim)
+    valid = (torch.arange(s_len, device=x.device)[None, :]
+             <= pos[:, None])                              # (B, S)
+    out = _gqa_attend(q, gk, gv, valid[:, None, None, None, :], cfg)
+    return _out_proj(out, p["wo"]), pool_k, pool_v
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """Decoder-only LM (port of the dense family of ``repro.models.lm``):
 ``init_params``, ``sparse_mlp_plan``, ``forward`` and ``loss_fn`` for
 training; ``init_decode_state``, ``prefill`` and ``decode_step`` for
-serving.
+serving, and ``init_paged_state`` / ``decode_step_paged`` (with
+``needs_kv_pages`` and ``history_horizon``) for the continuous batcher's
+paged KV pool.
 
 Serving keeps the reference's scanned layout: every leaf under
 ``params["groups"]["b<i>"]`` carries a leading layer axis, and a stacked
@@ -18,8 +20,8 @@ loop; decode caches are updated in place.
 The MoE family (``family="moe"``: a :mod:`~repro_torch.models.moe` layer
 in place of the MLP) serves through ``prefill`` and ``decode_step``; its
 training path is not ported yet.  Not ported either: SSM, RG-LRU,
-local-window and cross attention, QKV biases, the vision prefix, paged
-decode and two-level remat (``scan_remat_chunk > 1``).
+local-window and cross attention, QKV biases, the vision prefix and
+two-level remat (``scan_remat_chunk > 1``).
 """
 
 from __future__ import annotations
@@ -334,6 +336,96 @@ def decode_step(params, cfg: ModelConfig, state, tokens, *,
                                      caches["v"][li], pos, rope=rope)
         x = _ffn(p, cfg, x + h)
     new_state = {"groups": state["groups"], "pos": pos + 1}
+    x = L.apply_norm(x, params["final_norm"], cfg.norm)
+    if return_hidden:
+        return x, new_state
+    return _logits(params, x), new_state
+
+
+# --------------------------------------------------------------------------
+# serving: paged decode (continuous batching)
+# --------------------------------------------------------------------------
+
+def needs_kv_pages(cfg: ModelConfig) -> bool:
+    """Does any layer keep a token-indexed KV history?  Pure-recurrent
+    stacks (SSM / RG-LRU only) carry fixed-size state and need no pages."""
+    return any(k in ("attn", "local_attn") for k in cfg.block_kinds())
+
+
+def history_horizon(cfg: ModelConfig) -> Optional[int]:
+    """How many past tokens any layer can still read: ``None`` when some
+    layer attends globally (unbounded), else the largest local window (0
+    for pure-recurrent stacks).  The serving engine frees KV pages that
+    fall entirely behind it."""
+    horizon = 0
+    for k in cfg.block_kinds():
+        if k == "attn":
+            return None
+        if k == "local_attn":
+            horizon = max(horizon, cfg.window or 0)
+    return horizon
+
+
+def init_paged_state(cfg: ModelConfig, n_slots: int, n_pages: int,
+                     page_size: int, max_pages: int, dtype=torch.float32, *,
+                     device="cuda"):
+    """Decode state for the continuous-batching engine, on ``device``.
+
+    The attention K/V live in a physical page pool ``(L, n_pages,
+    page_size, KVH, hd)`` shared by all ``n_slots`` slots through a block
+    table ``(n_slots, max_pages)`` int32; a slot's memory is the pages
+    allocated to it.  Page 0 is the dead page: free slots (table all 0,
+    pos 0) write their garbage token there, and reads of unallocated
+    logical pages land there too (masked by position).  ``pos``
+    ``(n_slots,)`` int32 is per slot."""
+    if cfg.n_enc_layers > 0 or cfg.n_patches > 0:
+        raise NotImplementedError(
+            "paged decode supports decoder-only token models (enc-dec "
+            "cross caches / vision prefixes still use the static path)")
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    _, n_groups, _ = cfg.layer_plan()
+    shape = (n_groups, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    return {"groups": {"b0": {
+                "k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}},
+            "table": torch.zeros((n_slots, max_pages), dtype=torch.int32,
+                                 device=dev),
+            "pos": torch.zeros((n_slots,), dtype=torch.int32, device=dev)}
+
+
+def _apply_block_decode_paged(p, cfg: ModelConfig, acfg: L.AttnConfig, x,
+                              cache, table, pos, rope):
+    """One layer of the fused paged step: attention against the layer's
+    pool (written in place), then the MLP or MoE half (``_ffn``)."""
+    h = L.apply_norm(x, p["norm1"], cfg.norm)
+    h, _, _ = L.attention_decode_paged(p["attn"], acfg, h, cache["k"],
+                                       cache["v"], table, pos, rope=rope)
+    return _ffn(p, cfg, x + h)
+
+
+def decode_step_paged(params, cfg: ModelConfig, state, tokens, *,
+                      return_hidden: bool = False):
+    """One fused decode step over every engine slot, paged KV.
+
+    tokens: (n_slots, 1), the pending token of each slot (free slots carry
+    0 and write into the dead page).  Positions are per slot
+    (``state["pos"]``, a device tensor, never read on the host) and the
+    attention layers read and write the shared page pool through
+    ``state["table"]``, in place.  Returns ``(logits | hidden,
+    new_state)`` with ``pos + 1``; ``return_hidden=True`` skips the dense
+    ``lm_head`` so a ``SparseLogitHead`` can score the hidden states."""
+    _check_ported(cfg)
+    table, pos = state["table"], state["pos"]
+    x = params["embed_tokens"][tokens]
+    rope = L.rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+    acfg = _attn_cfg(cfg)
+    caches = state["groups"]["b0"]
+    for li, p in enumerate(_stacked_layers(params["groups"]["b0"])):
+        x = _apply_block_decode_paged(
+            p, cfg, acfg, x, {"k": caches["k"][li], "v": caches["v"][li]},
+            table, pos, rope)
+    new_state = {"groups": state["groups"], "table": table, "pos": pos + 1}
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
     if return_hidden:
         return x, new_state

@@ -1,11 +1,15 @@
 """Serving on the static path: prefill + sampling decode loop, and the
-block-sparse logit head (port of ``repro.serve.engine``).
+block-sparse logit head (port of ``repro.serve.engine``).  The
+continuous batcher over paged decode is :mod:`repro_torch.serve.batcher`;
+``complete_static`` is its fallback path.
 
 Randomness: sampled decoding draws from an explicit ``torch.Generator``
 on the logits' device.  It cannot reproduce the reference's
 ``jax.random`` draws; greedy decoding (temperature 0) matches it.
 
-Not ported yet: the continuous batcher and paged decode.
+The reference's ``jitted_prefill`` / ``jitted_decode_step`` (``jax.jit``
+caches) have no counterpart: the port calls ``lm.prefill`` and
+``lm.decode_step`` / ``lm.decode_step_paged`` eagerly.
 """
 
 from __future__ import annotations
