@@ -55,8 +55,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    cache hit on a second build) and the same 4 requests go through it,
    counted again: greedy tokens equal to the default head's, logits
    within 1e-4.  Outside the counted runs it times a prefill, a decode
-   step and a head call, and profiles one decode step and one head call
-   with ``torch.profiler`` (wall ms, summed kernel ms, the top kernels).
+   step and a head call, and profiles one prefill, one decode step and
+   one head call with ``torch.profiler`` (wall ms, summed kernel ms, the
+   top kernels).
 5. train_reference — the qwen3-4b smoke config with a sparse MLP at
    (8, 8) blocks: the loss and every gradient of one batch on the card
    against the same weights and batch on the CPU (plain path), then one
@@ -129,6 +130,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    their bounds, plain versions and ``torch.sparse.mm`` (cuSPARSE), and
    B5, B6 and dB again on C = A×A over the poisson3Da clone (B rows of 25
    entries on average, up to 48).
+9a. gustavson — the row-wise product oracles of ``core.gustavson`` on the
+   card at full Table-I size: ``spmm_rowwise(A, B)`` on cage12 with the
+   spgemm phase's dense (n, 64) B against B7 (``maple_spmspm``) and B7's
+   plain version; ``spmspm_rowwise``, ``spmspm_rowwise_scan`` (row chunk
+   112) and ``dense_oracle`` on poisson3Da against B5's C
+   (``maple_spgemm``) densified (14 000² f32).  Each within 1e-5·max +
+   1e-6, each oracle run twice bit for bit; the launch counts are zeroed
+   just before and read just after: one B5, one B7, none from the oracles.
+9b. paper_tables — ``repro_torch.launch.paper_tables`` at scale 1.0 over
+   the 14 Table-I clones (generated on the card, the model on the host):
+   every row (n, nnz, P, nnz(C), energy, on-chip energy and speedup % and
+   area × of both families), the two mean rows beside the paper's
+   values, each clone's generate and analyze seconds; cage12's P and
+   nnz(C) must equal the spgemm phase's plan and B5's output nnz.
 10. moe_kernels — the MoE grouped GEMM (B8) against its plain version, f32
     and bf16: the reference sweep's groups (empty groups included) at
     D = F = 256, bt = 128, and decode's bt = 8 at the smoke widths; each
@@ -183,8 +198,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
     against the plain version and the dense oracle one example at a time
     (bf16 also row by row), then timed beside its bound, plain version
     and ``scaled_dot_product_attention`` in its dtype with a band mask.
-15. the ``{"kernels": [...]}`` summary, then the final
-    ``{"ok": true, ...}``.
+15. qwen2_reference — phase 3 on the qwen2-7b smoke config (QKV biases
+    drawn non-zero): logits within 1e-4 of the CPU's, equal greedy tokens.
+16. qwen2_serve — phase 4 on qwen2-7b at full width and depth (28 layers,
+    d_model 3 584, 28 heads, 4 KV heads, d_ff 18 944, vocab padded to
+    153 600; QKV biases drawn non-zero), the same sparse MLP and head
+    (153 600 × 3 584), without the autotuned head: launches exactly
+    28 × ((1 + 16) + 4 × 16) = 2 268 naive and 64 of the head's layout;
+    tokens/s, prefill and decode-step ms (wall and device), peak GiB.
+17. the ``{"kernels": [...]}`` summary (``launches_by_path`` has every
+    path above), then the final ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -247,6 +270,9 @@ TRAIN_HEAD = dict(HEAD, G=1, N=(4,))
 # heavy rows over lanes, and B4 walks each row in one thread block
 POWER_LAW = dict(MLP, name="power_law 2560x9728 (64,64)", G=1, N=(1, 256))
 SERVE_ARCH = "qwen3-4b"
+# the slice that puts a second dense family on the kernels: qwen2-7b (QKV
+# biases) at full width and depth, sparse MLP and head as qwen3-4b's
+QWEN2_ARCH = "qwen2-7b"
 # the SpGEMM slice: C = A×A on the paper's cage12 clone at full size
 # (Table I: n 130 000, nnz 2.0 M), and A times a dense (n, 64) B
 CAGE12, CAGE12_SCALE = "cg", 1.0
@@ -896,17 +922,24 @@ def power_law_weight(dtype):
 # phase 3: the port on the card against the port's plain CPU path
 # --------------------------------------------------------------------------
 
-def small_reference():
+def small_reference(arch=SERVE_ARCH, phase="reference"):
+    """``arch``'s smoke config with a sparse MLP and a sparse head on the
+    card against the same weights on the CPU.  QKV biases, which
+    ``init_params`` sets to zero, are drawn non-zero first."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.csr import BlockCSR
     from repro_torch.models import lm
     from repro_torch.models.layers import init_sparse_linear
     from repro_torch.serve import (SamplingConfig, SparseLogitHead,
                                    complete_static, generate)
-    cfg = dataclasses.replace(get_smoke_config("qwen3-4b"), sparse_mlp=True,
+    cfg = dataclasses.replace(get_smoke_config(arch), sparse_mlp=True,
                               sparse_block=(8, 8))
     cpu = lm.init_params(cfg, torch.Generator().manual_seed(SEED),
                          device="cpu")
+    attn = cpu["groups"]["b0"]["attn"]
+    bias_gen = torch.Generator().manual_seed(SEED + 5)
+    for name in ("bq", "bk", "bv") if cfg.qkv_bias else ():
+        attn[name] = 0.5 * torch.randn(attn[name].shape, generator=bias_gen)
     move = lambda t: (dataclasses.replace(t, blocks=t.blocks.cuda(),
                                           device_meta={})
                       if isinstance(t, BlockCSR) else t.cuda())
@@ -936,9 +969,9 @@ def small_reference():
                               sampling=SamplingConfig(), head=head_gpu)[0]
     if new_cpu != new_gpu:
         raise AssertionError("card sparse-head greedy tokens differ from CPU")
-    return {"phase": "reference", "config": "qwen3-4b smoke, sparse_mlp "
-            "(8,8), sparse head (8,8) d=0.5", "prefill_max_abs_err": err,
-            "greedy_tokens_equal": True}
+    return {"phase": phase, "config": f"{arch} smoke, sparse_mlp (8,8), "
+            f"sparse head (8,8) d=0.5", "qkv_bias": cfg.qkv_bias,
+            "prefill_max_abs_err": err, "greedy_tokens_equal": True}
 
 
 # --------------------------------------------------------------------------
@@ -964,17 +997,26 @@ def zero_spmm_counters():
         f.launches = 0
 
 
-def serve(card):
+def serve(card, arch=SERVE_ARCH, phase="serve", autotuned=True):
+    """Serve ``arch`` at full width and depth with the sparse MLP and head
+    (QKV biases, where the config has them, drawn non-zero); with
+    ``autotuned`` also through a ``plan="auto"`` head.  Returns the
+    launches of each counted run (by path) and the phase's line."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.autotune import plan_cache_stats, plan_search
     from repro_torch.models import lm
     from repro_torch.models.layers import init_sparse_linear
     from repro_torch.serve import (SamplingConfig, SparseLogitHead,
                                    complete_static, generate)
-    cfg = dataclasses.replace(get_config(SERVE_ARCH), sparse_mlp=True)
+    from repro_torch.train.optimizer import named_leaves
+    cfg = dataclasses.replace(get_config(arch), sparse_mlp=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = lm.init_params(cfg, gen, device="cuda")
+    attn = params["groups"]["b0"]["attn"]
+    for name in ("bq", "bk", "bv") if cfg.qkv_bias else ():
+        attn[name].normal_(generator=gen).mul_(0.5)
     head = SparseLogitHead.build(init_sparse_linear(
         gen, cfg.d_model, cfg.vocab_padded, block_shape=(64, 64),
         block_density=0.5))
@@ -1017,9 +1059,102 @@ def serve(card):
     if launches != expect:
         raise AssertionError(f"kernel launches on the path {launches}, "
                              f"expected {expect}")
+    by_path = {phase: launches}
+    if autotuned:
+        search = autotuned_head(params, cfg, head, prompts, singles, new)
+        by_path["serve_autotuned_head"] = search["launches"]
+    else:
+        search = None
 
-    # the autotuned head on the same weight: searched once, a cache hit
-    # when built again, then the same four requests through it, counted
+    # checks and timings outside the counted run: every B3 and B4 launch
+    # of one batch prefill, one decode step and one scored request held
+    # against the plain versions at this model's shapes
+    held = {}
+    with held_against_plain(held, phase):
+        logits, state = lm.prefill(params, cfg, batch,
+                                   max_seq=prompt_len + new)
+        _, state = lm.decode_step(params, cfg, state, tokens[:, :1])
+        hidden, _ = lm.prefill(params, cfg, {"tokens": batch["tokens"][:1]},
+                               return_hidden=True)
+        head_logits = head(hidden)
+    shapes = {("maple_spmm_naive", 4, cfg.d_ff, prompt_len),
+              ("maple_spmm_naive", 4, cfg.d_ff, 1),
+              ("maple_spmm_naive", 1, cfg.d_ff, prompt_len),
+              (PLANNED[head.plan.fused], 1, cfg.d_model, 1)}
+    if not shapes <= set(held):
+        raise AssertionError(f"{phase} held {sorted(held)}, not every shape "
+                             f"of {sorted(shapes)}")
+    if not (torch.isfinite(logits).all() and torch.isfinite(head_logits)
+            .all()):
+        raise AssertionError("non-finite logits")
+    if search is not None:
+        auto_logits = search.pop("head")(hidden)
+        auto_err = float((auto_logits - head_logits).abs().max())
+        if not torch.allclose(auto_logits, head_logits, rtol=1e-4,
+                              atol=1e-4):
+            raise AssertionError(f"autotuned head logits differ by "
+                                 f"{auto_err}")
+        search["logits_max_abs_diff"] = auto_err
+        del auto_logits
+    del head_logits
+    alone, _ = lm.prefill(params, cfg, {"tokens": batch["tokens"][:1]})
+    if not torch.allclose(alone, logits[:1], rtol=1e-3, atol=1e-3):
+        raise AssertionError("batch-1 prefill logits differ from the batch's")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lm.prefill(params, cfg, batch, max_seq=prompt_len + new)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    step_tok = tokens[:, :1]
+    t0 = time.perf_counter()
+    for _ in range(4):
+        _, state = lm.decode_step(params, cfg, state, step_tok)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / 4
+    t0 = time.perf_counter()
+    for _ in range(4):
+        head(hidden)
+    torch.cuda.synchronize()
+    head_ms = (time.perf_counter() - t0) * 1e3 / 4
+    profiles = {
+        "prefill": profile(lambda: lm.prefill(params, cfg, batch,
+                                              max_seq=prompt_len + new)),
+        "decode_step": profile(lambda: lm.decode_step(params, cfg, state,
+                                                      step_tok)),
+        "sparse_head": profile(lambda: head(hidden),
+                               totals=("run_kernel",))}
+    return by_path, {
+        "phase": phase, "config": f"{arch} sparse_mlp (64,64) d=0.25, "
+        f"sparse head (64,64) d=0.5 n_lanes=8, f32", "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+        "n_kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+        "vocab_padded": cfg.vocab_padded, "qkv_bias": cfg.qkv_bias,
+        "n_params": sum(t.numel() for _, t in named_leaves(params)),
+        "head_fused": head.plan.fused, "autotuned_head": search,
+        "depth_reduced": False, "batch": 4, "prompt_len": prompt_len,
+        "new_tokens": new, "setup_s": setup_s, "generate_s": gen_s,
+        "generate_tok_per_s": 4 * new / gen_s,
+        "complete_static_s": static_s,
+        "complete_static_tok_per_s": 4 * new / static_s,
+        "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+        "prefill_device_ms": profiles["prefill"]["device_ms"],
+        "decode_step_device_ms": profiles["decode_step"]["device_ms"],
+        "sparse_head_ms": head_ms, "launches": launches,
+        "held_against_plain": {" ".join(map(str, k)): v
+                               for k, v in sorted(held.items())},
+        "card": card,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "profiles": profiles}
+
+
+def autotuned_head(params, cfg, head, prompts, singles, new):
+    """The autotuned head on ``head``'s weight: searched once, a cache hit
+    when built again, then the same requests through it, counted; greedy
+    tokens equal to the default head's.  Returns the search's record with
+    the autotuned head under ``"head"``."""
+    from repro_torch.kernels.autotune import plan_cache_stats, plan_search
+    from repro_torch.serve import (SamplingConfig, SparseLogitHead,
+                                   complete_static)
     t0 = time.perf_counter()
     auto = SparseLogitHead.build(head.weight, plan="auto")
     search_s = time.perf_counter() - t0
@@ -1042,64 +1177,13 @@ def serve(card):
     if [t for t, _, _ in auto_singles] != [t for t, _, _ in singles]:
         raise AssertionError("the autotuned head's greedy tokens differ "
                              "from the default head's")
-
-    # checks and timings outside the counted run
-    logits, state = lm.prefill(params, cfg, batch, max_seq=prompt_len + new)
-    hidden, _ = lm.prefill(params, cfg, {"tokens": batch["tokens"][:1]},
-                           return_hidden=True)
-    head_logits, auto_logits = head(hidden), auto(hidden)
-    if not (torch.isfinite(logits).all() and torch.isfinite(head_logits)
-            .all()):
-        raise AssertionError("non-finite logits")
-    auto_err = float((auto_logits - head_logits).abs().max())
-    if not torch.allclose(auto_logits, head_logits, rtol=1e-4, atol=1e-4):
-        raise AssertionError(f"autotuned head logits differ by {auto_err}")
-    del head_logits, auto_logits
-    alone, _ = lm.prefill(params, cfg, {"tokens": batch["tokens"][:1]})
-    if not torch.allclose(alone, logits[:1], rtol=1e-3, atol=1e-3):
-        raise AssertionError("batch-1 prefill logits differ from the batch's")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    lm.prefill(params, cfg, batch, max_seq=prompt_len + new)
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t0) * 1e3
-    step_tok = tokens[:, :1]
-    t0 = time.perf_counter()
-    for _ in range(4):
-        _, state = lm.decode_step(params, cfg, state, step_tok)
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / 4
-    t0 = time.perf_counter()
-    for _ in range(4):
-        head(hidden)
-    torch.cuda.synchronize()
-    head_ms = (time.perf_counter() - t0) * 1e3 / 4
-    profiles = {
-        "decode_step": profile(lambda: lm.decode_step(params, cfg, state,
-                                                      step_tok)),
-        "sparse_head": profile(lambda: head(hidden),
-                               totals=("run_kernel",))}
     _, rep = plan_search(head.weight, full=True)        # the cached search
-    search = {"config": rep.best_config, "fused": auto.plan.fused,
-              "n_candidates": rep.n_candidates, "n_built": rep.n_built,
-              "best_score": rep.best_score,
-              "default_score": rep.default_score, "search_s": search_s,
-              "cache_hit_on_rebuild": True, "launches": auto_launches,
-              "tokens_equal_default_head": True,
-              "logits_max_abs_diff": auto_err}
-    return {"serve": launches, "serve_autotuned_head": auto_launches}, {
-        "phase": "serve", "config": "qwen3-4b sparse_mlp (64,64) d=0.25, "
-        "sparse head (64,64) d=0.5 n_lanes=8, f32", "n_layers": cfg.n_layers,
-        "head_fused": head.plan.fused, "autotuned_head": search,
-        "depth_reduced": False, "batch": 4, "prompt_len": prompt_len,
-        "new_tokens": new, "setup_s": setup_s, "generate_s": gen_s,
-        "generate_tok_per_s": 4 * new / gen_s,
-        "complete_static_s": static_s,
-        "complete_static_tok_per_s": 4 * new / static_s,
-        "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
-        "sparse_head_ms": head_ms, "launches": launches, "card": card,
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "profiles": profiles}
+    return {"config": rep.best_config, "fused": auto.plan.fused,
+            "n_candidates": rep.n_candidates, "n_built": rep.n_built,
+            "best_score": rep.best_score,
+            "default_score": rep.default_score, "search_s": search_s,
+            "cache_hit_on_rebuild": True, "launches": auto_launches,
+            "tokens_equal_default_head": True, "head": auto}
 
 
 # --------------------------------------------------------------------------
@@ -1953,6 +2037,7 @@ def spgemm(spec, flush, card):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if not bool(torch.isfinite(c.value).all()):
         raise AssertionError("non-finite C")
+    c_nnz = c.nnz
 
     # scipy's A @ A on the host: its pattern lies in the plan's, its values
     # agree at the pattern
@@ -2050,7 +2135,8 @@ def spgemm(spec, flush, card):
             "grad_max_abs_err": grad_err,
             "spmspm_n": SPMSPM_N, "spmspm_ms": mm_ms,
             "spmspm_scipy_max_abs_err": mm_err, "card": card}
-    return {"spgemm": launches, "spmspm": mm_launches}, rows, line
+    clones = {"cage12": (a, plan, c_nnz), "poisson3Da": (p3, p3_plan)}
+    return {"spgemm": launches, "spmspm": mm_launches}, rows, line, clones
 
 
 def spgemm_stats(a, plan):
@@ -2173,6 +2259,149 @@ def measure_sparse(name, kernel, plain, library, nbytes, flops, dtype, spec,
             "library_ms": lib_ms, "library_note": lib_error,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# --------------------------------------------------------------------------
+# phase 9a: the Gustavson oracles against B5 and B7 at full Table-I size
+# --------------------------------------------------------------------------
+
+SCAN_CHUNK = 112          # divides poisson3Da's 14 000 rows
+
+
+def oracle_run(fn, what):
+    """``fn()`` twice with the SpGEMM launch counts zeroed before: no
+    Maple kernel launched, the two results bit-equal.  Returns the result
+    and the first call's synchronised wall ms."""
+    first, launches, ms = counted(fn)
+    again, more, _ = counted(fn)
+    if any(launches.values()) or any(more.values()):
+        raise AssertionError(f"{what} launched {launches}")
+    if not torch.equal(first, again):
+        raise AssertionError(f"{what}: a second run is not bit-equal")
+    return first, ms
+
+
+def gustavson(clones, card):
+    """``core.gustavson`` on the card at full Table-I size, holding the
+    SpGEMM kernels: ``spmm_rowwise(A, B)`` on cage12 with a dense
+    (n, 64) f32 B against B7 (``maple_spmspm``) and B7's plain version;
+    ``spmspm_rowwise``, ``spmspm_rowwise_scan`` and ``dense_oracle`` on
+    poisson3Da against B5's C (``maple_spgemm``) densified.  Each within
+    ``check_close``'s f32 limit, each oracle rerun bit-equal; B5 and B7
+    launched exactly once, the oracles none."""
+    from repro_torch.core import gustavson as G
+    from repro_torch.core.formats import csr_to_ell
+    from repro_torch.kernels import maple_spgemm, maple_spmspm
+    from repro_torch.kernels.maple_spmspm import maple_spmspm_ell_plain
+    a, _, _ = clones["cage12"]
+    n = a.shape[0]
+    rng = np.random.default_rng(SEED + 9)
+    dense_b = torch.from_numpy(rng.standard_normal(
+        (n, SPMSPM_N)).astype(np.float32)).cuda()
+    b7, b7_launches, b7_ms = counted(lambda: maple_spmspm(a, dense_b))
+    oracle, oracle_ms = oracle_run(lambda: G.spmm_rowwise(a, dense_b),
+                                   "spmm_rowwise")
+    values, col_ids = csr_to_ell(a)
+    plain = maple_spmspm_ell_plain(values, col_ids, dense_b)
+    cage12 = {"n": n, "nnz": a.nnz, "N": SPMSPM_N,
+              "b7_max_abs_err": check_close(b7, oracle, torch.float32,
+                                            "B7 against spmm_rowwise"),
+              "plain_max_abs_err": check_close(plain, oracle, torch.float32,
+                                               "B7's plain version against "
+                                               "spmm_rowwise"),
+              "max_abs": float(oracle.abs().max()),
+              "b7_ms_first_call": b7_ms, "spmm_rowwise_ms": oracle_ms}
+    del b7, oracle, plain, dense_b
+    torch.cuda.empty_cache()
+
+    p3, p3_plan = clones["poisson3Da"]
+    c, b5_launches, b5_ms = counted(lambda: maple_spgemm(
+        p3, p3, plan=p3_plan, nnz_max=p3_plan.nnz_c))
+    c_dense = c.to_dense()
+    del c
+    poisson = {"n": p3.shape[0], "nnz": p3.nnz, "nnz_c": p3_plan.nnz_c,
+               "max_abs": float(c_dense.abs().max()),
+               "b5_ms_first_call": b5_ms, "scan_row_chunk": SCAN_CHUNK}
+    for name, fn in (
+            ("spmspm_rowwise", lambda: G.spmspm_rowwise(p3, p3)),
+            ("spmspm_rowwise_scan",
+             lambda: G.spmspm_rowwise_scan(p3, p3, row_chunk=SCAN_CHUNK)),
+            ("dense_oracle", lambda: G.dense_oracle(p3, p3))):
+        got, ms = oracle_run(fn, name)
+        poisson[f"{name}_max_abs_err"] = check_close(
+            c_dense, got, torch.float32, f"B5's C against {name}")
+        poisson[f"{name}_ms"] = ms
+        del got
+        torch.cuda.empty_cache()
+    del c_dense
+    launches = {k: b5_launches[k] + b7_launches[k] for k in b5_launches}
+    expect = {k: 0 for k in SPGEMM_COUNTERS}
+    expect.update(maple_spgemm_numeric=1, maple_spmspm_ell=1)
+    if launches != expect:
+        raise AssertionError(f"gustavson launches {launches}, expected "
+                             f"{expect}")
+    torch.cuda.empty_cache()
+    return launches, {"phase": "gustavson", "cage12": cage12,
+                      "poisson3Da": poisson, "launches": launches,
+                      "bit_identical_reruns": True, "card": card}
+
+
+# --------------------------------------------------------------------------
+# phase 9b: the paper's accelerator model at full Table-I size
+# --------------------------------------------------------------------------
+
+def paper_tables_phase(clones, card):
+    """``repro_torch.launch.paper_tables.run`` at scale 1.0 over the 14
+    Table-I clones, generated on the card: each row, the two mean rows
+    beside the paper's, the generate and analyze seconds of each clone.
+    cage12's P and nnz(C) must equal the ``spgemm`` phase's plan and B5's
+    output nnz."""
+    import contextlib
+    import io
+    from repro_torch.launch import paper_tables
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rows = paper_tables.run(scale=1.0, seed=SEED, device="cuda")
+    total_s = time.perf_counter() - t0
+    lines = text.getvalue().splitlines()
+    if len(rows) != 14 or len(lines) != 25:
+        raise AssertionError(f"paper_tables printed {len(lines)} lines for "
+                             f"{len(rows)} clones")
+    table = []
+    for r in rows:
+        row = {k: r[k] for k in ("matrix", "n", "nnz", "P", "nnz_C",
+                                 "generate_s", "analyze_s")}
+        for fam, tag in (("matraptor", "MR"), ("extensor", "EX")):
+            cmp = r[fam]
+            row.update({f"{tag}_energy_pct": cmp.energy_benefit_pct,
+                        f"{tag}_onchip_pct": cmp.onchip_energy_benefit_pct,
+                        f"{tag}_speedup_pct": cmp.speedup_pct,
+                        f"{tag}_area_x": cmp.area_ratio})
+        if not all(np.isfinite(v) for v in row.values()
+                   if isinstance(v, float)):
+            raise AssertionError(f"non-finite row {row}")
+        table.append(row)
+    means = {}
+    for fam in ("matraptor", "extensor"):
+        e, oc, sp, ar = paper_tables.means(rows, fam)
+        means[fam] = {"energy_pct": e, "onchip_pct": oc, "speedup_pct": sp,
+                      "area_x": ar, "paper": paper_tables.PAPER[fam]}
+    _, plan, c_nnz = clones["cage12"]
+    cg = next(r for r in rows if r["matrix"] == CAGE12)
+    model = {"P": cg["P"], "nnz_C": cg["nnz_C"]}
+    spgemm_side = {"plan_P": plan.stats.partial_products,
+                   "plan_nnz_c": plan.nnz_c, "b5_output_nnz": c_nnz}
+    if not (model["P"] == spgemm_side["plan_P"] and model["nnz_C"]
+            == spgemm_side["plan_nnz_c"] == spgemm_side["b5_output_nnz"]):
+        raise AssertionError(f"cage12: the model's {model} against the "
+                             f"SpGEMM's {spgemm_side}")
+    return {"phase": "paper_tables", "scale": 1.0, "seed": SEED,
+            "PYTHONHASHSEED": os.environ.get("PYTHONHASHSEED"),
+            "rows": table, "means": means,
+            "mean_lines": [ln for ln in lines if ln.startswith("MEAN_")],
+            "cage12_model": model, "cage12_spgemm": spgemm_side,
+            "total_s": total_s, "card": card}
 
 
 # --------------------------------------------------------------------------
@@ -2537,12 +2766,12 @@ def recording_batcher():
 
 
 @contextlib.contextmanager
-def held_against_plain(errors):
+def held_against_plain(errors, where="the batcher"):
     """Inside the block every B3 and B4 launch of the model path is held
     against the kernel's plain version on the same inputs (``check_close``
     at the f32 tolerance); ``errors`` maps each (kernel, G, K, N) seen to
-    its largest error.  No launch is added: the kernel's own output goes
-    on down the path."""
+    its largest error, and ``where`` names the run in a failure's message.
+    No launch is added: the kernel's own output goes on down the path."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.maple_spmm import (maple_spmm_naive,
                                                 maple_spmm_naive_plain,
@@ -2556,7 +2785,7 @@ def held_against_plain(errors):
             key = (kernel.__name__, *b3.shape)
             err = check_close(out, plain(*args), b3.dtype,
                               f"{kernel.__name__} at (G, K, N) = "
-                              f"{tuple(b3.shape)} in the batcher")
+                              f"{tuple(b3.shape)} in {where}")
             errors[key] = max(errors.get(key, 0.0), err)
             return out
         return call
@@ -3178,12 +3407,17 @@ def main() -> int:
     autotune_launches, autotune_line = autotune(smi)
     emit(autotune_line)
     emit(spgemm_kernels_edge())
-    spgemm_launches, spgemm_kernel_rows, spgemm_line = spgemm(spec, flush,
-                                                              smi)
+    spgemm_launches, spgemm_kernel_rows, spgemm_line, clones = spgemm(
+        spec, flush, smi)
     emit(spgemm_line)
     for row in spgemm_kernel_rows:
         emit({"phase": "kernels", "card": smi, **row})
     rows += spgemm_kernel_rows
+    gustavson_launches, gustavson_line = gustavson(clones, smi)
+    emit(gustavson_line)
+    emit(paper_tables_phase(clones, smi))
+    del clones
+    torch.cuda.empty_cache()
 
     emit(moe_kernels_edge())
     emit(moe_reference())
@@ -3198,13 +3432,19 @@ def main() -> int:
     for row in moe_kernel_rows + attn_rows:
         emit({"phase": "kernels", "card": smi, **row})
     rows += moe_kernel_rows + attn_rows
+    del flush
+    emit(small_reference(QWEN2_ARCH, phase="qwen2_reference"))
+    qwen2_launches, qwen2_line = serve(smi, QWEN2_ARCH, phase="qwen2_serve",
+                                       autotuned=False)
+    emit(qwen2_line)
 
     # launches: each path's run, counted from 0
     by_path = {**serve_launches, "train": train_launches,
                "partitioned": part_launches,
                "autotune": autotune_launches, **spgemm_launches,
+               "gustavson": gustavson_launches,
                "moe_serve": moe_launches, **batcher_launches,
-               "local_attention": attn_launches}
+               "local_attention": attn_launches, **qwen2_launches}
     f32 = lambda n: lambda r: r["dtype"] == "float32" and r.get("N") == n
     headline = {"maple_spmm_naive": f32(1), "maple_spmm_compact": f32(1),
                 "maple_spmm_planned": f32(1),

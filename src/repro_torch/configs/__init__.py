@@ -1,12 +1,18 @@
 """Architecture registry: --arch <id> resolves here.  Only the ported
-architectures are listed."""
+architectures are listed, under the reference's names."""
 
-from repro_torch.configs import granite_moe_3b, qwen3_4b
-from repro_torch.configs.base import ModelConfig, pad_to
+from repro_torch.configs import (granite_moe_3b, minitron_8b, qwen2_7b,
+                                 qwen2_72b, qwen3_4b, qwen3_moe_235b)
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeSpec,
+                                      input_specs, pad_to, shape_applicable)
 
 ARCHS = {
     "qwen3-4b": qwen3_4b,
+    "qwen2-7b": qwen2_7b,
+    "qwen2-72b": qwen2_72b,
+    "minitron-8b": minitron_8b,
     "granite-moe-3b-a800m": granite_moe_3b,
+    "qwen3-moe-235b-a22b": qwen3_moe_235b,
 }
 
 
@@ -18,5 +24,5 @@ def get_smoke_config(name: str) -> ModelConfig:
     return ARCHS[name].smoke_config()
 
 
-__all__ = ["ARCHS", "ModelConfig", "get_config", "get_smoke_config",
-           "pad_to"]
+__all__ = ["ARCHS", "SHAPES", "ModelConfig", "ShapeSpec", "get_config",
+           "get_smoke_config", "input_specs", "pad_to", "shape_applicable"]

@@ -1,14 +1,17 @@
-"""Model configuration schema (port of ``repro.configs.base``).
+"""Model configuration schema and the assigned input-shape grid (port of
+``repro.configs.base``).
 
-The fields are those the ported serving and training paths read or
-refuse.  The reference's SSM and RG-LRU fields come with the modules
-that read them.
+The fields are those the ported serving and training paths (and
+:func:`input_specs`) read or refuse.  The reference's SSM and RG-LRU
+fields come with the modules that read them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
+
+import torch
 
 
 def pad_to(n: int, multiple: int) -> int:
@@ -42,8 +45,9 @@ class ModelConfig:
     n_experts_padded: int = 0
     top_k: int = 0
     d_expert: int = 0
-    # enc-dec / vlm inputs
+    # enc-dec / vlm inputs (whisper: n_layers = decoder layers)
     n_enc_layers: int = 0
+    enc_seq: int = 0
     n_patches: int = 0
     # padding granularity for vocab sharding (16-way model × 128 lanes)
     vocab_pad_multiple: int = 2048
@@ -59,6 +63,7 @@ class ModelConfig:
     sparse_mask_seed: int = 0
     # training defaults
     train_microbatches: int = 1
+    bf16_first_moment: bool = False   # Adam m in bf16 (giant configs)
     grad_accum_dtype: str = "float32"  # microbatch grad accumulator
     scan_remat_chunk: int = 0   # two-level (sqrt) remat over layer groups
     remat: bool = True
@@ -115,3 +120,61 @@ class ModelConfig:
             p += n_attn * experts * 3 * d * self.d_expert
             p += n_attn * d * self.n_experts
         return p
+
+
+# --------------------------------------------------------------------------
+# the assigned shape grid
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """(applicable?, reason-if-not).  long_500k needs sub-quadratic
+    attention — run only for SSM / hybrid archs."""
+    if shape.name == "long_500k" and cfg.family not in ("ssm", "hybrid"):
+        return False, ("pure full-attention arch: 524k dense-KV decode is "
+                       "the quadratic-memory regime this shape excludes")
+    return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec,
+                dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """Stand-ins for a step's batch argument: ``device="meta"`` tensors
+    (shape and dtype, no storage) where the reference returns
+    ``jax.ShapeDtypeStruct``s of the same shapes.
+
+    For train/prefill, ``seq_len`` is the *total* sequence (the VLM's
+    vision prefix counts toward it); decode specs are the single new
+    token against a ``seq_len``-deep cache."""
+    b, s = shape.global_batch, shape.seq_len
+    meta = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")
+    i32 = torch.int32
+    specs: Dict[str, torch.Tensor] = {}
+    text_len = s - (cfg.n_patches if cfg.n_patches > 0 else 0)
+
+    if shape.kind in ("train", "prefill"):
+        specs["tokens"] = meta((b, text_len), i32)
+        if shape.kind == "train":
+            specs["labels"] = meta((b, text_len), i32)
+        if cfg.n_patches > 0:
+            specs["vision_embeds"] = meta((b, cfg.n_patches, cfg.d_model),
+                                          dtype)
+        if cfg.n_enc_layers > 0:
+            specs["enc_frames"] = meta((b, cfg.enc_seq, cfg.d_model), dtype)
+    else:  # decode: one new token against a seq_len-deep cache/state
+        specs["tokens"] = meta((b, 1), i32)
+    return specs

@@ -1,0 +1,21 @@
+"""qwen2-7b [dense]: GQA with QKV bias [arXiv:2407.10671]."""
+import dataclasses
+
+from repro_torch.configs.base import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2-7b", family="dense",
+        n_layers=28, d_model=3584, n_heads=28, n_kv_heads=4, head_dim=128,
+        d_ff=18944, vocab_size=152_064, qkv_bias=True, rope_theta=1e6,
+        train_microbatches=8,
+    )
+
+
+def smoke_config() -> ModelConfig:
+    return dataclasses.replace(
+        config(), n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+        head_dim=16, d_ff=128, vocab_size=512, vocab_pad_multiple=64,
+        train_microbatches=1,
+    )

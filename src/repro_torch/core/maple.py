@@ -1,13 +1,22 @@
-"""Maple PE workload statistics and cycle model (port of the parts of
-``repro.core.maple`` behind ``ExecutionPlan.predicted_cycles`` and the
-SpGEMM planner).
+"""Maple PE functional model and event counting (port of
+``repro.core.maple``): the workload statistics behind the SpGEMM planner
+and ``ExecutionPlan.predicted_cycles``, the event counters the
+accelerator model (``core.dataflows``, ``core.energy``) prices, and the
+cycle models of the Maple and single-MAC PEs.
 
 Host-side numpy over CSR metadata, identical arithmetic to the reference.
+
+Terminology (paper §II/III): ARB, the A-row buffer; BRB, the B-rows
+buffer; PSB, the partial-sum buffer (a 1×N register file addressed by
+j' = B.col_id[k']); P, the partial products Σ_{(i,k') ∈ nnz(A)}
+nnz(B[k',:]).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Dict
 
 import numpy as np
 
@@ -29,6 +38,16 @@ class SpGEMMStats:
     row_partials: np.ndarray   # (n_rows,) partial products per A row
     row_fibers: np.ndarray     # (n_rows,) = nnz(A[i,:])
     b_row_refs: np.ndarray     # (n_rows_b,) column histogram of A
+
+    @property
+    def avg_b_row_len(self) -> float:
+        referenced = self.b_row_len[self.b_row_len > 0]
+        return float(referenced.mean()) if referenced.size else 0.0
+
+    @property
+    def compaction(self) -> float:
+        """nnz_c / P — how much the accumulate phase compacts partials."""
+        return self.nnz_c / max(self.partial_products, 1)
 
 
 def expand_partials(a: CSR, b: CSR):
@@ -104,6 +123,44 @@ def analyze_spgemm(a: CSR, b: CSR | None = None,
     )
 
 
+# every counter is "number of word-granular events" (one word = one value or
+# one metadata entry; C/D + IN are per-element operations)
+EVENT_KINDS = (
+    "mac",            # multiply-accumulate ops
+    "merge_op",       # comparator/merge ops (sort-based accumulate only)
+    "intersect_op",   # explicit intersection ops (baseline Extensor)
+    "cd_op",          # CSR compress/decompress ops at PE boundary
+    "l0_access",      # ARB/BRB/PSB or queue/PEB accesses (reg/FIFO level)
+    "pe_transfer",    # PE↔PE / NoC word transfers
+    "l1_access",      # SPM (SpAL/SpBL/LLB/POB) accesses
+    "l2_access",      # DRAM word transfers
+)
+
+
+class EventCounts(Dict[str, float]):
+    """A dict of event kind → count with arithmetic convenience; every
+    kind of :data:`EVENT_KINDS` is present, in that order."""
+
+    def __init__(self, **kw):
+        super().__init__({k: 0.0 for k in EVENT_KINDS})
+        for k, v in kw.items():
+            if k not in EVENT_KINDS:
+                raise KeyError(k)
+            self[k] = float(v)
+
+    def __add__(self, other: "EventCounts") -> "EventCounts":
+        out = EventCounts()
+        for k in EVENT_KINDS:
+            out[k] = self[k] + other[k]
+        return out
+
+    def scaled(self, f: float) -> "EventCounts":
+        out = EventCounts()
+        for k in EVENT_KINDS:
+            out[k] = self[k] * f
+        return out
+
+
 def maple_pe_cycles(stats: SpGEMMStats, macs_per_pe: int, n_pes: int) -> float:
     """Maple multi-MAC schedule: a row with p partial products takes
     ceil(p/m) cycles; rows spread over PEs, the heaviest row bounds it."""
@@ -127,3 +184,13 @@ def baseline_pe_cycles(stats: SpGEMMStats, n_pes: int,
         return mean_shard
     max_row = float(stats.row_partials.max(initial=0.0))
     return max(mean_shard, max_row)
+
+
+def matraptor_merge_passes(stats: SpGEMMStats, n_queues: int) -> np.ndarray:
+    """Sorting-queue rounds per output row for the baseline Matraptor:
+    row i merges nnz(A[i,:]) sorted fibers, Q at a time, so it takes
+    ``ceil(log_Q(fibers))`` passes (at least one)."""
+    fibers = np.maximum(stats.row_fibers, 1)
+    with np.errstate(divide="ignore"):
+        passes = np.ceil(np.log(fibers) / math.log(max(n_queues, 2)))
+    return np.maximum(passes, 1.0)

@@ -98,13 +98,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class AttnConfig:
-    """Causal global GQA attention (local windows, cross-attention and
-    QKV biases are not ported yet)."""
+    """Causal global GQA attention, with optional QKV biases (local
+    windows and cross-attention are not ported yet)."""
     d_model: int
     n_heads: int
     n_kv_heads: int
     head_dim: int
     qk_norm: bool = False
+    qkv_bias: bool = False
     rope_theta: float = 10_000.0
 
 
@@ -118,6 +119,10 @@ def init_attention(generator: torch.Generator, cfg: AttnConfig,
         "wv": dense_init(generator, (*stack, d, kvh, hd), d, dtype),
         "wo": dense_init(generator, (*stack, h, hd, d), h * hd, dtype),
     }
+    if cfg.qkv_bias:                     # zeros, as the reference's
+        p["bq"] = torch.zeros((*stack, h, hd), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros((*stack, kvh, hd), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros((*stack, kvh, hd), dtype=dtype, device=dev)
     if cfg.qk_norm:
         p["q_norm"] = init_norm(hd, "rmsnorm", stack=stack, device=dev)
         p["k_norm"] = init_norm(hd, "rmsnorm", stack=stack, device=dev)
@@ -143,6 +148,8 @@ def _rope_of(cfg: AttnConfig, positions, rope):
 
 def _project_qkv(p, cfg: AttnConfig, x, rope):
     q, k, v = _project(x, p["wq"]), _project(x, p["wk"]), _project(x, p["wv"])
+    if cfg.qkv_bias:                     # biases come before qk-norm, RoPE
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.qk_norm:                      # qk-norm comes before RoPE
         q = rms_norm(q, p["q_norm"]["scale"])
         k = rms_norm(k, p["k_norm"]["scale"])

@@ -20,8 +20,8 @@ loop; decode caches are updated in place.
 The MoE family (``family="moe"``: a :mod:`~repro_torch.models.moe` layer
 in place of the MLP) serves through ``prefill`` and ``decode_step``; its
 training path is not ported yet.  Not ported either: SSM, RG-LRU,
-local-window and cross attention, QKV biases, the vision prefix and
-two-level remat (``scan_remat_chunk > 1``).
+local-window and cross attention, the vision prefix and two-level remat
+(``scan_remat_chunk > 1``).
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ from repro_torch.models import moe as M
 def _attn_cfg(cfg: ModelConfig) -> L.AttnConfig:
     return L.AttnConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.head_dim, qk_norm=cfg.qk_norm,
+        head_dim=cfg.head_dim, qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias,
         rope_theta=cfg.rope_theta)
 
 
@@ -58,7 +58,7 @@ def _check_ported(cfg: ModelConfig, *, training: bool = False) -> None:
     unit, _, tail = cfg.layer_plan()
     if (cfg.family not in ("dense", "moe") or cfg.ffn_kind != cfg.family
             or set(unit) != {"attn"} or tail or cfg.n_enc_layers
-            or cfg.n_patches or cfg.qkv_bias):
+            or cfg.n_patches):
         raise NotImplementedError(
             f"{cfg.name} (family={cfg.family!r}, pattern={unit}) is not "
             f"ported yet: only decoder-only dense and MoE models with "

@@ -206,3 +206,64 @@ def test_init_sparse_linear_fallback_pattern_equals_reference():
                                    stack=(3,))
     assert stacked.blocks.shape == (3, stacked.nnzb, 8, 8)
     assert (np.diff(stacked.row_ptr) > 0).all()
+
+
+@pytest.mark.parametrize("qk_norm", [False, True])
+def test_attention_with_qkv_bias_matches_reference(qk_norm):
+    """QKV biases (random, non-zero) are added before the q/k norm and
+    RoPE, in full, prefill, decode and paged decode attention."""
+    d, h, kvh, hd, s = 32, 4, 2, 8, 6
+    kw = dict(d_model=d, n_heads=h, n_kv_heads=kvh, head_dim=hd,
+              qk_norm=qk_norm, qkv_bias=True, rope_theta=1e6)
+    ref_cfg, cfg = RL.AttnConfig(**kw), L.AttnConfig(**kw)
+    p = _attn_params(60, d, h, kvh, hd)
+    if not qk_norm:
+        del p["q_norm"], p["k_norm"]
+    p.update(bq=_rand(61, h, hd), bk=_rand(62, kvh, hd), bv=_rand(63, kvh, hd))
+    pj, pt = _to(p, jnp.asarray), _to(p, torch.from_numpy)
+    x = _rand(64, 2, s, d)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32), (2, s)).copy()
+    want = RL.attention(pj, ref_cfg, jnp.asarray(x), jnp.asarray(pos))
+    got = L.attention(pt, cfg, torch.from_numpy(x), torch.from_numpy(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    no_bias = L.attention(_to(dict(p, bq=0 * p["bq"], bk=0 * p["bk"],
+                                   bv=0 * p["bv"]), torch.from_numpy), cfg,
+                          torch.from_numpy(x), torch.from_numpy(pos))
+    assert float((no_bias - got).abs().max()) > 1e-2
+    want, wk, wv = RL.attention_prefill(pj, ref_cfg, jnp.asarray(x),
+                                        jnp.asarray(pos), cache_len=s + 1)
+    got, gk, gv = L.attention_prefill(pt, cfg, torch.from_numpy(x),
+                                      torch.from_numpy(pos), cache_len=s + 1)
+    for g, w in ((got, want), (gk, wk), (gv, wv)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+    xt = _rand(65, 2, 1, d)
+    want, _, _ = RL.attention_decode(pj, ref_cfg, jnp.asarray(xt), wk, wv, s)
+    got, _, _ = L.attention_decode(pt, cfg, torch.from_numpy(xt), gk, gv, s)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    pool_k, pool_v = _rand(66, 5, 4, kvh, hd), _rand(67, 5, 4, kvh, hd)
+    table = np.array([[2, 4], [1, 3]], np.int32)
+    ppos = np.array([5, 2], np.int32)
+    want, _, _ = RL.attention_decode_paged(
+        pj, ref_cfg, jnp.asarray(xt), jnp.asarray(pool_k),
+        jnp.asarray(pool_v), jnp.asarray(table), jnp.asarray(ppos))
+    got, _, _ = L.attention_decode_paged(
+        pt, cfg, torch.from_numpy(xt), torch.from_numpy(pool_k.copy()),
+        torch.from_numpy(pool_v.copy()), torch.from_numpy(table),
+        torch.from_numpy(ppos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_init_attention_with_qkv_bias_matches_reference_layout():
+    import jax
+    kw = dict(d_model=32, n_heads=4, n_kv_heads=2, head_dim=8,
+              qkv_bias=True)
+    ref = RL.init_attention(jax.random.PRNGKey(0), RL.AttnConfig(**kw))
+    got = L.init_attention(torch.Generator().manual_seed(0),
+                           L.AttnConfig(**kw), stack=(3,))
+    assert sorted(got) == sorted(ref)
+    for k in ("bq", "bk", "bv"):
+        assert tuple(got[k].shape) == (3, *ref[k].shape)
+        assert not got[k].any() and not np.asarray(ref[k]).any()
+    plain = L.init_attention(torch.Generator().manual_seed(0),
+                             L.AttnConfig(**dict(kw, qkv_bias=False)))
+    assert not {"bq", "bk", "bv"} & set(plain)
