@@ -206,7 +206,35 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
     (153 600 × 3 584), without the autotuned head: launches exactly
     28 × ((1 + 16) + 4 × 16) = 2 268 naive and 64 of the head's layout;
     tokens/s, prefill and decode-step ms (wall and device), peak GiB.
-17. the ``{"kernels": [...]}`` summary (``launches_by_path`` has every
+17. hybrid_reference — the recurrentgemma-9b smoke config (5 layers,
+    window 16, a sparse MLP at (8, 8)) on the card against the CPU: a
+    prefill of 40 tokens and 23 decode steps past the window (the rolling
+    cache wraps), logits within 1e-4, greedy tokens equal, B9 once per
+    local-attention layer in the prefill; then the batcher on the card,
+    1 request of 8 + 40 tokens through 8 pages of 4: pages reclaimed
+    behind the window, tokens equal to ``generate``.
+18. hybrid_serve — phase 4 on recurrentgemma-9b at full width and depth
+    (38 layers: 12 local-attention, 26 RG-LRU; d_model 4 096, 16 heads
+    over 1 KV head, hd 256, window 2 048, d_ff 12 288, vocab 256 000),
+    the sparse GeGLU down-projection and a 256 000 × 4 096 head: launches
+    exactly B9 12 × (1 + 4) = 60, B3 38 × ((1 + 16) + 4 × 16) = 3 078, B4
+    64; every B3, B4 and B9 launch of one prefill, one decode step and
+    one scored request held against the plain versions; then one request
+    of 2 304 tokens (``continuation_check``): ``prefill`` of 2 296 plus 8
+    ``decode_step`` over the wrapped rolling cache against ``prefill`` of
+    all of it, its prefill timed and profiled (B9's share).
+19. hybrid_batcher — recurrentgemma-9b through the continuous batcher:
+    6 greedy requests (run C's workload), 4 slots, pages of 16; launches
+    exactly B9 12 × admissions, B3 38 × (fused steps + admissions), B4
+    fused steps + admissions; tokens against ``complete_static`` under the
+    margin rule.  Then B9 timed at the serve path's two prefill shapes.
+20. ssm_reference — phase 17 on the mamba2-2.7b smoke config (a prompt of
+    two SSD chunks), its batcher a mid-stream join with no pages.
+21. ssm_serve — phase 4 on mamba2-2.7b at full width and depth (64
+    layers, d_model 2 560, d_state 128, headdim 64, vocab 51 200, no MLP)
+    and a 51 200 × 2 560 head: B4 64, no B3; ``continuation_check`` on 512
+    tokens (two SSD chunks) from a one-chunk prefix and 256 decode steps.
+22. the ``{"kernels": [...]}`` summary (``launches_by_path`` has every
     path above), then the final ``{"ok": true, ...}``.
 """
 
@@ -997,26 +1025,45 @@ def zero_spmm_counters():
         f.launches = 0
 
 
-def serve(card, arch=SERVE_ARCH, phase="serve", autotuned=True):
-    """Serve ``arch`` at full width and depth with the sparse MLP and head
-    (QKV biases, where the config has them, drawn non-zero); with
-    ``autotuned`` also through a ``plan="auto"`` head.  Returns the
+def model_kernels(cfg):
+    """(blocks with an MLP, local-attention blocks) of ``cfg``: the layers
+    that launch B3 (a sparse MLP's down-projection) and B9 each forward
+    pass."""
+    kinds = cfg.block_kinds()
+    n_mlp = sum(k != "ssm" for k in kinds) if cfg.ffn_kind == "dense" else 0
+    return n_mlp, kinds.count("local_attn")
+
+
+def pad_block(s: int) -> int:
+    """``s`` padded to the local-attention tile, the sequence B9 sees."""
+    from repro_torch.models.layers import LOCAL_BLOCK
+    return -(-s // LOCAL_BLOCK) * LOCAL_BLOCK
+
+
+def serve(card, arch=SERVE_ARCH, phase="serve", autotuned=True,
+          continuation=None):
+    """Serve ``arch`` at full width and depth with the sparse MLP (where
+    the model has an MLP) and head (QKV biases, where the config has
+    them, drawn non-zero); with ``autotuned`` also through a
+    ``plan="auto"`` head; with ``continuation`` = (prompt length, prefix
+    length), ``continuation_check`` on one long request.  Returns the
     launches of each counted run (by path) and the phase's line."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.block_attn import block_attention
     from repro_torch.models import lm
     from repro_torch.models.layers import init_sparse_linear
     from repro_torch.serve import (SamplingConfig, SparseLogitHead,
                                    complete_static, generate)
     from repro_torch.train.optimizer import named_leaves
     cfg = dataclasses.replace(get_config(arch), sparse_mlp=True)
+    n_mlp, n_local = model_kernels(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = lm.init_params(cfg, gen, device="cuda")
-    attn = params["groups"]["b0"]["attn"]
     for name in ("bq", "bk", "bv") if cfg.qkv_bias else ():
-        attn[name].normal_(generator=gen).mul_(0.5)
+        params["groups"]["b0"]["attn"][name].normal_(generator=gen).mul_(0.5)
     head = SparseLogitHead.build(init_sparse_linear(
         gen, cfg.d_model, cfg.vocab_padded, block_shape=(64, 64),
         block_density=0.5))
@@ -1030,6 +1077,7 @@ def serve(card, arch=SERVE_ARCH, phase="serve", autotuned=True):
     sampling = SamplingConfig(max_new_tokens=new)
 
     zero_spmm_counters()
+    block_attention.launches = 0
     t0 = time.perf_counter()
     tokens, _ = generate(params, cfg, batch, sampling)
     torch.cuda.synchronize()
@@ -1043,10 +1091,14 @@ def serve(card, arch=SERVE_ARCH, phase="serve", autotuned=True):
     # generate: one prefill + one decode step per new token; each request
     # of complete_static: one prefill + (new - 1) decode steps, each scored
     # by the head in its plan's layout; every layer's MLP is one naive
-    # launch
-    expect = {"maple_spmm_naive": cfg.n_layers * ((1 + new) + 4 * new),
+    # launch; every local-attention layer one B9 launch a prefill (decode
+    # reads its rolling cache without it)
+    expect = {"maple_spmm_naive": n_mlp * ((1 + new) + 4 * new),
               "maple_spmm_compact": 0, "maple_spmm_planned": 0}
     expect[PLANNED[head.plan.fused]] += 4 * new
+    if n_local:
+        launches["block_attention"] = block_attention.launches
+        expect["block_attention"] = n_local * (1 + 4)
 
     if tokens.shape != (4, new) or not bool(
             ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
@@ -1077,10 +1129,14 @@ def serve(card, arch=SERVE_ARCH, phase="serve", autotuned=True):
         hidden, _ = lm.prefill(params, cfg, {"tokens": batch["tokens"][:1]},
                                return_hidden=True)
         head_logits = head(hidden)
-    shapes = {("maple_spmm_naive", 4, cfg.d_ff, prompt_len),
-              ("maple_spmm_naive", 4, cfg.d_ff, 1),
-              ("maple_spmm_naive", 1, cfg.d_ff, prompt_len),
-              (PLANNED[head.plan.fused], 1, cfg.d_model, 1)}
+    shapes = {(PLANNED[head.plan.fused], 1, cfg.d_model, 1)}
+    if n_mlp:
+        shapes |= {("maple_spmm_naive", 4, cfg.d_ff, prompt_len),
+                   ("maple_spmm_naive", 4, cfg.d_ff, 1),
+                   ("maple_spmm_naive", 1, cfg.d_ff, prompt_len)}
+    if n_local:
+        shapes |= {("block_attention", b, pad_block(prompt_len),
+                    cfg.n_heads, cfg.head_dim) for b in (4, 1)}
     if not shapes <= set(held):
         raise AssertionError(f"{phase} held {sorted(held)}, not every shape "
                              f"of {sorted(shapes)}")
@@ -1098,8 +1154,11 @@ def serve(card, arch=SERVE_ARCH, phase="serve", autotuned=True):
         del auto_logits
     del head_logits
     alone, _ = lm.prefill(params, cfg, {"tokens": batch["tokens"][:1]})
+    alone_err = float((alone - logits[:1]).abs().max())
     if not torch.allclose(alone, logits[:1], rtol=1e-3, atol=1e-3):
-        raise AssertionError("batch-1 prefill logits differ from the batch's")
+        raise AssertionError(
+            f"batch-1 prefill logits differ from the batch's: max|diff| "
+            f"{alone_err}, max|logit| {float(logits[:1].abs().max())}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lm.prefill(params, cfg, batch, max_seq=prompt_len + new)
@@ -1118,18 +1177,28 @@ def serve(card, arch=SERVE_ARCH, phase="serve", autotuned=True):
     head_ms = (time.perf_counter() - t0) * 1e3 / 4
     profiles = {
         "prefill": profile(lambda: lm.prefill(params, cfg, batch,
-                                              max_seq=prompt_len + new)),
+                                              max_seq=prompt_len + new),
+                           totals=MODEL_TOTALS),
         "decode_step": profile(lambda: lm.decode_step(params, cfg, state,
-                                                      step_tok)),
+                                                      step_tok),
+                               totals=MODEL_TOTALS),
         "sparse_head": profile(lambda: head(hidden),
                                totals=("run_kernel",))}
+    del state, logits, hidden
+    long = None
+    if continuation is not None:
+        long = continuation_check(params, cfg, *continuation)
     return by_path, {
-        "phase": phase, "config": f"{arch} sparse_mlp (64,64) d=0.25, "
+        "phase": phase, "config": f"{arch} "
+        f"{'sparse_mlp (64,64) d=0.25, ' if n_mlp else ''}"
         f"sparse head (64,64) d=0.5 n_lanes=8, f32", "n_layers": cfg.n_layers,
-        "d_model": cfg.d_model, "n_heads": cfg.n_heads,
-        "n_kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff,
+        "pattern": cfg.layer_plan(), "d_model": cfg.d_model,
+        "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+        "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "window": cfg.window,
+        "lru_width": cfg.lru_width, "ssm_d_state": cfg.ssm_d_state,
         "vocab_padded": cfg.vocab_padded, "qkv_bias": cfg.qkv_bias,
         "n_params": sum(t.numel() for _, t in named_leaves(params)),
+        "param_count": cfg.param_count(),
         "head_fused": head.plan.fused, "autotuned_head": search,
         "depth_reduced": False, "batch": 4, "prompt_len": prompt_len,
         "new_tokens": new, "setup_s": setup_s, "generate_s": gen_s,
@@ -1140,11 +1209,82 @@ def serve(card, arch=SERVE_ARCH, phase="serve", autotuned=True):
         "prefill_device_ms": profiles["prefill"]["device_ms"],
         "decode_step_device_ms": profiles["decode_step"]["device_ms"],
         "sparse_head_ms": head_ms, "launches": launches,
+        "batch1_vs_batch_max_abs_diff": alone_err,
         "held_against_plain": {" ".join(map(str, k)): v
                                for k, v in sorted(held.items())},
         "card": card,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "profiles": profiles}
+        "profiles": profiles, "continuation": long}
+
+
+# the kernels a model path's profile sums apart: B1 / B3 / B4 (the run
+# walk) and B9
+MODEL_TOTALS = ("run_kernel", "block_attn")
+
+
+def continuation_check(params, cfg, total, prefix):
+    """One request of ``total`` random tokens: ``prefill`` of its first
+    ``prefix`` plus one ``decode_step`` a token up to the end against
+    ``prefill`` of all of it, at the last position: within 1e-4·max|logit|
+    + 1e-5, or, where this model's f32 rounding alone moves its logits
+    further, within 4× that rounding (``floor``: the same prompt's logits
+    prefilled alone and in a batch of four, which sums every product in
+    another order); the same argmax unless the top-2 margin is inside the
+    limit.  Past a local window the decode steps wrap the rolling cache
+    and B9 skips the band's first tiles; on an SSM the full prefill runs
+    more SSD chunks than the prefix's.  Also times the full prefill (wall)
+    and profiles it once (device, B9's share)."""
+    from repro_torch.kernels.block_attn import block_attention
+    from repro_torch.models import lm
+    rng = np.random.default_rng(SEED + 9)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                            (4, total))).cuda()
+    prompt = prompts[:1]
+    block_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full, _ = lm.prefill(params, cfg, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    b9 = block_attention.launches
+    v = cfg.vocab_size
+    want = full[0, -1, :v].float()
+    batch, _ = lm.prefill(params, cfg, {"tokens": prompts})
+    floor = float((batch[0, -1, :v].float() - want).abs().max())
+    del batch
+    _, state = lm.prefill(params, cfg, {"tokens": prompt[:, :prefix]},
+                          max_seq=total)
+    for t in range(prefix, total):
+        logits, state = lm.decode_step(params, cfg, state,
+                                       prompt[:, t:t + 1])
+    got = logits[0, -1, :v].float()
+    err = float((got - want).abs().max())
+    tol = 1e-4 * float(want.abs().max()) + 1e-5
+    limit = max(tol, 4 * floor)
+    top2 = torch.topk(want, 2).values
+    margin = float(top2[0] - top2[1])
+    argmax_equal = int(got.argmax()) == int(want.argmax())
+    if not err <= limit or not (argmax_equal or margin <= limit):
+        raise AssertionError(f"{cfg.name}: prefill({prefix}) + "
+                             f"{total - prefix} decode steps differ from "
+                             f"prefill({total}) by {err} (limit {limit}: "
+                             f"1e-4 rule {tol}, 4 × rounding floor "
+                             f"{floor}); argmax equal {argmax_equal}, "
+                             f"top-2 margin {margin}")
+    del state, logits
+    prof = profile(lambda: lm.prefill(params, cfg, {"tokens": prompt}),
+                   warmup=False, totals=MODEL_TOTALS)
+    b9_ms = prof["totals"]["block_attn"]["device_ms"]
+    return {"prompt_len": total, "prefix": prefix,
+            "decode_steps": total - prefix, "max_abs_err": err,
+            "max_abs_logit": float(want.abs().max()), "tol_1e-4": tol,
+            "rounding_floor": floor, "limit": limit,
+            "limit_by": "1e-4·max" if tol >= 4 * floor else "4×floor",
+            "argmax_equal": argmax_equal, "top2_margin": margin,
+            "b9_launches_per_prefill": b9, "prefill_ms": prefill_ms,
+            "prefill_device_ms": prof["device_ms"],
+            "b9_share_of_device": b9_ms / prof["device_ms"]
+            if prof["device_ms"] else None, "profile": prof}
 
 
 def autotuned_head(params, cfg, head, prompts, singles, new):
@@ -2767,37 +2907,44 @@ def recording_batcher():
 
 @contextlib.contextmanager
 def held_against_plain(errors, where="the batcher"):
-    """Inside the block every B3 and B4 launch of the model path is held
-    against the kernel's plain version on the same inputs (``check_close``
-    at the f32 tolerance); ``errors`` maps each (kernel, G, K, N) seen to
-    its largest error, and ``where`` names the run in a failure's message.
-    No launch is added: the kernel's own output goes on down the path."""
+    """Inside the block every B3, B4 and B9 launch of the model path is
+    held against the kernel's plain version on the same inputs
+    (``check_close`` at the f32 tolerance); ``errors`` maps each (kernel,
+    G, K, N) of B3 / B4 and (kernel, B, S, H, hd) of B9 seen to its
+    largest error, and ``where`` names the run in a failure's message.  No
+    launch is added: the kernel's own output goes on down the path."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.block_attn import (block_attention,
+                                                block_attention_plain)
     from repro_torch.kernels.maple_spmm import (maple_spmm_naive,
                                                 maple_spmm_naive_plain,
                                                 maple_spmm_planned,
                                                 maple_spmm_planned_plain)
 
-    def held(kernel, plain):
+    def held(kernel, plain, operand):
         def call(*args, **kw):
             out = kernel(*args, **kw)
-            b3 = args[-1]
-            key = (kernel.__name__, *b3.shape)
-            err = check_close(out, plain(*args), b3.dtype,
-                              f"{kernel.__name__} at (G, K, N) = "
-                              f"{tuple(b3.shape)} in {where}")
+            x = args[operand]
+            key = (kernel.__name__, *x.shape)
+            # the plain versions take every option but the N tile
+            err = check_close(out, plain(*args, **{
+                k: v for k, v in kw.items() if k != "bn"}), x.dtype,
+                              f"{kernel.__name__} at {tuple(x.shape)} in "
+                              f"{where}")
             errors[key] = max(errors.get(key, 0.0), err)
             return out
         return call
 
-    saved = ops.maple_spmm_naive, ops.maple_spmm_planned
-    ops.maple_spmm_naive = held(maple_spmm_naive, maple_spmm_naive_plain)
+    saved = ops.maple_spmm_naive, ops.maple_spmm_planned, ops.block_attention
+    ops.maple_spmm_naive = held(maple_spmm_naive, maple_spmm_naive_plain, -1)
     ops.maple_spmm_planned = held(maple_spmm_planned,
-                                  maple_spmm_planned_plain)
+                                  maple_spmm_planned_plain, -1)
+    ops.block_attention = held(block_attention, block_attention_plain, 0)
     try:
         yield
     finally:
-        ops.maple_spmm_naive, ops.maple_spmm_planned = saved
+        (ops.maple_spmm_naive, ops.maple_spmm_planned,
+         ops.block_attention) = saved
 
 
 @contextlib.contextmanager
@@ -3319,6 +3466,268 @@ def local_attention(spec, flush, card):
     return {"block_attention": sum(launches.values())}, rows, line
 
 
+# --------------------------------------------------------------------------
+# phases 17 to 21: the recurrent families
+# --------------------------------------------------------------------------
+
+HYBRID_ARCH = "recurrentgemma-9b"
+SSM_ARCH = "mamba2-2.7b"
+# the long request of each serve phase, (prompt length, prefix): past
+# recurrentgemma-9b's window of 2 048 (B9 skips tile 0 for the last
+# q-blocks; the 8 decode steps run over a wrapped rolling cache), and
+# mamba2-2.7b over two SSD chunks of 256 from a one-chunk prefix (the
+# reference refuses a prompt above one chunk that is not a multiple of
+# it, so the prefix is one chunk and 256 decode steps follow)
+HYBRID_LONG = (2304, 2296)
+SSM_LONG = (512, 256)
+# the batcher smoke on the card: recurrentgemma's window-horizon case (1
+# request of 8 + 40 tokens through a pool of 8 pages of 4), mamba2's
+# mid-stream join (request 2 arrives at round 3)
+HYBRID_SMOKE_BATCH = dict(prompt=8, new=40, page=4, n_pages=9, max_slots=2)
+SSM_SMOKE_BATCH = dict(prompt=8, new=8, page=4, n_pages=32, max_slots=4)
+
+
+def cuda_tree(tree):
+    """A parameter tree's copy on the card (a sparse weight keeps its host
+    pattern)."""
+    from repro_torch.core.csr import BlockCSR
+    if isinstance(tree, dict):
+        return {k: cuda_tree(v) for k, v in tree.items()}
+    if isinstance(tree, BlockCSR):
+        return dataclasses.replace(tree, blocks=tree.blocks.cuda(),
+                                   device_meta={})
+    return tree.cuda()
+
+
+def recurrent_reference(arch, phase):
+    """``arch``'s smoke config (recurrentgemma-9b with a sparse MLP at
+    (8, 8)) on the card against the same weights on the CPU: the logits of
+    a prefill and of 24 decode steps fed the same tokens within 1e-4,
+    greedy ``generate`` tokens equal, B9 once per local-attention layer in
+    the card's prefill; then the batcher on the card against ``generate``
+    (``recurrent_batcher_smoke``).  Returns the B9 launches and the
+    line."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.block_attn import block_attention
+    from repro_torch.models import lm
+    from repro_torch.serve import SamplingConfig, generate
+    cfg = get_smoke_config(arch)
+    if cfg.ffn_kind == "dense":
+        cfg = dataclasses.replace(cfg, sparse_mlp=True, sparse_block=(8, 8))
+    _, n_local = model_kernels(cfg)
+    cpu = lm.init_params(cfg, torch.Generator().manual_seed(SEED),
+                         device="cpu")
+    gpu = cuda_tree(cpu)
+    # recurrentgemma: 40 tokens, past its window of 16, so the 24 decode
+    # steps wrap the rolling cache; mamba2: two SSD chunks of 32
+    prompt_len = 40 if n_local else 2 * cfg.ssm_chunk
+    new = 24
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (2, prompt_len)))
+    sampling = SamplingConfig(max_new_tokens=new)
+    block_attention.launches = 0
+    tok_gpu, _ = generate(gpu, cfg, {"tokens": prompts.cuda()}, sampling)
+    launches = {"block_attention": block_attention.launches}
+    if launches["block_attention"] != n_local:
+        raise AssertionError(f"{arch} smoke: B9 launched {launches}, "
+                             f"expected {n_local} (one a local-attention "
+                             f"layer in the prefill)")
+    tok_cpu, _ = generate(cpu, cfg, {"tokens": prompts}, sampling)
+    if not torch.equal(tok_cpu, tok_gpu.cpu()):
+        raise AssertionError(f"{arch} smoke: card greedy tokens differ from "
+                             f"the CPU's")
+    rows = {}
+    for dev, params in (("cpu", cpu), ("cuda", gpu)):
+        logits, state = lm.prefill(params, cfg,
+                                   {"tokens": prompts.to(dev)},
+                                   max_seq=prompt_len + new)
+        rows[dev] = [logits.cpu()]
+        for t in range(new - 1):
+            logits, state = lm.decode_step(params, cfg, state,
+                                           tok_cpu[:, t:t + 1].to(dev))
+            rows[dev].append(logits.cpu())
+    errs = [float((g - c).abs().max())
+            for g, c in zip(rows["cuda"], rows["cpu"])]
+    if not all(torch.allclose(g, c, rtol=1e-4, atol=1e-4)
+               for g, c in zip(rows["cuda"], rows["cpu"])):
+        raise AssertionError(f"{arch} smoke: card logits differ from the "
+                             f"CPU's by up to {max(errs)}")
+    return launches, {
+        "phase": phase, "config": f"{arch} smoke"
+        f"{', sparse_mlp (8,8)' if cfg.sparse_mlp else ''}, f32",
+        "prompt_len": prompt_len, "decode_steps": new - 1,
+        "prefill_max_abs_err": errs[0], "decode_max_abs_err": max(errs[1:]),
+        "greedy_tokens_equal": True, "launches": launches,
+        "batcher": recurrent_batcher_smoke(gpu, cfg, n_local)}
+
+
+def recurrent_batcher_smoke(params, cfg, n_local):
+    """The continuous batcher on the card at the smoke config, against
+    ``generate``: recurrentgemma's window-horizon case (pages reclaimed
+    behind the window, peak pages bounded by it) or mamba2's mid-stream
+    join (no pages)."""
+    from repro_torch.kernels.block_attn import block_attention
+    from repro_torch.serve import (BatcherConfig, ContinuousBatcher, Request,
+                                   RequestQueue, SamplingConfig, generate)
+    from repro_torch.serve.paged_cache import pages_for
+    case = HYBRID_SMOKE_BATCH if n_local else SSM_SMOKE_BATCH
+    arrivals = (0.0,) if n_local else (0.0, 0.0, 3.0)
+    prompts = np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab_size, (len(arrivals), case["prompt"]))
+    queue = RequestQueue()
+    queue.submit_all([Request(tokens=prompts[i], max_new_tokens=case["new"],
+                              arrival=a, rid=i)
+                      for i, a in enumerate(arrivals)])
+    eng = ContinuousBatcher(params, cfg, queue, BatcherConfig(
+        max_slots=case["max_slots"], page_size=case["page"],
+        n_pages=case["n_pages"], max_seq=case["prompt"] + case["new"]))
+    block_attention.launches = 0
+    comps = {c.rid: c for c in eng.run()}
+    b9 = block_attention.launches
+
+    def solo(rows):
+        out, _ = generate(params, cfg, {"tokens": torch.from_numpy(
+            prompts[rows]).cuda()}, SamplingConfig(max_new_tokens=case["new"]))
+        return out.tolist()
+
+    want = solo(slice(0, 1)) if n_local else solo(slice(0, 2)) +         solo(slice(2, 3))
+    got = [comps[i].tokens for i in range(len(arrivals))]
+    mem = eng.memory_stats()
+    if got != want or any(c.status != "length" for c in comps.values()):
+        raise AssertionError(f"{cfg.name} smoke batcher: tokens {got}, "
+                             f"generate {want}")
+    if b9 != n_local * eng.admitted or eng.allocator.in_use:
+        raise AssertionError(f"{cfg.name} smoke batcher: B9 {b9} over "
+                             f"{eng.admitted} admissions, pages in use "
+                             f"{eng.allocator.in_use}")
+    if n_local and not (mem["reclaimed"] > 0 and mem["peak_pages"] <=
+                        pages_for(cfg.window, case["page"]) + 2):
+        raise AssertionError(f"{cfg.name} smoke batcher: pages {mem}")
+    if not n_local and eng.allocator.total_allocs:
+        raise AssertionError("a pure-recurrent model allocated KV pages")
+    return {**case, "requests": len(arrivals), "rounds": eng.rounds,
+            "fused_steps": eng.steps, "admissions": eng.admitted,
+            "b9_launches": b9, "tokens_equal_generate": True, **mem}
+
+
+def hybrid_batcher(card):
+    """recurrentgemma-9b at full width and depth with the sparse MLP and
+    head through the continuous batcher: the serve bench's workload at run
+    C's shape (6 greedy requests), 4 slots, pages of 16.  Launches exactly
+    B9 12 × admissions, B3 38 × (fused steps + admissions), B4 fused steps
+    + admissions; every request ends by length with the tokens of
+    ``complete_static`` through the same head (the margin rule)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.block_attn import block_attention
+    from repro_torch.models import lm
+    from repro_torch.models.layers import init_sparse_linear
+    from repro_torch.serve import (BatcherConfig, ContinuousBatcher,
+                                   RequestQueue, SparseLogitHead)
+    from repro_torch.serve.paged_cache import pages_for
+    from repro_torch.serve.workload import poisson_requests, worst_pool
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH), sparse_mlp=True)
+    n_mlp, n_local = model_kernels(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = lm.init_params(cfg, gen, device="cuda")
+    head = SparseLogitHead.build(init_sparse_linear(
+        gen, cfg.d_model, cfg.vocab_padded, block_shape=(64, 64),
+        block_density=0.5))
+    reqs = poisson_requests(cfg.vocab_size, SEED, **BATCH_C)
+    page = BATCH_GEOMETRY["page_size"]
+    max_seq = pages_for(max(r.prompt_len + r.max_new_tokens for r in reqs),
+                        page) * page
+    bcfg = BatcherConfig(max_slots=4, page_size=page, max_seq=max_seq,
+                         n_pages=worst_pool(reqs, 4, page))
+    queue = RequestQueue()
+    queue.submit_all(reqs)
+    eng = ContinuousBatcher(params, cfg, queue, bcfg, head=head)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_spmm_counters()
+    block_attention.launches = 0
+    with no_replan():
+        wall_s, rounds = drive(eng)
+    torch.cuda.synchronize()
+    launches = {**spmm_counters(),
+                "block_attention": block_attention.launches}
+    passes = eng.steps + eng.admitted
+    expect = {"maple_spmm_naive": n_mlp * passes, "maple_spmm_compact": 0,
+              "maple_spmm_planned": 0,
+              "block_attention": n_local * eng.admitted}
+    expect[PLANNED[head.plan.fused]] += passes
+    comps = eng.completions
+    if launches != expect:
+        raise AssertionError(f"hybrid_batcher launched {launches}, expected "
+                             f"{expect} ({eng.steps} fused steps, "
+                             f"{eng.admitted} admissions)")
+    if len(comps) != len(reqs) or any(c.status != "length" for c in comps) \
+            or eng.allocator.in_use or eng.fallbacks:
+        raise AssertionError(f"hybrid_batcher completions {comps}")
+    fused, admit = round_times(rounds)
+    tokens = sum(len(c.tokens) for c in comps)
+    mem = eng.memory_stats()
+    line = {
+        "phase": "hybrid_batcher", "config": f"{HYBRID_ARCH} sparse_mlp "
+        f"(64,64) d=0.25, sparse head (64,64) d=0.5, f32, random weights "
+        f"from seed {SEED}", "n_layers": cfg.n_layers,
+        "depth_reduced": False, "workload": BATCH_C, "requests": len(reqs),
+        "max_slots": 4, "page_size": page, "max_seq": max_seq,
+        "n_pages": bcfg.n_pages, "rounds": eng.rounds,
+        "fused_steps": eng.steps, "admissions": eng.admitted,
+        "mean_occupancy": eng.occupancy_sum / eng.steps, "tokens": tokens,
+        "wall_s": wall_s, "tok_per_s": tokens / wall_s,
+        "fused_step_wall_ms_median": statistics.median(fused) * 1e3,
+        "fused_step_wall_ms": [w * 1e3 for w in fused],
+        "prefill_ms_per_admission": statistics.mean(admit) * 1e3,
+        "peak_pages": mem["peak_pages"],
+        "static_equiv_pages": mem["static_equiv_pages"],
+        "reclaimed": mem["reclaimed"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches, "launches_expected": expect, "card": card}
+    line["vs_complete_static"] = static_check(params, cfg, head, comps, reqs,
+                                              "hybrid_batcher")
+    del eng, params, head
+    torch.cuda.empty_cache()
+    return launches, line
+
+
+def hybrid_attention_rows(spec, flush):
+    """B9 at recurrentgemma-9b's two prefill shapes on the serve path (4
+    prompts of 112 tokens padded to 128, and the long request of 2 304),
+    f32, its one kv head repeated to 16 as the model does: timed beside
+    the bound, the plain version and SDPA with a band mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import local_window_kv_map
+    from repro_torch.kernels.block_attn import (block_attention,
+                                                block_attention_plain)
+    h, hd, window = ATTN["H"], ATTN["hd"], ATTN["window"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rows = []
+    for b, s in ((4, pad_block(112)), (1, HYBRID_LONG[0])):
+        q = torch.randn((b, s, h, hd), generator=gen, device="cuda")
+        k, v = [torch.randn((b, s, 1, hd), generator=gen, device="cuda")
+                .expand(b, s, h, hd).contiguous() for _ in range(2)]
+        kv_map_np = local_window_kv_map(s, window, 128, 128)
+        kv_map = torch.from_numpy(kv_map_np).cuda()
+        pairs = int(np.minimum(np.arange(1, s + 1), window).sum())
+        qpos = torch.arange(s, device="cuda")
+        band = ((qpos[:, None] >= qpos[None, :])
+                & (qpos[:, None] - qpos[None, :] < window))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        rows.append(measure_sparse(
+            "block_attention",
+            lambda: block_attention(q, k, v, kv_map, window=window),
+            lambda: block_attention_plain(q, k, v, kv_map, window=window),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=band),
+            4 * q.numel() * 4 + kv_map_np.size * 4, 4 * hd * pairs * h * b,
+            torch.float32, spec, flush,
+            shape=f"recurrentgemma-9b prefill B={b} S={s} H={h} hd={hd} "
+            f"window={window}, visible pairs {pairs}"))
+    return rows
+
+
 def profile(fn, warmup: bool = True, totals=()) -> dict:
     """One call of ``fn`` under torch.profiler (after one call outside it
     with ``warmup``): wall ms, the device time summed over kernels, the
@@ -3432,11 +3841,30 @@ def main() -> int:
     for row in moe_kernel_rows + attn_rows:
         emit({"phase": "kernels", "card": smi, **row})
     rows += moe_kernel_rows + attn_rows
-    del flush
     emit(small_reference(QWEN2_ARCH, phase="qwen2_reference"))
     qwen2_launches, qwen2_line = serve(smi, QWEN2_ARCH, phase="qwen2_serve",
                                        autotuned=False)
     emit(qwen2_line)
+
+    hybrid_ref_launches, line = recurrent_reference(HYBRID_ARCH,
+                                                    "hybrid_reference")
+    emit(line)
+    hybrid_launches, hybrid_line = serve(
+        smi, HYBRID_ARCH, phase="hybrid_serve", autotuned=False,
+        continuation=HYBRID_LONG)
+    emit(hybrid_line)
+    hb_launches, hb_line = hybrid_batcher(smi)
+    emit(hb_line)
+    hybrid_rows = hybrid_attention_rows(spec, flush)
+    for row in hybrid_rows:
+        emit({"phase": "kernels", "card": smi, **row})
+    rows += hybrid_rows
+    del flush
+    _, line = recurrent_reference(SSM_ARCH, "ssm_reference")
+    emit(line)
+    ssm_launches, ssm_line = serve(smi, SSM_ARCH, phase="ssm_serve",
+                                   autotuned=False, continuation=SSM_LONG)
+    emit(ssm_line)
 
     # launches: each path's run, counted from 0
     by_path = {**serve_launches, "train": train_launches,
@@ -3444,7 +3872,9 @@ def main() -> int:
                "autotune": autotune_launches, **spgemm_launches,
                "gustavson": gustavson_launches,
                "moe_serve": moe_launches, **batcher_launches,
-               "local_attention": attn_launches, **qwen2_launches}
+               "local_attention": attn_launches, **qwen2_launches,
+               "hybrid_reference": hybrid_ref_launches, **hybrid_launches,
+               "hybrid_batcher": hb_launches, **ssm_launches}
     f32 = lambda n: lambda r: r["dtype"] == "float32" and r.get("N") == n
     headline = {"maple_spmm_naive": f32(1), "maple_spmm_compact": f32(1),
                 "maple_spmm_planned": f32(1),

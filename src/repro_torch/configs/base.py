@@ -2,8 +2,7 @@
 ``repro.configs.base``).
 
 The fields are those the ported serving and training paths (and
-:func:`input_specs`) read or refuse.  The reference's SSM and RG-LRU
-fields come with the modules that read them.
+:func:`input_specs`) read or refuse.
 """
 
 from __future__ import annotations
@@ -45,6 +44,12 @@ class ModelConfig:
     n_experts_padded: int = 0
     top_k: int = 0
     d_expert: int = 0
+    # ssm (mamba2)
+    ssm_d_state: int = 0
+    ssm_headdim: int = 64
+    ssm_chunk: int = 256
+    # rg-lru
+    lru_width: int = 0
     # enc-dec / vlm inputs (whisper: n_layers = decoder layers)
     n_enc_layers: int = 0
     enc_seq: int = 0
@@ -97,13 +102,13 @@ class ModelConfig:
     def param_count(self, active_only: bool = False) -> int:
         """Parameters of the model, as the reference counts them
         (embedding and head, attention, cross-attention and encoder, the
-        FFN or the experts — ``active_only`` counts ``top_k`` of them — and
-        the router).  Recurrent and SSM blocks are not ported."""
+        FFN or the experts — ``active_only`` counts ``top_k`` of them — the
+        router, and the RG-LRU and SSM mixers)."""
         kinds = self.block_kinds()
-        if any(k in ("rglru", "ssm") for k in kinds):
-            raise NotImplementedError("rglru and ssm blocks are not ported")
         d, hd = self.d_model, self.head_dim
         n_attn = sum(1 for k in kinds if k in ("attn", "local_attn"))
+        n_rec = sum(1 for k in kinds if k == "rglru")
+        n_ssm = sum(1 for k in kinds if k == "ssm")
         attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
             + self.n_heads * hd * d
         p = self.vocab_padded * d * 2                   # embed + head
@@ -114,11 +119,19 @@ class ModelConfig:
                                       + d * self.d_ff)
         if self.ffn_kind == "dense":
             gated = 3 if self.activation in ("silu", "gelu_glu") else 2
-            p += n_attn * gated * d * self.d_ff
+            p += (n_attn + n_rec) * gated * d * self.d_ff
         elif self.ffn_kind == "moe":
             experts = self.top_k if active_only else self.n_experts
-            p += n_attn * experts * 3 * d * self.d_expert
-            p += n_attn * d * self.n_experts
+            p += (n_attn + n_rec) * experts * 3 * d * self.d_expert
+            p += (n_attn + n_rec) * d * self.n_experts
+        if n_rec:
+            w = self.lru_width
+            p += n_rec * (2 * d * w + 2 * w * w + w * d)
+        if n_ssm:
+            di = 2 * d
+            n = self.ssm_d_state
+            p += n_ssm * (d * (2 * di + 2 * n + di // self.ssm_headdim)
+                          + di * d)
         return p
 
 

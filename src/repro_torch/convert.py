@@ -6,8 +6,8 @@ The reference keeps parameters as a pytree of JAX arrays with
 the tree as nested dicts of numpy arrays, with each ``BlockCSR`` flattened
 to a dict of its fields (``blocks``, ``block_col``, ``block_row``,
 ``row_ptr``, ``shape``, ``block_shape``).  The layout is kept as it is,
-including the stacked ``groups/b<i>`` layer axis; the trainer's per-layer
-leaves are ``models.lm.unstack_layers`` of the result.
+including the stacked ``groups/b<i>`` and ``tail/b0`` layer axes; the
+trainer's per-layer leaves are ``models.lm.unstack_layers`` of the result.
 """
 
 from __future__ import annotations
@@ -64,9 +64,12 @@ def csr_from_numpy(value, col_id, row_ptr, shape, device="cuda") -> CSR:
 def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                       device="cuda") -> dict:
     """The port's parameter tree from the reference's (nested dicts of
-    numpy arrays, BlockCSR leaves flattened to dicts)."""
+    numpy arrays, BlockCSR leaves flattened to dicts).  Every leaf under
+    ``/groups`` must carry ``n_groups`` layers on its leading axis, every
+    leaf under ``/tail`` ``len(tail)``; a config with a tail needs one."""
     dev = resolve_device(device)
-    _, n_groups, _ = cfg.layer_plan()
+    _, n_groups, tail = cfg.layer_plan()
+    layers = {"/groups": n_groups, "/tail": len(tail)}
 
     def convert(node, path):
         if isinstance(node, Mapping):
@@ -74,13 +77,16 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                 return block_csr_from_numpy(node, dev)
             return {k: convert(v, f"{path}/{k}") for k, v in node.items()}
         arr = np.asarray(node)
-        if path.startswith("/groups") and arr.shape[:1] != (n_groups,):
+        n = layers.get("/" + path.split("/")[1])
+        if n is not None and arr.shape[:1] != (n,):
             raise ValueError(f"{path}: leading layer axis {arr.shape[:1]} "
-                             f"!= ({n_groups},)")
+                             f"!= ({n},)")
         return torch.from_numpy(np.array(arr)).to(dev)
 
     out = convert(tree, "")
-    for key in ("embed_tokens", "groups", "final_norm", "lm_head"):
+    required = ("embed_tokens", "groups", "final_norm", "lm_head") + \
+        (("tail",) if tail else ())
+    for key in required:
         if key not in out:
             raise ValueError(f"parameter tree has no {key!r}")
     return out

@@ -1,7 +1,10 @@
 """Transformer layers: norms, RoPE, GQA attention (full, prefill,
-decode, paged decode), the SwiGLU MLP and the block-sparse projection
-(port of ``repro.models.layers``).  Every layer is differentiable; the
-block-sparse projection through ``maple_spmm``'s autograd Function.
+decode, paged decode; global or local-window), the gated MLPs (SwiGLU,
+GeGLU) and the block-sparse projection (port of
+``repro.models.layers``).  Global attention and the MLPs are
+differentiable; the block-sparse projection through ``maple_spmm``'s
+autograd Function.  Local-window attention runs forward only, on the
+block-sparse local attention kernel (``ops.local_block_attention``).
 
 Parameters are plain dicts of tensors.  Every ``init_*`` takes an explicit
 ``torch.Generator`` and creates its tensors on the generator's device; a
@@ -22,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.csr import BlockCSR
+from repro_torch.kernels import ops
 from repro_torch.kernels.ops import maple_spmm
 
 
@@ -98,8 +102,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class AttnConfig:
-    """Causal global GQA attention, with optional QKV biases (local
-    windows and cross-attention are not ported yet)."""
+    """GQA self-attention, global or local-window (``window`` tokens,
+    causal), with optional QKV biases.  Cross-attention is not ported
+    yet."""
     d_model: int
     n_heads: int
     n_kv_heads: int
@@ -107,6 +112,9 @@ class AttnConfig:
     qk_norm: bool = False
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
+    causal: bool = True
+    window: Optional[int] = None      # local attention window (tokens)
+    norm: str = "rmsnorm"
 
 
 def init_attention(generator: torch.Generator, cfg: AttnConfig,
@@ -189,30 +197,73 @@ def _causal_mask(s: int, device) -> torch.Tensor:
     return pos[:, None] >= pos[None, :]
 
 
+LOCAL_BLOCK = 128    # ops.local_block_attention's q / kv tile (bq = bk)
+
+
+def _repeat_kv(k, n_heads: int):
+    """(B, S, KVH, hd) → (B, S, H, hd): head h reads kv head h // G."""
+    kvh = k.shape[2]
+    if kvh == n_heads:
+        return k
+    return k.repeat_interleave(n_heads // kvh, dim=2)
+
+
+def _local_attend(q, k, v, cfg: AttnConfig) -> torch.Tensor:
+    """Causal attention within ``cfg.window`` on the block-sparse local
+    attention kernel (B9 on a card, its plain version on the CPU).  The
+    kernel takes one (B, S, H, hd) shape with S a multiple of its
+    128-tiles: K/V are repeated over the head groups and S is padded at
+    the end, which causality keeps out of every real row; the padding is
+    sliced off after the call."""
+    s = q.shape[1]
+    pad = -s % LOCAL_BLOCK
+    q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (
+        q, _repeat_kv(k, cfg.n_heads), _repeat_kv(v, cfg.n_heads)))
+    out = ops.local_block_attention(q, k, v, window=cfg.window,
+                                    bq=LOCAL_BLOCK, bk=LOCAL_BLOCK)
+    return out[:, :s]
+
+
+def _self_attend(q, k, v, cfg: AttnConfig) -> torch.Tensor:
+    """Full-sequence causal attention of q over k / v: local windows on
+    the kernel, global attention by ``_gqa_attend``."""
+    if not cfg.causal:
+        raise NotImplementedError("non-causal (encoder) attention is not "
+                                  "ported yet")
+    if cfg.window is not None:
+        return _local_attend(q, k, v, cfg)
+    return _gqa_attend(q, k, v, _causal_mask(q.shape[1], q.device), cfg)
+
+
 def attention(p, cfg: AttnConfig, x, positions, *, rope=None):
-    """Full-sequence causal self-attention (prefill without a cache).
+    """Full-sequence self-attention (prefill without a cache).
     ``positions`` (B, S) int are the tokens' positions, as in the
     reference; a caller that already holds their :func:`rope_tables` may
     pass them as ``rope`` (every layer of a forward pass rotates by the
     same angles)."""
     q, k, v = _project_qkv(p, cfg, x, _rope_of(cfg, positions, rope))
-    out = _gqa_attend(q, k, v, _causal_mask(x.shape[1], x.device), cfg)
-    return _out_proj(out, p["wo"])
+    return _out_proj(_self_attend(q, k, v, cfg), p["wo"])
 
 
 def attention_prefill(p, cfg: AttnConfig, x, positions, *, cache_len: int,
                       rope=None):
     """Full-sequence attention that also returns the K/V cache
-    ``(B, cache_len, KVH, hd)`` (zero past the prompt).  ``positions`` and
-    ``rope`` as in :func:`attention`."""
+    ``(B, cache_len, KVH, hd)``: zero past the prompt when ``cache_len >=
+    S``, else the last ``cache_len`` positions in rolling layout (slot
+    ``t % cache_len`` holds position ``t``), so that decode on a
+    local-window cache continues seamlessly.  ``positions`` and ``rope``
+    as in :func:`attention`."""
     s = x.shape[1]
-    if cache_len < s:
-        raise ValueError(f"cache_len={cache_len} < prompt length {s}")
     q, k, v = _project_qkv(p, cfg, x, _rope_of(cfg, positions, rope))
-    out = _gqa_attend(q, k, v, _causal_mask(s, x.device), cfg)
-    k_cache = F.pad(k, (0, 0, 0, 0, 0, cache_len - s))
-    v_cache = F.pad(v, (0, 0, 0, 0, 0, cache_len - s))
-    return _out_proj(out, p["wo"]), k_cache, v_cache
+    out = _out_proj(_self_attend(q, k, v, cfg), p["wo"])
+    if cache_len >= s:
+        k_cache = F.pad(k, (0, 0, 0, 0, 0, cache_len - s))
+        v_cache = F.pad(v, (0, 0, 0, 0, 0, cache_len - s))
+    else:
+        shift = (s - cache_len) % cache_len
+        k_cache = torch.roll(k[:, -cache_len:], shifts=shift, dims=1)
+        v_cache = torch.roll(v[:, -cache_len:], shifts=shift, dims=1)
+    return out, k_cache, v_cache
 
 
 def attention_decode(p, cfg: AttnConfig, x, cache_k, cache_v, pos: int, *,
@@ -221,16 +272,28 @@ def attention_decode(p, cfg: AttnConfig, x, cache_k, cache_v, pos: int, *,
 
     x: (B, 1, D); cache_k/v: (B, S_cache, KVH, hd); ``pos`` the absolute
     position of the new token (``rope``, optional, its
-    :func:`rope_tables`).  The new K/V are written into the caches **in
-    place** (the reference returns updated copies; updating in place keeps
-    one cache buffer).  Returns (out, cache_k, cache_v)."""
+    :func:`rope_tables`).  A global cache takes the new K/V at slot
+    ``pos``; a rolling local-window cache (``S_cache == window``) at
+    ``pos % S_cache``, its slots masked by the absolute position each
+    holds and by the window.  The new K/V are written into the caches
+    **in place** (the reference returns updated copies; updating in place
+    keeps one cache buffer).  Returns (out, cache_k, cache_v)."""
     if rope is None:
         rope = rope_tables(torch.full((x.shape[0], 1), pos, device=x.device),
                            cfg.head_dim, cfg.rope_theta)
+    s_cache = cache_k.shape[1]
+    rolling = cfg.window is not None and s_cache == cfg.window
+    write_idx = pos % s_cache if rolling else pos
     q, k_new, v_new = _project_qkv(p, cfg, x, rope)
-    cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
-    valid = torch.arange(cache_k.shape[1], device=x.device) <= pos
+    cache_k[:, write_idx] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[:, write_idx] = v_new[:, 0].to(cache_v.dtype)
+    slot = torch.arange(s_cache, device=x.device)
+    # the absolute position each slot holds
+    abs_pos = pos - torch.remainder(write_idx - slot, s_cache) if rolling \
+        else slot
+    valid = (abs_pos >= 0) & (abs_pos <= pos)
+    if cfg.window is not None:
+        valid &= abs_pos > pos - cfg.window
     out = _gqa_attend(q, cache_k, cache_v, valid, cfg)
     return _out_proj(out, p["wo"]), cache_k, cache_v
 
@@ -251,10 +314,11 @@ def attention_decode_paged(p, cfg: AttnConfig, x, pool_k, pool_v, table,
     pos // P], pos % P)`` (the reference returns updated copies; free
     slots all write page 0, offset 0, which is only ever read masked).
     Reads gather the slot's pages into a (B, max_pages·P, KVH, hd) view
-    in logical order; entries past the slot's position are masked to
-    -inf, so a recycled page's stale tokens get softmax weight exactly
-    0.0.  Nothing here reads a device value on the host.  Returns (out,
-    pool_k, pool_v)."""
+    in logical order; entries past the slot's position (or, for a local
+    window, at or before ``pos - window``) are masked to -inf, so a
+    recycled page's stale tokens get softmax weight exactly 0.0.  Nothing
+    here reads a device value on the host.  Returns (out, pool_k,
+    pool_v)."""
     psize = pool_k.shape[1]
     if rope is None:
         rope = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
@@ -270,8 +334,10 @@ def attention_decode_paged(p, cfg: AttnConfig, x, pool_k, pool_v, table,
     s_len = table.shape[1] * psize
     gk = pool_k[table].reshape(b, s_len, cfg.n_kv_heads, cfg.head_dim)
     gv = pool_v[table].reshape(b, s_len, cfg.n_kv_heads, cfg.head_dim)
-    valid = (torch.arange(s_len, device=x.device)[None, :]
-             <= pos[:, None])                              # (B, S)
+    idx = torch.arange(s_len, device=x.device)[None, :]    # logical pos
+    valid = idx <= pos[:, None]                            # (B, S)
+    if cfg.window is not None:
+        valid &= idx > pos[:, None] - cfg.window
     out = _gqa_attend(q, gk, gv, valid[:, None, None, None, :], cfg)
     return _out_proj(out, p["wo"]), pool_k, pool_v
 
@@ -280,15 +346,24 @@ def attention_decode_paged(p, cfg: AttnConfig, x, pool_k, pool_v, table,
 # MLPs
 # --------------------------------------------------------------------------
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+GATED = {"silu": F.silu, "gelu_glu": gelu}
+
+
 def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
              activation: str, dtype=torch.float32, *,
              stack: Tuple[int, ...] = (), sparse_down: bool = False,
              sparse_block=(64, 64), sparse_density: float = 0.25,
              mask_generator: Optional[torch.Generator] = None):
-    """Gated (SwiGLU) MLP params.  ``sparse_down=True`` makes the down
-    projection a block-sparse :class:`BlockCSR`; every layer of the stack
-    shares one block pattern (drawn from ``mask_generator``)."""
-    if activation != "silu":
+    """Gated MLP params (SwiGLU for ``"silu"``, GeGLU for
+    ``"gelu_glu"``).  ``sparse_down=True`` makes the down projection a
+    block-sparse :class:`BlockCSR`; every layer of the stack shares one
+    block pattern (drawn from ``mask_generator``)."""
+    if activation not in GATED:
         raise NotImplementedError(f"activation {activation!r} is not "
                                   f"ported yet")
     p = {
@@ -309,8 +384,9 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
 
 
 def mlp(p, x, activation: str, *, sparse_plan=None):
-    """SwiGLU MLP.  A :class:`BlockCSR` down projection runs the Maple
-    kernel through :func:`sparse_linear`:
+    """Gated MLP (SwiGLU, or GeGLU with the tanh GELU).  A
+    :class:`BlockCSR` down projection runs the Maple kernel through
+    :func:`sparse_linear`:
 
     * with ``sparse_plan`` (the shared ``SpmmTrainPlan`` of
       ``lm.sparse_mlp_plan``, the training path) on that plan, forward
@@ -323,10 +399,10 @@ def mlp(p, x, activation: str, *, sparse_plan=None):
       default ``"balanced"`` schedule would run a host LPT plan walk on
       every layer of every token.
     """
-    if activation != "silu":
+    if activation not in GATED:
         raise NotImplementedError(f"activation {activation!r} is not "
                                   f"ported yet")
-    h = F.silu(torch.matmul(x, p["w_gate"]))
+    h = GATED[activation](torch.matmul(x, p["w_gate"]))
     h = h * torch.matmul(x, p["w_up"])
     if isinstance(p["w_down"], BlockCSR):
         if sparse_plan is not None:

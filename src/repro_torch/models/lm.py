@@ -1,27 +1,38 @@
-"""Decoder-only LM (port of the dense family of ``repro.models.lm``):
-``init_params``, ``sparse_mlp_plan``, ``forward`` and ``loss_fn`` for
-training; ``init_decode_state``, ``prefill`` and ``decode_step`` for
-serving, and ``init_paged_state`` / ``decode_step_paged`` (with
-``needs_kv_pages`` and ``history_horizon``) for the continuous batcher's
-paged KV pool.
+"""Decoder-only LM (port of ``repro.models.lm``): ``init_params``,
+``sparse_mlp_plan``, ``forward`` and ``loss_fn`` for training;
+``init_decode_state``, ``prefill`` and ``decode_step`` for serving, and
+``init_paged_state`` / ``decode_step_paged`` (with ``needs_kv_pages`` and
+``history_horizon``) for the continuous batcher's paged KV pool.
 
-Serving keeps the reference's scanned layout: every leaf under
-``params["groups"]["b<i>"]`` carries a leading layer axis, and a stacked
-block-sparse MLP weight is one :class:`BlockCSR` with a
-``(L, nnzb, bm, bk)`` payload over a shared pattern.  ``init_params``,
-``prefill`` and ``decode_step`` take that layout.  The trainer holds the
-same tree with ``groups["b<i>"]`` as a list of per-layer subtrees instead
-(:func:`unstack_layers`), each leaf a tensor of its own: autograd then
-gives each layer its own gradient, where indexing a stacked leaf would
-allocate a zero tensor as large as the stack per layer in the backward.
-``forward`` and ``loss_fn`` take that layout.  The layer loop is a Python
-loop; decode caches are updated in place.
+A model is a stack of blocks.  Each block is a temporal mixer (global GQA
+attention, local-window attention, RG-LRU or Mamba-2 SSD) plus an FFN
+(the gated MLP, or the MoE layer for the MoE family; SSM blocks have
+none).  The kinds come from ``cfg.pattern_unit`` repeated ``n_groups``
+times, then a homogeneous ``tail`` (``cfg.layer_plan()``).
 
-The MoE family (``family="moe"``: a :mod:`~repro_torch.models.moe` layer
-in place of the MLP) serves through ``prefill`` and ``decode_step``; its
-training path is not ported yet.  Not ported either: SSM, RG-LRU,
-local-window and cross attention, the vision prefix and two-level remat
-(``scan_remat_chunk > 1``).
+Serving keeps the reference's scanned layout: one stacked group per
+position of the unit, ``params["groups"]["b<i>"]``, each leaf with a
+leading layer axis, and the tail as ``params["tail"]["b0"]`` stacked over
+``len(tail)``; a stacked block-sparse MLP weight is one
+:class:`BlockCSR` with a ``(L, nnzb, bm, bk)`` payload over a shared
+pattern.  ``init_params``, ``prefill`` and ``decode_step`` take that
+layout, and the layer loop runs group by group through the unit's kinds,
+then the tail.  Decode caches keep the same layout per kind (K/V,
+``min(max_seq, window)`` long in rolling layout for local attention;
+``conv`` / ``h`` for RG-LRU; ``conv`` / ``state`` for SSM) and are updated
+in place.
+
+The trainer holds the same tree with ``groups["b<i>"]`` as a list of
+per-layer subtrees instead (:func:`unstack_layers`), each leaf a tensor
+of its own: autograd then gives each layer its own gradient, where
+indexing a stacked leaf would allocate a zero tensor as large as the
+stack per layer in the backward.  ``forward`` and ``loss_fn`` take that
+layout and train the dense family only.
+
+The MoE, hybrid (RG-LRU + local attention) and SSM families serve
+through ``prefill`` and ``decode_step``; their training is not ported
+yet.  Not ported either: cross attention (encoder-decoder models), the
+vision prefix and two-level remat (``scan_remat_chunk > 1``).
 """
 
 from __future__ import annotations
@@ -37,13 +48,22 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.csr import BlockCSR
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import rglru as R
+from repro_torch.models import ssm as S
+
+ATTENTION = ("attn", "local_attn")
+# the block kinds and the FFN each ported family stacks
+FAMILIES = {"dense": ({"attn"}, "dense"), "moe": ({"attn"}, "moe"),
+            "hybrid": ({"rglru", "local_attn"}, "dense"),
+            "ssm": ({"ssm"}, "none")}
 
 
-def _attn_cfg(cfg: ModelConfig) -> L.AttnConfig:
+def _attn_cfg(cfg: ModelConfig, kind: str = "attn") -> L.AttnConfig:
     return L.AttnConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim, qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias,
-        rope_theta=cfg.rope_theta)
+        rope_theta=cfg.rope_theta, causal=kind != "enc_attn",
+        window=cfg.window if kind == "local_attn" else None, norm=cfg.norm)
 
 
 def _moe_cfg(cfg: ModelConfig) -> M.MoEConfig:
@@ -54,19 +74,40 @@ def _moe_cfg(cfg: ModelConfig) -> M.MoEConfig:
         impl=cfg.moe_impl)
 
 
+def _ssm_cfg(cfg: ModelConfig) -> S.SSMConfig:
+    return S.SSMConfig(d_model=cfg.d_model, d_state=cfg.ssm_d_state,
+                       headdim=cfg.ssm_headdim, chunk=cfg.ssm_chunk)
+
+
+def _rglru_cfg(cfg: ModelConfig) -> R.RGLRUConfig:
+    return R.RGLRUConfig(d_model=cfg.d_model, lru_width=cfg.lru_width)
+
+
 def _check_ported(cfg: ModelConfig, *, training: bool = False) -> None:
     unit, _, tail = cfg.layer_plan()
-    if (cfg.family not in ("dense", "moe") or cfg.ffn_kind != cfg.family
-            or set(unit) != {"attn"} or tail or cfg.n_enc_layers
-            or cfg.n_patches):
+    kinds, ffn = FAMILIES.get(cfg.family, (set(), None))
+    if (not set(unit + tail) <= kinds or cfg.ffn_kind != ffn
+            or cfg.n_enc_layers or cfg.n_patches):
         raise NotImplementedError(
             f"{cfg.name} (family={cfg.family!r}, pattern={unit}) is not "
-            f"ported yet: only decoder-only dense and MoE models with "
-            f"global attention are")
-    if training and cfg.family == "moe":
-        raise NotImplementedError("training the MoE family is not ported "
-                                  "yet: it serves only (prefill, "
-                                  "decode_step)")
+            f"ported yet: the port serves decoder-only dense and MoE "
+            f"models with global attention, the hybrid RG-LRU + "
+            f"local-attention family and the SSM family; encoder-decoder "
+            f"and vision models are not ported")
+    if training and cfg.family != "dense":
+        raise NotImplementedError(f"training the {cfg.family} family is not "
+                                  f"ported yet: it serves only (prefill, "
+                                  f"decode_step)")
+
+
+def _stacks(cfg: ModelConfig):
+    """(tree key, kinds, layers) of each stacked group, in execution
+    order: the unit's groups, then the tail."""
+    unit, n_groups, tail = cfg.layer_plan()
+    out = [("groups", unit, n_groups)]
+    if tail:
+        out.append(("tail", tail[:1], len(tail)))
+    return out
 
 
 def _layer(tree, i: int):
@@ -90,6 +131,18 @@ def _stacked_layers(group) -> List[Dict[str, Any]]:
     return [_layer(group, i) for i in range(n)]
 
 
+def _blocks(params, caches, cfg: ModelConfig):
+    """Every block in execution order as (kind, its parameters, its
+    cache's per-layer views), from the stacked ``params`` and ``caches``
+    (state trees with the same ``groups`` / ``tail`` keys)."""
+    for key, kinds, count in _stacks(cfg):
+        per = [_stacked_layers(params[key][f"b{i}"])
+               for i in range(len(kinds))]
+        for li in range(count):
+            for i, kind in enumerate(kinds):
+                yield kind, per[i][li], _layer(caches[key][f"b{i}"], li)
+
+
 def unstack_layers(params):
     """The trainer's layout: each stacked group becomes a list of
     per-layer subtrees whose leaves are tensors of their own (copies; a
@@ -103,64 +156,80 @@ def unstack_layers(params):
         return t.clone()
 
     out = dict(params)
-    out["groups"] = {name: [own(p) for p in _stacked_layers(group)]
-                     for name, group in params["groups"].items()}
+    for key in ("groups", "tail"):
+        if key in params:
+            out[key] = {name: [own(p) for p in _stacked_layers(group)]
+                        for name, group in params[key].items()}
     return out
 
 
-def _init_block(generator, cfg: ModelConfig, *, stack, dtype,
-                mask_generator) -> Dict[str, Any]:
+def _init_block(generator, cfg: ModelConfig, kind: str, *, stack,
+                dtype) -> Dict[str, Any]:
+    """One stacked block of ``kind``.  The sparse-MLP block mask is drawn
+    from a fresh CPU generator seeded with ``cfg.sparse_mask_seed``, so
+    every layer of every group shares one pattern, as in the
+    reference."""
     dev = generator.device
-    p = {
-        "norm1": L.init_norm(cfg.d_model, cfg.norm, stack=stack, device=dev),
-        "attn": L.init_attention(generator, _attn_cfg(cfg), dtype,
-                                 stack=stack),
-        "norm2": L.init_norm(cfg.d_model, cfg.norm, stack=stack, device=dev),
-    }
+    p = {"norm1": L.init_norm(cfg.d_model, cfg.norm, stack=stack,
+                              device=dev)}
+    if kind in ATTENTION:
+        p["attn"] = L.init_attention(generator, _attn_cfg(cfg, kind), dtype,
+                                     stack=stack)
+    elif kind == "rglru":
+        p["rglru"] = R.init_rglru(generator, _rglru_cfg(cfg), dtype,
+                                  stack=stack)
+    elif kind == "ssm":
+        p["ssm"] = S.init_ssm(generator, _ssm_cfg(cfg), dtype, stack=stack)
+    else:
+        raise ValueError(kind)
+    if cfg.ffn_kind == "none" or kind == "ssm":
+        return p
+    p["norm2"] = L.init_norm(cfg.d_model, cfg.norm, stack=stack, device=dev)
     if cfg.ffn_kind == "moe":
         p["moe"] = M.init_moe(generator, _moe_cfg(cfg), dtype, stack=stack)
     else:
-        p["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff,
-                              cfg.activation, dtype, stack=stack,
-                              sparse_down=cfg.sparse_mlp,
-                              sparse_block=cfg.sparse_block,
-                              sparse_density=cfg.sparse_density,
-                              mask_generator=mask_generator)
+        p["mlp"] = L.init_mlp(
+            generator, cfg.d_model, cfg.d_ff, cfg.activation, dtype,
+            stack=stack, sparse_down=cfg.sparse_mlp,
+            sparse_block=cfg.sparse_block, sparse_density=cfg.sparse_density,
+            mask_generator=torch.Generator().manual_seed(
+                cfg.sparse_mask_seed))
     return p
 
 
 def _ffn(p, cfg: ModelConfig, x):
     """The serving path's feed-forward half of a block: the MLP, or the MoE
-    layer for the MoE family."""
-    h = L.apply_norm(x, p["norm2"], cfg.norm)
+    layer for the MoE family; SSM blocks have none."""
     if "moe" in p:
-        return x + M.moe_layer(p["moe"], _moe_cfg(cfg), h)
-    return x + L.mlp(p["mlp"], h, cfg.activation)
+        return x + M.moe_layer(p["moe"], _moe_cfg(cfg),
+                               L.apply_norm(x, p["norm2"], cfg.norm))
+    if "mlp" in p:
+        return x + L.mlp(p["mlp"], L.apply_norm(x, p["norm2"], cfg.norm),
+                         cfg.activation)
+    return x
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.float32, *, device="cuda"):
     """Random parameters, drawn from ``generator`` on ``device`` (the
-    generator must live there).  The sparse-MLP block mask is drawn from
-    a CPU generator seeded with ``cfg.sparse_mask_seed``, so every layer
-    shares one pattern, as in the reference."""
+    generator must live there)."""
     _check_ported(cfg)
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, params go to "
                          f"{dev}: make the generator on the device")
-    _, n_groups, _ = cfg.layer_plan()
-    mask_gen = torch.Generator().manual_seed(cfg.sparse_mask_seed)
-    return {
-        "embed_tokens": L.dense_init(generator,
+    params = {"embed_tokens": L.dense_init(generator,
+                                           (cfg.vocab_padded, cfg.d_model),
+                                           cfg.d_model, dtype)}
+    for key, kinds, count in _stacks(cfg):
+        params[key] = {f"b{i}": _init_block(generator, cfg, kind,
+                                            stack=(count,), dtype=dtype)
+                       for i, kind in enumerate(kinds)}
+    params["final_norm"] = L.init_norm(cfg.d_model, cfg.norm, device=dev)
+    params["lm_head"] = L.dense_init(generator,
                                      (cfg.vocab_padded, cfg.d_model),
-                                     cfg.d_model, dtype),
-        "groups": {"b0": _init_block(generator, cfg, stack=(n_groups,),
-                                     dtype=dtype, mask_generator=mask_gen)},
-        "final_norm": L.init_norm(cfg.d_model, cfg.norm, device=dev),
-        "lm_head": L.dense_init(generator, (cfg.vocab_padded, cfg.d_model),
-                                cfg.d_model, dtype),
-    }
+                                     cfg.d_model, dtype)
+    return params
 
 
 def sparse_mlp_plan(params, *, n_lanes: int = 8, chunk=None,
@@ -262,21 +331,89 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = True,
                   "tokens": mask.sum()}
 
 
+# --------------------------------------------------------------------------
+# serving: decode state, prefill, decode step
+# --------------------------------------------------------------------------
+
+def _block_cache(cfg: ModelConfig, kind: str, count: int, rows: int,
+                 kv_shape, dtype, device) -> Dict[str, torch.Tensor]:
+    """Zero decode cache of a stack of ``count`` blocks of ``kind``:
+    K/V of per-layer shape ``kv_shape`` for attention, else the recurrent
+    state of ``rows`` batch rows (``conv`` in ``dtype``, ``h`` / ``state``
+    f32)."""
+    if kind in ATTENTION:
+        return {name: torch.zeros((count, *kv_shape), dtype=dtype,
+                                  device=device) for name in ("k", "v")}
+    if kind == "rglru":
+        conv, h = R.init_rglru_state(_rglru_cfg(cfg), rows, dtype,
+                                     stack=(count,), device=device)
+        return {"conv": conv, "h": h}
+    if kind == "ssm":
+        conv, st = S.init_ssm_state(_ssm_cfg(cfg), rows, dtype,
+                                    stack=(count,), device=device)
+        return {"conv": conv, "state": st}
+    raise ValueError(kind)
+
+
+def _kv_len(cfg: ModelConfig, kind: str, max_seq: int) -> int:
+    """A static cache's K/V length: a local window keeps a rolling cache
+    of ``min(max_seq, window)``; global attention keeps all of it."""
+    return min(max_seq, cfg.window) if kind == "local_attn" else max_seq
+
+
+def _static_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype,
+                   device) -> Dict[str, Any]:
+    """``groups`` / ``tail`` decode caches of ``batch`` rows."""
+    return {key: {f"b{i}": _block_cache(
+                cfg, kind, count, batch,
+                (batch, _kv_len(cfg, kind, max_seq), cfg.n_kv_heads,
+                 cfg.head_dim), dtype, device)
+                  for i, kind in enumerate(kinds)}
+            for key, kinds, count in _stacks(cfg)}
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       dtype=torch.float32, *, device="cuda"):
-    """Empty decode state: stacked ``(L, B, max_seq, KVH, hd)`` caches and
-    ``pos = 0``."""
+    """Empty decode state: stacked per-kind caches (K/V ``(L, B, S_kv,
+    KVH, hd)``, recurrent ``conv`` / ``h`` / ``state``) and ``pos = 0``."""
     _check_ported(cfg)
-    dev = resolve_device(device)
-    _, n_groups, _ = cfg.layer_plan()
-    shape = (n_groups, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    return {"groups": {"b0": {
-        "k": torch.zeros(shape, dtype=dtype, device=dev),
-        "v": torch.zeros(shape, dtype=dtype, device=dev)}}, "pos": 0}
+    return {**_static_caches(cfg, batch, max_seq, dtype,
+                             resolve_device(device)), "pos": 0}
 
 
 def _logits(params, x):
     return torch.matmul(x, params["lm_head"].t())
+
+
+def _rope(cfg: ModelConfig, positions):
+    """The RoPE tables of ``positions`` when the model attends, else
+    None (an SSM stack has no head dim)."""
+    if not any(k in ATTENTION for k in cfg.block_kinds()):
+        return None
+    return L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def _mix_prefill(p, cfg: ModelConfig, kind: str, h, positions, rope,
+                 max_seq: int, cache):
+    """A block's temporal mixer over the prompt; writes the block's
+    decode cache (per-layer views of the stacked cache) in place."""
+    if kind in ATTENTION:
+        h, kc, vc = L.attention_prefill(
+            p["attn"], _attn_cfg(cfg, kind), h, positions,
+            cache_len=_kv_len(cfg, kind, max_seq), rope=rope)
+        cache["k"].copy_(kc)
+        cache["v"].copy_(vc)
+    elif kind == "rglru":
+        h, (conv, hid) = R.rglru_block(p["rglru"], _rglru_cfg(cfg), h,
+                                       return_state=True)
+        cache["conv"].copy_(conv)
+        cache["h"].copy_(hid)
+    else:
+        h, (conv, st) = S.ssm_block(p["ssm"], _ssm_cfg(cfg), h,
+                                    return_state=True)
+        cache["conv"].copy_(conv)
+        cache["state"].copy_(st)
+    return h
 
 
 def prefill(params, cfg: ModelConfig, batch, *, max_seq: Optional[int] = None,
@@ -286,9 +423,10 @@ def prefill(params, cfg: ModelConfig, batch, *, max_seq: Optional[int] = None,
     logits (B, 1, V) — or the final-norm hidden state with
     ``return_hidden`` — and the decode state with ``pos = S``).
 
-    The KV cache takes ``cache_dtype`` (default: the activations' dtype).
-    ``remat`` is the reference's checkpointing switch; prefill here runs
-    no backward, so it changes nothing and is accepted as given."""
+    K/V and conv caches take ``cache_dtype`` (default: the activations'
+    dtype); recurrent hidden states stay f32.  ``remat`` is the
+    reference's checkpointing switch; prefill here runs no backward, so it
+    changes nothing and is accepted as given."""
     _check_ported(cfg)
     tok = batch["tokens"]
     x = params["embed_tokens"][tok]                        # (B, S, D)
@@ -296,25 +434,47 @@ def prefill(params, cfg: ModelConfig, batch, *, max_seq: Optional[int] = None,
     if max_seq is None:
         max_seq = s
     positions = torch.arange(s, device=x.device).expand(b, s)
-    rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    acfg = _attn_cfg(cfg)
-    layers = _stacked_layers(params["groups"]["b0"])
-    cache_shape = (len(layers), b, max_seq, cfg.n_kv_heads, cfg.head_dim)
-    cache_dtype = x.dtype if cache_dtype is None else cache_dtype
-    k_all = torch.empty(cache_shape, dtype=cache_dtype, device=x.device)
-    v_all = torch.empty(cache_shape, dtype=cache_dtype, device=x.device)
-    for li, p in enumerate(layers):
+    rope = _rope(cfg, positions)
+    caches = _static_caches(cfg, b, max_seq,
+                            x.dtype if cache_dtype is None else cache_dtype,
+                            x.device)
+    for kind, p, cache in _blocks(params, caches, cfg):
         h = L.apply_norm(x, p["norm1"], cfg.norm)
-        h, kc, vc = L.attention_prefill(p["attn"], acfg, h, positions,
-                                        cache_len=max_seq, rope=rope)
-        k_all[li] = kc
-        v_all[li] = vc
+        h = _mix_prefill(p, cfg, kind, h, positions, rope, max_seq, cache)
         x = _ffn(p, cfg, x + h)
-    state = {"groups": {"b0": {"k": k_all, "v": v_all}}, "pos": s}
+    state = {**caches, "pos": s}
     x = L.apply_norm(x[:, -1:], params["final_norm"], cfg.norm)
     if return_hidden:
         return x, state
     return _logits(params, x), state
+
+
+def _mix_decode(p, cfg: ModelConfig, kind: str, h, cache, pos, rope,
+                table=None):
+    """A block's temporal mixer for one new token a row, against the
+    static cache (``table`` None, ``pos`` an int) or the paged pool
+    (``table`` and per-row ``pos`` on the device); caches are updated in
+    place."""
+    if kind in ATTENTION:
+        acfg = _attn_cfg(cfg, kind)
+        if table is None:
+            h, _, _ = L.attention_decode(p["attn"], acfg, h, cache["k"],
+                                         cache["v"], pos, rope=rope)
+        else:
+            h, _, _ = L.attention_decode_paged(p["attn"], acfg, h,
+                                               cache["k"], cache["v"],
+                                               table, pos, rope=rope)
+    elif kind == "rglru":
+        h, conv, hid = R.rglru_decode_step(p["rglru"], _rglru_cfg(cfg), h,
+                                           cache["conv"], cache["h"])
+        cache["conv"].copy_(conv)
+        cache["h"].copy_(hid)
+    else:
+        h, conv, st = S.ssm_decode_step(p["ssm"], _ssm_cfg(cfg), h,
+                                        cache["conv"], cache["state"])
+        cache["conv"].copy_(conv)
+        cache["state"].copy_(st)
+    return h
 
 
 def decode_step(params, cfg: ModelConfig, state, tokens, *,
@@ -325,17 +485,11 @@ def decode_step(params, cfg: ModelConfig, state, tokens, *,
     _check_ported(cfg)
     pos = int(state["pos"])
     x = params["embed_tokens"][tokens]
-    b = x.shape[0]
-    rope = L.rope_tables(torch.full((b, 1), pos, device=x.device),
-                         cfg.head_dim, cfg.rope_theta)
-    acfg = _attn_cfg(cfg)
-    caches = state["groups"]["b0"]
-    for li, p in enumerate(_stacked_layers(params["groups"]["b0"])):
+    rope = _rope(cfg, torch.full((x.shape[0], 1), pos, device=x.device))
+    for kind, p, cache in _blocks(params, state, cfg):
         h = L.apply_norm(x, p["norm1"], cfg.norm)
-        h, _, _ = L.attention_decode(p["attn"], acfg, h, caches["k"][li],
-                                     caches["v"][li], pos, rope=rope)
-        x = _ffn(p, cfg, x + h)
-    new_state = {"groups": state["groups"], "pos": pos + 1}
+        x = _ffn(p, cfg, x + _mix_decode(p, cfg, kind, h, cache, pos, rope))
+    new_state = dict(state, pos=pos + 1)
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
     if return_hidden:
         return x, new_state
@@ -349,7 +503,7 @@ def decode_step(params, cfg: ModelConfig, state, tokens, *,
 def needs_kv_pages(cfg: ModelConfig) -> bool:
     """Does any layer keep a token-indexed KV history?  Pure-recurrent
     stacks (SSM / RG-LRU only) carry fixed-size state and need no pages."""
-    return any(k in ("attn", "local_attn") for k in cfg.block_kinds())
+    return any(k in ATTENTION for k in cfg.block_kinds())
 
 
 def history_horizon(cfg: ModelConfig) -> Optional[int]:
@@ -376,32 +530,25 @@ def init_paged_state(cfg: ModelConfig, n_slots: int, n_pages: int,
     table ``(n_slots, max_pages)`` int32; a slot's memory is the pages
     allocated to it.  Page 0 is the dead page: free slots (table all 0,
     pos 0) write their garbage token there, and reads of unallocated
-    logical pages land there too (masked by position).  ``pos``
-    ``(n_slots,)`` int32 is per slot."""
+    logical pages land there too (masked by position).  Recurrent layers
+    (RG-LRU / SSM conv and hidden state) keep a fixed-size row per slot,
+    no pages; the engine's prefill-on-admit overwrites the admitted
+    slot's rows.  ``pos`` ``(n_slots,)`` int32 is per slot."""
     if cfg.n_enc_layers > 0 or cfg.n_patches > 0:
         raise NotImplementedError(
             "paged decode supports decoder-only token models (enc-dec "
             "cross caches / vision prefixes still use the static path)")
     _check_ported(cfg)
     dev = resolve_device(device)
-    _, n_groups, _ = cfg.layer_plan()
-    shape = (n_groups, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-    return {"groups": {"b0": {
-                "k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev)}},
-            "table": torch.zeros((n_slots, max_pages), dtype=torch.int32,
-                                 device=dev),
-            "pos": torch.zeros((n_slots,), dtype=torch.int32, device=dev)}
-
-
-def _apply_block_decode_paged(p, cfg: ModelConfig, acfg: L.AttnConfig, x,
-                              cache, table, pos, rope):
-    """One layer of the fused paged step: attention against the layer's
-    pool (written in place), then the MLP or MoE half (``_ffn``)."""
-    h = L.apply_norm(x, p["norm1"], cfg.norm)
-    h, _, _ = L.attention_decode_paged(p["attn"], acfg, h, cache["k"],
-                                       cache["v"], table, pos, rope=rope)
-    return _ffn(p, cfg, x + h)
+    kv_shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    state = {key: {f"b{i}": _block_cache(cfg, kind, count, n_slots,
+                                          kv_shape, dtype, dev)
+                   for i, kind in enumerate(kinds)}
+             for key, kinds, count in _stacks(cfg)}
+    state["table"] = torch.zeros((n_slots, max_pages), dtype=torch.int32,
+                                 device=dev)
+    state["pos"] = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
+    return state
 
 
 def decode_step_paged(params, cfg: ModelConfig, state, tokens, *,
@@ -410,22 +557,21 @@ def decode_step_paged(params, cfg: ModelConfig, state, tokens, *,
 
     tokens: (n_slots, 1), the pending token of each slot (free slots carry
     0 and write into the dead page).  Positions are per slot
-    (``state["pos"]``, a device tensor, never read on the host) and the
+    (``state["pos"]``, a device tensor, never read on the host); the
     attention layers read and write the shared page pool through
-    ``state["table"]``, in place.  Returns ``(logits | hidden,
-    new_state)`` with ``pos + 1``; ``return_hidden=True`` skips the dense
-    ``lm_head`` so a ``SparseLogitHead`` can score the hidden states."""
+    ``state["table"]``, the recurrent layers their rows of per-slot
+    state, all in place.  Returns ``(logits | hidden, new_state)`` with
+    ``pos + 1``; ``return_hidden=True`` skips the dense ``lm_head`` so a
+    ``SparseLogitHead`` can score the hidden states."""
     _check_ported(cfg)
     table, pos = state["table"], state["pos"]
     x = params["embed_tokens"][tokens]
-    rope = L.rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
-    acfg = _attn_cfg(cfg)
-    caches = state["groups"]["b0"]
-    for li, p in enumerate(_stacked_layers(params["groups"]["b0"])):
-        x = _apply_block_decode_paged(
-            p, cfg, acfg, x, {"k": caches["k"][li], "v": caches["v"][li]},
-            table, pos, rope)
-    new_state = {"groups": state["groups"], "table": table, "pos": pos + 1}
+    rope = _rope(cfg, pos[:, None])
+    for kind, p, cache in _blocks(params, state, cfg):
+        h = L.apply_norm(x, p["norm1"], cfg.norm)
+        x = _ffn(p, cfg, x + _mix_decode(p, cfg, kind, h, cache, pos, rope,
+                                         table))
+    new_state = dict(state, pos=pos + 1)
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
     if return_hidden:
         return x, new_state

@@ -39,8 +39,9 @@ Differences from the reference, on purpose:
   the rest of the batch.  The generator travels with a preempted request
   (``Request.resume_key``) and into ``complete_static(generator=…)`` on a
   fallback drain.  Greedy decoding matches the reference.
-* **State.** The page pool is updated in place by the prefill scatter and
-  by each fused step; the reference swaps in functional copies.
+* **State.** The page pool, and the recurrent layers' per-slot rows, are
+  updated in place by the prefill scatter and by each fused step; the
+  reference swaps in functional copies.
 * **No jit cache.** Prefill and the fused step run eagerly.
 * **Host syncs.** A fused step copies its host inputs (tokens, positions,
   block table) to the device in one copy and brings back, in one copy,

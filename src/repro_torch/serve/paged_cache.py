@@ -13,7 +13,7 @@ the host half:
   the paged-memory claim is asserted on;
 * :func:`scatter_prefill_state`: after a batch-1 ``lm.prefill`` for a
   newly admitted request, write its K/V caches into the slot's pages of
-  the pool, in place.
+  the pool and its recurrent state into the slot's rows, in place.
 """
 
 from __future__ import annotations
@@ -130,29 +130,31 @@ def _logical_kv(cache: torch.Tensor, padded_len: int) -> torch.Tensor:
 def scatter_prefill_state(state: Dict[str, Any], pstate: Dict[str, Any],
                           slot: int, phys_pages: Sequence[int],
                           page_size: int) -> Dict[str, Any]:
-    """Write a batch-1 prefill's K/V caches into an admitted slot's pages.
+    """Write a batch-1 prefill's caches into an admitted slot.
 
     ``state``: the engine's paged decode state (``init_paged_state``
     layout); ``pstate``: the state ``lm.prefill`` returned for the single
-    new request, run with ``max_seq = len(phys_pages) * page_size``
-    (``groups["b0"]["k" | "v"]`` of shape ``(L, 1, max_seq, KVH, hd)``).
-    The pool is written **in place** at the slot's physical pages (the
-    reference returns an updated copy); returns ``state``.  ``slot``
-    names the slot's row of per-slot state, which only the recurrent
-    layers keep (not ported), as in the reference's signature.
+    new request, run with ``max_seq = len(phys_pages) * page_size``.
+    Attention K/V (``(L, 1, cache_len, KVH, hd)``) scatter page-aligned
+    into the pool at the slot's physical pages; recurrent ``conv`` /
+    ``h`` / ``state`` rows overwrite row ``slot``, which also resets
+    whatever the previous occupant or a free slot's garbage step left
+    there.  Both ``groups`` and ``tail`` are written, **in place** (the
+    reference returns an updated copy); returns ``state``.
     """
     padded_len = len(phys_pages) * page_size
-    if padded_len == 0:
-        return state
-    for bkey, cache in state["groups"].items():
-        for name in ("k", "v"):
-            logical = _logical_kv(pstate["groups"][bkey][name], padded_len)
-            pool = cache[name]
-            paged = logical.reshape(logical.shape[0], len(phys_pages),
-                                    page_size, *logical.shape[2:])
-            phys = torch.as_tensor(np.asarray(phys_pages, np.int64),
-                                   device=pool.device)
-            pool[:, phys] = paged.to(pool.dtype)
+    phys = torch.as_tensor(np.asarray(phys_pages, np.int64))
+    for key in ("groups", "tail"):
+        for bkey, cache in state.get(key, {}).items():
+            for name, arr in cache.items():
+                src = pstate[key][bkey][name]
+                if name not in ("k", "v"):
+                    arr[:, slot] = src[:, 0].to(arr.dtype)
+                elif padded_len:
+                    logical = _logical_kv(src, padded_len)
+                    arr[:, phys.to(arr.device)] = logical.reshape(
+                        logical.shape[0], len(phys_pages), page_size,
+                        *logical.shape[2:]).to(arr.dtype)
     return state
 
 
