@@ -234,7 +234,32 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
     layers, d_model 2 560, d_state 128, headdim 64, vocab 51 200, no MLP)
     and a 51 200 × 2 560 head: B4 64, no B3; ``continuation_check`` on 512
     tokens (two SSD chunks) from a one-chunk prefix and 256 decode steps.
-22. the ``{"kernels": [...]}`` summary (``launches_by_path`` has every
+22. encdec_reference — the whisper-base smoke config (2 encoder and 2
+    decoder layers, layer norms, GELU MLPs, cross-attention) with every
+    bias drawn non-zero and the layer norms' scales off one, on the card
+    against the CPU: greedy ``generate`` tokens equal, a prefill and 8
+    decode steps within 1e-4, one request through an (8, 8) sparse head
+    by ``head_route`` (``prefill(return_hidden=True)`` then
+    ``decode_step(return_hidden=True)``), tokens equal;
+    ``prefill_cross_kv`` into an ``init_decode_state`` equal to the
+    prefill's cross caches.
+23. encdec_serve — phase 4 on whisper-base at full width and depth (6
+    encoder and 6 decoder layers, d_model 512, 8 heads, hd 64, d_ff 2 048,
+    enc_seq 1 536, vocab 51 865 padded to 53 248; biases drawn non-zero)
+    with a 53 248 × 512 sparse head and no sparse MLP (its MLP is the plain
+    GELU one): ``generate`` on 4 prompts with their encoder frames, then
+    the 4 requests one at a time through the head by ``head_route``;
+    launches exactly B4 64, B3 0, B9 0; also the encoder's device ms.
+24. vlm_reference — phase 22 on the internvl2-1b smoke config (8
+    patches, QKV biases drawn non-zero, a sparse MLP at (8, 8)).
+25. vlm_serve — phase 23 on internvl2-1b at full width and depth (24
+    layers, d_model 896, 14 heads over 2 KV heads, hd 64, d_ff 4 864, 256
+    patches, vocab 151 655 padded to 153 600) with the sparse MLP at
+    (64, 64), d 0.25, and a 153 600 × 896 head: launches exactly B3
+    24 × ((1 + 16) + 4 × 16) = 1 944 and B4 64.  Then the kernel rows of
+    both models: B3 at internvl's down-projection (G 4, N 1 and 368), B4
+    on both heads (N 1), f32.
+26. the ``{"kernels": [...]}`` summary (``launches_by_path`` has every
     path above), then the final ``{"ok": true, ...}``.
 """
 
@@ -1026,11 +1051,12 @@ def zero_spmm_counters():
 
 
 def model_kernels(cfg):
-    """(blocks with an MLP, local-attention blocks) of ``cfg``: the layers
-    that launch B3 (a sparse MLP's down-projection) and B9 each forward
-    pass."""
+    """(blocks with a sparse MLP, local-attention blocks) of ``cfg``: the
+    layers that launch B3 (a sparse MLP's down-projection) and B9 each
+    forward pass of the decoder (an encoder's MLPs stay dense)."""
     kinds = cfg.block_kinds()
-    n_mlp = sum(k != "ssm" for k in kinds) if cfg.ffn_kind == "dense" else 0
+    n_mlp = sum(k != "ssm" for k in kinds) \
+        if cfg.ffn_kind == "dense" and cfg.sparse_mlp else 0
     return n_mlp, kinds.count("local_attn")
 
 
@@ -1040,41 +1066,106 @@ def pad_block(s: int) -> int:
     return -(-s // LOCAL_BLOCK) * LOCAL_BLOCK
 
 
+BIAS_LEAVES = ("bias", "b_in", "b_out", "bq", "bk", "bv")
+
+
+def draw_biases(params, gen):
+    """Every bias of ``params`` (zeros at init: QKV, layer norm and GELU
+    MLP biases) drawn in place as 0.5·N(0, 1) from ``gen``, and every
+    layer norm's scale (ones) as 1 + 0.2·N(0, 1), in the tree's order, so
+    the model's paths use them."""
+    for name, t in list(params.items()):
+        if isinstance(t, dict):
+            draw_biases(t, gen)
+        elif name in BIAS_LEAVES:
+            t.normal_(generator=gen).mul_(0.5)
+        elif name == "scale" and "bias" in params:
+            t.normal_(generator=gen).mul_(0.2).add_(1.0)
+
+
+def extra_inputs(cfg, b, gen):
+    """The non-token inputs of ``b`` requests, N(0, 1) from ``gen`` on
+    its device: encoder frames (b, enc_seq, D) or patch embeddings (b,
+    n_patches, D), as ``launch/serve.py`` draws them."""
+    out = {}
+    if cfg.n_enc_layers:
+        out["enc_frames"] = torch.randn((b, cfg.enc_seq, cfg.d_model),
+                                        generator=gen, device=gen.device)
+    if cfg.n_patches:
+        out["vision_embeds"] = torch.randn((b, cfg.n_patches, cfg.d_model),
+                                           generator=gen, device=gen.device)
+    return out
+
+
+def head_route(params, cfg, head, prompt, extra, new):
+    """One request with its own extra inputs scored by ``head``, greedy:
+    ``prefill(return_hidden=True)`` and one
+    ``decode_step(return_hidden=True)`` a further token, as
+    ``complete_static`` walks a token-only request.  Returns (new tokens,
+    "length" or "error" on non-finite logits, None)."""
+    from repro_torch.models import lm
+    from repro_torch.serve import SamplingConfig
+    from repro_torch.serve.engine import sample_token
+    tok = torch.from_numpy(np.asarray(prompt)).to(
+        params["embed_tokens"].device)[None]
+    hidden, state = lm.prefill(params, cfg, {"tokens": tok, **extra},
+                               max_seq=tok.shape[1] + cfg.n_patches + new,
+                               return_hidden=True)
+    out = []
+    while True:
+        row = head(hidden)[:, -1]
+        if not bool(torch.isfinite(row[:, :cfg.vocab_size]).all()):
+            return out, "error", None
+        nxt = sample_token(row, None, SamplingConfig(), cfg.vocab_size)
+        out.append(int(nxt[0]))
+        if len(out) >= new:
+            return out, "length", None
+        hidden, state = lm.decode_step(params, cfg, state, nxt[:, None],
+                                       return_hidden=True)
+
+
 def serve(card, arch=SERVE_ARCH, phase="serve", autotuned=True,
           continuation=None):
     """Serve ``arch`` at full width and depth with the sparse MLP (where
-    the model has an MLP) and head (QKV biases, where the config has
-    them, drawn non-zero); with ``autotuned`` also through a
-    ``plan="auto"`` head; with ``continuation`` = (prompt length, prefix
-    length), ``continuation_check`` on one long request.  Returns the
-    launches of each counted run (by path) and the phase's line."""
+    the model has a gated MLP) and head (its biases, where the config has
+    them, drawn non-zero: ``draw_biases``); with ``autotuned`` also
+    through a ``plan="auto"`` head; with ``continuation`` = (prompt
+    length, prefix length), ``continuation_check`` on one long request.
+    A model that takes encoder frames or a vision prefix gets them drawn
+    from the seed, and its 4 requests go through the head one at a time
+    by ``head_route`` (``complete_static`` takes tokens only).  Returns
+    the launches of each counted run (by path) and the phase's line."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.block_attn import block_attention
     from repro_torch.models import lm
-    from repro_torch.models.layers import init_sparse_linear
+    from repro_torch.models.layers import GATED, init_sparse_linear
     from repro_torch.serve import (SamplingConfig, SparseLogitHead,
                                    complete_static, generate)
     from repro_torch.train.optimizer import named_leaves
-    cfg = dataclasses.replace(get_config(arch), sparse_mlp=True)
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, sparse_mlp=cfg.activation in GATED)
     n_mlp, n_local = model_kernels(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = lm.init_params(cfg, gen, device="cuda")
-    for name in ("bq", "bk", "bv") if cfg.qkv_bias else ():
-        params["groups"]["b0"]["attn"][name].normal_(generator=gen).mul_(0.5)
+    draw_biases(params, gen)
     head = SparseLogitHead.build(init_sparse_linear(
         gen, cfg.d_model, cfg.vocab_padded, block_shape=(64, 64),
         block_density=0.5))
+    extra = extra_inputs(cfg, 4, gen)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
     prompt_len = int(rng.integers(16, 129))
     prompts = rng.integers(0, cfg.vocab_size, (4, prompt_len))
-    batch = {"tokens": torch.from_numpy(prompts).cuda()}
+    batch = {"tokens": torch.from_numpy(prompts).cuda(), **extra}
+    row0 = {k: v[:1] for k, v in batch.items()}
+    seq = prompt_len + cfg.n_patches         # what the decoder prefills
     new = 16
     sampling = SamplingConfig(max_new_tokens=new)
+    route = "head_route" if extra else "complete_static"
 
     zero_spmm_counters()
     block_attention.launches = 0
@@ -1083,22 +1174,27 @@ def serve(card, arch=SERVE_ARCH, phase="serve", autotuned=True,
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    singles = [complete_static(params, cfg, p, new, sampling=SamplingConfig(),
-                               head=head) for p in prompts]
+    if extra:
+        singles = [head_route(params, cfg, head, p, {
+            k: v[i:i + 1] for k, v in extra.items()}, new)
+            for i, p in enumerate(prompts)]
+    else:
+        singles = [complete_static(params, cfg, p, new,
+                                   sampling=SamplingConfig(), head=head)
+                   for p in prompts]
     torch.cuda.synchronize()
     static_s = time.perf_counter() - t0
     launches = spmm_counters()
+    launches["block_attention"] = block_attention.launches
     # generate: one prefill + one decode step per new token; each request
-    # of complete_static: one prefill + (new - 1) decode steps, each scored
-    # by the head in its plan's layout; every layer's MLP is one naive
-    # launch; every local-attention layer one B9 launch a prefill (decode
-    # reads its rolling cache without it)
+    # of complete_static (or head_route): one prefill + (new - 1) decode
+    # steps, each scored by the head in its plan's layout; every layer's
+    # sparse MLP is one naive launch; every local-attention layer one B9
+    # launch a prefill (decode reads its rolling cache without it)
     expect = {"maple_spmm_naive": n_mlp * ((1 + new) + 4 * new),
-              "maple_spmm_compact": 0, "maple_spmm_planned": 0}
+              "maple_spmm_compact": 0, "maple_spmm_planned": 0,
+              "block_attention": n_local * (1 + 4)}
     expect[PLANNED[head.plan.fused]] += 4 * new
-    if n_local:
-        launches["block_attention"] = block_attention.launches
-        expect["block_attention"] = n_local * (1 + 4)
 
     if tokens.shape != (4, new) or not bool(
             ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
@@ -1106,8 +1202,8 @@ def serve(card, arch=SERVE_ARCH, phase="serve", autotuned=True,
                              f"tokens outside the vocabulary")
     for toks, reason, _ in singles:
         if reason != "length" or len(toks) != new:
-            raise AssertionError(f"complete_static ended with {reason!r} "
-                                 f"after {len(toks)} tokens")
+            raise AssertionError(f"{route} ended with {reason!r} after "
+                                 f"{len(toks)} tokens")
     if launches != expect:
         raise AssertionError(f"kernel launches on the path {launches}, "
                              f"expected {expect}")
@@ -1123,17 +1219,15 @@ def serve(card, arch=SERVE_ARCH, phase="serve", autotuned=True,
     # against the plain versions at this model's shapes
     held = {}
     with held_against_plain(held, phase):
-        logits, state = lm.prefill(params, cfg, batch,
-                                   max_seq=prompt_len + new)
+        logits, state = lm.prefill(params, cfg, batch, max_seq=seq + new)
         _, state = lm.decode_step(params, cfg, state, tokens[:, :1])
-        hidden, _ = lm.prefill(params, cfg, {"tokens": batch["tokens"][:1]},
-                               return_hidden=True)
+        hidden, _ = lm.prefill(params, cfg, row0, return_hidden=True)
         head_logits = head(hidden)
     shapes = {(PLANNED[head.plan.fused], 1, cfg.d_model, 1)}
     if n_mlp:
-        shapes |= {("maple_spmm_naive", 4, cfg.d_ff, prompt_len),
+        shapes |= {("maple_spmm_naive", 4, cfg.d_ff, seq),
                    ("maple_spmm_naive", 4, cfg.d_ff, 1),
-                   ("maple_spmm_naive", 1, cfg.d_ff, prompt_len)}
+                   ("maple_spmm_naive", 1, cfg.d_ff, seq)}
     if n_local:
         shapes |= {("block_attention", b, pad_block(prompt_len),
                     cfg.n_heads, cfg.head_dim) for b in (4, 1)}
@@ -1153,7 +1247,7 @@ def serve(card, arch=SERVE_ARCH, phase="serve", autotuned=True,
         search["logits_max_abs_diff"] = auto_err
         del auto_logits
     del head_logits
-    alone, _ = lm.prefill(params, cfg, {"tokens": batch["tokens"][:1]})
+    alone, _ = lm.prefill(params, cfg, row0)
     alone_err = float((alone - logits[:1]).abs().max())
     if not torch.allclose(alone, logits[:1], rtol=1e-3, atol=1e-3):
         raise AssertionError(
@@ -1161,7 +1255,7 @@ def serve(card, arch=SERVE_ARCH, phase="serve", autotuned=True,
             f"{alone_err}, max|logit| {float(logits[:1].abs().max())}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lm.prefill(params, cfg, batch, max_seq=prompt_len + new)
+    lm.prefill(params, cfg, batch, max_seq=seq + new)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     step_tok = tokens[:, :1]
@@ -1177,13 +1271,16 @@ def serve(card, arch=SERVE_ARCH, phase="serve", autotuned=True,
     head_ms = (time.perf_counter() - t0) * 1e3 / 4
     profiles = {
         "prefill": profile(lambda: lm.prefill(params, cfg, batch,
-                                              max_seq=prompt_len + new),
+                                              max_seq=seq + new),
                            totals=MODEL_TOTALS),
         "decode_step": profile(lambda: lm.decode_step(params, cfg, state,
                                                       step_tok),
                                totals=MODEL_TOTALS),
         "sparse_head": profile(lambda: head(hidden),
                                totals=("run_kernel",))}
+    if cfg.n_enc_layers:
+        profiles["encoder"] = profile(
+            lambda: lm._encode(params, cfg, extra["enc_frames"]))
     del state, logits, hidden
     long = None
     if continuation is not None:
@@ -1197,17 +1294,21 @@ def serve(card, arch=SERVE_ARCH, phase="serve", autotuned=True,
         "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "window": cfg.window,
         "lru_width": cfg.lru_width, "ssm_d_state": cfg.ssm_d_state,
         "vocab_padded": cfg.vocab_padded, "qkv_bias": cfg.qkv_bias,
+        "norm": cfg.norm, "activation": cfg.activation,
+        "n_enc_layers": cfg.n_enc_layers, "enc_seq": cfg.enc_seq,
+        "n_patches": cfg.n_patches,
         "n_params": sum(t.numel() for _, t in named_leaves(params)),
         "param_count": cfg.param_count(),
         "head_fused": head.plan.fused, "autotuned_head": search,
         "depth_reduced": False, "batch": 4, "prompt_len": prompt_len,
-        "new_tokens": new, "setup_s": setup_s, "generate_s": gen_s,
-        "generate_tok_per_s": 4 * new / gen_s,
-        "complete_static_s": static_s,
-        "complete_static_tok_per_s": 4 * new / static_s,
+        "prefill_len": seq, "new_tokens": new, "setup_s": setup_s,
+        "generate_s": gen_s, "generate_tok_per_s": 4 * new / gen_s,
+        f"{route}_s": static_s, f"{route}_tok_per_s": 4 * new / static_s,
         "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
         "prefill_device_ms": profiles["prefill"]["device_ms"],
         "decode_step_device_ms": profiles["decode_step"]["device_ms"],
+        "encoder_device_ms": profiles["encoder"]["device_ms"]
+        if "encoder" in profiles else None,
         "sparse_head_ms": head_ms, "launches": launches,
         "batch1_vs_batch_max_abs_diff": alone_err,
         "held_against_plain": {" ".join(map(str, k)): v
@@ -3485,6 +3586,21 @@ SSM_LONG = (512, 256)
 # mid-stream join (request 2 arrives at round 3)
 HYBRID_SMOKE_BATCH = dict(prompt=8, new=40, page=4, n_pages=9, max_slots=2)
 SSM_SMOKE_BATCH = dict(prompt=8, new=8, page=4, n_pages=32, max_slots=4)
+# the encoder-decoder and vision-prefix slice: whisper-base and
+# internvl2-1b at full width and depth; their kernel shapes are
+# internvl's sparse down-projection (d_ff -> d_model) over the serve
+# phase's 4 sequences at decode (N 1) and prefill (its 112 tokens behind
+# 256 patches, N 368), and each sparse head one request at a time
+ENCDEC_ARCH = "whisper-base"
+VLM_ARCH = "internvl2-1b"
+VLM_MLP = dict(name="internvl2-1b mlp_down 896x4864 (64,64) d=0.25",
+               d_out=896, d_in=4864, block=(64, 64), density=0.25, G=4,
+               N=(1, 112 + 256))
+ENCDEC_HEAD = dict(name="whisper-base logit_head 53248x512 (64,64) d=0.5 "
+                   "L=8", d_out=53_248, d_in=512, block=(64, 64),
+                   density=0.5, n_lanes=8, G=1, N=(1,))
+VLM_HEAD = dict(ENCDEC_HEAD, name="internvl2-1b logit_head 153600x896 "
+                "(64,64) d=0.5 L=8", d_out=153_600, d_in=896)
 
 
 def cuda_tree(tree):
@@ -3728,6 +3844,144 @@ def hybrid_attention_rows(spec, flush):
     return rows
 
 
+def extras_reference(arch, phase):
+    """``arch``'s smoke config (internvl2-1b with a sparse MLP at (8, 8))
+    with every bias drawn non-zero (``draw_biases``: layer norms, GELU
+    MLPs, QKV) on the card against the same weights on the CPU: greedy
+    ``generate`` tokens equal; the logits of a prefill and of 8 decode
+    steps fed the same tokens within 1e-4; one request through an (8, 8)
+    sparse head by ``head_route``, tokens equal.  Whisper also fills an
+    ``init_decode_state`` by ``prefill_cross_kv``, which must equal the
+    prefill's cross caches within the f32 tolerance.  Launches are
+    counted over the card's runs (B3 one a layer a forward pass, B4 one
+    a head call).  Returns them and the line."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.models.layers import GATED, init_sparse_linear
+    from repro_torch.serve import SamplingConfig, SparseLogitHead, generate
+    cfg = get_smoke_config(arch)
+    if cfg.activation in GATED:
+        cfg = dataclasses.replace(cfg, sparse_mlp=True, sparse_block=(8, 8))
+    n_mlp, _ = model_kernels(cfg)
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    cpu = lm.init_params(cfg, cpu_gen, device="cpu")
+    draw_biases(cpu, torch.Generator().manual_seed(SEED + 5))
+    gpu = cuda_tree(cpu)
+    w = init_sparse_linear(torch.Generator().manual_seed(SEED + 7),
+                           cfg.d_model, cfg.vocab_padded, block_shape=(8, 8),
+                           block_density=0.5)
+    heads = {"cpu": SparseLogitHead.build(w),
+             "cuda": SparseLogitHead.build(cuda_tree({"w": w})["w"])}
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (2, 9)))
+    extra = extra_inputs(cfg, 2, torch.Generator().manual_seed(SEED + 3))
+    batch = {"cpu": {"tokens": prompts, **extra},
+             "cuda": {"tokens": prompts.cuda(),
+                      **{k: v.cuda() for k, v in extra.items()}}}
+    params = {"cpu": cpu, "cuda": gpu}
+    new, steps, route_new = 8, 8, 5
+    seq = prompts.shape[1] + cfg.n_patches
+    sampling = SamplingConfig(max_new_tokens=new)
+    zero_spmm_counters()
+    toks = {dev: generate(params[dev], cfg, batch[dev], sampling)[0].cpu()
+            for dev in ("cuda", "cpu")}
+    if not torch.equal(toks["cpu"], toks["cuda"]):
+        raise AssertionError(f"{arch} smoke: card greedy tokens differ from "
+                             f"the CPU's")
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        logits, state = lm.prefill(params[dev], cfg, batch[dev],
+                                   max_seq=seq + steps)
+        rows[dev] = [logits.cpu()]
+        for t in range(steps):
+            logits, state = lm.decode_step(params[dev], cfg, state,
+                                           toks["cpu"][:, t:t + 1].to(dev))
+            rows[dev].append(logits.cpu())
+        if dev == "cuda":
+            card_state = state
+    errs = [float((g - c).abs().max())
+            for g, c in zip(rows["cuda"], rows["cpu"])]
+    if not all(torch.allclose(g, c, rtol=1e-4, atol=1e-4)
+               for g, c in zip(rows["cuda"], rows["cpu"])):
+        raise AssertionError(f"{arch} smoke: card logits differ from the "
+                             f"CPU's by up to {max(errs)}")
+    routed = {dev: head_route(params[dev], cfg, heads[dev],
+                              prompts[0].numpy(),
+                              {k: v[:1] for k, v in batch[dev].items()
+                               if k != "tokens"}, route_new)[0]
+              for dev in ("cuda", "cpu")}
+    launches = spmm_counters()
+    passes = (1 + new) + (1 + steps) + route_new
+    expect = {"maple_spmm_naive": n_mlp * passes, "maple_spmm_compact": 0,
+              "maple_spmm_planned": 0}
+    expect[PLANNED[heads["cuda"].plan.fused]] += route_new
+    if launches != expect:
+        raise AssertionError(f"{arch} smoke: launches {launches}, expected "
+                             f"{expect}")
+    if routed["cpu"] != routed["cuda"]:
+        raise AssertionError(f"{arch} smoke: card sparse-head tokens "
+                             f"{routed['cuda']} differ from the CPU's "
+                             f"{routed['cpu']}")
+    cross_err = None
+    if cfg.n_enc_layers:
+        filled = lm.prefill_cross_kv(
+            gpu, cfg, lm.init_decode_state(cfg, 2, seq + steps),
+            batch["cuda"]["enc_frames"])
+        cross_err = max(check_close(
+            filled[key][b][name], card_state[key][b][name], torch.float32,
+            f"{arch} smoke prefill_cross_kv {key}/{b}/{name}")
+            for key in ("groups", "tail") if key in filled
+            for b in filled[key] for name in ("cross_k", "cross_v"))
+    return launches, {
+        "phase": phase, "config": f"{arch} smoke"
+        f"{', sparse_mlp (8,8)' if cfg.sparse_mlp else ''}, sparse head "
+        f"(8,8) d=0.5, biases drawn, f32", "norm": cfg.norm,
+        "activation": cfg.activation, "n_enc_layers": cfg.n_enc_layers,
+        "n_patches": cfg.n_patches, "prompt_len": prompts.shape[1],
+        "prefill_len": seq, "decode_steps": steps,
+        "prefill_max_abs_err": errs[0], "decode_max_abs_err": max(errs[1:]),
+        "greedy_tokens_equal": True, "head_route_tokens_equal": True,
+        "prefill_cross_kv_max_abs_err": cross_err, "launches": launches}
+
+
+def extras_rows(spec, flush):
+    """B3 at internvl2-1b's sparse down-projection (896 × 4 864, (64, 64),
+    d 0.25) over the serve phase's 4 sequences at decode (N 1) and prefill
+    (112 tokens behind 256 patches: N 368), and B4 on both models' heads
+    (whisper-base 53 248 × 512, internvl2-1b 153 600 × 896; (64, 64), d
+    0.5, 8 lanes) at N 1, f32: each held against its plain version, then
+    timed beside its bound, the plain version and ``torch.matmul``."""
+    from repro_torch.kernels.maple_spmm import (maple_spmm_naive,
+                                                maple_spmm_naive_plain)
+    from repro_torch.kernels.schedule import plan_spmm
+    rng = np.random.default_rng(SEED + 13)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    dtype, isz, rows = torch.float32, 4, []
+    mlp = sparse_weight(gen, VLM_MLP, dtype)
+    dense = mlp.to_dense()
+    for n in VLM_MLP["N"]:
+        g = VLM_MLP["G"]
+        got, want, args, b3 = run_naive_case(mlp, g, n, dtype, 128, rng)
+        nbytes, flops = spmm_cost(
+            mlp, g, n, isz, out_bytes=g * mlp.shape[0] * n * isz,
+            meta_bytes=4 * (mlp.n_block_rows + 1 + mlp.nnzb))
+        rows.append(measure(
+            "maple_spmm_naive", got, want, dtype,
+            lambda: maple_spmm_naive(*args, bn=128),
+            lambda: maple_spmm_naive_plain(*args),
+            lambda: torch.matmul(dense, b3), nbytes, flops, spec, flush,
+            REPS, G=g, N=n, shape=VLM_MLP["name"]))
+    del dense, mlp
+    for shape in (ENCDEC_HEAD, VLM_HEAD):
+        head = sparse_weight(gen, shape, dtype)
+        plan = plan_spmm(head, n_lanes=shape["n_lanes"])
+        for n in shape["N"]:
+            rows.append(planned_row(head, plan, shape["G"], n, dtype, isz,
+                                    spec, flush, rng, shape["name"]))
+        del head, plan
+    return rows
+
+
 def profile(fn, warmup: bool = True, totals=()) -> dict:
     """One call of ``fn`` under torch.profiler (after one call outside it
     with ``warmup``): wall ms, the device time summed over kernels, the
@@ -3865,6 +4119,27 @@ def main() -> int:
     ssm_launches, ssm_line = serve(smi, SSM_ARCH, phase="ssm_serve",
                                    autotuned=False, continuation=SSM_LONG)
     emit(ssm_line)
+    torch.cuda.empty_cache()
+
+    encdec_ref_launches, line = extras_reference(ENCDEC_ARCH,
+                                                 "encdec_reference")
+    emit(line)
+    encdec_launches, encdec_line = serve(smi, ENCDEC_ARCH,
+                                         phase="encdec_serve",
+                                         autotuned=False)
+    emit(encdec_line)
+    vlm_ref_launches, line = extras_reference(VLM_ARCH, "vlm_reference")
+    emit(line)
+    vlm_launches, vlm_line = serve(smi, VLM_ARCH, phase="vlm_serve",
+                                   autotuned=False)
+    emit(vlm_line)
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    extra_rows = extras_rows(spec, flush)
+    del flush
+    for row in extra_rows:
+        emit({"phase": "kernels", "card": smi, **row})
+    rows += extra_rows
 
     # launches: each path's run, counted from 0
     by_path = {**serve_launches, "train": train_launches,
@@ -3874,7 +4149,9 @@ def main() -> int:
                "moe_serve": moe_launches, **batcher_launches,
                "local_attention": attn_launches, **qwen2_launches,
                "hybrid_reference": hybrid_ref_launches, **hybrid_launches,
-               "hybrid_batcher": hb_launches, **ssm_launches}
+               "hybrid_batcher": hb_launches, **ssm_launches,
+               "encdec_reference": encdec_ref_launches, **encdec_launches,
+               "vlm_reference": vlm_ref_launches, **vlm_launches}
     f32 = lambda n: lambda r: r["dtype"] == "float32" and r.get("N") == n
     headline = {"maple_spmm_naive": f32(1), "maple_spmm_compact": f32(1),
                 "maple_spmm_planned": f32(1),

@@ -1,9 +1,10 @@
-"""Architecture registry: --arch <id> resolves here.  Only the ported
-architectures are listed, under the reference's names."""
+"""Architecture registry: --arch <id> resolves here.  Every reference
+architecture, under the reference's names."""
 
-from repro_torch.configs import (granite_moe_3b, mamba2_2_7b, minitron_8b,
-                                 qwen2_7b, qwen2_72b, qwen3_4b,
-                                 qwen3_moe_235b, recurrentgemma_9b)
+from repro_torch.configs import (granite_moe_3b, internvl2_1b, mamba2_2_7b,
+                                 minitron_8b, qwen2_7b, qwen2_72b, qwen3_4b,
+                                 qwen3_moe_235b, recurrentgemma_9b,
+                                 whisper_base)
 from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeSpec,
                                       input_specs, pad_to, shape_applicable)
 
@@ -16,6 +17,8 @@ ARCHS = {
     "granite-moe-3b-a800m": granite_moe_3b,
     "qwen3-moe-235b-a22b": qwen3_moe_235b,
     "mamba2-2.7b": mamba2_2_7b,
+    "whisper-base": whisper_base,
+    "internvl2-1b": internvl2_1b,
 }
 
 

@@ -6,8 +6,10 @@ The reference keeps parameters as a pytree of JAX arrays with
 the tree as nested dicts of numpy arrays, with each ``BlockCSR`` flattened
 to a dict of its fields (``blocks``, ``block_col``, ``block_row``,
 ``row_ptr``, ``shape``, ``block_shape``).  The layout is kept as it is,
-including the stacked ``groups/b<i>`` and ``tail/b0`` layer axes; the
-trainer's per-layer leaves are ``models.lm.unstack_layers`` of the result.
+including the stacked ``groups/b<i>``, ``tail/b0`` and
+``encoder/groups/b0`` layer axes, a layer norm's ``bias`` and the vision
+projection ``vis_proj``; the trainer's per-layer leaves are
+``models.lm.unstack_layers`` of the result.
 """
 
 from __future__ import annotations
@@ -66,10 +68,18 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
     """The port's parameter tree from the reference's (nested dicts of
     numpy arrays, BlockCSR leaves flattened to dicts).  Every leaf under
     ``/groups`` must carry ``n_groups`` layers on its leading axis, every
-    leaf under ``/tail`` ``len(tail)``; a config with a tail needs one."""
+    leaf under ``/tail`` ``len(tail)``, every one under
+    ``/encoder/groups`` ``n_enc_layers``; a config with a tail, an encoder
+    or a vision prefix needs that subtree."""
     dev = resolve_device(device)
     _, n_groups, tail = cfg.layer_plan()
-    layers = {"/groups": n_groups, "/tail": len(tail)}
+    layers = {"/groups": n_groups, "/tail": len(tail),
+              "/encoder/groups": cfg.n_enc_layers}
+
+    def stack_of(path):
+        parts = path.split("/")
+        return layers.get("/".join(parts[:3]),
+                          layers.get("/".join(parts[:2])))
 
     def convert(node, path):
         if isinstance(node, Mapping):
@@ -77,7 +87,7 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                 return block_csr_from_numpy(node, dev)
             return {k: convert(v, f"{path}/{k}") for k, v in node.items()}
         arr = np.asarray(node)
-        n = layers.get("/" + path.split("/")[1])
+        n = stack_of(path)
         if n is not None and arr.shape[:1] != (n,):
             raise ValueError(f"{path}: leading layer axis {arr.shape[:1]} "
                              f"!= ({n},)")
@@ -85,7 +95,9 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
 
     out = convert(tree, "")
     required = ("embed_tokens", "groups", "final_norm", "lm_head") + \
-        (("tail",) if tail else ())
+        (("tail",) if tail else ()) + \
+        (("encoder",) if cfg.n_enc_layers > 0 else ()) + \
+        (("vis_proj",) if cfg.n_patches > 0 else ())
     for key in required:
         if key not in out:
             raise ValueError(f"parameter tree has no {key!r}")

@@ -5,6 +5,12 @@ Deterministic per-step draws: the numpy generator is seeded from
 reference's exactly, and a restart at step N sees the batches the lost
 run would have seen.  Batches are int32 tensors on the host; the caller
 moves them to the device.
+
+``extra`` inputs (encoder frames, vision embeddings) are f32 standard
+normals from a ``torch.Generator`` seeded from ``(seed, step)``, so they
+too are the same for every run of a step.  The reference draws them
+with ``jax.random``, which torch cannot reproduce: only their shapes,
+dtype and determinism match it.
 """
 
 from __future__ import annotations
@@ -29,12 +35,8 @@ class DataConfig:
 def synth_batch(cfg: DataConfig, step: int,
                 extra: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
     """The full global batch of ``step``: successor sequences (next = cur
-    + 1 mod V) with per-row offsets and 2% noise.  ``extra`` inputs
-    (encoder frames, vision embeddings) are not ported yet."""
-    if extra:
-        raise NotImplementedError(f"extra inputs {sorted(extra)} (encoder "
-                                  f"frames, vision embeds) are not ported "
-                                  f"yet")
+    + 1 mod V) with per-row offsets and 2% noise; ``extra`` maps each
+    further input's name to its shape, drawn in the dict's order."""
     rng = np.random.default_rng(
         np.random.SeedSequence([cfg.seed, step, 0xC0FFEE]))
     b, s = cfg.global_batch, cfg.seq_len
@@ -46,8 +48,15 @@ def synth_batch(cfg: DataConfig, step: int,
     toks = toks.astype(np.int32)
     labels = np.concatenate([toks[:, 1:], np.full((b, 1), -1, np.int32)],
                             axis=1)
-    return {"tokens": torch.from_numpy(toks),
-            "labels": torch.from_numpy(labels)}
+    batch = {"tokens": torch.from_numpy(toks),
+             "labels": torch.from_numpy(labels)}
+    if extra:
+        gen = torch.Generator().manual_seed(int(np.random.SeedSequence(
+            [cfg.seed, step, 0xE7A]).generate_state(1, np.uint64)[0]))
+        for name, shape in extra.items():
+            batch[name] = torch.randn(tuple(shape), generator=gen,
+                                      dtype=torch.float32)
+    return batch
 
 
 def data_iterator(cfg: DataConfig, start_step: int = 0,

@@ -43,6 +43,14 @@ def main(argv=None):
     batch = {"tokens": torch.randint(0, cfg.vocab_size,
                                      (args.batch, args.prompt_len),
                                      generator=gen, device=dev)}
+    if cfg.n_patches:
+        batch["vision_embeds"] = torch.randn(
+            (args.batch, cfg.n_patches, cfg.d_model), generator=gen,
+            device=dev)
+    if cfg.n_enc_layers:
+        batch["enc_frames"] = torch.randn(
+            (args.batch, cfg.enc_seq, cfg.d_model), generator=gen,
+            device=dev)
     sampling = SamplingConfig(temperature=args.temperature,
                               top_k=args.top_k,
                               max_new_tokens=args.max_new)

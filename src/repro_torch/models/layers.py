@@ -1,7 +1,8 @@
-"""Transformer layers: norms, RoPE, GQA attention (full, prefill,
-decode, paged decode; global or local-window), the gated MLPs (SwiGLU,
-GeGLU) and the block-sparse projection (port of
-``repro.models.layers``).  Global attention and the MLPs are
+"""Transformer layers: norms (RMS, layer), RoPE, GQA attention (full,
+prefill, decode, paged decode; causal global or local-window, the
+encoder's non-causal, and cross-attention to an encoder's K/V), the MLPs
+(SwiGLU, GeGLU, the plain two-layer GELU) and the block-sparse projection
+(port of ``repro.models.layers``).  Global attention and the MLPs are
 differentiable; the block-sparse projection through ``maple_spmm``'s
 autograd Function.  Local-window attention runs forward only, on the
 block-sparse local attention kernel (``ops.local_block_attention``).
@@ -49,18 +50,32 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return x * inv.to(x.dtype) * (1.0 + weight).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Mean and variance (about the mean) in f32, then ``(x - mu) ·
+    rsqrt(var + eps) · weight + bias`` in x's dtype, as the reference."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return ((x - mu.to(x.dtype)) * inv * weight.to(x.dtype)
+            + bias.to(x.dtype))
+
+
 def apply_norm(x, p, kind: str):
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
-    return rms_norm(x, p["scale"])
+    if kind == "rmsnorm":
+        return rms_norm(x, p["scale"])
+    return layer_norm(x, p["scale"], p["bias"])
 
 
 def init_norm(d: int, kind: str, *, stack: Tuple[int, ...] = (),
               device=None):
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
-    return {"scale": torch.zeros((*stack, d), dtype=torch.float32,
-                                 device=device)}
+    """RMS norm: a zero ``scale`` (applied as ``1 + scale``); layer norm:
+    ``scale`` ones and ``bias`` zeros."""
+    zeros = torch.zeros((*stack, d), dtype=torch.float32, device=device)
+    if kind == "rmsnorm":
+        return {"scale": zeros}
+    return {"scale": torch.ones_like(zeros), "bias": zeros}
 
 
 # --------------------------------------------------------------------------
@@ -102,9 +117,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class AttnConfig:
-    """GQA self-attention, global or local-window (``window`` tokens,
-    causal), with optional QKV biases.  Cross-attention is not ported
-    yet."""
+    """GQA attention, global or local-window (``window`` tokens, causal),
+    or non-causal (``causal=False``: the encoder's self-attention and the
+    decoder's cross-attention), with optional QKV biases."""
     d_model: int
     n_heads: int
     n_kv_heads: int
@@ -174,8 +189,8 @@ def _gqa_attend(q, k, v, valid, cfg: AttnConfig) -> torch.Tensor:
 
     q: (B, Sq, H, hd); k/v: (B, Sk, KVH, hd); valid: bool mask
     broadcastable to (B, KVH, G, Sq, Sk) (a (Sq, Sk) one for every row, or
-    a per-row (B, 1, 1, 1, Sk) one).  Returns (B, Sq, H, hd) in q's
-    dtype."""
+    a per-row (B, 1, 1, 1, Sk) one), or None where every query sees
+    every key.  Returns (B, Sq, H, hd) in q's dtype."""
     b, sq = q.shape[:2]
     kvh = cfg.n_kv_heads
     grp = cfg.n_heads // kvh
@@ -184,7 +199,9 @@ def _gqa_attend(q, k, v, valid, cfg: AttnConfig) -> torch.Tensor:
     qg = (q.float() * scale).view(b, sq, kvh, grp, hd).permute(0, 2, 3, 1, 4)
     s = torch.matmul(qg.reshape(b, kvh, grp * sq, hd),
                      k.float().permute(0, 2, 3, 1))       # (B, KV, G·Sq, Sk)
-    s = s.view(b, kvh, grp, sq, -1).masked_fill(~valid, float("-inf"))
+    s = s.view(b, kvh, grp, sq, -1)
+    if valid is not None:
+        s = s.masked_fill(~valid, float("-inf"))
     w = torch.softmax(s, dim=-1)
     out = torch.matmul(w.view(b, kvh, grp * sq, -1),
                        v.float().permute(0, 2, 1, 3))     # (B, KV, G·Sq, hd)
@@ -225,11 +242,11 @@ def _local_attend(q, k, v, cfg: AttnConfig) -> torch.Tensor:
 
 
 def _self_attend(q, k, v, cfg: AttnConfig) -> torch.Tensor:
-    """Full-sequence causal attention of q over k / v: local windows on
-    the kernel, global attention by ``_gqa_attend``."""
+    """Full-sequence attention of q over k / v: local windows on the
+    kernel, global attention (causal, or unmasked for the encoder) by
+    ``_gqa_attend``."""
     if not cfg.causal:
-        raise NotImplementedError("non-causal (encoder) attention is not "
-                                  "ported yet")
+        return _gqa_attend(q, k, v, None, cfg)
     if cfg.window is not None:
         return _local_attend(q, k, v, cfg)
     return _gqa_attend(q, k, v, _causal_mask(q.shape[1], q.device), cfg)
@@ -342,6 +359,25 @@ def attention_decode_paged(p, cfg: AttnConfig, x, pool_k, pool_v, table,
     return _out_proj(out, p["wo"]), pool_k, pool_v
 
 
+def cross_attention(p, cfg: AttnConfig, x, enc_k, enc_v):
+    """Decoder cross-attention of x (B, S, D) over precomputed encoder K/V
+    (B, S_enc, KVH, hd): the query projected (and biased), no RoPE, no
+    mask."""
+    q = _project(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    return _out_proj(_gqa_attend(q, enc_k, enc_v, None, cfg), p["wo"])
+
+
+def encode_kv(p, cfg: AttnConfig, enc_out):
+    """The cross-attention K/V of the encoder output (B, S_enc, D), projected
+    once (and biased), no RoPE."""
+    k, v = _project(enc_out, p["wk"]), _project(enc_out, p["wv"])
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return k, v
+
+
 # --------------------------------------------------------------------------
 # MLPs
 # --------------------------------------------------------------------------
@@ -359,13 +395,24 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
              stack: Tuple[int, ...] = (), sparse_down: bool = False,
              sparse_block=(64, 64), sparse_density: float = 0.25,
              mask_generator: Optional[torch.Generator] = None):
-    """Gated MLP params (SwiGLU for ``"silu"``, GeGLU for
-    ``"gelu_glu"``).  ``sparse_down=True`` makes the down projection a
-    block-sparse :class:`BlockCSR`; every layer of the stack shares one
-    block pattern (drawn from ``mask_generator``)."""
+    """MLP params: gated (SwiGLU for ``"silu"``, GeGLU for
+    ``"gelu_glu"``), else the plain two-layer GELU (``w_in``, ``b_in``,
+    ``w_out``, ``b_out``; biases zero).  ``sparse_down=True`` makes a gated
+    MLP's down projection a block-sparse :class:`BlockCSR`; every layer of
+    the stack shares one block pattern (drawn from ``mask_generator``)."""
     if activation not in GATED:
-        raise NotImplementedError(f"activation {activation!r} is not "
-                                  f"ported yet")
+        if sparse_down:
+            raise ValueError("sparse_down supports the gated (silu/gelu_glu) "
+                             f"MLP only, got activation={activation!r}")
+        dev = generator.device
+        return {
+            "w_in": dense_init(generator, (*stack, d_model, d_ff), d_model,
+                               dtype),
+            "b_in": torch.zeros((*stack, d_ff), dtype=dtype, device=dev),
+            "w_out": dense_init(generator, (*stack, d_ff, d_model), d_ff,
+                                dtype),
+            "b_out": torch.zeros((*stack, d_model), dtype=dtype, device=dev),
+        }
     p = {
         "w_gate": dense_init(generator, (*stack, d_model, d_ff), d_model,
                              dtype),
@@ -384,9 +431,9 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
 
 
 def mlp(p, x, activation: str, *, sparse_plan=None):
-    """Gated MLP (SwiGLU, or GeGLU with the tanh GELU).  A
-    :class:`BlockCSR` down projection runs the Maple kernel through
-    :func:`sparse_linear`:
+    """Gated MLP (SwiGLU, or GeGLU with the tanh GELU), or the plain
+    two-layer GELU MLP for any other activation.  A :class:`BlockCSR`
+    down projection runs the Maple kernel through :func:`sparse_linear`:
 
     * with ``sparse_plan`` (the shared ``SpmmTrainPlan`` of
       ``lm.sparse_mlp_plan``, the training path) on that plan, forward
@@ -400,8 +447,8 @@ def mlp(p, x, activation: str, *, sparse_plan=None):
       every layer of every token.
     """
     if activation not in GATED:
-        raise NotImplementedError(f"activation {activation!r} is not "
-                                  f"ported yet")
+        h = gelu(torch.matmul(x, p["w_in"]) + p["b_in"])
+        return torch.matmul(h, p["w_out"]) + p["b_out"]
     h = GATED[activation](torch.matmul(x, p["w_gate"]))
     h = h * torch.matmul(x, p["w_up"])
     if isinstance(p["w_down"], BlockCSR):

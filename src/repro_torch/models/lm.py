@@ -1,14 +1,20 @@
-"""Decoder-only LM (port of ``repro.models.lm``): ``init_params``,
+"""The LM (port of ``repro.models.lm``): ``init_params``,
 ``sparse_mlp_plan``, ``forward`` and ``loss_fn`` for training;
-``init_decode_state``, ``prefill`` and ``decode_step`` for serving, and
-``init_paged_state`` / ``decode_step_paged`` (with ``needs_kv_pages`` and
-``history_horizon``) for the continuous batcher's paged KV pool.
+``init_decode_state``, ``prefill``, ``decode_step`` and
+``prefill_cross_kv`` for serving, and ``init_paged_state`` /
+``decode_step_paged`` (with ``needs_kv_pages`` and ``history_horizon``)
+for the continuous batcher's paged KV pool.
 
 A model is a stack of blocks.  Each block is a temporal mixer (global GQA
-attention, local-window attention, RG-LRU or Mamba-2 SSD) plus an FFN
-(the gated MLP, or the MoE layer for the MoE family; SSM blocks have
+attention, local-window attention, RG-LRU or Mamba-2 SSD), a
+cross-attention to the encoder's output in an encoder-decoder model, and
+an FFN (the MLP, or the MoE layer for the MoE family; SSM blocks have
 none).  The kinds come from ``cfg.pattern_unit`` repeated ``n_groups``
-times, then a homogeneous ``tail`` (``cfg.layer_plan()``).
+times, then a homogeneous ``tail`` (``cfg.layer_plan()``).  The audio
+family (whisper) adds an encoder of ``n_enc_layers`` non-causal attention
+blocks over precomputed frame embeddings (``params["encoder"]``, its
+stack under ``groups/b0``); the vlm family puts ``n_patches`` projected
+patch embeddings (``params["vis_proj"]``) in front of the tokens.
 
 Serving keeps the reference's scanned layout: one stacked group per
 position of the unit, ``params["groups"]["b<i>"]``, each leaf with a
@@ -29,15 +35,16 @@ indexing a stacked leaf would allocate a zero tensor as large as the
 stack per layer in the backward.  ``forward`` and ``loss_fn`` take that
 layout and train the dense family only.
 
-The MoE, hybrid (RG-LRU + local attention) and SSM families serve
-through ``prefill`` and ``decode_step``; their training is not ported
-yet.  Not ported either: cross attention (encoder-decoder models), the
-vision prefix and two-level remat (``scan_remat_chunk > 1``).
+The MoE, hybrid (RG-LRU + local attention), SSM, audio and vlm families
+serve through ``prefill`` and ``decode_step``; their training is not
+ported yet.  Not ported either: two-level remat (``scan_remat_chunk >
+1``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -55,7 +62,8 @@ ATTENTION = ("attn", "local_attn")
 # the block kinds and the FFN each ported family stacks
 FAMILIES = {"dense": ({"attn"}, "dense"), "moe": ({"attn"}, "moe"),
             "hybrid": ({"rglru", "local_attn"}, "dense"),
-            "ssm": ({"ssm"}, "none")}
+            "ssm": ({"ssm"}, "none"), "audio": ({"attn"}, "dense"),
+            "vlm": ({"attn"}, "dense")}
 
 
 def _attn_cfg(cfg: ModelConfig, kind: str = "attn") -> L.AttnConfig:
@@ -84,16 +92,20 @@ def _rglru_cfg(cfg: ModelConfig) -> R.RGLRUConfig:
 
 
 def _check_ported(cfg: ModelConfig, *, training: bool = False) -> None:
+    """An encoder only in the audio family, a vision prefix only in the
+    vlm family, each over global attention and the dense MLP."""
     unit, _, tail = cfg.layer_plan()
     kinds, ffn = FAMILIES.get(cfg.family, (set(), None))
     if (not set(unit + tail) <= kinds or cfg.ffn_kind != ffn
-            or cfg.n_enc_layers or cfg.n_patches):
+            or (cfg.n_enc_layers and cfg.family != "audio")
+            or (cfg.n_patches and cfg.family != "vlm")):
         raise NotImplementedError(
-            f"{cfg.name} (family={cfg.family!r}, pattern={unit}) is not "
-            f"ported yet: the port serves decoder-only dense and MoE "
-            f"models with global attention, the hybrid RG-LRU + "
-            f"local-attention family and the SSM family; encoder-decoder "
-            f"and vision models are not ported")
+            f"{cfg.name} (family={cfg.family!r}, pattern={unit}, "
+            f"n_enc_layers={cfg.n_enc_layers}, n_patches={cfg.n_patches}) "
+            f"is not ported yet: the port serves dense and MoE models with "
+            f"global attention, the hybrid RG-LRU + local-attention family, "
+            f"the SSM family, and an encoder (audio) or a vision prefix "
+            f"(vlm) only over global attention and the dense MLP")
     if training and cfg.family != "dense":
         raise NotImplementedError(f"training the {cfg.family} family is not "
                                   f"ported yet: it serves only (prefill, "
@@ -163,16 +175,29 @@ def unstack_layers(params):
     return out
 
 
+def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
+    """The encoder's (seq, dim) f32 table: sin on even channels, cos on
+    odd ones."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=device) * (-math.log(10000.0) / dim))
+    pe = torch.zeros((seq, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
 def _init_block(generator, cfg: ModelConfig, kind: str, *, stack,
-                dtype) -> Dict[str, Any]:
-    """One stacked block of ``kind``.  The sparse-MLP block mask is drawn
-    from a fresh CPU generator seeded with ``cfg.sparse_mask_seed``, so
-    every layer of every group shares one pattern, as in the
-    reference."""
+                dtype, cross: bool = False) -> Dict[str, Any]:
+    """One stacked block of ``kind`` (``"enc_attn"``: an encoder block),
+    with ``cross`` a cross-attention and its norm.  The sparse-MLP block
+    mask is drawn from a fresh CPU generator seeded with
+    ``cfg.sparse_mask_seed``, so every layer of every group shares one
+    pattern, as in the reference."""
     dev = generator.device
     p = {"norm1": L.init_norm(cfg.d_model, cfg.norm, stack=stack,
                               device=dev)}
-    if kind in ATTENTION:
+    if kind in ATTENTION or kind == "enc_attn":
         p["attn"] = L.init_attention(generator, _attn_cfg(cfg, kind), dtype,
                                      stack=stack)
     elif kind == "rglru":
@@ -182,6 +207,11 @@ def _init_block(generator, cfg: ModelConfig, kind: str, *, stack,
         p["ssm"] = S.init_ssm(generator, _ssm_cfg(cfg), dtype, stack=stack)
     else:
         raise ValueError(kind)
+    if cross:
+        p["cross_norm"] = L.init_norm(cfg.d_model, cfg.norm, stack=stack,
+                                      device=dev)
+        p["cross"] = L.init_attention(generator, _attn_cfg(cfg, "enc_attn"),
+                                      dtype, stack=stack)
     if cfg.ffn_kind == "none" or kind == "ssm":
         return p
     p["norm2"] = L.init_norm(cfg.d_model, cfg.norm, stack=stack, device=dev)
@@ -195,6 +225,14 @@ def _init_block(generator, cfg: ModelConfig, kind: str, *, stack,
             mask_generator=torch.Generator().manual_seed(
                 cfg.sparse_mask_seed))
     return p
+
+
+def _cross(p, cfg: ModelConfig, x, k, v):
+    """The cross-attention half of a decoder block over the encoder's
+    K/V."""
+    h = L.apply_norm(x, p["cross_norm"], cfg.norm)
+    return x + L.cross_attention(p["cross"], _attn_cfg(cfg, "enc_attn"), h,
+                                 k, v)
 
 
 def _ffn(p, cfg: ModelConfig, x):
@@ -218,17 +256,29 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, params go to "
                          f"{dev}: make the generator on the device")
+    cross = cfg.n_enc_layers > 0
     params = {"embed_tokens": L.dense_init(generator,
                                            (cfg.vocab_padded, cfg.d_model),
                                            cfg.d_model, dtype)}
     for key, kinds, count in _stacks(cfg):
         params[key] = {f"b{i}": _init_block(generator, cfg, kind,
-                                            stack=(count,), dtype=dtype)
+                                            stack=(count,), dtype=dtype,
+                                            cross=cross)
                        for i, kind in enumerate(kinds)}
     params["final_norm"] = L.init_norm(cfg.d_model, cfg.norm, device=dev)
     params["lm_head"] = L.dense_init(generator,
                                      (cfg.vocab_padded, cfg.d_model),
                                      cfg.d_model, dtype)
+    if cross:
+        params["encoder"] = {
+            "groups": {"b0": _init_block(generator, cfg, "enc_attn",
+                                         stack=(cfg.n_enc_layers,),
+                                         dtype=dtype)},
+            "final_norm": L.init_norm(cfg.d_model, cfg.norm, device=dev)}
+    if cfg.n_patches > 0:
+        params["vis_proj"] = L.dense_init(generator,
+                                          (cfg.d_model, cfg.d_model),
+                                          cfg.d_model, dtype)
     return params
 
 
@@ -363,19 +413,30 @@ def _kv_len(cfg: ModelConfig, kind: str, max_seq: int) -> int:
 
 def _static_caches(cfg: ModelConfig, batch: int, max_seq: int, dtype,
                    device) -> Dict[str, Any]:
-    """``groups`` / ``tail`` decode caches of ``batch`` rows."""
-    return {key: {f"b{i}": _block_cache(
-                cfg, kind, count, batch,
-                (batch, _kv_len(cfg, kind, max_seq), cfg.n_kv_heads,
-                 cfg.head_dim), dtype, device)
-                  for i, kind in enumerate(kinds)}
-            for key, kinds, count in _stacks(cfg)}
+    """``groups`` / ``tail`` decode caches of ``batch`` rows; with an
+    encoder, every block also holds the cross K/V ``cross_k`` / ``cross_v``
+    ``(L, B, enc_seq, KVH, hd)``."""
+    caches = {}
+    for key, kinds, count in _stacks(cfg):
+        caches[key] = {}
+        for i, kind in enumerate(kinds):
+            c = _block_cache(cfg, kind, count, batch,
+                             (batch, _kv_len(cfg, kind, max_seq),
+                              cfg.n_kv_heads, cfg.head_dim), dtype, device)
+            if cfg.n_enc_layers > 0:
+                for name in ("cross_k", "cross_v"):
+                    c[name] = torch.zeros(
+                        (count, batch, cfg.enc_seq, cfg.n_kv_heads,
+                         cfg.head_dim), dtype=dtype, device=device)
+            caches[key][f"b{i}"] = c
+    return caches
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       dtype=torch.float32, *, device="cuda"):
     """Empty decode state: stacked per-kind caches (K/V ``(L, B, S_kv,
-    KVH, hd)``, recurrent ``conv`` / ``h`` / ``state``) and ``pos = 0``."""
+    KVH, hd)``, recurrent ``conv`` / ``h`` / ``state``, the cross K/V of
+    an encoder-decoder model) and ``pos = 0``."""
     _check_ported(cfg)
     return {**_static_caches(cfg, batch, max_seq, dtype,
                              resolve_device(device)), "pos": 0}
@@ -416,37 +477,97 @@ def _mix_prefill(p, cfg: ModelConfig, kind: str, h, positions, rope,
     return h
 
 
+def _encode(params, cfg: ModelConfig, enc_frames):
+    """The whisper-style encoder over precomputed (stub) frame embeddings
+    (B, enc_seq, D): the sinusoidal table added, then the non-causal
+    blocks, whose attention also rotates by RoPE at the frame positions
+    (as the reference's), and the final norm."""
+    x = enc_frames + sinusoidal_positions(
+        enc_frames.shape[1], cfg.d_model,
+        device=enc_frames.device).to(enc_frames.dtype)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    acfg = _attn_cfg(cfg, "enc_attn")
+    for p in _stacked_layers(params["encoder"]["groups"]["b0"]):
+        h = L.apply_norm(x, p["norm1"], cfg.norm)
+        x = _ffn(p, cfg, x + L.attention(p["attn"], acfg, h, positions,
+                                         rope=rope))
+    return L.apply_norm(x, params["encoder"]["final_norm"], cfg.norm)
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch):
+    """Tokens, behind the vision prefix where the model has one
+    (``vision_embeds`` (B, P, D) cast to the embeddings' dtype, then
+    ``@ vis_proj``), → (B, S, D) and positions over the whole sequence."""
+    x = params["embed_tokens"][batch["tokens"]]            # (B, S_text, D)
+    if cfg.n_patches > 0:
+        vis = batch["vision_embeds"].to(x.dtype)           # (B, P, D)
+        x = torch.cat([torch.matmul(vis, params["vis_proj"]), x], dim=1)
+    b, s, _ = x.shape
+    return x, torch.arange(s, device=x.device).expand(b, s)
+
+
 def prefill(params, cfg: ModelConfig, batch, *, max_seq: Optional[int] = None,
             cache_dtype=None, remat: bool = True,
             return_hidden: bool = False):
-    """Process the prompt ``batch["tokens"]`` (B, S); return (last-position
-    logits (B, 1, V) — or the final-norm hidden state with
-    ``return_hidden`` — and the decode state with ``pos = S``).
+    """Process the prompt ``batch["tokens"]`` (B, S) — behind
+    ``batch["vision_embeds"]`` (B, n_patches, D) in a vlm, beside
+    ``batch["enc_frames"]`` (B, enc_seq, D) in an encoder-decoder model;
+    return (last-position logits (B, 1, V) — or the final-norm hidden
+    state with ``return_hidden`` — and the decode state with ``pos`` the
+    sequence's length, the prefix included).  An encoder runs once and
+    every decoder block's cross K/V go into its cache.
 
     K/V and conv caches take ``cache_dtype`` (default: the activations'
     dtype); recurrent hidden states stay f32.  ``remat`` is the
     reference's checkpointing switch; prefill here runs no backward, so it
     changes nothing and is accepted as given."""
     _check_ported(cfg)
-    tok = batch["tokens"]
-    x = params["embed_tokens"][tok]                        # (B, S, D)
+    x, positions = _embed_inputs(params, cfg, batch)       # (B, S, D)
     b, s, _ = x.shape
     if max_seq is None:
         max_seq = s
-    positions = torch.arange(s, device=x.device).expand(b, s)
     rope = _rope(cfg, positions)
     caches = _static_caches(cfg, b, max_seq,
                             x.dtype if cache_dtype is None else cache_dtype,
                             x.device)
+    enc_out = (_encode(params, cfg, batch["enc_frames"])
+               if cfg.n_enc_layers > 0 else None)
     for kind, p, cache in _blocks(params, caches, cfg):
         h = L.apply_norm(x, p["norm1"], cfg.norm)
-        h = _mix_prefill(p, cfg, kind, h, positions, rope, max_seq, cache)
-        x = _ffn(p, cfg, x + h)
+        x = x + _mix_prefill(p, cfg, kind, h, positions, rope, max_seq,
+                             cache)
+        if enc_out is not None and "cross" in p:
+            k, v = L.encode_kv(p["cross"], _attn_cfg(cfg, "enc_attn"),
+                               enc_out)
+            cache["cross_k"].copy_(k)
+            cache["cross_v"].copy_(v)
+            x = _cross(p, cfg, x, k, v)
+        x = _ffn(p, cfg, x)
     state = {**caches, "pos": s}
     x = L.apply_norm(x[:, -1:], params["final_norm"], cfg.norm)
     if return_hidden:
         return x, state
     return _logits(params, x), state
+
+
+def prefill_cross_kv(params, cfg: ModelConfig, state, enc_frames,
+                     remat: bool = False):
+    """Run the encoder once over ``enc_frames`` (B, enc_seq, D) and write
+    every decoder block's cross K/V into ``state``'s caches in place (the
+    reference returns an updated copy); returns the state.  ``remat`` as
+    in :func:`prefill`."""
+    _check_ported(cfg)
+    if cfg.n_enc_layers <= 0:
+        raise ValueError(f"{cfg.name} has no encoder")
+    enc_out = _encode(params, cfg, enc_frames)
+    acfg = _attn_cfg(cfg, "enc_attn")
+    for _, p, cache in _blocks(params, state, cfg):
+        k, v = L.encode_kv(p["cross"], acfg, enc_out)
+        cache["cross_k"].copy_(k)
+        cache["cross_v"].copy_(v)
+    return dict(state)
 
 
 def _mix_decode(p, cfg: ModelConfig, kind: str, h, cache, pos, rope,
@@ -481,14 +602,18 @@ def decode_step(params, cfg: ModelConfig, state, tokens, *,
                 return_hidden: bool = False):
     """One decode step.  tokens: (B, 1) → (logits (B, 1, V) or the hidden
     state, new state).  The caches in ``state`` are updated in place and
-    carried into the returned state with ``pos + 1``."""
+    carried into the returned state with ``pos + 1``; a decoder block's
+    cross-attention reads the cross K/V its cache holds."""
     _check_ported(cfg)
     pos = int(state["pos"])
     x = params["embed_tokens"][tokens]
     rope = _rope(cfg, torch.full((x.shape[0], 1), pos, device=x.device))
     for kind, p, cache in _blocks(params, state, cfg):
         h = L.apply_norm(x, p["norm1"], cfg.norm)
-        x = _ffn(p, cfg, x + _mix_decode(p, cfg, kind, h, cache, pos, rope))
+        x = x + _mix_decode(p, cfg, kind, h, cache, pos, rope)
+        if "cross" in p:
+            x = _cross(p, cfg, x, cache["cross_k"], cache["cross_v"])
+        x = _ffn(p, cfg, x)
     new_state = dict(state, pos=pos + 1)
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
     if return_hidden:

@@ -137,7 +137,17 @@ def complete_static(params, cfg: ModelConfig, tokens, max_new: int, *,
     Returns ``(new_tokens, reason, generator)`` with ``reason`` in
     ``("eos", "length", "error")``: the request ends at ``eos_id`` (when
     ≥ 0; ``sampling.eos_id`` is not read, as in the reference), at
-    ``max_new`` tokens, or with ``"error"`` on non-finite logits."""
+    ``max_new`` tokens, or with ``"error"`` on non-finite logits.
+
+    A request is its tokens alone, as in the reference: a model that also
+    takes encoder frames or a vision prefix is refused (serve it through
+    ``lm.prefill`` / ``lm.decode_step``, or :func:`generate`)."""
+    if cfg.n_enc_layers > 0 or cfg.n_patches > 0:
+        extra = "enc_frames" if cfg.n_enc_layers > 0 else "vision_embeds"
+        raise NotImplementedError(
+            f"complete_static takes a request's tokens only; {cfg.name} "
+            f"also needs {extra}: use generate, or lm.prefill / "
+            f"lm.decode_step")
     tokens = np.asarray(tokens, np.int64).reshape(-1)
     if max_new <= 0:
         return [], "length", generator
@@ -174,13 +184,16 @@ def generate(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """Prefill on ``batch`` then decode ``max_new_tokens`` greedily or
     sampled.  Returns (tokens (B, T), per-step entropy trace), T ≤
     max_new_tokens; EOS is tracked per sequence as in the reference.
-    ``max_seq`` sizes the KV cache (default: prompt + max_new_tokens)."""
+    ``max_seq`` sizes the KV cache (default: the prompt, its vision
+    prefix included, + max_new_tokens).  ``batch`` also carries
+    ``enc_frames`` or ``vision_embeds`` where the model takes them."""
     tokens = batch["tokens"]
     device = tokens.device
     if generator is None:
         generator = _default_generator(device)
     if max_seq is None:
-        max_seq = tokens.shape[1] + sampling.max_new_tokens
+        max_seq = (tokens.shape[1] + max(cfg.n_patches, 0)
+                   + sampling.max_new_tokens)
     logits, state = lm.prefill(params, cfg, batch, max_seq=max_seq)
     b = tokens.shape[0]
     done = torch.zeros((b,), dtype=torch.bool, device=device)

@@ -242,8 +242,12 @@ def test_init_mlp_takes_gelu_glu():
     p = L.init_mlp(torch.Generator().manual_seed(0), 16, 48, "gelu_glu",
                    stack=(2,))
     assert tuple(p["w_gate"].shape) == (2, 16, 48)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        L.init_mlp(torch.Generator(), 16, 48, "gelu")
+    # "gelu" is the plain two-layer MLP; only its sparse down-projection
+    # stays refused, as in the reference
+    plain = L.init_mlp(torch.Generator(), 16, 48, "gelu", stack=(2,))
+    assert set(plain) == {"w_in", "b_in", "w_out", "b_out"}
+    with pytest.raises(ValueError, match="gated"):
+        L.init_mlp(torch.Generator(), 16, 48, "gelu", sparse_down=True)
 
 
 # --------------------------------------------------------------------------
@@ -457,9 +461,30 @@ def test_serve_cli_runs_the_recurrent_families_on_cpu(arch, capsys):
 
 
 def test_encoder_decoder_and_vision_models_stay_refused():
-    cfg = get_smoke_config("recurrentgemma-9b")
-    for bad in (dict(n_enc_layers=2), dict(family="vlm"),
-                dict(family="ssm")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            lm.init_params(dataclasses.replace(cfg, **bad),
-                           torch.Generator(), device="cpu")
+    """What stays refused of the encoder-decoder and vision-prefix
+    families: a recurrent (hybrid or SSM) pattern with an encoder or a
+    vision prefix, under its own family or theirs; training the audio
+    and vlm families; paged decode with cross caches or a prefix."""
+    for arch in RECURRENT:
+        cfg = get_smoke_config(arch)
+        for bad in (dict(n_enc_layers=2), dict(n_patches=8),
+                    dict(family="audio", n_enc_layers=2),
+                    dict(family="vlm", n_patches=8), dict(family="vlm"),
+                    dict(family="audio")):
+            with pytest.raises(NotImplementedError, match="not ported"):
+                lm.init_params(dataclasses.replace(cfg, **bad),
+                               torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        lm.init_params(dataclasses.replace(
+            get_smoke_config("recurrentgemma-9b"), family="ssm"),
+            torch.Generator(), device="cpu")
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
+             "labels": torch.zeros((1, 4), dtype=torch.int64)}
+    for arch in ("whisper-base", "internvl2-1b"):
+        cfg = get_smoke_config(arch)
+        params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            lm.loss_fn(lm.unstack_layers(params), cfg, batch)
+        with pytest.raises(NotImplementedError, match="paged decode"):
+            lm.init_paged_state(cfg, 2, 8, 4, 4, device="cpu")

@@ -83,8 +83,14 @@ def test_synth_batch_tokens_equal_reference(b, s, seed, step):
     for k in ("tokens", "labels"):
         assert np.array_equal(got[k].numpy(), np.asarray(want[k]))
         assert got[k].dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="not ported"):
-        synth_batch(DataConfig(8, 4, 2), 0, extra={"enc_frames": (2, 4, 8)})
+    # extra inputs leave the tokens and labels as they were
+    extra = synth_batch(DataConfig(vocab_size=151_936, seq_len=s,
+                                   global_batch=b, seed=seed), step,
+                        extra={"enc_frames": (b, 4, 8)})
+    for k in ("tokens", "labels"):
+        assert torch.equal(extra[k], got[k])
+    assert tuple(extra["enc_frames"].shape) == (b, 4, 8)
+    assert extra["enc_frames"].dtype == torch.float32
 
 
 def test_lr_schedule_equals_reference():
