@@ -148,6 +148,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
     and bf16: the reference sweep's groups (empty groups included) at
     D = F = 256, bt = 128, and decode's bt = 8 at the smoke widths; each
     twice for bit identity.
+10a. moe_backward_kernels — B8's dx (its transposed-weight mode: w read in
+    place) and ``moe_dw_kernel`` against their plain versions, f32 and
+    bf16: bt 8, 16, 56, 96 and 216, several tiles an expert, experts with
+    no tile (a zero dW), D and F off multiples of 16 (both copy routes),
+    each twice bit for bit.
 11. moe_reference — the granite-moe-3b smoke config on the card against
     the same weights on the CPU: logits within 1e-4, equal greedy tokens.
 12. moe_serve — granite-moe-3b at full width and depth (32 layers, f32,
@@ -259,7 +264,26 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
     24 × ((1 + 16) + 4 × 16) = 1 944 and B4 64.  Then the kernel rows of
     both models: B3 at internvl's down-projection (G 4, N 1 and 368), B4
     on both heads (N 1), f32.
-26. the ``{"kernels": [...]}`` summary (``launches_by_path`` has every
+26. train_families_reference — one train step of the whisper-base,
+    internvl2-1b (sparse MLP at (8, 8)), granite-moe-3b-a800m and
+    mamba2-2.7b smoke configs (biases drawn non-zero), card against CPU
+    as phase 5: the loss within 1e-5 relative, every gradient within
+    1e-4·max + 1e-6, the parameters after one AdamW step within 2·lr.
+27. train_encdec, train_vlm, train_moe, train_ssm — phase 6 on whisper-base
+    (4 × 256 tokens, each beside 1 536 encoder frames), internvl2-1b with
+    the sparse MLP (4 × (256 patches + 256 tokens)), granite-moe-3b-a800m
+    (8 × 256 tokens in its 8 microbatches) and mamba2-2.7b (4 × 256), each
+    at full width and depth through ``launch/train.main``, f32, 3 AdamW
+    steps, remat per layer.  Every Maple kernel's launches are zeroed
+    just before and read just after: B2 and B4 by phase 6's formula on
+    internvl, 9 B8 (3 forward, 3 recomputed, 3 dx) and 3 ``moe_dw_kernel``
+    per layer and microbatch on granite, none on the other two.  Finite
+    losses and grad norms, steps 2 and 3's wall and tokens/s, the peak
+    GiB, one more step profiled.  Then B8's forward and dx and
+    ``moe_dw_kernel`` at granite's training shapes (capacity 56, E 48;
+    gate/up and down), f32 and bf16, timed beside their bound, plain
+    version and one ``torch.bmm``.
+28. the ``{"kernels": [...]}`` summary (``launches_by_path`` has every
     path above), then the final ``{"ok": true, ...}``.
 """
 
@@ -291,8 +315,11 @@ SOURCES = {"maple_spmm_naive": "src/repro_torch/csrc/maple_spmm.cu",
            "maple_spgemm_db": "src/repro_torch/csrc/maple_spgemm.cu",
            "maple_spmspm_ell": "src/repro_torch/csrc/maple_spmspm.cu",
            "moe_gemm": "src/repro_torch/csrc/moe_gemm.cu",
+           "moe_gemm_dw": "src/repro_torch/csrc/moe_gemm.cu",
            "block_attention": "src/repro_torch/csrc/block_attn.cu"}
-# dB has no TPU kernel: the reference leaves it to an XLA scatter-add
+# dB has no TPU kernel: the reference leaves it to an XLA scatter-add; nor
+# has the experts' dW: the reference trains its MoE layer through einsum,
+# whose gradient XLA computes
 REPLACES = {"maple_spmm_naive": "src/repro/kernels/maple_spmm.py:91",
             "maple_spmm_compact": "src/repro/kernels/maple_spmm.py:288",
             "maple_spmm_planned": "src/repro/kernels/maple_spmm.py:176",
@@ -302,6 +329,7 @@ REPLACES = {"maple_spmm_naive": "src/repro/kernels/maple_spmm.py:91",
             "maple_spgemm_db": "src/repro/kernels/ops.py:934",
             "maple_spmspm_ell": "src/repro/kernels/maple_spmspm.py:61",
             "moe_gemm": "src/repro/kernels/moe_gemm.py:57",
+            "moe_gemm_dw": "src/repro/models/moe.py:97",
             "block_attention": "src/repro/kernels/block_attn.py:94"}
 # the serving shapes of the kernels: the qwen3-4b MLP down-projection
 # (d_ff -> d_model) as sparse_mlp builds it, over a batch of 4 sequences
@@ -1441,20 +1469,17 @@ def grads_close(got, want, what):
     return err
 
 
-def train_reference():
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.data import DataConfig, synth_batch
+def train_against_cpu(cfg, batch, cpu):
+    """The loss and every gradient of ``batch`` under the trainer's
+    parameters ``cpu`` (per-layer layout) on the card against the CPU,
+    then one ``make_train_step`` step (2 microbatches) on both from the
+    same weights: (losses, largest gradient error, number of gradients,
+    largest parameter error after the step, lr)."""
     from repro_torch.models import lm
     from repro_torch.train import (OptimizerConfig, init_opt_state,
                                    make_train_step)
     from repro_torch.train.optimizer import named_leaves, tree_map
-    cfg = dataclasses.replace(get_smoke_config("qwen3-4b"), sparse_mlp=True,
-                              sparse_block=(8, 8))
-    cpu = lm.unstack_layers(lm.init_params(
-        cfg, torch.Generator().manual_seed(SEED), device="cpu"))
     to_cuda = lambda tree: tree_map(lambda t: t.detach().cuda(), tree)
-    batch = synth_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
-                                   global_batch=4, seed=SEED), 0)
     grads, losses = {}, {}
     for name, params, dev in (("cpu", cpu, "cpu"),
                               ("cuda", to_cuda(cpu), "cuda")):
@@ -1488,16 +1513,42 @@ def train_reference():
     if not param_err <= 2 * lr:
         raise AssertionError(f"params after one step differ by {param_err} "
                              f"> 2·lr = {2 * lr}")
+    return losses, grad_err, len(grads["cpu"]), param_err, lr
+
+
+def train_reference():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, synth_batch
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_smoke_config("qwen3-4b"), sparse_mlp=True,
+                              sparse_block=(8, 8))
+    cpu = lm.unstack_layers(lm.init_params(
+        cfg, torch.Generator().manual_seed(SEED), device="cpu"))
+    batch = synth_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                   global_batch=4, seed=SEED), 0)
+    losses, grad_err, n_grads, param_err, lr = train_against_cpu(cfg, batch,
+                                                                 cpu)
     return {"phase": "train_reference", "config": "qwen3-4b smoke, "
             "sparse_mlp (8,8), 4 x 16 tokens, 2 microbatches",
             "loss_cpu": losses["cpu"], "loss_cuda": losses["cuda"],
-            "grad_max_abs_err": grad_err, "n_grads": len(grads["cpu"]),
+            "grad_max_abs_err": grad_err, "n_grads": n_grads,
             "param_max_abs_err_after_step": param_err, "lr": lr}
 
 
 # --------------------------------------------------------------------------
 # phase 6: train qwen3-4b at full width and depth
 # --------------------------------------------------------------------------
+
+def add_sparse_train_launches(expect, cfg, plan, steps):
+    """Add a sparse-MLP train run's launches to ``expect``: per layer and
+    microbatch, the MLP forward and its remat recompute in the forward
+    plan's layout, dB in the transpose-side plan's, dA on the SDDMM (the
+    trainer's plan: the same knobs from the same pattern)."""
+    per_layer = cfg.train_microbatches * cfg.n_layers * steps
+    expect["maple_sddmm_bsr"] += per_layer
+    expect[PLANNED[plan.fwd.fused]] += per_layer * (2 if cfg.remat else 1)
+    expect[PLANNED[plan.bwd.fused]] += per_layer
+
 
 def train(card):
     from repro_torch.kernels.maple_sddmm import maple_sddmm_bsr
@@ -1517,15 +1568,10 @@ def train(card):
     cfg = run.cfg
     steps, tokens = len(run.history), 4 * 256
     micro = cfg.train_microbatches
-    # per layer and microbatch: the MLP forward and its remat recompute in
-    # the forward plan's layout, dB in the transpose-side plan's; dA on
-    # the SDDMM (the trainer's plan: the same knobs from the same pattern)
     plan = lm.sparse_mlp_plan(run.params)
-    per_layer = micro * cfg.n_layers * steps
     expect = {"maple_spmm_naive": 0, "maple_spmm_compact": 0,
-              "maple_spmm_planned": 0, "maple_sddmm_bsr": per_layer}
-    expect[PLANNED[plan.fwd.fused]] += per_layer * (2 if cfg.remat else 1)
-    expect[PLANNED[plan.bwd.fused]] += per_layer
+              "maple_spmm_planned": 0, "maple_sddmm_bsr": 0}
+    add_sparse_train_launches(expect, cfg, plan, steps)
     if launches != expect:
         raise AssertionError(f"kernel launches on the train path "
                              f"{launches}, expected {expect}")
@@ -3982,6 +4028,251 @@ def extras_rows(spec, flush):
     return rows
 
 
+# --------------------------------------------------------------------------
+# phases 27 to 31: training the audio, vlm, MoE and SSM families
+# --------------------------------------------------------------------------
+
+# (expert of each tile, E, D, F, bt): several tiles an expert, experts
+# with no tile (their dW is zero), D and F off multiples of 16 (72 × 40:
+# TMA in both dtypes; 70 × 44: the producer's copies in both), a tile of
+# 216 rows (two pieces), granite-moe-3b's training tile (56 rows)
+MOE_BACKWARD_EDGE = (([0, 0, 2], 3, 256, 128, 8),
+                     ([1, 1, 3, 3], 4, 72, 40, 16),
+                     ([0, 2, 2], 3, 70, 44, 96), ([1, 1], 3, 64, 48, 216),
+                     ([0, 0, 0, 2, 2], 4, 1536, 512, 56))
+# one train step of each smoke config, card against CPU: (arch, config
+# overrides, tokens an example)
+TRAIN_FAMILY_SMOKE = ((ENCDEC_ARCH, {}, 16),
+                      (VLM_ARCH, dict(sparse_mlp=True, sparse_block=(8, 8)),
+                       16),
+                      (MOE_ARCH, {}, 16), (SSM_ARCH, {}, 64))
+# each family at full width and depth through launch/train.main: 3 AdamW
+# steps of 256 tokens an example, f32, remat per layer, seed 0 (granite-
+# moe-3b takes its config's 8 microbatches, the others their 4)
+TRAIN_FAMILIES = (("train_encdec", ENCDEC_ARCH, ["--global-batch", "4"]),
+                  ("train_vlm", VLM_ARCH, ["--sparse-mlp",
+                                           "--global-batch", "4"]),
+                  ("train_moe", MOE_ARCH, ["--global-batch", "8"]),
+                  ("train_ssm", SSM_ARCH, ["--global-batch", "4"]))
+TRAIN_FAMILY_ARGV = ["--steps", "3", "--seq-len", "256", "--seed", "0",
+                     "--device", "cuda"]
+# granite-moe-3b's expert products in a training microbatch (1 × 256
+# tokens: capacity 56), E = 48
+MOE_TRAIN_CAP = 56
+
+
+def maple_counters():
+    """Every Maple kernel wrapper that counts its launches, by name."""
+    from repro_torch.kernels.block_attn import block_attention
+    from repro_torch.kernels.maple_sddmm import maple_sddmm_bsr
+    from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_dw
+    fns = {f.__name__: f for f in _spmm_kernels()}
+    fns.update(spgemm_counters())
+    fns.update(maple_sddmm_bsr=maple_sddmm_bsr, moe_gemm=moe_gemm,
+               moe_gemm_dw=moe_gemm_dw, block_attention=block_attention)
+    return fns
+
+
+def moe_backward_kernels_edge():
+    """B8's dx (its transposed-weight mode) and ``moe_dw_kernel`` against
+    their plain versions on the card, f32 and bf16, over
+    ``MOE_BACKWARD_EDGE``: each twice bit for bit, an expert with no tile
+    a zero dW."""
+    from repro_torch.kernels.moe_gemm import (moe_gemm_dw, moe_gemm_dw_plain,
+                                              moe_gemm_dx, moe_gemm_dx_plain,
+                                              moe_route)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for eot, e, d, f, bt in MOE_BACKWARD_EDGE:
+            rng = np.random.default_rng(d + bt)
+            t = len(eot) * bt
+            x, dy = (torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).cuda().to(dtype) for shape in ((t, d), (t, f)))
+            w = torch.from_numpy((rng.standard_normal((e, d, f)) * 0.1)
+                                 .astype(np.float32)).cuda().to(dtype)
+            eot_t = torch.tensor(eot, dtype=torch.int32, device="cuda")
+            dx = [moe_gemm_dx(dy, eot_t, w, bt=bt) for _ in range(2)]
+            dw = [moe_gemm_dw(x, dy, eot_t, e, bt=bt) for _ in range(2)]
+            torch.cuda.synchronize()
+            what = f"{eot} E{e} D{d} F{f} bt{bt} {dtype}"
+            if not (torch.equal(dx[0], dx[1]) and torch.equal(dw[0], dw[1])):
+                raise AssertionError(f"moe backward {what}: two runs differ")
+            unused = sorted(set(range(e)) - set(eot))
+            if unused and bool(dw[0][unused].any()):
+                raise AssertionError(f"moe_gemm_dw {what}: an expert with no "
+                                     f"tile has a non-zero dW")
+            cases.append({
+                "experts_of_tiles": eot, "E": e, "D": d, "F": f, "bt": bt,
+                "dtype": str(dtype).replace("torch.", ""),
+                "dx_copy": moe_route(dtype, t, d, f, bt,
+                                     transposed=True)["copy"],
+                "dx_max_abs_err": check_close(
+                    dx[0], moe_gemm_dx_plain(dy, eot_t, w, bt=bt), dtype,
+                    f"moe_gemm_dx {what}"),
+                "dw_max_abs_err": check_close(
+                    dw[0], moe_gemm_dw_plain(x, dy, eot_t, e, bt=bt), dtype,
+                    f"moe_gemm_dw {what}")})
+    return {"phase": "moe_backward_kernels", "cases": cases,
+            "bit_identical": True, "ok": True}
+
+
+def train_families_reference():
+    """One train step of each ``TRAIN_FAMILY_SMOKE`` smoke config (biases
+    drawn non-zero), card against CPU as ``train_reference``: the loss
+    within 1e-5 relative, every gradient within ``grads_close``, the
+    parameters after one AdamW step within 2·lr."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, synth_batch
+    from repro_torch.models import lm
+    out = []
+    for arch, over, seq in TRAIN_FAMILY_SMOKE:
+        cfg = dataclasses.replace(get_smoke_config(arch), **over)
+        gen = torch.Generator().manual_seed(SEED)
+        stacked = lm.init_params(cfg, gen, device="cpu")
+        draw_biases(stacked, gen)
+        cpu = lm.unstack_layers(stacked)
+        extra = {}
+        if cfg.n_enc_layers:
+            extra["enc_frames"] = (4, cfg.enc_seq, cfg.d_model)
+        if cfg.n_patches:
+            extra["vision_embeds"] = (4, cfg.n_patches, cfg.d_model)
+        batch = synth_batch(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=seq, global_batch=4,
+                                       seed=SEED), 0, extra)
+        losses, grad_err, n_grads, param_err, lr = train_against_cpu(
+            cfg, batch, cpu)
+        out.append({"config": f"{arch} smoke" + (", sparse_mlp (8,8)"
+                                                 if cfg.sparse_mlp else ""),
+                    "tokens": f"4 x {seq}, 2 microbatches",
+                    "loss_cpu": losses["cpu"], "loss_cuda": losses["cuda"],
+                    "grad_max_abs_err": grad_err, "n_grads": n_grads,
+                    "param_max_abs_err_after_step": param_err, "lr": lr})
+    return {"phase": "train_families_reference", "models": out, "ok": True}
+
+
+def train_family(card, phase, arch, argv):
+    """``launch/train.main`` on ``arch`` at full width and depth
+    (``TRAIN_FAMILY_ARGV``): every Maple kernel's launches zeroed just
+    before and read just after, against the count the path implies
+    (sparse MLP: ``train``'s formula; MoE: per layer and microbatch 9 B8
+    launches, 3 forward, 3 recomputed, 3 dx, and 3 ``moe_dw_kernel``;
+    0 otherwise); finite losses and grad norms; steps 2 and 3's wall,
+    tokens/s, the peak GiB; one more step profiled."""
+    from repro_torch.data import synth_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import named_leaves
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fns = maple_counters()
+    for f in fns.values():
+        f.launches = 0
+    argv = ["--arch", arch, *argv, *TRAIN_FAMILY_ARGV]
+    t0 = time.perf_counter()
+    run = launch_train.main(argv)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in fns.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    cfg, steps = run.cfg, len(run.history)
+    micro = cfg.train_microbatches
+    per_layer = micro * cfg.n_layers * steps
+    expect = dict.fromkeys(fns, 0)
+    plan = lm.sparse_mlp_plan(run.params)
+    if plan is not None:
+        add_sparse_train_launches(expect, cfg, plan, steps)
+    if cfg.ffn_kind == "moe":
+        expect["moe_gemm"] = 3 * (3 if cfg.remat else 2) * per_layer
+        expect["moe_gemm_dw"] = 3 * per_layer
+    if launches != expect:
+        raise AssertionError(f"{phase}: kernel launches {launches}, "
+                             f"expected {expect}")
+    for rec in run.history:
+        if not (np.isfinite(rec["loss"]) and np.isfinite(rec["grad_norm"])):
+            raise AssertionError(f"{phase}: non-finite step {rec}")
+    tokens = run.data.global_batch * run.data.seq_len
+    step_ms = [rec["step_s"] * 1e3 for rec in run.history]
+    batch = {k: v.cuda() for k, v in synth_batch(run.data, steps,
+                                                 run.extra).items()}
+    prof = profile(lambda: run.step_fn(run.params, run.opt, batch),
+                   warmup=False, totals=("run_kernel", "sddmm_kernel",
+                                         "moe_kernel", "moe_dw_kernel"))
+    line = {
+        "phase": phase, "config": f"{arch}" + (" sparse_mlp (64,64) d=0.25"
+                                               if cfg.sparse_mlp else "")
+        + ", f32, AdamW, remat per layer", "argv": argv,
+        "n_layers": cfg.n_layers, "n_enc_layers": cfg.n_enc_layers,
+        "depth_reduced": False, "d_model": cfg.d_model,
+        "n_params": sum(t.numel() for _, t in named_leaves(run.params)),
+        "microbatches": micro, "tokens_per_step": tokens,
+        "positions_per_step": run.data.global_batch * (run.data.seq_len
+                                                       + cfg.n_patches),
+        "extra_inputs": run.extra,
+        "loss": [rec["loss"] for rec in run.history],
+        "grad_norm": [rec["grad_norm"] for rec in run.history],
+        "finite": True, "step_ms": step_ms, "step_ms_2_3": step_ms[1:3],
+        "tok_per_s_2_3": [tokens / (ms / 1e3) for ms in step_ms[1:3]],
+        "run_s": total_s, "peak_mem_gib": peak_gib, "launches": launches,
+        "launches_expected": expect, "card": card, "profile": prof}
+    del run, batch
+    torch.cuda.empty_cache()
+    return launches, line
+
+
+def moe_train_rows(spec, flush):
+    """B8 forward and dx and ``moe_dw_kernel`` at granite-moe-3b's
+    training shapes (a microbatch of 1 × 256 tokens: capacity 56, one
+    tile an expert, E 48; gate/up and down), f32 and bf16: each held
+    against its plain version, then timed beside its bound, the plain
+    version and one ``torch.bmm`` of the same product."""
+    from repro_torch.kernels.moe_gemm import (moe_gemm, moe_gemm_dw,
+                                              moe_gemm_dw_plain, moe_gemm_dx,
+                                              moe_gemm_dx_plain,
+                                              moe_gemm_plain)
+    rows, e, cap = [], MOE_E, MOE_TRAIN_CAP
+    t = e * cap
+    eot = torch.arange(e, dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        isz = torch.tensor([], dtype=dtype).element_size()
+        for name, d, f in (("gate", 1536, 512), ("down", 512, 1536)):
+            rng = np.random.default_rng(SEED + d)
+            x, dy = (torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).cuda().to(dtype) for shape in ((t, d), (t, f)))
+            w = torch.from_numpy((rng.standard_normal((e, d, f)) / np.sqrt(d))
+                                 .astype(np.float32)).cuda().to(dtype)
+            x3, dy3 = x.view(e, cap, d), dy.view(e, cap, f)
+            nbytes = (t * d + e * d * f + t * f) * isz + 4 * e
+            flops = 2 * t * d * f
+            shape = f"train {name} E={e} cap={cap}"
+            rows.append(measure(
+                "moe_gemm", moe_gemm(x, eot, w, bt=cap),
+                moe_gemm_plain(x, eot, w, bt=cap), dtype,
+                lambda: moe_gemm(x, eot, w, bt=cap),
+                lambda: moe_gemm_plain(x, eot, w, bt=cap),
+                lambda: torch.bmm(x3, w), nbytes, flops, spec, flush, REPS,
+                shape=f"{shape}: forward ({t} x {d}) -> {f}", bt=cap))
+            rows.append(measure(
+                "moe_gemm", moe_gemm_dx(dy, eot, w, bt=cap),
+                moe_gemm_dx_plain(dy, eot, w, bt=cap), dtype,
+                lambda: moe_gemm_dx(dy, eot, w, bt=cap),
+                lambda: moe_gemm_dx_plain(dy, eot, w, bt=cap),
+                lambda: torch.bmm(dy3, w.transpose(1, 2)), nbytes, flops,
+                spec, flush, REPS,
+                shape=f"{shape}: dx ({t} x {f}) -> {d}, w transposed",
+                bt=cap))
+            rows.append(measure(
+                "moe_gemm_dw", moe_gemm_dw(x, dy, eot, e, bt=cap),
+                moe_gemm_dw_plain(x, dy, eot, e, bt=cap), dtype,
+                lambda: moe_gemm_dw(x, dy, eot, e, bt=cap),
+                lambda: moe_gemm_dw_plain(x, dy, eot, e, bt=cap),
+                lambda: torch.bmm(x3.transpose(1, 2), dy3), nbytes, flops,
+                spec, flush, REPS,
+                shape=f"{shape}: dW ({t} x {d})^T ({t} x {f}) -> "
+                f"({e}, {d}, {f})", bt=cap))
+            del x, dy, w, x3, dy3
+    return rows
+
+
 def profile(fn, warmup: bool = True, totals=()) -> dict:
     """One call of ``fn`` under torch.profiler (after one call outside it
     with ``warmup``): wall ms, the device time summed over kernels, the
@@ -4083,6 +4374,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     emit(moe_kernels_edge())
+    emit(moe_backward_kernels_edge())
     emit(moe_reference())
     moe_launches, moe_line = moe_serve(smi)
     emit(moe_line)
@@ -4141,6 +4433,18 @@ def main() -> int:
         emit({"phase": "kernels", "card": smi, **row})
     rows += extra_rows
 
+    emit(train_families_reference())
+    family_launches = {}
+    for phase, arch, argv in TRAIN_FAMILIES:
+        family_launches[phase], line = train_family(smi, phase, arch, argv)
+        emit(line)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    train_moe_rows = moe_train_rows(spec, flush)
+    del flush
+    for row in train_moe_rows:
+        emit({"phase": "kernels", "card": smi, **row})
+    rows += train_moe_rows
+
     # launches: each path's run, counted from 0
     by_path = {**serve_launches, "train": train_launches,
                "partitioned": part_launches,
@@ -4151,13 +4455,15 @@ def main() -> int:
                "hybrid_reference": hybrid_ref_launches, **hybrid_launches,
                "hybrid_batcher": hb_launches, **ssm_launches,
                "encdec_reference": encdec_ref_launches, **encdec_launches,
-               "vlm_reference": vlm_ref_launches, **vlm_launches}
+               "vlm_reference": vlm_ref_launches, **vlm_launches,
+               **family_launches}
     f32 = lambda n: lambda r: r["dtype"] == "float32" and r.get("N") == n
     headline = {"maple_spmm_naive": f32(1), "maple_spmm_compact": f32(1),
                 "maple_spmm_planned": f32(1),
                 "maple_sddmm_bsr": f32(256),
                 **{k: f32(None) for k in SPGEMM_COUNTERS},
-                "moe_gemm": f32(None), "block_attention": f32(None)}
+                "moe_gemm": f32(None), "moe_gemm_dw": f32(None),
+                "block_attention": f32(None)}
     keys = ("shape", "dtype", "G", "N", "bt", "ms", "plain_ms", "library_ms",
             "bound_ms", "bound_share", "bound_by", "max_abs_err", "compact_merge_ms",
             "merge_ms", "merge_bound_ms", "runs", "rows")

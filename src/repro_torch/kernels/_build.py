@@ -143,10 +143,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.maple_spmspm.argtypes = [p] * 4 + [i] * 4 + [p]
         lib.maple_spmspm.restype = i
     elif name == "moe_gemm":
-        lib.maple_moe_gemm.argtypes = [p] * 4 + [i] * 6 + [p]
-        lib.maple_moe_gemm.restype = i
-        lib.maple_moe_layout.argtypes = [i] * 6 + [p]
-        lib.maple_moe_layout.restype = i
+        for fn in (lib.maple_moe_gemm, lib.maple_moe_gemm_dx,
+                   lib.maple_moe_dw):
+            fn.argtypes = [p] * 4 + [i] * 6 + [p]
+            fn.restype = i
+        for fn in (lib.maple_moe_layout, lib.maple_moe_layout_dx):
+            fn.argtypes = [i] * 6 + [p]
+            fn.restype = i
     elif name == "block_attn":
         lib.maple_block_attention.argtypes = [p] * 5 + [i] * 11 + \
             [ctypes.c_float, p]

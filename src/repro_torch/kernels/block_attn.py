@@ -14,6 +14,11 @@ runs the plain PyTorch version only for tensors on the CPU.  For CUDA
 tensors it launches the kernel or raises; each launch adds one to
 ``launches``.  The kernel takes a head dim that is a multiple of 4 up to
 256.
+
+:func:`block_attention` is forward only, on both devices: with grad mode
+on and q, k or v requiring grad it raises ``NotImplementedError``, as the
+reference's kernel does under ``jax.grad`` (local attention's backward is
+not ported yet).
 """
 
 from __future__ import annotations
@@ -71,8 +76,14 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """``(B, S, H, hd)`` in q's dtype: flash attention of each q-block
     over the kv-blocks of its ``kv_map`` row (ids in ``[-1, S/bk)``),
-    causal and windowed (``window > 0``) within them."""
+    causal and windowed (``window > 0``) within them.  Forward only:
+    raises under a gradient of q, k or v."""
     _check(q, k, v, kv_map, bq, bk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "block_attention (B9) has no backward: local attention's "
+            "backward is not ported yet (the reference's kernel has no "
+            "gradient either)")
     if not q.is_cuda:
         return block_attention_plain(q, k, v, kv_map, bq=bq, bk=bk,
                                      causal=causal, window=window)

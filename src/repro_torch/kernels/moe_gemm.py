@@ -8,11 +8,20 @@ dtype.  Routed MoE expert compute is a row-wise product on CSR metadata:
 the tile's expert id is the ``col_id`` that selects the weight panel, and
 an expert with no tile is never read.
 
-The wrapper runs the plain PyTorch version only for tensors on the CPU.
-For CUDA tensors it launches the kernel or raises; each launch adds one
-to ``launches``.  The reference needs D and F to be multiples of its
-128-wide Pallas tiles; the kernel takes any D and F, and a token tile bt
-that is a multiple of 8 (the MoE layer's capacity always is).
+Under a gradient :func:`moe_gemm` is a ``torch.autograd.Function``:
+``dx = dy · w[e]ᵀ`` runs on the same kernel in a transposed-weight mode
+(:func:`moe_gemm_dx`, w read in place) and ``dW[e] = Σ x_tileᵀ · dy_tile``
+over the tiles expert e owns on ``moe_dw_kernel`` (:func:`moe_gemm_dw`),
+in tile order and without atomics, so reruns are bit-identical.  The
+reference's kernel has no gradient (its MoE layer trains through
+``einsum``); the port's MoE layer trains through this Function.
+
+Each wrapper runs its plain PyTorch version only for tensors on the CPU.
+For CUDA tensors it launches its kernel or raises; the forward and dx
+launches add one to ``moe_gemm.launches``, dW's to
+``moe_gemm_dw.launches``.  The reference needs D and F to be multiples
+of its 128-wide Pallas tiles; the kernels take any D and F, and a token
+tile bt that is a multiple of 8 (the MoE layer's capacity always is).
 :func:`moe_route` is the host's side of a launch: the consumer, the token
 piece of a thread block, and whether the operands come by TMA.
 """
@@ -32,7 +41,7 @@ _MAX_STAGES = 8
 
 
 def moe_route(dtype: torch.dtype, t: int, d: int, f: int, bt: int, *,
-              aligned: bool = True) -> dict:
+              aligned: bool = True, transposed: bool = False) -> dict:
     """How a B8 launch runs on the card (``plan_moe`` in
     ``csrc/moe_gemm.cu``).  A thread block owns ``piece`` tokens of one
     token tile and :data:`F_TILE` columns of F: the smallest of
@@ -46,13 +55,18 @@ def moe_route(dtype: torch.dtype, t: int, d: int, f: int, bt: int, *,
     rows of D (64; 32 for f32 pieces of 32 tokens or more, so that 3
     blocks share an SM) of x's and w's panels,
     ``(piece + 64) · kc`` elements; ``stages`` of them fill a 48 KB ring
-    (2 to 8)."""
+    (2 to 8).  ``transposed`` is dx's launch over w ``(E, d, f)``
+    (``plan_moe``'s ``trans``): f is the reduction and d the output
+    columns (``f_tiles`` counts d's tiles), and f32 reads w by the
+    producer's copies, which write its panel transposed."""
     if bt <= 0 or bt % 8 or t % bt:
         raise ValueError(f"bt={bt} must be a positive multiple of 8 that "
                          f"divides T={t}")
     isz = 2 if dtype == torch.bfloat16 else 4
     piece = next((p for p in PIECES if p >= bt), PIECES[-1])
-    tma = d > 0 and (d * isz) % 16 == 0 and (f * isz) % 16 == 0 and aligned
+    k, n = (f, d) if transposed else (d, f)
+    tma = (k > 0 and (k * isz) % 16 == 0 and (n * isz) % 16 == 0 and aligned
+           and not (transposed and dtype == torch.float32))
     kc = 64 if dtype == torch.bfloat16 or piece < 32 else 32
     stage = (piece + F_TILE) * kc * isz
     return {"consumer": "wgmma" if dtype == torch.bfloat16 else "ffma",
@@ -61,59 +75,151 @@ def moe_route(dtype: torch.dtype, t: int, d: int, f: int, bt: int, *,
             "piece": piece, "pieces": -(-bt // piece), "kc": kc,
             "copy": "tma" if tma else "producer",
             "stages": min(max(_RING // stage, 2), _MAX_STAGES),
-            "f_tiles": -(-f // F_TILE)}
+            "f_tiles": -(-n // F_TILE)}
 
 
-def _check(x, expert_of_tile, w, bt: int) -> None:
-    if x.dim() != 2 or w.dim() != 3 or expert_of_tile.dim() != 1:
+def _check(x, expert_of_tile, w, bt: int, *, transposed: bool = False
+           ) -> None:
+    """x ``(T, K)`` against its tiles and, unless ``w`` is None, against
+    the weights ``(E, K, N)`` (``transposed``, dx's: ``(E, N, K)``)."""
+    if x.dim() != 2 or (w is not None and w.dim() != 3) \
+            or expert_of_tile.dim() != 1:
         raise ValueError(f"x must be (T, D), w (E, D, F) and expert_of_tile "
-                         f"(T/bt,); got {tuple(x.shape)}, {tuple(w.shape)} "
+                         f"(T/bt,); got {tuple(x.shape)}, "
+                         f"{None if w is None else tuple(w.shape)} "
                          f"and {tuple(expert_of_tile.shape)}")
     t, d = x.shape
-    if w.shape[1] != d:
-        raise ValueError(f"D mismatch {d} vs {w.shape[1]}")
+    if w is not None and w.shape[2 if transposed else 1] != d:
+        raise ValueError(f"D mismatch {d} vs {w.shape[2 if transposed else 1]}")
     if bt <= 0 or t % bt:
         raise ValueError(f"T={t} not divisible by bt={bt}")
     if expert_of_tile.shape[0] != t // bt:
         raise ValueError(f"expert_of_tile holds {expert_of_tile.shape[0]} "
                          f"tiles, T/bt = {t // bt}")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+    if x.dtype not in _DTYPES or (w is not None and w.dtype != x.dtype):
         raise TypeError(f"x and w must both be float32 or bfloat16, got "
-                        f"{x.dtype} and {w.dtype}")
+                        f"{x.dtype} and {None if w is None else w.dtype}")
     if expert_of_tile.dtype != torch.int32:
         raise TypeError(f"expert_of_tile must be int32, got "
                         f"{expert_of_tile.dtype}")
     for name, a in (("x", x), ("w", w), ("expert_of_tile", expert_of_tile)):
+        if a is None:
+            continue
         if a.device != x.device:
             raise ValueError(f"{name} is on {a.device}, x on {x.device}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
-def moe_gemm(x: torch.Tensor, expert_of_tile: torch.Tensor,
-             w: torch.Tensor, *, bt: int) -> torch.Tensor:
-    """``(T, F)`` in x's dtype: token tile ``i`` (rows ``i·bt`` to
-    ``(i+1)·bt``) times ``w[expert_of_tile[i]]``, in f32."""
-    _check(x, expert_of_tile, w, bt)
-    if not x.is_cuda:
-        return moe_gemm_plain(x, expert_of_tile, w, bt=bt)
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _check_tile(bt: int) -> None:
     if bt % 8:
         raise ValueError(f"the CUDA kernel takes a token tile bt that is a "
                          f"multiple of 8, got {bt}")
-    t, d = x.shape
-    f = w.shape[2]
-    y = torch.empty((t, f), dtype=x.dtype, device=x.device)
+
+
+def _forward(x, expert_of_tile, w, bt: int) -> torch.Tensor:
+    if not x.is_cuda:
+        return moe_gemm_plain(x, expert_of_tile, w, bt=bt)
+    _check_tile(bt)
+    e, d, f = w.shape
+    y = torch.empty((x.shape[0], f), dtype=x.dtype, device=x.device)
     lib = _build.library("moe_gemm")
     err = lib.maple_moe_gemm(x.data_ptr(), expert_of_tile.data_ptr(),
-                             w.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], t,
-                             d, f, w.shape[0], bt,
-                             torch.cuda.current_stream().cuda_stream)
+                             w.data_ptr(), y.data_ptr(), _DTYPES[x.dtype],
+                             x.shape[0], d, f, e, bt, _stream())
     _build.check(lib, err, "moe_gemm")
     moe_gemm.launches += 1
     return y
 
 
+class _MoeGemmFunction(torch.autograd.Function):
+    """B8 with its backward: dx on B8's transposed-weight mode, dW on
+    ``moe_dw_kernel`` (their plain versions for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, expert_of_tile, w, bt):
+        ctx.bt = bt
+        ctx.save_for_backward(x, expert_of_tile, w)
+        return _forward(x, expert_of_tile, w, bt)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, expert_of_tile, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = moe_gemm_dx(dy, expert_of_tile, w, bt=ctx.bt)
+        if ctx.needs_input_grad[2]:
+            dw = moe_gemm_dw(x, dy, expert_of_tile, w.shape[0], bt=ctx.bt)
+        return dx, None, dw, None
+
+
+def moe_gemm(x: torch.Tensor, expert_of_tile: torch.Tensor,
+             w: torch.Tensor, *, bt: int) -> torch.Tensor:
+    """``(T, F)`` in x's dtype: token tile ``i`` (rows ``i·bt`` to
+    ``(i+1)·bt``) times ``w[expert_of_tile[i]]``, in f32.  Differentiable
+    in x and w (:class:`_MoeGemmFunction`) on both devices."""
+    _check(x, expert_of_tile, w, bt)
+    if x.is_cuda:
+        _check_tile(bt)
+    return _MoeGemmFunction.apply(x, expert_of_tile, w, bt)
+
+
 moe_gemm.launches = 0
+
+
+def moe_gemm_dx(dy: torch.Tensor, expert_of_tile: torch.Tensor,
+                w: torch.Tensor, *, bt: int) -> torch.Tensor:
+    """dx ``(T, D)`` of :func:`moe_gemm`: ``dy (T, F)`` tile ``i`` times
+    ``w[expert_of_tile[i]]ᵀ``, on B8's transposed-weight mode (w read in
+    place, no transposed copy); a launch adds one to
+    ``moe_gemm.launches``."""
+    e, d, f = w.shape
+    _check(dy, expert_of_tile, w, bt, transposed=True)
+    if not dy.is_cuda:
+        return moe_gemm_dx_plain(dy, expert_of_tile, w, bt=bt)
+    _check_tile(bt)
+    dx = torch.empty((dy.shape[0], d), dtype=dy.dtype, device=dy.device)
+    lib = _build.library("moe_gemm")
+    err = lib.maple_moe_gemm_dx(dy.data_ptr(), expert_of_tile.data_ptr(),
+                                w.data_ptr(), dx.data_ptr(),
+                                _DTYPES[dy.dtype], dy.shape[0], d, f, e, bt,
+                                _stream())
+    _build.check(lib, err, "moe_gemm_dx")
+    moe_gemm.launches += 1
+    return dx
+
+
+def moe_gemm_dw(x: torch.Tensor, dy: torch.Tensor,
+                expert_of_tile: torch.Tensor, n_experts: int, *,
+                bt: int) -> torch.Tensor:
+    """dW ``(E, D, F)`` of :func:`moe_gemm`, in x's dtype: for each expert
+    the sum over the tiles it owns, in ascending order, of ``x_tileᵀ ·
+    dy_tile``, in f32; zeros for an expert with no tile.  On the card one
+    ``moe_dw_kernel`` launch, which adds one to ``moe_gemm_dw.launches``."""
+    _check(x, expert_of_tile, None, bt)
+    _check(dy, expert_of_tile, None, bt)      # so dy has x's T and device
+    if dy.dtype != x.dtype:
+        raise TypeError(f"dy must have x's dtype {x.dtype}, got {dy.dtype}")
+    w_shape = (n_experts, x.shape[1], dy.shape[1])
+    if not x.is_cuda:
+        return moe_gemm_dw_plain(x, dy, expert_of_tile, n_experts, bt=bt)
+    dw = torch.empty(w_shape, dtype=x.dtype, device=x.device)
+    lib = _build.library("moe_gemm")
+    err = lib.maple_moe_dw(x.data_ptr(), dy.data_ptr(),
+                           expert_of_tile.data_ptr(), dw.data_ptr(),
+                           _DTYPES[x.dtype], x.shape[0], w_shape[1],
+                           w_shape[2], n_experts, bt, _stream())
+    _build.check(lib, err, "moe_gemm_dw")
+    moe_gemm_dw.launches += 1
+    return dw
+
+
+moe_gemm_dw.launches = 0
 
 
 def moe_gemm_plain(x, expert_of_tile, w, *, bt: int) -> torch.Tensor:
@@ -123,3 +229,24 @@ def moe_gemm_plain(x, expert_of_tile, w, *, bt: int) -> torch.Tensor:
     tiles = x.float().view(t // bt, bt, d)
     out = torch.bmm(tiles, w.float()[expert_of_tile.long()])
     return out.reshape(t, w.shape[2]).to(x.dtype)
+
+
+def moe_gemm_dx_plain(dy, expert_of_tile, w, *, bt: int) -> torch.Tensor:
+    """Plain version of :func:`moe_gemm_dx`: :func:`moe_gemm_plain` over
+    w transposed."""
+    return moe_gemm_plain(dy, expert_of_tile, w.transpose(1, 2), bt=bt)
+
+
+def moe_gemm_dw_plain(x, dy, expert_of_tile, n_experts: int, *,
+                      bt: int) -> torch.Tensor:
+    """Plain version of :func:`moe_gemm_dw`: each tile's f32 ``xᵀ · dy``,
+    added into its expert's ``(D, F)`` in tile order."""
+    t, d = x.shape
+    f = dy.shape[1]
+    prods = torch.bmm(x.float().view(t // bt, bt, d).transpose(1, 2),
+                      dy.float().view(t // bt, bt, f))
+    out = torch.zeros((n_experts, d, f), dtype=torch.float32,
+                      device=x.device)
+    for i, e in enumerate(expert_of_tile.tolist()):
+        out[e] += prods[i]
+    return out.to(x.dtype)

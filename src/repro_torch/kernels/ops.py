@@ -1,7 +1,9 @@
 """Public entry points of the Maple kernels (port of
 ``repro.kernels.ops``): ``maple_spmm``, ``maple_spgemm`` and
 ``maple_spmspm``, forward and backward; ``moe_expert_gemm`` and
-``local_block_attention``, forward only.
+``local_block_attention``, forward only: under a gradient (grad mode on
+and an operand that requires grad) both raise ``NotImplementedError``, as
+the reference's do under ``jax.grad``.
 
 The wrappers own everything that is not a kernel: argument checks (the
 reference's raises, same types and messages), format lowering, schedule
@@ -742,7 +744,15 @@ def moe_expert_gemm(x_sorted: torch.Tensor, group_sizes: torch.Tensor,
     is computed on the sizes' device; an empty group owns no tile and its
     weights are never read.  The reference needs D and F to be multiples
     of its 128-wide Pallas tiles; the port's kernel takes any D and F.
+    Forward only, as the reference's: raises under a gradient of
+    ``x_sorted`` or ``w`` (the MoE layer trains through
+    :func:`~repro_torch.kernels.moe_gemm.moe_gemm`'s own backward).
     """
+    if torch.is_grad_enabled() and (x_sorted.requires_grad
+                                    or w.requires_grad):
+        raise NotImplementedError(
+            "moe_expert_gemm has no gradient, as the reference's entry "
+            "point: the MoE layer trains through moe_gemm's backward")
     return moe_gemm(x_sorted,
                     expert_of_tile(group_sizes, x_sorted.shape[0] // bt, bt),
                     w, bt=bt)
@@ -770,7 +780,8 @@ def local_block_attention(q, k, v, *, window: int, bq: int = 128,
 
     q/k/v: (B, S, H, hd).  Tiles outside the window band are never fetched
     (the Maple zero-block skip); within-band masking is elementwise.  One
-    kernel launch covers the whole batch.
+    kernel launch covers the whole batch.  Forward only: raises under a
+    gradient of q, k or v (local attention's backward is not ported yet).
     """
     kv_map = torch.from_numpy(local_window_kv_map(q.shape[1], window, bq,
                                                   bk)).to(q.device)

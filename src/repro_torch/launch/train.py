@@ -1,10 +1,15 @@
 """Training launcher: random init from a seed, deterministic synthetic
 data, AdamW steps with microbatch accumulation and straggler monitoring
-(port of ``repro.launch.train``).
+(port of ``repro.launch.train``).  It trains the dense, MoE, SSM, audio
+(whisper: encoder frames drawn beside the tokens) and vlm (internvl:
+patch embeddings before them) families; the hybrid family raises (its
+local attention has no backward yet).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
       --smoke --device cpu --steps 3 [--sparse-mlp]
+  (--arch: any config but recurrentgemma-9b, e.g. granite-moe-3b-a800m,
+  mamba2-2.7b, whisper-base, internvl2-1b)
 
 ``--device`` (default ``cuda``) and ``--sparse-mlp`` (the config's
 block-sparse MLP down-projection, trained through the Maple kernels) are
@@ -33,7 +38,8 @@ from repro_torch.train import OptimizerConfig, init_opt_state, make_train_step
 @dataclasses.dataclass
 class TrainRun:
     """What a run leaves behind: the final parameters (per-layer layout)
-    and optimizer state, the step function and data config it ran, and
+    and optimizer state, the step function, data config and extra input
+    shapes (``synth_batch(extra=…)``) it ran, and
     one record per step (``step``, ``loss``, ``grad_norm``, ``lr``,
     ``step_s`` — wall seconds up to the step's loss on the host)."""
     cfg: ModelConfig
@@ -41,6 +47,7 @@ class TrainRun:
     opt: Any
     step_fn: Callable
     data: DataConfig
+    extra: Dict[str, tuple]
     device: torch.device
     history: List[Dict[str, float]]
 
@@ -73,6 +80,12 @@ def main(argv=None) -> TrainRun:
                            total_steps=max(args.steps, 10))
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                       global_batch=args.global_batch, seed=args.seed)
+    extra = {}
+    if cfg.n_enc_layers:
+        extra["enc_frames"] = (args.global_batch, cfg.enc_seq, cfg.d_model)
+    if cfg.n_patches:
+        extra["vision_embeds"] = (args.global_batch, cfg.n_patches,
+                                  cfg.d_model)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = lm.unstack_layers(lm.init_params(cfg, gen, device=dev))
@@ -86,7 +99,8 @@ def main(argv=None) -> TrainRun:
     history: List[Dict[str, float]] = []
 
     for step in range(args.steps):
-        batch = {k: v.to(dev) for k, v in synth_batch(dcfg, step).items()}
+        batch = {k: v.to(dev)
+                 for k, v in synth_batch(dcfg, step, extra).items()}
         with StepTimer(monitor, host):
             params, opt, metrics = step_fn(params, opt, batch)
             loss = float(metrics["loss"])        # waits for the device
@@ -103,7 +117,7 @@ def main(argv=None) -> TrainRun:
                   f"gnorm={rec['grad_norm']:.3f} lr={rec['lr']:.2e}",
                   flush=True)
     return TrainRun(cfg=cfg, params=params, opt=opt, step_fn=step_fn,
-                    data=dcfg, device=dev, history=history)
+                    data=dcfg, extra=extra, device=dev, history=history)
 
 
 if __name__ == "__main__":

@@ -32,12 +32,15 @@ The trainer holds the same tree with ``groups["b<i>"]`` as a list of
 per-layer subtrees instead (:func:`unstack_layers`), each leaf a tensor
 of its own: autograd then gives each layer its own gradient, where
 indexing a stacked leaf would allocate a zero tensor as large as the
-stack per layer in the backward.  ``forward`` and ``loss_fn`` take that
-layout and train the dense family only.
+stack per layer in the backward (the encoder's stack as well).
+``forward`` and ``loss_fn`` take that layout and train the dense, MoE,
+SSM, audio and vlm families: the encoder and its cross-attentions, the
+vision prefix (whose positions carry no loss), the MoE layer on B8's
+forward and backward, and the SSD scan through autograd.
 
-The MoE, hybrid (RG-LRU + local attention), SSM, audio and vlm families
-serve through ``prefill`` and ``decode_step``; their training is not
-ported yet.  Not ported either: two-level remat (``scan_remat_chunk >
+The hybrid family (RG-LRU + local attention) serves through ``prefill``
+and ``decode_step`` only: its local attention runs on B9, which has no
+backward yet.  Not ported either: two-level remat (``scan_remat_chunk >
 1``).
 """
 
@@ -106,10 +109,11 @@ def _check_ported(cfg: ModelConfig, *, training: bool = False) -> None:
             f"global attention, the hybrid RG-LRU + local-attention family, "
             f"the SSM family, and an encoder (audio) or a vision prefix "
             f"(vlm) only over global attention and the dense MLP")
-    if training and cfg.family != "dense":
-        raise NotImplementedError(f"training the {cfg.family} family is not "
-                                  f"ported yet: it serves only (prefill, "
-                                  f"decode_step)")
+    if training and cfg.family == "hybrid":
+        raise NotImplementedError(
+            "training the hybrid family is not ported yet: its local "
+            "attention runs on B9 (block_attention), whose backward is not "
+            "ported; it serves only (prefill, decode_step)")
 
 
 def _stacks(cfg: ModelConfig):
@@ -167,11 +171,17 @@ def unstack_layers(params):
             return dataclasses.replace(t, blocks=t.blocks.clone())
         return t.clone()
 
+    def per_layer(groups):
+        return {name: [own(p) for p in _stacked_layers(group)]
+                for name, group in groups.items()}
+
     out = dict(params)
     for key in ("groups", "tail"):
         if key in params:
-            out[key] = {name: [own(p) for p in _stacked_layers(group)]
-                        for name, group in params[key].items()}
+            out[key] = per_layer(params[key])
+    if "encoder" in params:
+        out["encoder"] = dict(params["encoder"],
+                              groups=per_layer(params["encoder"]["groups"]))
     return out
 
 
@@ -235,15 +245,16 @@ def _cross(p, cfg: ModelConfig, x, k, v):
                                  k, v)
 
 
-def _ffn(p, cfg: ModelConfig, x):
-    """The serving path's feed-forward half of a block: the MLP, or the MoE
-    layer for the MoE family; SSM blocks have none."""
+def _ffn(p, cfg: ModelConfig, x, mlp_plan=None):
+    """The feed-forward half of a block: the MLP (a sparse one on
+    ``mlp_plan`` where given), or the MoE layer for the MoE family; SSM
+    blocks have none."""
     if "moe" in p:
         return x + M.moe_layer(p["moe"], _moe_cfg(cfg),
                                L.apply_norm(x, p["norm2"], cfg.norm))
     if "mlp" in p:
         return x + L.mlp(p["mlp"], L.apply_norm(x, p["norm2"], cfg.norm),
-                         cfg.activation)
+                         cfg.activation, sparse_plan=mlp_plan)
     return x
 
 
@@ -318,56 +329,85 @@ def sparse_mlp_plan(params, *, n_lanes: int = 8, chunk=None,
                          n_col_shards=n_col_shards)
 
 
-def _apply_block(p, cfg: ModelConfig, acfg: L.AttnConfig, x, positions,
-                 rope, mlp_plan):
+def _apply_block(p, cfg: ModelConfig, kind: str, x, positions, rope,
+                 enc_out, mlp_plan):
+    """One block over the full sequence (the reference's ``_apply_block``):
+    its mixer (global or encoder attention, or the SSD block), the
+    cross-attention over the encoder output ``enc_out``'s K/V (projected
+    here, so that remat recomputes them), then the FFN."""
     h = L.apply_norm(x, p["norm1"], cfg.norm)
-    x = x + L.attention(p["attn"], acfg, h, positions, rope=rope)
-    h = L.apply_norm(x, p["norm2"], cfg.norm)
-    return x + L.mlp(p["mlp"], h, cfg.activation, sparse_plan=mlp_plan)
+    if kind == "ssm":
+        x = x + S.ssm_block(p["ssm"], _ssm_cfg(cfg), h)
+    else:
+        x = x + L.attention(p["attn"], _attn_cfg(cfg, kind), h, positions,
+                            rope=rope)
+    if enc_out is not None and "cross" in p:
+        k, v = L.encode_kv(p["cross"], _attn_cfg(cfg, "enc_attn"), enc_out)
+        x = _cross(p, cfg, x, k, v)
+    return _ffn(p, cfg, x, mlp_plan)
+
+
+def _run_block(p, cfg: ModelConfig, kind: str, x, positions, rope,
+               enc_out, mlp_plan, remat: bool):
+    """:func:`_apply_block`, under ``torch.utils.checkpoint`` with
+    ``remat`` (non-reentrant: only the block's inputs are saved, the
+    reference's ``nothing_saveable`` policy)."""
+    if remat:
+        return checkpoint(_apply_block, p, cfg, kind, x, positions, rope,
+                          enc_out, mlp_plan, use_reentrant=False)
+    return _apply_block(p, cfg, kind, x, positions, rope, enc_out, mlp_plan)
 
 
 def forward(params, cfg: ModelConfig, batch, *, remat: bool = True,
             mlp_plan=None):
-    """Full-sequence forward → logits ``(B, S, vocab_padded)``, on the
-    trainer's per-layer parameters (:func:`unstack_layers`).
+    """Full-sequence forward → logits ``(B, S, vocab_padded)`` (S counts
+    a vision prefix), on the trainer's per-layer parameters
+    (:func:`unstack_layers`), as the reference's: the prefix and tokens
+    (:func:`_embed_inputs`); with an encoder, :func:`_encode` over
+    ``batch["enc_frames"]`` first; then every stack of :func:`_stacks`
+    (groups, then the tail), each block by its kind.
 
     ``mlp_plan`` is the shared ``SpmmTrainPlan`` of the sparse MLP
     (:func:`sparse_mlp_plan`); without it the sparse layers run the naive
-    schedule.  ``remat`` recomputes each layer in the backward instead of
-    keeping its activations (``torch.utils.checkpoint``, non-reentrant:
-    only the layer's input is saved, the reference's
-    ``nothing_saveable`` policy)."""
+    schedule.  ``remat`` recomputes each block (an encoder block too) in
+    the backward instead of keeping its activations."""
     _check_ported(cfg, training=True)
     if remat and cfg.scan_remat_chunk > 1:
         raise NotImplementedError("two-level remat (scan_remat_chunk > 1) "
                                   "is not ported yet")
-    tok = batch["tokens"]
-    x = params["embed_tokens"][tok]                        # (B, S, D)
-    b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device).expand(b, s)
-    rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    acfg = _attn_cfg(cfg)
-    layers = params["groups"]["b0"]
-    if not isinstance(layers, list):
+    stacks = _stacks(cfg)
+    trees = [params[key] for key, _, _ in stacks]
+    if cfg.n_enc_layers > 0:
+        trees.append(params["encoder"]["groups"])
+    if not all(isinstance(g, list) for t in trees for g in t.values()):
         raise TypeError("forward takes the trainer's per-layer layout: "
                         "pass lm.unstack_layers(params)")
-    for p in layers:
-        if remat:
-            x = checkpoint(_apply_block, p, cfg, acfg, x, positions, rope,
-                           mlp_plan, use_reentrant=False)
-        else:
-            x = _apply_block(p, cfg, acfg, x, positions, rope, mlp_plan)
+    x, positions = _embed_inputs(params, cfg, batch)       # (B, S, D)
+    rope = _rope(cfg, positions)
+    enc_out = (_encode(params, cfg, batch["enc_frames"], remat=remat,
+                       mlp_plan=mlp_plan)
+               if cfg.n_enc_layers > 0 else None)
+    for key, kinds, count in stacks:
+        for li in range(count):
+            for i, kind in enumerate(kinds):
+                x = _run_block(params[key][f"b{i}"][li], cfg, kind, x,
+                               positions, rope, enc_out, mlp_plan, remat)
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
     return _logits(params, x)
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = True,
             mlp_plan=None):
-    """Next-token cross-entropy plus z-loss, masked on ``labels < 0``.
-    Returns ``(loss, {"loss": nll, "z_loss": ..., "tokens": ...})``."""
+    """Next-token cross-entropy plus z-loss, masked on ``labels < 0``; a
+    vision prefix's positions carry no loss (its labels padded with -1,
+    as in the reference).  Returns ``(loss, {"loss": nll, "z_loss": ...,
+    "tokens": ...})``."""
     logits = forward(params, cfg, batch, remat=remat,
                      mlp_plan=mlp_plan).float()
     labels = batch["labels"]
+    if cfg.n_patches > 0:
+        labels = torch.cat([labels.new_full(
+            (labels.shape[0], cfg.n_patches), -1), labels], dim=1)
     mask = labels >= 0
     safe = torch.where(mask, labels, 0).long()
     lse = torch.logsumexp(logits, dim=-1)
@@ -477,22 +517,24 @@ def _mix_prefill(p, cfg: ModelConfig, kind: str, h, positions, rope,
     return h
 
 
-def _encode(params, cfg: ModelConfig, enc_frames):
+def _encode(params, cfg: ModelConfig, enc_frames, *, remat: bool = False,
+            mlp_plan=None):
     """The whisper-style encoder over precomputed (stub) frame embeddings
     (B, enc_seq, D): the sinusoidal table added, then the non-causal
     blocks, whose attention also rotates by RoPE at the frame positions
-    (as the reference's), and the final norm."""
+    (as the reference's), and the final norm.  Takes the stacked layout
+    (serving) or the trainer's per-layer one, whose blocks ``remat``
+    recomputes in the backward."""
     x = enc_frames + sinusoidal_positions(
         enc_frames.shape[1], cfg.d_model,
         device=enc_frames.device).to(enc_frames.dtype)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    acfg = _attn_cfg(cfg, "enc_attn")
-    for p in _stacked_layers(params["encoder"]["groups"]["b0"]):
-        h = L.apply_norm(x, p["norm1"], cfg.norm)
-        x = _ffn(p, cfg, x + L.attention(p["attn"], acfg, h, positions,
-                                         rope=rope))
+    group = params["encoder"]["groups"]["b0"]
+    for p in group if isinstance(group, list) else _stacked_layers(group):
+        x = _run_block(p, cfg, "enc_attn", x, positions, rope, None,
+                       mlp_plan, remat)
     return L.apply_norm(x, params["encoder"]["final_norm"], cfg.norm)
 
 

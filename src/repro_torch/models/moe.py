@@ -1,4 +1,4 @@
-"""Mixture-of-Experts layer (port of ``repro.models.moe``), forward only.
+"""Mixture-of-Experts layer (port of ``repro.models.moe``).
 
 The dispatch is sort-based, as in the reference: top-k expert assignments
 are flattened, stably sorted by expert, ranked within their expert
@@ -6,7 +6,9 @@ segment by position, capacity-clamped and written into per-expert
 buffers; the three expert products run on the MoE grouped GEMM kernel
 (:func:`~repro_torch.kernels.moe_gemm.moe_gemm`, one token tile per
 expert buffer, ``bt = cap``), where the reference writes them as
-``einsum``; the combine sums each token's k weighted slots.
+``einsum``; the combine sums each token's k weighted slots.  The layer
+trains through ``moe_gemm``'s autograd Function: dx on the same kernel in
+its transposed-weight mode, each expert's dW on ``moe_dw_kernel``.
 
 Deliberate differences, which keep the result deterministic on CUDA:
 
@@ -93,7 +95,8 @@ def route(router: torch.Tensor, cfg: MoEConfig, xt: torch.Tensor, cap: int):
 
 def _experts(p, buf: torch.Tensor, e: int, cap: int) -> torch.Tensor:
     """SwiGLU over the ``(E·cap, D)`` expert buffers, each product on the
-    grouped GEMM kernel with one ``cap``-row tile per expert."""
+    grouped GEMM kernel with one ``cap``-row tile per expert (its
+    Function, so that the products also train)."""
     eot = torch.arange(e, dtype=torch.int32, device=buf.device)
     h = F.silu(moe_gemm(buf, eot, p["experts_gate"], bt=cap))
     h = h * moe_gemm(buf, eot, p["experts_up"], bt=cap)

@@ -545,12 +545,17 @@ def test_paged_decode_with_cross_caches_stays_refused(model):
 
 
 def test_training_the_audio_family_stays_refused(model):
-    _, cfg, _, params = model
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
-             "labels": torch.zeros((1, 4), dtype=torch.int64),
-             "enc_frames": torch.zeros((1, cfg.enc_seq, cfg.d_model))}
-    with pytest.raises(NotImplementedError, match="training the audio"):
-        lm.loss_fn(lm.unstack_layers(params), cfg, batch)
+    """Training the audio family was refused until the encoder trained;
+    now the loss over tokens and encoder frames equals the reference's
+    (``test_torch_train_families`` holds the gradients)."""
+    cfg_ref, cfg, params_ref, params = model
+    tok = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 6))
+    ref_b, port_b = batches(tok[:, :5], extras(cfg, 2, 4))
+    ref_b["labels"] = jnp.asarray(tok[:, 1:], jnp.int32)
+    port_b["labels"] = torch.from_numpy(tok[:, 1:])
+    want, _ = jax.jit(lambda p: ref_lm.loss_fn(p, cfg_ref, ref_b))(params_ref)
+    got, _ = lm.loss_fn(lm.unstack_layers(params), cfg, port_b)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
 @pytest.mark.parametrize("family", ["dense", "moe", "vlm"])

@@ -1,7 +1,8 @@
 """The Hopper kernels (SpMM forward in the naive, compact and rmw
 layouts, block SDDMM and the maple_spmm backward; the SpGEMM numeric phase, its CSR SDDMM and dB, and the element
-walk with a dense B; the MoE grouped GEMM and block-sparse local
-attention) against their plain versions, on the card.
+walk with a dense B; the MoE grouped GEMM, its dx and dW, and
+block-sparse local attention) against their plain versions, on the
+card.
 
 These tests need an NVIDIA GPU and the CUDA toolkit (``nvcc``); without a
 card they skip.  They import nothing of JAX, so they run on a machine
@@ -895,6 +896,87 @@ def test_moe_layer_on_the_card_matches_the_cpu(cuda):
     assert moe_gemm.launches == before + 6
     assert torch.equal(got[0], got[1])
     _close(got[0].cpu(), want, torch.float32)
+
+
+# (expert of each tile, E, D, F, bt): several tiles an expert, experts
+# with no tile, D and F off multiples of 16 (70 × 44: the producer's
+# copies in both dtypes), a tile of 216 rows (two pieces), granite-moe-3b's
+# training tile (56 rows at 1536 × 512)
+MOE_BACKWARD = [([0, 0, 2], 3, 256, 128, 8), ([1, 1, 3, 3], 4, 72, 40, 16),
+                ([0, 2, 2], 3, 70, 44, 96), ([1, 1], 3, 64, 48, 216),
+                ([0, 0, 0, 2, 2], 4, 1536, 512, 56)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("eot,e,d,f,bt", MOE_BACKWARD)
+def test_moe_backward_kernels_match_plain(cuda, dtype, eot, e, d, f, bt):
+    """dx on B8's transposed-weight mode and dW on ``moe_dw_kernel``
+    against their plain versions, each twice bit for bit; an expert with
+    no tile gets a zero dW."""
+    from repro_torch.kernels.moe_gemm import (moe_gemm, moe_gemm_dw,
+                                              moe_gemm_dw_plain, moe_gemm_dx,
+                                              moe_gemm_dx_plain)
+    rng = np.random.default_rng(d + bt)
+    t = len(eot) * bt
+    x, dy = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+             .to(cuda, dtype) for shape in ((t, d), (t, f)))
+    w = torch.from_numpy((rng.standard_normal((e, d, f)) * 0.1)
+                         .astype(np.float32)).to(cuda, dtype)
+    eot_t = torch.tensor(eot, dtype=torch.int32, device=cuda)
+    before = moe_gemm.launches, moe_gemm_dw.launches
+    dx = [moe_gemm_dx(dy, eot_t, w, bt=bt) for _ in range(2)]
+    dw = [moe_gemm_dw(x, dy, eot_t, e, bt=bt) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (moe_gemm.launches, moe_gemm_dw.launches) == \
+        (before[0] + 2, before[1] + 2)
+    assert torch.equal(dx[0], dx[1]) and torch.equal(dw[0], dw[1])
+    _close(dx[0], moe_gemm_dx_plain(dy, eot_t, w, bt=bt), dtype)
+    _close(dw[0], moe_gemm_dw_plain(x, dy, eot_t, e, bt=bt), dtype)
+    unused = sorted(set(range(e)) - set(eot))
+    assert not dw[0][unused].any()
+
+
+def test_moe_dx_route_matches_the_library(cuda):
+    """dx's route (the transposed-weight mode) is the one the C launcher
+    plans."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.moe_gemm import moe_route
+    lib = _build.library("moe_gemm")
+    out = (ctypes.c_int * 5)()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for bt in (8, 16, 56, 96, 216):
+            for d, f in ((1536, 512), (70, 44), (72, 40)):
+                for aligned in (True, False):
+                    r = moe_route(dtype, 4 * bt, d, f, bt, aligned=aligned,
+                                  transposed=True)
+                    assert lib.maple_moe_layout_dx(code, 4 * bt, d, f, bt,
+                                                   int(aligned), out) == 0
+                    assert list(out) == [r["piece"], r["pieces"],
+                                         int(r["copy"] == "tma"),
+                                         r["stages"], r["f_tiles"]]
+
+
+def test_moe_gemm_gradients_on_the_card_match_the_cpu(cuda):
+    """A backward through ``moe_gemm``'s Function: one dx and one dW
+    launch, gradients within the f32 tolerance of the CPU's."""
+    from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_dw
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((48, 40)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((3, 40, 24)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((48, 24)).astype(np.float32))
+    eot = torch.tensor([2, 2, 0], dtype=torch.int32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        xs, ws = (t.detach().to(dev).requires_grad_() for t in (x, w))
+        before = moe_gemm.launches, moe_gemm_dw.launches
+        moe_gemm(xs, eot.to(dev), ws, bt=16).backward(g.to(dev))
+        grads[str(dev)] = (xs.grad.cpu(), ws.grad.cpu())
+        launched = (moe_gemm.launches - before[0],
+                    moe_gemm_dw.launches - before[1])
+        assert launched == ((0, 0) if dev == "cpu" else (2, 1))
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        _close(got, want, torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -333,14 +333,22 @@ def test_granite_smoke_greedy_tokens_match_reference(granite):
 
 
 def test_moe_training_is_not_ported_yet(granite):
-    _, cfg, _, params = granite
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
-             "labels": torch.zeros((1, 4), dtype=torch.int64)}
+    """MoE training was refused until the expert products got a backward;
+    now ``forward`` and ``loss_fn`` run and equal the reference's
+    (``test_torch_train_families`` holds the gradients)."""
+    cfg_ref, cfg, params_ref, params = granite
+    tok = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 6))
+    batch = {"tokens": torch.from_numpy(tok[:, :5]),
+             "labels": torch.from_numpy(tok[:, 1:])}
+    ref_batch = {k: jnp.asarray(v.numpy(), jnp.int32)
+                 for k, v in batch.items()}
     per_layer = lm.unstack_layers(params)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        lm.forward(per_layer, cfg, batch)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        lm.loss_fn(per_layer, cfg, batch)
+    np.testing.assert_allclose(
+        lm.forward(per_layer, cfg, batch).detach().numpy(),
+        np.asarray(ref_lm.forward(params_ref, cfg_ref, ref_batch)), **TOL)
+    got, _ = lm.loss_fn(per_layer, cfg, batch)
+    want, _ = ref_lm.loss_fn(params_ref, cfg_ref, ref_batch)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
 def test_granite_serve_cli_runs_on_cpu(capsys):

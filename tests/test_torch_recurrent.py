@@ -443,13 +443,27 @@ def test_sparse_mlp_layers_share_one_pattern():
 
 
 def test_training_the_recurrent_families_stays_refused(model):
-    arch, _, cfg, _, params = model
+    """The hybrid family's training stays refused (its local attention
+    on B9 has no backward); the SSM family trains now, its loss equal to
+    the reference's (``test_torch_train_families`` holds the
+    gradients)."""
+    arch, cfg_ref, cfg, params_ref, params = model
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
              "labels": torch.zeros((1, 4), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        lm.forward(lm.unstack_layers(params), cfg, batch)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        lm.loss_fn(lm.unstack_layers(params), cfg, batch)
+    if arch == "recurrentgemma-9b":
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            lm.forward(lm.unstack_layers(params), cfg, batch)
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            lm.loss_fn(lm.unstack_layers(params), cfg, batch)
+        return
+    tok = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 65))
+    batch = {"tokens": torch.from_numpy(tok[:, :-1]),
+             "labels": torch.from_numpy(tok[:, 1:])}         # two chunks
+    want, _ = jax.jit(lambda p: ref_lm.loss_fn(p, cfg_ref, {
+        k: jnp.asarray(v.numpy(), jnp.int32) for k, v in batch.items()}))(
+        params_ref)
+    got, _ = lm.loss_fn(lm.unstack_layers(params), cfg, batch)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
 @pytest.mark.parametrize("arch", RECURRENT)
@@ -463,8 +477,9 @@ def test_serve_cli_runs_the_recurrent_families_on_cpu(arch, capsys):
 def test_encoder_decoder_and_vision_models_stay_refused():
     """What stays refused of the encoder-decoder and vision-prefix
     families: a recurrent (hybrid or SSM) pattern with an encoder or a
-    vision prefix, under its own family or theirs; training the audio
-    and vlm families; paged decode with cross caches or a prefix."""
+    vision prefix, under its own family or theirs; paged decode with
+    cross caches or a prefix.  Training the audio and vlm families, once
+    refused too, runs now: the loss equals the reference's."""
     for arch in RECURRENT:
         cfg = get_smoke_config(arch)
         for bad in (dict(n_enc_layers=2), dict(n_patches=8),
@@ -478,13 +493,24 @@ def test_encoder_decoder_and_vision_models_stay_refused():
         lm.init_params(dataclasses.replace(
             get_smoke_config("recurrentgemma-9b"), family="ssm"),
             torch.Generator(), device="cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
-             "labels": torch.zeros((1, 4), dtype=torch.int64)}
+    rng = np.random.default_rng(0)
+    tok = rng.integers(0, 512, (1, 5))
     for arch in ("whisper-base", "internvl2-1b"):
-        cfg = get_smoke_config(arch)
-        params = lm.init_params(cfg, torch.Generator().manual_seed(0),
-                                device="cpu")
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            lm.loss_fn(lm.unstack_layers(params), cfg, batch)
+        cfg_ref, cfg = ref_smoke_config(arch), get_smoke_config(arch)
+        params_ref = ref_lm.init_params(cfg_ref, jax.random.PRNGKey(0))
+        params = params_from_numpy(flatten_ref(params_ref), cfg,
+                                   device="cpu")
+        extra = ({"enc_frames": (1, cfg.enc_seq, cfg.d_model)}
+                 if cfg.n_enc_layers else
+                 {"vision_embeds": (1, cfg.n_patches, cfg.d_model)})
+        batch = {"tokens": tok[:, :4], "labels": tok[:, 1:],
+                 **{k: rng.standard_normal(shape).astype(np.float32)
+                    for k, shape in extra.items()}}
+        want, _ = jax.jit(lambda p: ref_lm.loss_fn(p, cfg_ref, {
+            k: jnp.asarray(v) for k, v in batch.items()}))(params_ref)
+        got, _ = lm.loss_fn(lm.unstack_layers(params), cfg,
+                            {k: torch.from_numpy(v)
+                             for k, v in batch.items()})
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
         with pytest.raises(NotImplementedError, match="paged decode"):
             lm.init_paged_state(cfg, 2, 8, 4, 4, device="cpu")

@@ -15,6 +15,7 @@ family, training it, paged decode and ``complete_static``.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,8 +31,9 @@ from repro_torch.data import DataConfig, synth_batch
 from repro_torch.kernels import maple_spmm_naive
 from repro_torch.models import lm
 from repro_torch.serve import SamplingConfig, complete_static, generate
-from test_torch_encdec import (batches, check_generate, check_head_route,
-                               check_serving, extras, models)
+from test_torch_encdec import (LOGITS, batches, check_generate,
+                               check_head_route, check_serving, extras,
+                               models)
 from test_torch_serve import flatten_ref
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -218,12 +220,27 @@ def test_complete_static_and_paged_decode_refuse_the_prefix(model):
 
 
 def test_training_the_vlm_family_stays_refused(model):
-    _, cfg, _, params = model
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
-             "labels": torch.zeros((1, 4), dtype=torch.int64),
-             "vision_embeds": torch.zeros((1, cfg.n_patches, cfg.d_model))}
-    with pytest.raises(NotImplementedError, match="training the vlm"):
-        lm.forward(lm.unstack_layers(params), cfg, batch)
+    """Training the vlm family was refused until the prefix trained; now
+    ``forward`` over the prefix and tokens and the loss (the prefix's
+    positions masked) equal the reference's
+    (``test_torch_train_families`` holds the gradients)."""
+    cfg_ref, cfg, params_ref, params = model
+    tok = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 6))
+    ref_b, port_b = batches(tok[:, :5], extras(cfg, 2, 4))
+    ref_b["labels"] = jnp.asarray(tok[:, 1:], jnp.int32)
+    port_b["labels"] = torch.from_numpy(tok[:, 1:])
+    per_layer = lm.unstack_layers(params)
+    logits = lm.forward(per_layer, cfg, port_b)
+    assert tuple(logits.shape[:2]) == (2, cfg.n_patches + 5)
+    want_logits = jax.jit(lambda p: ref_lm.forward(p, cfg_ref, ref_b))(
+        params_ref)
+    np.testing.assert_allclose(logits.detach().numpy(),
+                               np.asarray(want_logits), **LOGITS)
+    want, aux_ref = jax.jit(lambda p: ref_lm.loss_fn(p, cfg_ref, ref_b))(
+        params_ref)
+    got, aux = lm.loss_fn(per_layer, cfg, port_b)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    assert int(aux["tokens"]) == int(aux_ref["tokens"]) == 10
 
 
 @pytest.mark.parametrize("base,family", [("qwen2-7b", "dense"),
