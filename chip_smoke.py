@@ -265,10 +265,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
     both models: B3 at internvl's down-projection (G 4, N 1 and 368), B4
     on both heads (N 1), f32.
 26. train_families_reference — one train step of the whisper-base,
-    internvl2-1b (sparse MLP at (8, 8)), granite-moe-3b-a800m and
-    mamba2-2.7b smoke configs (biases drawn non-zero), card against CPU
-    as phase 5: the loss within 1e-5 relative, every gradient within
-    1e-4·max + 1e-6, the parameters after one AdamW step within 2·lr.
+    internvl2-1b (sparse MLP at (8, 8)), granite-moe-3b-a800m,
+    mamba2-2.7b, recurrentgemma-9b (dense, and the sparse MLP at (8, 8);
+    48 tokens against its window of 16: local attention on
+    ``chunked_attention``), qwen2-72b and qwen3-moe-235b-a22b (two-level
+    remat over its 2 layers; at 1 and at 2 microbatches, the second
+    through its bf16 gradient accumulator) smoke configs (biases drawn
+    non-zero), card against CPU as phase 5: the loss within 1e-5
+    relative, every gradient within 1e-4·max + 1e-6, the parameters
+    after one AdamW step within 2·lr.
 27. train_encdec, train_vlm, train_moe, train_ssm — phase 6 on whisper-base
     (4 × 256 tokens, each beside 1 536 encoder frames), internvl2-1b with
     the sparse MLP (4 × (256 patches + 256 tokens)), granite-moe-3b-a800m
@@ -283,6 +288,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
     ``moe_dw_kernel`` at granite's training shapes (capacity 56, E 48;
     gate/up and down), f32 and bf16, timed beside their bound, plain
     version and one ``torch.bmm``.
+27a. train_hybrid — phase 27 on recurrentgemma-9b at full width (d_model
+    4 096, 16 heads over 1 KV head, hd 256, d_ff 12 288, lru_width 4 096,
+    window 2 048, vocab 256 000) with the sparse MLP at (64, 64), d 0.25,
+    cut to the deepest 3u + 2 layers whose reckoned f32 peak
+    (``reckon_train_peak``) leaves 4 GiB of the card free (``n_layers``,
+    ``depth_reduced`` and the full config's 38 printed): 8 sequences of
+    2 304 tokens in its 8 microbatches, 3 AdamW steps, remat per layer.
+    B4 and B2 by phase 6's formula, B9 0 (local attention trains on
+    ``chunked_attention``, the reference's route).
+27b. chunked_attention — ``layers.chunked_attention`` (not a TPU kernel:
+    the reference's jnp flash attention), f32, forward and forward +
+    backward, at train_hybrid's local attention (B 1, S 2 304, H 16 over
+    1 KV head, hd 256, window 2 048) and a global causal qwen3-4b layer at
+    4 096 tokens: held against the plain masked softmax, timed after the
+    L2 flush beside it, one ``scaled_dot_product_attention`` with the same
+    mask and the bound; recorded, not gated.
 28. the ``{"kernels": [...]}`` summary (``launches_by_path`` has every
     path above), then the final ``{"ok": true, ...}``.
 """
@@ -1469,20 +1490,21 @@ def grads_close(got, want, what):
     return err
 
 
-def train_against_cpu(cfg, batch, cpu):
+def train_against_cpu(cfg, batch, cpu, n_micro=2):
     """The loss and every gradient of ``batch`` under the trainer's
     parameters ``cpu`` (per-layer layout) on the card against the CPU,
-    then one ``make_train_step`` step (2 microbatches) on both from the
-    same weights: (losses, largest gradient error, number of gradients,
-    largest parameter error after the step, lr)."""
+    then one ``make_train_step`` step (``n_micro`` microbatches) on both
+    from the same weights: (losses, largest gradient error, number of
+    gradients, largest parameter error after the step, lr)."""
     from repro_torch.models import lm
     from repro_torch.train import (OptimizerConfig, init_opt_state,
                                    make_train_step)
     from repro_torch.train.optimizer import named_leaves, tree_map
-    to_cuda = lambda tree: tree_map(lambda t: t.detach().cuda(), tree)
+    own = lambda tree, dev: tree_map(lambda t: t.detach().to(dev).clone(),
+                                     tree)
     grads, losses = {}, {}
-    for name, params, dev in (("cpu", cpu, "cpu"),
-                              ("cuda", to_cuda(cpu), "cuda")):
+    for name, params, dev in (("cpu", own(cpu, "cpu"), "cpu"),
+                              ("cuda", own(cpu, "cuda"), "cuda")):
         for _, t in named_leaves(params):
             t.requires_grad_(True)
         loss, _ = lm.loss_fn(params, cfg, {k: v.to(dev) for k, v in
@@ -1502,7 +1524,7 @@ def train_against_cpu(cfg, batch, cpu):
     after = {}
     for name, dev in (("cpu", "cpu"), ("cuda", "cuda")):
         params = tree_map(lambda t: t.detach().to(dev).clone(), cpu)
-        step = make_train_step(cfg, ocfg, 2,
+        step = make_train_step(cfg, ocfg, n_micro,
                                mlp_plan=lm.sparse_mlp_plan(params))
         params, _, m = step(params, init_opt_state(ocfg, params),
                             {k: v.to(dev) for k, v in batch.items()})
@@ -4041,11 +4063,19 @@ MOE_BACKWARD_EDGE = (([0, 0, 2], 3, 256, 128, 8),
                      ([0, 2, 2], 3, 70, 44, 96), ([1, 1], 3, 64, 48, 216),
                      ([0, 0, 0, 2, 2], 4, 1536, 512, 56))
 # one train step of each smoke config, card against CPU: (arch, config
-# overrides, tokens an example)
-TRAIN_FAMILY_SMOKE = ((ENCDEC_ARCH, {}, 16),
+# overrides, tokens an example, microbatches of the step); recurrentgemma's
+# 48 tokens are three of its windows of 16, qwen3-moe-235b's 2 layers one
+# run of its two-level remat (chunk 2), and its 2 microbatches run the
+# bf16 gradient accumulator
+TRAIN_FAMILY_SMOKE = ((ENCDEC_ARCH, {}, 16, (2,)),
                       (VLM_ARCH, dict(sparse_mlp=True, sparse_block=(8, 8)),
-                       16),
-                      (MOE_ARCH, {}, 16), (SSM_ARCH, {}, 64))
+                       16, (2,)),
+                      (MOE_ARCH, {}, 16, (2,)), (SSM_ARCH, {}, 64, (2,)),
+                      (HYBRID_ARCH, {}, 48, (2,)),
+                      (HYBRID_ARCH, dict(sparse_mlp=True,
+                                         sparse_block=(8, 8)), 48, (2,)),
+                      ("qwen2-72b", {}, 16, (2,)),
+                      ("qwen3-moe-235b-a22b", {}, 16, (1, 2)))
 # each family at full width and depth through launch/train.main: 3 AdamW
 # steps of 256 tokens an example, f32, remat per layer, seed 0 (granite-
 # moe-3b takes its config's 8 microbatches, the others their 4)
@@ -4056,6 +4086,19 @@ TRAIN_FAMILIES = (("train_encdec", ENCDEC_ARCH, ["--global-batch", "4"]),
                   ("train_ssm", SSM_ARCH, ["--global-batch", "4"]))
 TRAIN_FAMILY_ARGV = ["--steps", "3", "--seq-len", "256", "--seed", "0",
                      "--device", "cuda"]
+# recurrentgemma-9b trained at full width: f32 with the sparse MLP at
+# (64, 64) d 0.25, 8 sequences of 2 304 tokens (longer than its window of
+# 2 048) in the config's own 8 microbatches, 3 steps; depth cut to the
+# deepest 3u + 2 layers whose reckoned peak leaves HYBRID_TRAIN_FREE free
+HYBRID_TRAIN = dict(steps=3, seq_len=2304, global_batch=8, seed=SEED,
+                    device="cuda")
+HYBRID_TRAIN_FREE = 4 * 2**30
+# chunked_attention beside one SDPA call: train_hybrid's local attention
+# (one microbatch) and a global causal qwen3-4b layer at 4 096 tokens
+CHUNKED_SHAPES = (("recurrentgemma-9b local, train_hybrid",
+                   dict(B=1, S=2304, H=16, KVH=1, hd=256, window=2048)),
+                  ("qwen3-4b global causal",
+                   dict(B=1, S=4096, H=32, KVH=8, hd=128, window=None)))
 # granite-moe-3b's expert products in a training microbatch (1 × 256
 # tokens: capacity 56), E = 48
 MOE_TRAIN_CAP = 56
@@ -4125,7 +4168,7 @@ def train_families_reference():
     from repro_torch.data import DataConfig, synth_batch
     from repro_torch.models import lm
     out = []
-    for arch, over, seq in TRAIN_FAMILY_SMOKE:
+    for arch, over, seq, micros in TRAIN_FAMILY_SMOKE:
         cfg = dataclasses.replace(get_smoke_config(arch), **over)
         gen = torch.Generator().manual_seed(SEED)
         stacked = lm.init_params(cfg, gen, device="cpu")
@@ -4139,25 +4182,34 @@ def train_families_reference():
         batch = synth_batch(DataConfig(vocab_size=cfg.vocab_size,
                                        seq_len=seq, global_batch=4,
                                        seed=SEED), 0, extra)
-        losses, grad_err, n_grads, param_err, lr = train_against_cpu(
-            cfg, batch, cpu)
-        out.append({"config": f"{arch} smoke" + (", sparse_mlp (8,8)"
-                                                 if cfg.sparse_mlp else ""),
-                    "tokens": f"4 x {seq}, 2 microbatches",
-                    "loss_cpu": losses["cpu"], "loss_cuda": losses["cuda"],
-                    "grad_max_abs_err": grad_err, "n_grads": n_grads,
-                    "param_max_abs_err_after_step": param_err, "lr": lr})
+        for n_micro in micros:
+            losses, grad_err, n_grads, param_err, lr = train_against_cpu(
+                cfg, batch, cpu, n_micro)
+            out.append({
+                "config": f"{arch} smoke" + (", sparse_mlp (8,8)"
+                                             if cfg.sparse_mlp else ""),
+                "tokens": f"4 x {seq}, {n_micro} microbatches",
+                "grad_accum_dtype": cfg.grad_accum_dtype if n_micro > 1
+                else None,
+                "two_level_remat": cfg.scan_remat_chunk > 1
+                and cfg.n_layers % cfg.scan_remat_chunk == 0,
+                "loss_cpu": losses["cpu"], "loss_cuda": losses["cuda"],
+                "grad_max_abs_err": grad_err, "n_grads": n_grads,
+                "param_max_abs_err_after_step": param_err, "lr": lr})
     return {"phase": "train_families_reference", "models": out, "ok": True}
 
 
-def train_family(card, phase, arch, argv):
+def train_family(card, phase, arch, argv, cfg=None):
     """``launch/train.main`` on ``arch`` at full width and depth
-    (``TRAIN_FAMILY_ARGV``): every Maple kernel's launches zeroed just
-    before and read just after, against the count the path implies
-    (sparse MLP: ``train``'s formula; MoE: per layer and microbatch 9 B8
-    launches, 3 forward, 3 recomputed, 3 dx, and 3 ``moe_dw_kernel``;
-    0 otherwise); finite losses and grad norms; steps 2 and 3's wall,
-    tokens/s, the peak GiB; one more step profiled."""
+    (``TRAIN_FAMILY_ARGV``), or, given ``cfg`` (a depth cut),
+    ``launch/train.run`` on it with ``argv`` its keywords: every Maple
+    kernel's launches zeroed just before and read just after, against the
+    count the path implies (sparse MLP: ``train``'s formula; MoE: per
+    layer and microbatch 9 B8 launches, 3 forward, 3 recomputed, 3 dx,
+    and 3 ``moe_dw_kernel``; 0 otherwise, B9 among them: attention trains
+    on ``chunked_attention``); finite losses and grad norms; steps 2 and
+    3's wall, tokens/s, the peak GiB; one more step profiled."""
+    from repro_torch.configs import get_config
     from repro_torch.data import synth_batch
     from repro_torch.launch import train as launch_train
     from repro_torch.models import lm
@@ -4167,9 +4219,12 @@ def train_family(card, phase, arch, argv):
     fns = maple_counters()
     for f in fns.values():
         f.launches = 0
-    argv = ["--arch", arch, *argv, *TRAIN_FAMILY_ARGV]
     t0 = time.perf_counter()
-    run = launch_train.main(argv)
+    if cfg is None:
+        argv = ["--arch", arch, *argv, *TRAIN_FAMILY_ARGV]
+        run = launch_train.main(argv)
+    else:
+        run = launch_train.run(cfg, **argv)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = {k: f.launches for k, f in fns.items()}
@@ -4202,7 +4257,8 @@ def train_family(card, phase, arch, argv):
                                                if cfg.sparse_mlp else "")
         + ", f32, AdamW, remat per layer", "argv": argv,
         "n_layers": cfg.n_layers, "n_enc_layers": cfg.n_enc_layers,
-        "depth_reduced": False, "d_model": cfg.d_model,
+        "depth_reduced": cfg.n_layers < get_config(arch).n_layers,
+        "n_layers_full": get_config(arch).n_layers, "d_model": cfg.d_model,
         "n_params": sum(t.numel() for _, t in named_leaves(run.params)),
         "microbatches": micro, "tokens_per_step": tokens,
         "positions_per_step": run.data.global_batch * (run.data.seq_len
@@ -4217,6 +4273,164 @@ def train_family(card, phase, arch, argv):
     del run, batch
     torch.cuda.empty_cache()
     return launches, line
+
+
+def reckon_train_peak(cfg, micro_tokens):
+    """Bytes a train step of ``cfg`` is reckoned to peak at, f32 with
+    AdamW: 16 a parameter (the weight, its gradient, two moments), then
+    the larger of the optimizer's per-leaf f32 temporaries (2.5 of the
+    largest leaf, the embedding or head: the clipped gradient, the update
+    and its denominator, the norm's square) and the loss's (three copies
+    of a microbatch's f32 logits, and the head's gradient before it is
+    added to ``.grad``).  The sparse MLP stores its density of the
+    down-projection."""
+    n = cfg.param_count()
+    if cfg.sparse_mlp:
+        ffn_layers = sum(k != "ssm" for k in cfg.block_kinds())
+        n -= int(ffn_layers * cfg.d_ff * cfg.d_model
+                 * (1 - cfg.sparse_density))
+    leaf = 4 * cfg.vocab_padded * cfg.d_model
+    logits = 4 * micro_tokens * cfg.vocab_padded
+    return 16 * n + max(int(2.5 * leaf), 3 * logits + leaf), n
+
+
+def hybrid_train_config():
+    """recurrentgemma-9b at full width with the sparse MLP, at the
+    deepest ``3u + 2`` layers (the unit (rglru, rglru, local_attn) ``u``
+    times, then the tail of two RG-LRU layers) whose
+    :func:`reckon_train_peak` leaves ``HYBRID_TRAIN_FREE`` of the card's
+    free memory; (config, reckoning)."""
+    from repro_torch.configs import get_config
+    full = dataclasses.replace(get_config(HYBRID_ARCH), sparse_mlp=True)
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    micro = HYBRID_TRAIN["global_batch"] // full.train_microbatches \
+        * HYBRID_TRAIN["seq_len"]
+    for units in range((full.n_layers - 2) // 3, 0, -1):
+        cfg = dataclasses.replace(full, n_layers=3 * units + 2)
+        peak, n = reckon_train_peak(cfg, micro)
+        if peak + HYBRID_TRAIN_FREE <= free:
+            return cfg, {"n_layers": cfg.n_layers, "units": units,
+                         "n_layers_full": full.n_layers,
+                         "params_reckoned": n,
+                         "peak_reckoned_gib": peak / 2**30,
+                         "free_before_gib": free / 2**30,
+                         "card_gib": total / 2**30}
+    raise AssertionError(f"not even 5 layers of {HYBRID_ARCH} fit in "
+                         f"{free / 2**30:.1f} GiB free")
+
+
+def train_hybrid(card):
+    """``train_family`` on recurrentgemma-9b at full width (d_model 4 096,
+    16 heads over 1 KV head, hd 256, d_ff 12 288, window 2 048, vocab
+    256 000) and the depth of :func:`hybrid_train_config`: B4 and B2 by
+    ``add_sparse_train_launches``, B9 0 (local attention trains on
+    ``chunked_attention``, the reference's route)."""
+    cfg, reckoned = hybrid_train_config()
+    launches, line = train_family(card, "train_hybrid", HYBRID_ARCH,
+                                  HYBRID_TRAIN, cfg=cfg)
+    if not line["depth_reduced"] or launches["block_attention"]:
+        raise AssertionError(f"train_hybrid: {line['n_layers']} layers, "
+                             f"B9 {launches['block_attention']}")
+    line.update(reckoned=reckoned, window=cfg.window,
+                lru_width=cfg.lru_width, d_ff=cfg.d_ff,
+                vocab_size=cfg.vocab_size)
+    return launches, line
+
+
+def chunked_attention_rows(spec, flush):
+    """``layers.chunked_attention`` (no TPU kernel: the reference's
+    jnp flash attention) at ``CHUNKED_SHAPES``, f32, forward and forward
+    + backward: held against the plain masked softmax over the whole
+    score matrix (and its autograd backward), then each timed after the
+    L2 flush beside that plain version, one
+    ``scaled_dot_product_attention`` call with the same mask (K/V
+    repeated over the head groups outside the timing) and the bound:
+    the visible (query, key) pairs' products, 2 in the forward (QKᵀ, PV)
+    and 7 with the backward (the recomputed QKᵀ, dV, dP, dQ, dK) at 2
+    FLOPs a multiply-add, against q, k, v, (dout) read and out, (dq, dk,
+    dv) written once.  Recorded, not gated."""
+    import torch.nn.functional as F
+    from repro_torch.models.layers import chunked_attention
+    rows = []
+    for name, sh in CHUNKED_SHAPES:
+        b, s, h, kvh, hd, window = (sh[k] for k in ("B", "S", "H", "KVH",
+                                                     "hd", "window"))
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        q = torch.randn((b, s, h, hd), generator=g, device="cuda")
+        k, v = (torch.randn((b, s, kvh, hd), generator=g, device="cuda")
+                for _ in range(2))
+        dout = torch.randn_like(q)
+        pos = torch.arange(s, device="cuda")
+        mask = pos[:, None] >= pos[None, :]
+        if window is not None:
+            mask &= (pos[:, None] - pos[None, :]) < window
+        kr, vr = (t.repeat_interleave(h // kvh, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        qt = q.transpose(1, 2).contiguous()
+
+        def plain(q, k, v):
+            att = torch.matmul(q.transpose(1, 2) / hd ** 0.5,
+                               k.repeat_interleave(h // kvh, 2)
+                               .permute(0, 2, 3, 1))
+            att = torch.softmax(att.masked_fill(~mask, float("-inf")), -1)
+            return torch.matmul(att, v.repeat_interleave(h // kvh, 2)
+                                .transpose(1, 2)).transpose(1, 2)
+
+        def library(q, k, v):
+            if window is None:
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+        def fwd_bwd(fn, *ops):
+            ops = [t.detach().requires_grad_() for t in ops]
+            out = fn(*ops)
+            grads = torch.autograd.grad(out, ops, dout if out.shape ==
+                                        dout.shape else dout.transpose(1, 2))
+            return out, grads
+
+        pairs = int(mask.sum())
+        isz = 4
+        fwd_bytes = (2 * b * s * h * hd + 2 * b * s * kvh * hd) * isz
+        cases = (("forward", 2, fwd_bytes,
+                  lambda: chunked_attention(q, k, v, True, window),
+                  lambda: plain(q, k, v), lambda: library(qt, kr, vr)),
+                 ("forward + backward", 7, 2 * fwd_bytes,
+                  lambda: fwd_bwd(lambda *o: chunked_attention(
+                      *o, True, window), q, k, v),
+                  lambda: fwd_bwd(plain, q, k, v),
+                  lambda: fwd_bwd(library, qt, kr, vr)))
+        for what, products, nbytes, mine, ref, lib in cases:
+            with torch.no_grad() if what == "forward" else \
+                    contextlib.nullcontext():
+                got, want = mine(), ref()
+            if what == "forward":
+                err = check_close(got, want, torch.float32, f"{name} {what}")
+            else:
+                err = max(check_close(a, w, torch.float32,
+                                      f"{name} {what} d{n}")
+                          for n, a, w in zip("qkv", got[1], want[1]))
+                err = max(err, check_close(got[0], want[0], torch.float32,
+                                           f"{name} {what} out"))
+            del got, want
+            flops = products * 2 * b * h * pairs * hd
+            t_bytes = nbytes / spec[0] * 1e3
+            t_ops = flops / spec[1][torch.float32] * 1e3
+            ms = time_ms(mine, 5, flush)
+            rows.append({
+                "name": "chunked_attention", "not_a_tpu_kernel": True,
+                "shape": f"{name}: B {b}, S {s}, H {h} over {kvh} KV, hd "
+                f"{hd}, window {window}", "pass": what, "dtype": "float32",
+                "max_abs_err": err, "ms": ms,
+                "plain_ms": time_ms(ref, 3, flush),
+                "library_ms": time_ms(lib, 5, flush),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_share": max(t_bytes, t_ops) / ms,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "visible_pairs": pairs})
+        del q, k, v, dout, kr, vr, qt, mask
+        torch.cuda.empty_cache()
+    return rows
 
 
 def moe_train_rows(spec, flush):
@@ -4438,12 +4652,16 @@ def main() -> int:
     for phase, arch, argv in TRAIN_FAMILIES:
         family_launches[phase], line = train_family(smi, phase, arch, argv)
         emit(line)
+    family_launches["train_hybrid"], line = train_hybrid(smi)
+    emit(line)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     train_moe_rows = moe_train_rows(spec, flush)
-    del flush
     for row in train_moe_rows:
         emit({"phase": "kernels", "card": smi, **row})
     rows += train_moe_rows
+    emit({"phase": "chunked_attention", "card": smi,
+          "rows": chunked_attention_rows(spec, flush)})
+    del flush
 
     # launches: each path's run, counted from 0
     by_path = {**serve_launches, "train": train_launches,

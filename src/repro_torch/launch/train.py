@@ -1,15 +1,18 @@
 """Training launcher: random init from a seed, deterministic synthetic
 data, AdamW steps with microbatch accumulation and straggler monitoring
-(port of ``repro.launch.train``).  It trains the dense, MoE, SSM, audio
-(whisper: encoder frames drawn beside the tokens) and vlm (internvl:
-patch embeddings before them) families; the hybrid family raises (its
-local attention has no backward yet).
+(port of ``repro.launch.train``).  It trains every family: dense, MoE,
+hybrid (RG-LRU + local attention), SSM, audio (whisper: encoder frames
+drawn beside the tokens) and vlm (internvl: patch embeddings before
+them), with the config's two-level remat and gradient accumulator.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
       --smoke --device cpu --steps 3 [--sparse-mlp]
-  (--arch: any config but recurrentgemma-9b, e.g. granite-moe-3b-a800m,
-  mamba2-2.7b, whisper-base, internvl2-1b)
+  (--arch: any config, e.g. recurrentgemma-9b, qwen3-moe-235b-a22b,
+  granite-moe-3b-a800m, mamba2-2.7b, whisper-base, internvl2-1b)
+
+A caller holding a :class:`ModelConfig` of its own (a depth cut, say)
+runs it through :func:`run`, which ``main`` calls after parsing.
 
 ``--device`` (default ``cuda``) and ``--sparse-mlp`` (the config's
 block-sparse MLP down-projection, trained through the Maple kernels) are
@@ -52,6 +55,57 @@ class TrainRun:
     history: List[Dict[str, float]]
 
 
+def run(cfg: ModelConfig, *, steps: int = 20, seq_len: int = 64,
+        global_batch: int = 4, micro_batches=None, lr: float = 3e-3,
+        seed: int = 0, device="cuda") -> TrainRun:
+    """Train ``cfg`` for ``steps`` AdamW steps on ``synth_batch`` data of
+    ``global_batch`` sequences of ``seq_len`` tokens (``micro_batches``:
+    the config's own when None), parameters drawn from ``seed`` on
+    ``device``; prints every fifth step's loss."""
+    dev = resolve_device(device)
+    ocfg = OptimizerConfig(peak_lr=lr, warmup_steps=5,
+                           total_steps=max(steps, 10))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                      global_batch=global_batch, seed=seed)
+    extra = {}
+    if cfg.n_enc_layers:
+        extra["enc_frames"] = (global_batch, cfg.enc_seq, cfg.d_model)
+    if cfg.n_patches:
+        extra["vision_embeds"] = (global_batch, cfg.n_patches, cfg.d_model)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = lm.unstack_layers(lm.init_params(cfg, gen, device=dev))
+    opt = init_opt_state(ocfg, params)
+    # sparse-MLP configs: one host-side pass over the shared pattern; every
+    # step reuses the forward + transpose-side plan (None when dense)
+    step_fn = make_train_step(cfg, ocfg, micro_batches,
+                              mlp_plan=lm.sparse_mlp_plan(params))
+    monitor = StragglerMonitor()
+    host = "host0"
+    history: List[Dict[str, float]] = []
+
+    for step in range(steps):
+        batch = {k: v.to(dev)
+                 for k, v in synth_batch(dcfg, step, extra).items()}
+        with StepTimer(monitor, host):
+            params, opt, metrics = step_fn(params, opt, batch)
+            loss = float(metrics["loss"])        # waits for the device
+        rec = {"step": step, "loss": loss,
+               "grad_norm": float(metrics["grad_norm"]),
+               "lr": float(metrics["lr"]),
+               "step_s": monitor.history[host][-1]}
+        history.append(rec)
+        flagged, _ = monitor.check()
+        if flagged:
+            print(f"[straggler] flagged: {flagged}")
+        if step % 5 == 0 or step == steps - 1:
+            print(f"step {step:5d} loss={rec['loss']:.4f} "
+                  f"gnorm={rec['grad_norm']:.3f} lr={rec['lr']:.2e}",
+                  flush=True)
+    return TrainRun(cfg=cfg, params=params, opt=opt, step_fn=step_fn,
+                    data=dcfg, extra=extra, device=dev, history=history)
+
+
 def main(argv=None) -> TrainRun:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=sorted(ARCHS), required=True)
@@ -72,52 +126,13 @@ def main(argv=None) -> TrainRun:
     if args.ckpt_dir:
         raise NotImplementedError("--ckpt-dir: checkpointing "
                                   "(repro.ft.checkpoint) is not ported yet")
-    dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.sparse_mlp:
         cfg = dataclasses.replace(cfg, sparse_mlp=True)
-    ocfg = OptimizerConfig(peak_lr=args.lr, warmup_steps=5,
-                           total_steps=max(args.steps, 10))
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
-                      global_batch=args.global_batch, seed=args.seed)
-    extra = {}
-    if cfg.n_enc_layers:
-        extra["enc_frames"] = (args.global_batch, cfg.enc_seq, cfg.d_model)
-    if cfg.n_patches:
-        extra["vision_embeds"] = (args.global_batch, cfg.n_patches,
-                                  cfg.d_model)
-
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = lm.unstack_layers(lm.init_params(cfg, gen, device=dev))
-    opt = init_opt_state(ocfg, params)
-    # sparse-MLP configs: one host-side pass over the shared pattern; every
-    # step reuses the forward + transpose-side plan (None when dense)
-    step_fn = make_train_step(cfg, ocfg, args.micro_batches,
-                              mlp_plan=lm.sparse_mlp_plan(params))
-    monitor = StragglerMonitor()
-    host = "host0"
-    history: List[Dict[str, float]] = []
-
-    for step in range(args.steps):
-        batch = {k: v.to(dev)
-                 for k, v in synth_batch(dcfg, step, extra).items()}
-        with StepTimer(monitor, host):
-            params, opt, metrics = step_fn(params, opt, batch)
-            loss = float(metrics["loss"])        # waits for the device
-        rec = {"step": step, "loss": loss,
-               "grad_norm": float(metrics["grad_norm"]),
-               "lr": float(metrics["lr"]),
-               "step_s": monitor.history[host][-1]}
-        history.append(rec)
-        flagged, _ = monitor.check()
-        if flagged:
-            print(f"[straggler] flagged: {flagged}")
-        if step % 5 == 0 or step == args.steps - 1:
-            print(f"step {step:5d} loss={rec['loss']:.4f} "
-                  f"gnorm={rec['grad_norm']:.3f} lr={rec['lr']:.2e}",
-                  flush=True)
-    return TrainRun(cfg=cfg, params=params, opt=opt, step_fn=step_fn,
-                    data=dcfg, extra=extra, device=dev, history=history)
+    return run(cfg, steps=args.steps, seq_len=args.seq_len,
+               global_batch=args.global_batch,
+               micro_batches=args.micro_batches, lr=args.lr, seed=args.seed,
+               device=args.device)
 
 
 if __name__ == "__main__":

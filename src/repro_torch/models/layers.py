@@ -2,10 +2,14 @@
 prefill, decode, paged decode; causal global or local-window, the
 encoder's non-causal, and cross-attention to an encoder's K/V), the MLPs
 (SwiGLU, GeGLU, the plain two-layer GELU) and the block-sparse projection
-(port of ``repro.models.layers``).  Global attention and the MLPs are
-differentiable; the block-sparse projection through ``maple_spmm``'s
-autograd Function.  Local-window attention runs forward only, on the
-block-sparse local attention kernel (``ops.local_block_attention``).
+(port of ``repro.models.layers``).  Full-sequence attention runs on
+:func:`chunked_attention`, flash attention with the reference's
+hand-written backward; a serving prefill's causal local window runs
+forward only, on the block-sparse local attention kernel
+(``ops.local_block_attention``); decode reads its cache by a plain f32
+softmax, as the reference's.  Everything is differentiable but the
+prefill's local window; the block-sparse projection through
+``maple_spmm``'s autograd Function.
 
 Parameters are plain dicts of tensors.  Every ``init_*`` takes an explicit
 ``torch.Generator`` and creates its tensors on the generator's device; a
@@ -41,13 +45,43 @@ def dense_init(generator: torch.Generator, shape, in_axis_size: int,
                         device=generator.device) * scale).to(dtype)
 
 
+def _rms_norm_math(x, weight, eps):
+    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)                          # (..., 1) f32
+    return x * inv.to(x.dtype) * (1.0 + weight).to(x.dtype), inv
+
+
+class _RmsNorm(torch.autograd.Function):
+    """The reference's hand-written backward: the statistics and dweight
+    reduce in f32, the per-element math stays in x's dtype, so dx comes
+    back in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        y, inv = _rms_norm_math(x, weight, eps)
+        ctx.save_for_backward(x, weight, inv)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, inv = ctx.saved_tensors
+        inv_x = inv.to(x.dtype)
+        dy_w = dy * (1.0 + weight).to(x.dtype)
+        m = torch.mean((dy_w * x).float(), dim=-1, keepdim=True)
+        dx = dy_w * inv_x - x * ((inv ** 3) * m).to(x.dtype)
+        dweight = torch.sum((dy * (x * inv_x)).float(),
+                            dim=tuple(range(x.dim() - 1)))
+        return dx, dweight.to(weight.dtype), None
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """Statistics in f32, scale by ``(1 + weight)`` (the reference's
-    zero-initialised weight convention), in the reference's op order."""
-    var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
-    inv = torch.rsqrt(var + eps)
-    return x * inv.to(x.dtype) * (1.0 + weight).to(x.dtype)
+    zero-initialised weight convention), in the reference's op order;
+    under a gradient, with the reference's backward (:class:`_RmsNorm`)."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        return _RmsNorm.apply(x, weight, eps)
+    return _rms_norm_math(x, weight, eps)[0]
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -185,12 +219,13 @@ def _out_proj(out, wo):
 
 
 def _gqa_attend(q, k, v, valid, cfg: AttnConfig) -> torch.Tensor:
-    """Softmax attention in f32 without repeating K/V over head groups.
+    """Decode's plain softmax in f32 (the reference's), without repeating
+    K/V over head groups.
 
     q: (B, Sq, H, hd); k/v: (B, Sk, KVH, hd); valid: bool mask
-    broadcastable to (B, KVH, G, Sq, Sk) (a (Sq, Sk) one for every row, or
-    a per-row (B, 1, 1, 1, Sk) one), or None where every query sees
-    every key.  Returns (B, Sq, H, hd) in q's dtype."""
+    broadcastable to (B, KVH, G, Sq, Sk) (an (Sk,) one for every row, or
+    a per-row (B, 1, 1, 1, Sk) one).  Returns (B, Sq, H, hd) in q's
+    dtype."""
     b, sq = q.shape[:2]
     kvh = cfg.n_kv_heads
     grp = cfg.n_heads // kvh
@@ -199,9 +234,7 @@ def _gqa_attend(q, k, v, valid, cfg: AttnConfig) -> torch.Tensor:
     qg = (q.float() * scale).view(b, sq, kvh, grp, hd).permute(0, 2, 3, 1, 4)
     s = torch.matmul(qg.reshape(b, kvh, grp * sq, hd),
                      k.float().permute(0, 2, 3, 1))       # (B, KV, G·Sq, Sk)
-    s = s.view(b, kvh, grp, sq, -1)
-    if valid is not None:
-        s = s.masked_fill(~valid, float("-inf"))
+    s = s.view(b, kvh, grp, sq, -1).masked_fill(~valid, float("-inf"))
     w = torch.softmax(s, dim=-1)
     out = torch.matmul(w.view(b, kvh, grp * sq, -1),
                        v.float().permute(0, 2, 1, 3))     # (B, KV, G·Sq, hd)
@@ -209,9 +242,237 @@ def _gqa_attend(q, k, v, valid, cfg: AttnConfig) -> torch.Tensor:
     return out.reshape(b, sq, cfg.n_heads, hd).to(q.dtype)
 
 
-def _causal_mask(s: int, device) -> torch.Tensor:
-    pos = torch.arange(s, device=device)
-    return pos[:, None] >= pos[None, :]
+# --------------------------------------------------------------------------
+# chunked flash attention (the reference's custom-VJP flash attention)
+# --------------------------------------------------------------------------
+
+Q_CHUNK, KV_CHUNK = 512, 1024     # the reference's default tiles
+
+
+@dataclasses.dataclass(frozen=True)
+class _Tile:
+    """Keys ``[k0, k1)`` and the query rows ``[r0, r1)`` (whole q tiles)
+    that see at least one of them; ``full`` when every one of those rows
+    sees every one of those keys (no mask needed)."""
+    k0: int
+    k1: int
+    r0: int
+    r1: int
+    full: bool
+
+
+def _tiles(sq: int, sk: int, causal: bool, window: Optional[int],
+           q_chunk: int, kv_chunk: int, q_offset: int):
+    """The kv tiles of a call in order, at most ``⌈Sk / kv_chunk⌉`` of
+    them; the last may be short, so no length has to divide by a chunk.
+    A call whose whole (Sq, Sk) score matrix is no larger than one
+    (q_chunk, kv_chunk) tile takes it as one tile.  A tile no row sees is
+    left out: it would add exactly nothing (a row's running max, sum and
+    output stay as they are under an all-masked tile)."""
+    if sq * sk <= q_chunk * kv_chunk:
+        q_chunk, kv_chunk = max(sq, 1), max(sk, 1)
+    tiles = []
+    for k0 in range(0, sk, kv_chunk):
+        k1 = min(k0 + kv_chunk, sk)
+        lo = max(0, k0 - q_offset) if causal else 0
+        hi = sq if window is None else min(sq, k1 - 1 + window - q_offset)
+        if lo >= hi:
+            continue
+        r0 = lo // q_chunk * q_chunk
+        r1 = min(-(-hi // q_chunk) * q_chunk, sq)
+        full = not (causal and q_offset + r0 < k1 - 1) and not (
+            window is not None and q_offset + r1 - 1 - k0 >= window)
+        tiles.append(_Tile(k0, k1, r0, r1, full))
+    return tiles
+
+
+def _tile_hidden(t: _Tile, causal: bool, window: Optional[int],
+                 q_offset: int, device) -> torch.Tensor:
+    """The (positions, 1, keys) mask of what tile ``t`` hides, the
+    complement of the reference's ``_tile_mask`` (causal ``qpos >= kpos``,
+    a window ``qpos - kpos < window``), the same for every head of a
+    group."""
+    qpos = (q_offset + torch.arange(t.r0, t.r1, device=device))[:, None,
+                                                                 None]
+    kpos = torch.arange(t.k0, t.k1, device=device)
+    hidden = qpos < kpos if causal else None
+    if window is not None:
+        far = (qpos - kpos) >= window
+        hidden = far if hidden is None else hidden | far
+    return hidden
+
+
+def _hide(s: torch.Tensor, hidden, grp: int, value: float) -> None:
+    """``s`` (B, KVH, positions·G, keys) set to ``value`` where ``hidden``
+    (positions, 1, keys), in place."""
+    if hidden is not None:
+        b, kvh, r, kc = s.shape
+        s.view(b, kvh, r // grp, grp, kc).masked_fill_(hidden, value)
+
+
+def _rows(x: torch.Tensor, kvh: int) -> torch.Tensor:
+    """(B, S, H, hd) → (B, KVH, S·G, hd) f32: the rows of kv head j are
+    its group's heads, position-major, so a range of positions is one
+    slice."""
+    b, s, h, hd = x.shape
+    return x.float().reshape(b, s, kvh, h // kvh, hd).transpose(1, 2) \
+        .reshape(b, kvh, s * (h // kvh), hd)
+
+
+def _unrows(x: torch.Tensor, s: int, dtype) -> torch.Tensor:
+    """:func:`_rows`' inverse, cast to ``dtype``."""
+    b, kvh, _, hd = x.shape
+    return x.view(b, kvh, s, -1, hd).transpose(1, 2) \
+        .reshape(b, s, -1, hd).to(dtype)
+
+
+def _forward_tile(rs: slice, ks: slice, qs, k32, v32, hidden, grp: int,
+                  run=None):
+    """One kv tile (keys ``ks``) of the online softmax over the rows
+    ``rs``, with the reference's ``-inf`` handling (a hidden score is
+    ``-inf``, so its ``p`` is exactly 0).  ``run`` holds every row's
+    running (max, sum, output), updated in place; without it (a call's
+    one tile over every row) the tile's own are returned, the values the
+    update gives from the running start (-inf, 0, 0)."""
+    s = torch.matmul(qs[:, :, rs], k32[:, :, ks].transpose(-1, -2))
+    _hide(s, hidden, grp, float("-inf"))
+    m_new = s.amax(dim=-1)
+    if run is not None:
+        m_old = run[0][:, :, rs]
+        m_new = torch.maximum(m_old, m_new)
+    m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+    p = s.sub_(m_safe[..., None]).exp_()
+    l_tile, pv = p.sum(dim=-1), torch.matmul(p, v32[:, :, ks])
+    if run is None:
+        return m_new, l_tile, pv
+    m, l, acc = run
+    corr = torch.where(torch.isfinite(m_old), torch.exp(m_old - m_safe),
+                       0.0)
+    l[:, :, rs] = l[:, :, rs] * corr + l_tile
+    acc[:, :, rs] = acc[:, :, rs] * corr[..., None] + pv
+    m[:, :, rs] = m_new
+    return run
+
+
+def _backward_tile(rs: slice, ks: slice, qs, q32, k32, v32, dout32, lse,
+                   delta, hidden, grp: int, scale: float):
+    """One kv tile of the flash backward: ``p`` recomputed from the saved
+    log-sum-exp, then dV, dP, ``dS = p (dP - delta)``, and the rows' dQ
+    share and the tile's dK, each summed over every row of the tile in one
+    product (a fixed order: no scatter, no atomics).  Returns (dQ of the
+    rows, dK, dV of the tile)."""
+    p = torch.matmul(qs[:, :, rs], k32[:, :, ks].transpose(-1, -2))
+    p.sub_(lse[:, :, rs, None]).exp_()
+    _hide(p, hidden, grp, 0.0)
+    do = dout32[:, :, rs]
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    ds = torch.matmul(do, v32[:, :, ks].transpose(-1, -2))
+    ds.sub_(delta[:, :, rs, None]).mul_(p)
+    del p
+    return (torch.matmul(ds, k32[:, :, ks]) * scale,
+            torch.matmul(ds.transpose(-1, -2), q32[:, :, rs]) * scale, dv)
+
+
+def _check_heads(q, k, v):
+    if k.shape != v.shape or q.shape[0] != k.shape[0] \
+            or q.shape[3] != k.shape[3] or q.shape[2] % k.shape[2]:
+        raise ValueError(f"chunked_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}: want "
+                         f"(B, Sq, H, hd) and (B, Sk, KVH, hd) with KVH "
+                         f"dividing H")
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    """Flash attention with the reference's custom VJP: the forward keeps
+    ``out`` and the f32 log-sum-exp, the backward recomputes ``p`` tile
+    by tile.  A call of one tile over every row and key takes the tile's
+    own results (no running state, no accumulators)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_chunk, kv_chunk, q_offset):
+        b, sq, h, hd = q.shape
+        kvh, grp = k.shape[2], h // k.shape[2]
+        tiles = _tiles(sq, k.shape[1], causal, window, q_chunk, kv_chunk,
+                       q_offset)
+        whole = len(tiles) == 1 and (tiles[0].r0, tiles[0].r1, tiles[0].k0,
+                                     tiles[0].k1) == (0, sq, 0, k.shape[1])
+        qs = _rows(q, kvh) * (1.0 / math.sqrt(hd))
+        k32 = k.float().transpose(1, 2).contiguous()
+        v32 = v.float().transpose(1, 2).contiguous()
+        run = None if whole else (
+            torch.full(qs.shape[:3], float("-inf"), device=q.device),
+            torch.zeros(qs.shape[:3], device=q.device),
+            torch.zeros_like(qs))
+        for t in tiles:
+            hidden = None if t.full else _tile_hidden(t, causal, window,
+                                                      q_offset, q.device)
+            out = _forward_tile(slice(t.r0 * grp, t.r1 * grp),
+                                slice(t.k0, t.k1), qs, k32, v32, hidden,
+                                grp, run)
+        m, l, acc = run if run is not None else out
+        l = torch.clamp(l, min=1e-20)
+        out = _unrows(acc / l[..., None], sq, q.dtype)
+        if any(ctx.needs_input_grad[:3]):     # the backward's residuals
+            lse = torch.where(torch.isfinite(m), m, 0.0) + torch.log(l)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.meta = (tiles, whole, causal, window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        tiles, whole, causal, window, q_offset = ctx.meta
+        b, sq, h, hd = q.shape
+        kvh, grp = k.shape[2], h // k.shape[2]
+        scale = 1.0 / math.sqrt(hd)
+        q32 = _rows(q, kvh)
+        qs = q32 * scale
+        k32 = k.float().transpose(1, 2).contiguous()
+        v32 = v.float().transpose(1, 2).contiguous()
+        dout32 = _rows(dout, kvh)
+        delta = (dout32 * _rows(out, kvh)).sum(dim=-1)    # rowsum(dO ⊙ O)
+        if not whole:
+            dq, dk, dv = (torch.zeros_like(t) for t in (q32, k32, v32))
+        for t in tiles:
+            hidden = None if t.full else _tile_hidden(t, causal, window,
+                                                      q_offset, q.device)
+            rs, ks = slice(t.r0 * grp, t.r1 * grp), slice(t.k0, t.k1)
+            grads = _backward_tile(rs, ks, qs, q32, k32, v32, dout32, lse,
+                                   delta, hidden, grp, scale)
+            if whole:
+                dq, dk, dv = grads
+            else:
+                dq[:, :, rs] += grads[0]
+                dk[:, :, ks], dv[:, :, ks] = grads[1:]
+        return (_unrows(dq, sq, q.dtype), dk.transpose(1, 2).to(k.dtype),
+                dv.transpose(1, 2).to(v.dtype), None, None, None, None,
+                None)
+
+
+def chunked_attention(q, k, v, causal: bool = True,
+                      window: Optional[int] = None, q_chunk: int = Q_CHUNK,
+                      kv_chunk: int = KV_CHUNK,
+                      q_offset: int = 0) -> torch.Tensor:
+    """Flash attention with a hand-written backward (the reference's
+    ``chunked_attention``).
+
+    q: (B, Sq, H, hd); k/v: (B, Sk, KVH, hd) with KVH dividing H: head
+    ``h`` reads kv head ``h // (H / KVH)``, the function of the
+    reference's head-repeated K/V without the copy.  Query ``i`` sits at
+    position ``q_offset + i``, key ``j`` at ``j``; ``causal`` masks keys
+    after the query, ``window`` keys ``window`` or more positions before
+    it.  Returns (B, Sq, H, hd) in q's dtype; everything inside is f32.
+
+    Scores exist one kv tile at a time, for every query row that sees the
+    tile at once (the reference's ``vmap`` over q chunks), so a call runs
+    at most ``⌈Sk / kv_chunk⌉`` loop steps whatever the lengths (the
+    reference picks chunks that divide them, one a step for a prime
+    length); ``q_chunk`` is the granularity of the rows a tile takes.
+    The backward recomputes ``p`` from the saved log-sum-exp, as the
+    reference's, and sums every dK / dV / dQ in a fixed order."""
+    _check_heads(q, k, v)
+    return _ChunkedAttention.apply(q, k, v, causal, window, q_chunk,
+                                   kv_chunk, q_offset)
 
 
 LOCAL_BLOCK = 128    # ops.local_block_attention's q / kv tile (bq = bk)
@@ -241,25 +502,17 @@ def _local_attend(q, k, v, cfg: AttnConfig) -> torch.Tensor:
     return out[:, :s]
 
 
-def _self_attend(q, k, v, cfg: AttnConfig) -> torch.Tensor:
-    """Full-sequence attention of q over k / v: local windows on the
-    kernel, global attention (causal, or unmasked for the encoder) by
-    ``_gqa_attend``."""
-    if not cfg.causal:
-        return _gqa_attend(q, k, v, None, cfg)
-    if cfg.window is not None:
-        return _local_attend(q, k, v, cfg)
-    return _gqa_attend(q, k, v, _causal_mask(q.shape[1], q.device), cfg)
-
-
 def attention(p, cfg: AttnConfig, x, positions, *, rope=None):
     """Full-sequence self-attention (prefill without a cache).
     ``positions`` (B, S) int are the tokens' positions, as in the
     reference; a caller that already holds their :func:`rope_tables` may
     pass them as ``rope`` (every layer of a forward pass rotates by the
-    same angles)."""
+    same angles).  Every mask (causal or not, global or a local window)
+    goes through :func:`chunked_attention`, the reference's training
+    route."""
     q, k, v = _project_qkv(p, cfg, x, _rope_of(cfg, positions, rope))
-    return _out_proj(_self_attend(q, k, v, cfg), p["wo"])
+    return _out_proj(chunked_attention(q, k, v, cfg.causal, cfg.window),
+                     p["wo"])
 
 
 def attention_prefill(p, cfg: AttnConfig, x, positions, *, cache_len: int,
@@ -269,10 +522,16 @@ def attention_prefill(p, cfg: AttnConfig, x, positions, *, cache_len: int,
     S``, else the last ``cache_len`` positions in rolling layout (slot
     ``t % cache_len`` holds position ``t``), so that decode on a
     local-window cache continues seamlessly.  ``positions`` and ``rope``
-    as in :func:`attention`."""
+    as in :func:`attention`.  A causal local window runs on the
+    block-sparse local attention kernel (:func:`_local_attend`, B9 on a
+    card); every other mask on :func:`chunked_attention`."""
     s = x.shape[1]
     q, k, v = _project_qkv(p, cfg, x, _rope_of(cfg, positions, rope))
-    out = _out_proj(_self_attend(q, k, v, cfg), p["wo"])
+    if cfg.window is not None and cfg.causal:
+        out = _local_attend(q, k, v, cfg)
+    else:
+        out = chunked_attention(q, k, v, cfg.causal, cfg.window)
+    out = _out_proj(out, p["wo"])
     if cache_len >= s:
         k_cache = F.pad(k, (0, 0, 0, 0, 0, cache_len - s))
         v_cache = F.pad(v, (0, 0, 0, 0, 0, cache_len - s))
@@ -362,11 +621,12 @@ def attention_decode_paged(p, cfg: AttnConfig, x, pool_k, pool_v, table,
 def cross_attention(p, cfg: AttnConfig, x, enc_k, enc_v):
     """Decoder cross-attention of x (B, S, D) over precomputed encoder K/V
     (B, S_enc, KVH, hd): the query projected (and biased), no RoPE, no
-    mask."""
+    mask, on :func:`chunked_attention` (one tile at decode)."""
     q = _project(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
-    return _out_proj(_gqa_attend(q, enc_k, enc_v, None, cfg), p["wo"])
+    return _out_proj(chunked_attention(q, enc_k, enc_v, causal=False),
+                     p["wo"])
 
 
 def encode_kv(p, cfg: AttnConfig, enc_out):

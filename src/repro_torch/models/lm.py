@@ -33,15 +33,13 @@ per-layer subtrees instead (:func:`unstack_layers`), each leaf a tensor
 of its own: autograd then gives each layer its own gradient, where
 indexing a stacked leaf would allocate a zero tensor as large as the
 stack per layer in the backward (the encoder's stack as well).
-``forward`` and ``loss_fn`` take that layout and train the dense, MoE,
-SSM, audio and vlm families: the encoder and its cross-attentions, the
-vision prefix (whose positions carry no loss), the MoE layer on B8's
-forward and backward, and the SSD scan through autograd.
-
-The hybrid family (RG-LRU + local attention) serves through ``prefill``
-and ``decode_step`` only: its local attention runs on B9, which has no
-backward yet.  Not ported either: two-level remat (``scan_remat_chunk >
-1``).
+``forward`` and ``loss_fn`` take that layout and train every family:
+the encoder and its cross-attentions, the vision prefix (whose positions
+carry no loss), the MoE layer on B8's forward and backward, the SSD and
+RG-LRU scans through autograd, and every attention (local windows too) on
+``layers.chunked_attention``'s hand-written backward.  Remat is per
+block, or two-level where ``cfg.scan_remat_chunk`` divides a stack's
+group count.
 """
 
 from __future__ import annotations
@@ -94,7 +92,7 @@ def _rglru_cfg(cfg: ModelConfig) -> R.RGLRUConfig:
     return R.RGLRUConfig(d_model=cfg.d_model, lru_width=cfg.lru_width)
 
 
-def _check_ported(cfg: ModelConfig, *, training: bool = False) -> None:
+def _check_ported(cfg: ModelConfig) -> None:
     """An encoder only in the audio family, a vision prefix only in the
     vlm family, each over global attention and the dense MLP."""
     unit, _, tail = cfg.layer_plan()
@@ -109,11 +107,6 @@ def _check_ported(cfg: ModelConfig, *, training: bool = False) -> None:
             f"global attention, the hybrid RG-LRU + local-attention family, "
             f"the SSM family, and an encoder (audio) or a vision prefix "
             f"(vlm) only over global attention and the dense MLP")
-    if training and cfg.family == "hybrid":
-        raise NotImplementedError(
-            "training the hybrid family is not ported yet: its local "
-            "attention runs on B9 (block_attention), whose backward is not "
-            "ported; it serves only (prefill, decode_step)")
 
 
 def _stacks(cfg: ModelConfig):
@@ -332,12 +325,15 @@ def sparse_mlp_plan(params, *, n_lanes: int = 8, chunk=None,
 def _apply_block(p, cfg: ModelConfig, kind: str, x, positions, rope,
                  enc_out, mlp_plan):
     """One block over the full sequence (the reference's ``_apply_block``):
-    its mixer (global or encoder attention, or the SSD block), the
-    cross-attention over the encoder output ``enc_out``'s K/V (projected
-    here, so that remat recomputes them), then the FFN."""
+    its mixer (global, local-window or encoder attention, the RG-LRU or
+    the SSD block), the cross-attention over the encoder output
+    ``enc_out``'s K/V (projected here, so that remat recomputes them),
+    then the FFN."""
     h = L.apply_norm(x, p["norm1"], cfg.norm)
     if kind == "ssm":
         x = x + S.ssm_block(p["ssm"], _ssm_cfg(cfg), h)
+    elif kind == "rglru":
+        x = x + R.rglru_block(p["rglru"], _rglru_cfg(cfg), h)
     else:
         x = x + L.attention(p["attn"], _attn_cfg(cfg, kind), h, positions,
                             rope=rope)
@@ -358,6 +354,17 @@ def _run_block(p, cfg: ModelConfig, kind: str, x, positions, rope,
     return _apply_block(p, cfg, kind, x, positions, rope, enc_out, mlp_plan)
 
 
+def _run_groups(groups, kinds, cfg: ModelConfig, x, positions, rope,
+                enc_out, mlp_plan, remat: bool):
+    """Consecutive groups (each the per-layer parameters of every kind of
+    the unit) through :func:`_run_block`."""
+    for group in groups:
+        for p, kind in zip(group, kinds):
+            x = _run_block(p, cfg, kind, x, positions, rope, enc_out,
+                           mlp_plan, remat)
+    return x
+
+
 def forward(params, cfg: ModelConfig, batch, *, remat: bool = True,
             mlp_plan=None):
     """Full-sequence forward → logits ``(B, S, vocab_padded)`` (S counts
@@ -370,11 +377,17 @@ def forward(params, cfg: ModelConfig, batch, *, remat: bool = True,
     ``mlp_plan`` is the shared ``SpmmTrainPlan`` of the sparse MLP
     (:func:`sparse_mlp_plan`); without it the sparse layers run the naive
     schedule.  ``remat`` recomputes each block (an encoder block too) in
-    the backward instead of keeping its activations."""
-    _check_ported(cfg, training=True)
-    if remat and cfg.scan_remat_chunk > 1:
-        raise NotImplementedError("two-level remat (scan_remat_chunk > 1) "
-                                  "is not ported yet")
+    the backward instead of keeping its activations; where
+    ``cfg.scan_remat_chunk > 1`` divides a stack's group count (the
+    groups, then the tail, as in the reference; the encoder stays per
+    block), the remat is two-level: an outer checkpoint over each run of
+    that many consecutive groups keeps only the run's input, and the
+    per-block checkpoints inside it are recomputed in its backward.  The
+    reference's inner policy also saves the tensor-parallel projection
+    outputs (``save_only_these_names("tp_proj_out")``) so that the
+    forward's all-reduces are not run a third time; on one card there is
+    no all-reduce, so it has no counterpart here."""
+    _check_ported(cfg)
     stacks = _stacks(cfg)
     trees = [params[key] for key, _, _ in stacks]
     if cfg.n_enc_layers > 0:
@@ -387,11 +400,18 @@ def forward(params, cfg: ModelConfig, batch, *, remat: bool = True,
     enc_out = (_encode(params, cfg, batch["enc_frames"], remat=remat,
                        mlp_plan=mlp_plan)
                if cfg.n_enc_layers > 0 else None)
+    chunk = cfg.scan_remat_chunk
     for key, kinds, count in stacks:
-        for li in range(count):
-            for i, kind in enumerate(kinds):
-                x = _run_block(params[key][f"b{i}"][li], cfg, kind, x,
-                               positions, rope, enc_out, mlp_plan, remat)
+        groups = [[params[key][f"b{i}"][li] for i in range(len(kinds))]
+                  for li in range(count)]
+        if remat and chunk > 1 and count % chunk == 0:
+            for c0 in range(0, count, chunk):
+                x = checkpoint(_run_groups, groups[c0:c0 + chunk], kinds,
+                               cfg, x, positions, rope, enc_out, mlp_plan,
+                               True, use_reentrant=False)
+        else:
+            x = _run_groups(groups, kinds, cfg, x, positions, rope, enc_out,
+                            mlp_plan, remat)
     x = L.apply_norm(x, params["final_norm"], cfg.norm)
     return _logits(params, x)
 

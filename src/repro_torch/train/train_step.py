@@ -1,9 +1,16 @@
 """Training step: gradient accumulation over microbatches plus the AdamW
 update (port of ``repro.train.train_step``).
 
-Gradients accumulate in each parameter's ``.grad``: every microbatch
-runs ``backward`` on ``loss / n``, the idiomatic counterpart of the
-reference's f32 accumulator of ``grad / n``.  Sparse-container metadata
+Over several microbatches the gradients accumulate in
+``cfg.grad_accum_dtype``, as the reference's ``acc + grad.astype(acc_dt)
+/ n``.  Where every parameter already has that dtype (f32 parameters and
+the default f32 accumulator) the accumulator is each parameter's
+``.grad``: every microbatch runs ``backward`` on ``loss / n``, and no
+second copy of the gradients is kept.  Otherwise (the giant configs'
+bf16 accumulator) each microbatch's gradient is added into a buffer of
+that dtype and ``.grad`` is cleared.  Parameters may be f32 or bf16:
+their gradients come in their dtype and the optimizer widens them leaf by
+leaf, as the reference's.  Sparse-container metadata
 is host numpy and never part of the autograd graph, so no partition of
 trainable leaves is needed.  Hold the parameters in the per-layer layout
 (``lm.unstack_layers``) so that each layer's gradient is a tensor of its
@@ -41,11 +48,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
     shared ``SpmmTrainPlan`` of a sparse-MLP model
     (``lm.sparse_mlp_plan(params)``, built once)."""
     n_micro = micro_batches or cfg.train_microbatches
-    if cfg.grad_accum_dtype != "float32":
-        raise NotImplementedError(
-            f"grad_accum_dtype={cfg.grad_accum_dtype!r}: gradients "
-            f"accumulate in the f32 .grad of f32 parameters; other "
-            f"accumulator types are not ported yet")
+    acc_dt = getattr(torch, cfg.grad_accum_dtype)
 
     def loss_of(params, mb):
         return lm.loss_fn(params, cfg, mb, remat=cfg.remat,
@@ -54,11 +57,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
     def train_step(params, opt_state: OptState, batch):
         leaves = [t for _, t in named_leaves(params)]
         for t in leaves:
-            if t.dtype != torch.float32:
-                raise NotImplementedError("training non-f32 parameters is "
-                                          "not ported yet")
             t.requires_grad_(True)
             t.grad = None
+        in_grad = all(t.dtype == acc_dt for t in leaves)
+        acc = {}
         if n_micro == 1:
             loss, metrics = loss_of(params, batch)
             loss.backward()
@@ -67,11 +69,21 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
             loss = None
             for mb in _split_microbatches(batch, n_micro):
                 mb_loss, _ = loss_of(params, mb)
-                (mb_loss / n_micro).backward()
+                if in_grad:
+                    (mb_loss / n_micro).backward()
+                else:
+                    mb_loss.backward()
+                    for t in leaves:
+                        g = t.grad.to(acc_dt) / n_micro
+                        if id(t) in acc:
+                            acc[id(t)].add_(g)
+                        else:
+                            acc[id(t)] = g
+                        t.grad = None
                 part = mb_loss.detach() / n_micro
                 loss = part if loss is None else loss + part
             metrics = {}
-        grads = tree_map(lambda t: t.grad, params)
+        grads = tree_map(lambda t: acc[id(t)] if acc else t.grad, params)
         params, opt_state, opt_metrics = apply_updates(opt_cfg, params,
                                                        grads, opt_state)
         for t in leaves:

@@ -370,11 +370,23 @@ def test_qwen2_train_step_matches_reference(monkeypatch):
 
 @pytest.mark.parametrize("arch", ["qwen2-72b", "qwen3-moe-235b-a22b"])
 def test_giant_configs_serve_but_do_not_train(arch):
-    _, cfg, _, params = _models(arch)
+    """The giant configs keep two-level remat and the bf16 accumulator in
+    their smoke configs, and train now (they raised before): the loss
+    equals the reference's, and a train step at 2 microbatches runs
+    (``test_torch_train_families`` holds its gradients)."""
+    cfg_ref, cfg, params_ref, params = _models(arch)
     assert cfg.scan_remat_chunk > 1 and cfg.grad_accum_dtype == "bfloat16"
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
-             "labels": torch.zeros((1, 4), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        lm.forward(lm.unstack_layers(params), cfg, batch)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_train_step(cfg, OptimizerConfig())
+    tok = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 9))
+    batch = {"tokens": torch.from_numpy(tok[:, :-1]),
+             "labels": torch.from_numpy(tok[:, 1:])}
+    want, _ = jax.jit(lambda p: ref_lm.loss_fn(p, cfg_ref, {
+        k: jnp.asarray(v.numpy(), jnp.int32) for k, v in batch.items()}))(
+        params_ref)
+    params = lm.unstack_layers(params)
+    got, _ = lm.loss_fn(params, cfg, batch)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    ocfg = OptimizerConfig()
+    step = make_train_step(cfg, ocfg, 2)
+    _, _, m = step(params, init_opt_state(ocfg, params), batch)
+    assert np.isfinite(float(m["loss"])) and np.isfinite(
+        float(m["grad_norm"]))

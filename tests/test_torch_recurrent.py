@@ -125,14 +125,19 @@ def test_windowed_prefill_and_rolling_cache_match_reference(s, cache):
         assert torch.equal(g[:, slots % cache_len], full[:, slots])
         if cache_len > s:
             assert not g[:, s:].any()
+    # attention without a cache takes chunked_attention, the reference's
+    # training route, for the same function
     out = L.attention(pt, cfg, torch.from_numpy(x), torch.from_numpy(pos))
-    assert torch.equal(out, got)
+    np.testing.assert_allclose(out.numpy(), np.asarray(RL.attention(
+        pj, ref_cfg, jnp.asarray(x), jnp.asarray(pos))), **TOL)
+    np.testing.assert_allclose(out.numpy(), got.numpy(), **TOL)
 
 
 def test_windowed_prefill_is_local_block_attention_on_padded_heads(
         monkeypatch):
-    """The windowed path is one ``ops.local_block_attention`` call on
-    K/V repeated to every head and S padded to the 128-tiles."""
+    """The windowed prefill is one ``ops.local_block_attention`` call on
+    K/V repeated to every head and S padded to the 128-tiles; attention
+    without a cache (the training route) makes none."""
     _, cfg, _, pt = _attn()
     calls = []
     real = L.ops.local_block_attention
@@ -143,6 +148,8 @@ def test_windowed_prefill_is_local_block_attention_on_padded_heads(
 
     monkeypatch.setattr(L.ops, "local_block_attention", spy)
     x = torch.from_numpy(_rand(0, 1, 130, D))
+    L.attention_prefill(pt, cfg, x, torch.arange(130)[None],
+                        cache_len=WINDOW)
     L.attention(pt, cfg, x, torch.arange(130)[None])
     assert calls == [((1, 256, H, HD), (1, 256, H, HD),
                       dict(window=WINDOW, bq=128, bk=128))]
@@ -443,19 +450,11 @@ def test_sparse_mlp_layers_share_one_pattern():
 
 
 def test_training_the_recurrent_families_stays_refused(model):
-    """The hybrid family's training stays refused (its local attention
-    on B9 has no backward); the SSM family trains now, its loss equal to
-    the reference's (``test_torch_train_families`` holds the
-    gradients)."""
+    """Both recurrent families train now: the hybrid family's local
+    attention through ``chunked_attention`` (a sequence of 64 against its
+    window of 16), the SSM's scan through autograd; the loss equals the
+    reference's (``test_torch_train_families`` holds the gradients)."""
     arch, cfg_ref, cfg, params_ref, params = model
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
-             "labels": torch.zeros((1, 4), dtype=torch.int64)}
-    if arch == "recurrentgemma-9b":
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            lm.forward(lm.unstack_layers(params), cfg, batch)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            lm.loss_fn(lm.unstack_layers(params), cfg, batch)
-        return
     tok = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 65))
     batch = {"tokens": torch.from_numpy(tok[:, :-1]),
              "labels": torch.from_numpy(tok[:, 1:])}         # two chunks

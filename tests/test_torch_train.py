@@ -338,19 +338,26 @@ def test_remat_recomputes_each_sparse_layer_once(smoke, monkeypatch):
 
 
 def test_train_refuses_what_is_not_ported(smoke):
+    """Two-level remat and a bf16 accumulator, refused before, are
+    ported: the forward under two-level remat is the per-block one's bit
+    for bit, and a step accumulating in bf16 runs."""
     _, cfg, params_ref, _, batch = smoke
     params = _port_params(cfg, params_ref)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        lm.forward(params, dataclasses.replace(cfg, scan_remat_chunk=2),
-                   batch)
+    two = dataclasses.replace(cfg, scan_remat_chunk=2)
+    assert cfg.n_layers % 2 == 0
+    assert torch.equal(lm.forward(params, two, batch),
+                       lm.forward(params, cfg, batch))
     # the partitioned (and autotuned partitioned) MLP plan is ported
     searched = lm.sparse_mlp_plan(params, autotune=True, n_shards=2)
     assert searched.fwd.n_block_rows == \
         lm.sparse_mlp_plan(params).fwd.n_block_rows
     assert lm.sparse_mlp_plan(params, n_shards=2).fwd.n_shards == 2
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_train_step(dataclasses.replace(cfg, grad_accum_dtype="bfloat16"),
-                        OptimizerConfig())
+    ocfg = OptimizerConfig()
+    bf16_acc = dataclasses.replace(cfg, grad_accum_dtype="bfloat16")
+    step = make_train_step(bf16_acc, ocfg, 2,
+                           mlp_plan=lm.sparse_mlp_plan(params))
+    _, _, m = step(params, init_opt_state(ocfg, params), batch)
+    assert np.isfinite(float(m["grad_norm"]))
     dense = lm.init_params(get_smoke_config("qwen3-4b"),
                            torch.Generator().manual_seed(0), device="cpu")
     assert lm.sparse_mlp_plan(dense) is None
