@@ -150,9 +150,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
     twice for bit identity.
 10a. moe_backward_kernels — B8's dx (its transposed-weight mode: w read in
     place) and ``moe_dw_kernel`` against their plain versions, f32 and
-    bf16: bt 8, 16, 56, 96 and 216, several tiles an expert, experts with
-    no tile (a zero dW), D and F off multiples of 16 (both copy routes),
-    each twice bit for bit.
+    bf16: bt 8, 16, 56, 96 and 216, several tiles an expert (adjacent or
+    not), experts with no tile (a zero dW), D and F off multiples of 16
+    (both copy routes of each kernel, reported as ``dx_copy`` /
+    ``dw_copy``), each twice bit for bit.
 11. moe_reference — the granite-moe-3b smoke config on the card against
     the same weights on the CPU: logits within 1e-4, equal greedy tokens.
 12. moe_serve — granite-moe-3b at full width and depth (32 layers, f32,
@@ -287,7 +288,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
     GiB, one more step profiled.  Then B8's forward and dx and
     ``moe_dw_kernel`` at granite's training shapes (capacity 56, E 48;
     gate/up and down), f32 and bf16, timed beside their bound, plain
-    version and one ``torch.bmm``.
+    version, one ``torch.bmm`` and the earlier kernels' ms (``was_ms``).
 27a. train_hybrid — phase 27 on recurrentgemma-9b at full width (d_model
     4 096, 16 heads over 1 KV head, hd 256, d_ff 12 288, lru_width 4 096,
     window 2 048, vocab 256 000) with the sparse MLP at (64, 64), d 0.25,
@@ -4054,14 +4055,20 @@ def extras_rows(spec, flush):
 # phases 27 to 31: training the audio, vlm, MoE and SSM families
 # --------------------------------------------------------------------------
 
-# (expert of each tile, E, D, F, bt): several tiles an expert, experts
-# with no tile (their dW is zero), D and F off multiples of 16 (72 × 40:
-# TMA in both dtypes; 70 × 44: the producer's copies in both), a tile of
-# 216 rows (two pieces), granite-moe-3b's training tile (56 rows)
+# (expert of each tile, E, D, F, bt): bt 8, 16, 56, 96 and 216 (two
+# pieces of dx; dW's last stage past the tile), several tiles an expert,
+# adjacent or not, experts with no tile (their dW is zero), D and F off
+# multiples of 16 (72 × 40: TMA in both dtypes; 70 × 44: the producer's
+# copies in both; 100 × 36 and 200 × 300: TMA in f32, the copies in
+# bf16), granite-moe-3b's training tile (56 rows)
 MOE_BACKWARD_EDGE = (([0, 0, 2], 3, 256, 128, 8),
                      ([1, 1, 3, 3], 4, 72, 40, 16),
                      ([0, 2, 2], 3, 70, 44, 96), ([1, 1], 3, 64, 48, 216),
-                     ([0, 0, 0, 2, 2], 4, 1536, 512, 56))
+                     ([0, 0, 0, 2, 2], 4, 1536, 512, 56),
+                     ([3, 1, 3, 0, 3], 5, 72, 40, 56),
+                     ([2, 0, 2, 1, 2], 4, 70, 44, 8),
+                     ([0, 1, 0], 2, 100, 36, 216),
+                     ([1, 0, 1], 3, 200, 300, 96))
 # one train step of each smoke config, card against CPU: (arch, config
 # overrides, tokens an example, microbatches of the step); recurrentgemma's
 # 48 tokens are three of its windows of 16, qwen3-moe-235b's 2 layers one
@@ -4102,6 +4109,19 @@ CHUNKED_SHAPES = (("recurrentgemma-9b local, train_hybrid",
 # granite-moe-3b's expert products in a training microbatch (1 × 256
 # tokens: capacity 56), E = 48
 MOE_TRAIN_CAP = 56
+# the earlier kernels' ms at those shapes, (pass, product, dtype), as
+# moe_train_rows measured them on an NVIDIA H100 80GB HBM3 at 700 W with
+# dx on the producer's transposing copy and dW on a CTA a 64 × 64 tile
+# fed by its own threads; printed as "was_ms" beside each new time
+MOE_TRAIN_WAS_MS = {
+    ("forward", "gate", "float32"): 0.1596,
+    ("forward", "down", "float32"): 0.1593,
+    ("forward", "gate", "bfloat16"): 0.0701,
+    ("forward", "down", "bfloat16"): 0.0450,
+    ("dx", "gate", "float32"): 0.3168, ("dx", "down", "float32"): 0.3211,
+    ("dx", "gate", "bfloat16"): 0.0467, ("dx", "down", "bfloat16"): 0.0447,
+    ("dW", "gate", "float32"): 0.2434, ("dW", "down", "float32"): 0.2443,
+    ("dW", "gate", "bfloat16"): 0.2438, ("dW", "down", "bfloat16"): 0.2451}
 
 
 def maple_counters():
@@ -4121,9 +4141,9 @@ def moe_backward_kernels_edge():
     their plain versions on the card, f32 and bf16, over
     ``MOE_BACKWARD_EDGE``: each twice bit for bit, an expert with no tile
     a zero dW."""
-    from repro_torch.kernels.moe_gemm import (moe_gemm_dw, moe_gemm_dw_plain,
-                                              moe_gemm_dx, moe_gemm_dx_plain,
-                                              moe_route)
+    from repro_torch.kernels.moe_gemm import (moe_dw_route, moe_gemm_dw,
+                                              moe_gemm_dw_plain, moe_gemm_dx,
+                                              moe_gemm_dx_plain, moe_route)
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for eot, e, d, f, bt in MOE_BACKWARD_EDGE:
@@ -4149,6 +4169,7 @@ def moe_backward_kernels_edge():
                 "dtype": str(dtype).replace("torch.", ""),
                 "dx_copy": moe_route(dtype, t, d, f, bt,
                                      transposed=True)["copy"],
+                "dw_copy": moe_dw_route(dtype, t, d, f, bt)["copy"],
                 "dx_max_abs_err": check_close(
                     dx[0], moe_gemm_dx_plain(dy, eot_t, w, bt=bt), dtype,
                     f"moe_gemm_dx {what}"),
@@ -4438,7 +4459,8 @@ def moe_train_rows(spec, flush):
     training shapes (a microbatch of 1 × 256 tokens: capacity 56, one
     tile an expert, E 48; gate/up and down), f32 and bf16: each held
     against its plain version, then timed beside its bound, the plain
-    version and one ``torch.bmm`` of the same product."""
+    version and one ``torch.bmm`` of the same product, with the earlier
+    kernel's time (``MOE_TRAIN_WAS_MS``) as ``was_ms``."""
     from repro_torch.kernels.moe_gemm import (moe_gemm, moe_gemm_dw,
                                               moe_gemm_dw_plain, moe_gemm_dx,
                                               moe_gemm_dx_plain,
@@ -4483,6 +4505,8 @@ def moe_train_rows(spec, flush):
                 spec, flush, REPS,
                 shape=f"{shape}: dW ({t} x {d})^T ({t} x {f}) -> "
                 f"({e}, {d}, {f})", bt=cap))
+            for row, what in zip(rows[-3:], ("forward", "dx", "dW")):
+                row["was_ms"] = MOE_TRAIN_WAS_MS[what, name, row["dtype"]]
             del x, dy, w, x3, dy3
     return rows
 

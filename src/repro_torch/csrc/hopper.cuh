@@ -6,8 +6,8 @@
 // * the ring: mbarriers, 1D bulk copies and 2D / 3D TMA loads that
 //   complete on them, the consumer warpgroup's named barrier;
 // * bulk stores: a contiguous tile from shared to global memory
-//   (cp.async.bulk.global.shared::cta) in bulk groups, and the waits for
-//   their reads of shared memory;
+//   (cp.async.bulk.global.shared::cta) or a 3D TMA box, in bulk groups,
+//   and the waits for their reads of shared memory;
 // * wgmma: shared-memory descriptors (128-byte swizzle, or the plain
 //   interleaved layout) and the m64 n8 / n32 / n64 bf16 products with the
 //   transpose bits as template arguments;
@@ -144,6 +144,19 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src,
                                            uint32_t bytes) {
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
                :: "l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+}
+
+// the map's box at (c0, c1, c2) from shared memory laid out as a load of
+// that box lays it; elements past the tensor's bounds are not written
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1), "r"(c2)
+      : "memory");
 }
 
 __device__ __forceinline__ void bulk_commit() {
@@ -350,9 +363,10 @@ struct FfmaTile {
 // row, broadcast) and reads 8 consecutive B rows.  Each output element is
 // one FFMA chain over k in order.  BM, BK and PITCH, where not 0, fix
 // bm, bk and pitch (swizzled at 128) at compile time, so that the rows'
-// offsets become immediates of the loads.
+// offsets become immediates of the loads; UNROLL quads a loop turn.
 
-template <typename T, int TM, int TN, int BM = 0, int BK = 0, int PITCH = 0>
+template <typename T, int TM, int TN, int BM = 0, int BK = 0, int PITCH = 0,
+          int UNROLL = 1>
 struct FfmaTileK {
   static constexpr int R = TM * TN;
 
@@ -390,7 +404,7 @@ struct FfmaTileK {
                               int ty_n) {
     using V = typename Vec4<T>::type;
     const int m = swz ? 7 : 0;
-#pragma unroll 1
+#pragma unroll UNROLL
     for (int q = 0; q < quads; ++q) {
       // elements 4q .. 4q + 3 of a row: 16-byte unit u, byte w within it
       const int byte = q * 4 * (int)sizeof(T), u = byte >> 4, w = byte & 15;

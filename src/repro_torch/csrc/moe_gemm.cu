@@ -50,16 +50,13 @@
 // The backward (dy the (T, F) gradient of y) runs on the same file:
 //   - dx = dy · w[e]ᵀ on moe_kernel in its transposed-weight mode (kT):
 //     F is the reduction and D the output columns, and w is read in place,
-//     never copied transposed.  bf16 loads w's (64 D rows, 64 F) panel as
-//     it lies in memory (TMA with the 128-byte swizzle, or the producer's
-//     copies) and feeds it to wgmma K-major; f32 has the producer warp
-//     write the panel transposed into the FFMA tile's (F rows, 64 D)
-//     layout, lanes over D so that the stores do not conflict;
-//   - dW[e] = Σ x_tileᵀ · dy_tile on moe_dw_kernel: one CTA per (expert,
-//     64 rows of D, 64 columns of F) walks its expert's tiles in ascending
-//     order and their rows in order, each element one f32 FFMA chain,
-//     written once in the weights' dtype (zeros for an expert with no
-//     tile).  No atomics: reruns are bit-identical.
+//     never copied transposed.  w's (64 D rows, kc of F) panel comes as it
+//     lies in memory, by TMA with the 128-byte swizzle (or the producer's
+//     copies into the same layout), beside dy's (piece, kc) panel laid out
+//     alike: bf16 (kc 64) feeds both to wgmma K-major; f32 (kc 32, one
+//     128-byte row) multiplies on the k-major FFMA tile (hopper.cuh
+//     FfmaTileK), whose operands both have their rows along the reduction;
+//   - dW[e] = Σ x_tileᵀ · dy_tile on moe_dw_kernel (below).
 //
 // Plain C interface (bound with ctypes); the launchers return
 // cudaGetLastError() right after the launch.
@@ -93,9 +90,10 @@ struct MoeGeo {
 // yᵀ's (64 F, P tokens) tile
 // D rows of a stage: 64 for bf16 (4 wgmma k16 steps) and for f32 pieces
 // under 32 tokens (decode: fewer, larger copies); 32 for f32 pieces of 32
-// tokens or more, so that 3 CTAs share an SM
-template <typename T, int P>
-constexpr int kStageRows = sizeof(T) == 2 || P < 32 ? 64 : 32;
+// tokens or more, so that 3 CTAs share an SM, and for f32 dx at every
+// piece (one swizzled 128-byte row)
+template <typename T, int P, bool kT>
+constexpr int kStageRows = sizeof(T) == 2 ? 64 : kT || P >= 32 ? 32 : 64;
 
 // kT (dx): the weight panel is (64 output columns, 64 of the reduction),
 // K-major, addressed as x's panel is
@@ -138,15 +136,40 @@ struct MoeWgmma {
   }
 };
 
-// rows × W elements at dst (row r at r·W·size bytes; for bf16, W = 64,
-// with the 128-byte swizzle: 16-byte chunk c of row r at chunk c ^ (r % 8)),
-// element (r, j) = src[r·ld + j] where r < rows_ok and j < cols_ok, else 0
-template <typename T, int W>
+// f32 dx: the k-major FFMA tile with its geometry fixed at compile time
+// and two quads a loop turn.  A is dy's (P tokens, 32 of F) panel, B is
+// w's (64 D rows, 32 of F) panel, each row 128 bytes swizzled as the TMA
+// lays it out; thread (ty, tx) holds tokens ty + i·ty_n and D columns
+// tx + j·tx_n.
+template <int P>
+struct MoeFfmaK {
+  static constexpr int kTile = ffma_tile(P, kFt);
+  using Tile = FfmaTileK<float, kTiles[kTile][0], kTiles[kTile][1], P, kFt,
+                         128, 2>;
+  static constexpr int R = Tile::R;
+
+  __device__ static void step(float (&acc)[R], const unsigned char* stage,
+                              const MoeGeo& geo, int t, int /*cols*/) {
+    Tile::step(acc, stage, stage + geo.b_off, P, kFt, 128, true, 8, t);
+  }
+
+  __device__ static bool at(int i, const MoeGeo& /*geo*/, int t, int& r,
+                            int& c) {
+    return Tile::at(i, P, kFt, t, r, c);
+  }
+};
+
+// rows × W elements at dst (row r at r·W·size bytes; with kSwz, rows of
+// 128 bytes with the 128-byte swizzle: 16-byte chunk c of row r at chunk
+// c ^ (r % 8)), element (r, j) = src[r·ld + j] where r < rows_ok and
+// j < cols_ok, else 0
+template <typename T, int W, bool kSwz = sizeof(T) == 2>
 __device__ __forceinline__ void copy_panel(unsigned char* dst,
                                            const T* __restrict__ src,
                                            int64_t ld, int rows, int rows_ok,
                                            int cols_ok, int lane) {
   constexpr int E = 16 / sizeof(T), cpr = W / E;
+  static_assert(!kSwz || W * sizeof(T) == 128, "a swizzled row is 128 bytes");
   for (int idx = lane; idx < rows * cpr; idx += 32) {
     const int r = idx / cpr, c = idx % cpr;
     __align__(16) T v[E];
@@ -156,47 +179,9 @@ __device__ __forceinline__ void copy_panel(unsigned char* dst,
       v[e] = r < rows_ok && j < cols_ok ? src[(int64_t)r * ld + j]
                                         : from_f32<T>(0.0f);
     }
-    const int cc = sizeof(T) == 2 ? c ^ (r & 7) : c;
+    const int cc = kSwz ? c ^ (r & 7) : c;
     *reinterpret_cast<uint4*>(dst + r * W * sizeof(T) + cc * 16) =
         *reinterpret_cast<const uint4*>(v);
-  }
-}
-
-// f32 w's (64 D rows, KC of F) panel transposed into KC rows of 64 (D
-// contiguous): element (k, n) = src[n·ld + k] where k < k_ok and
-// n < n_ok, else 0.  Lanes take consecutive n, so that the stores hit 32
-// banks; each reads a 4-wide run of k where the row allows it, kUnroll
-// loads in flight before it stores.
-template <int KC>
-__device__ __forceinline__ void copy_panel_t(unsigned char* dst,
-                                             const float* __restrict__ src,
-                                             int64_t ld, int k_ok, int n_ok,
-                                             int lane) {
-  constexpr int kTotal = KC / 4 * kFt;       // 4-wide runs of the panel
-  float* out = reinterpret_cast<float*>(dst);
-  const bool vec = ld % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0;
-  for (int base = lane; base < kTotal; base += 32 * kUnroll) {
-    float v[kUnroll][4];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int idx = base + 32 * u, n = idx % kFt, k = idx / kFt * 4;
-      const float* p = src + (int64_t)n * ld + k;
-      const bool row = idx < kTotal && n < n_ok;
-      if (row && vec && k + 3 < k_ok) {
-        const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-        v[u][0] = q.x; v[u][1] = q.y; v[u][2] = q.z; v[u][3] = q.w;
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[u][j] = row && k + j < k_ok ? p[j] : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int idx = base + 32 * u, n = idx % kFt, k = idx / kFt * 4;
-      if (idx < kTotal)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) out[(k + j) * kFt + n] = v[u][j];
-    }
   }
 }
 
@@ -248,20 +233,19 @@ moe_kernel(const __grid_constant__ CUtensorMap x_map,
             tma_3d(stage + geo.b_off, &w_map, f0, d0, (int)e, &full[st]);
         }
       } else {
-        copy_panel<T, KC>(stage, x + (int64_t)tok0 * geo.D + d0, geo.D,
-                          geo.piece, geo.T - tok0, geo.D - d0, lane);
+        // kT: both panels k-major in swizzled 128-byte rows, as the TMA
+        // brings them
+        copy_panel<T, KC, sizeof(T) == 2 || kT>(
+            stage, x + (int64_t)tok0 * geo.D + d0, geo.D, geo.piece,
+            geo.T - tok0, geo.D - d0, lane);
         if constexpr (!kT)
           copy_panel<T, kFt>(stage + geo.b_off,
                              w + (e * geo.D + d0) * geo.F + f0, geo.F, KC,
                              geo.D - d0, geo.F - f0, lane);
-        else if constexpr (sizeof(T) == 2)
-          copy_panel<T, KC>(stage + geo.b_off,
-                            w + (e * geo.F + f0) * geo.D + d0, geo.D, kFt,
-                            geo.F - f0, geo.D - d0, lane);
         else
-          copy_panel_t<KC>(stage + geo.b_off,
-                           w + (e * geo.F + f0) * geo.D + d0, geo.D,
-                           geo.D - d0, geo.F - f0, lane);
+          copy_panel<T, KC, true>(stage + geo.b_off,
+                                  w + (e * geo.F + f0) * geo.D + d0, geo.D,
+                                  kFt, geo.F - f0, geo.D - d0, lane);
         fence_async_smem();
       }
       mbar_arrive(&full[st]);
@@ -320,7 +304,8 @@ int pick_piece(int bt) {
 
 // Everything a launch needs, from the shapes alone.  D is the reduction
 // and F the output columns (trans: w's F and D); f32 in the
-// transposed-weight mode takes the producer's copies.
+// transposed-weight mode stages 32 of the reduction (one swizzled 128-byte
+// row) at every piece.
 cudaError_t plan_moe(int dtype, const void* x, const void* w, int T, int D,
                      int F, int bt, int trans, MoeGeo* g, size_t* smem) {
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
@@ -330,13 +315,13 @@ cudaError_t plan_moe(int dtype, const void* x, const void* w, int T, int D,
   g->T = T; g->D = D; g->F = F; g->bt = bt;
   g->piece = pick_piece(bt);
   g->pieces = (bt + g->piece - 1) / g->piece;
-  const int kc = dtype || g->piece < 32 ? 64 : 32;     // kStageRows
+  const int kc = dtype ? 64 : trans || g->piece >= 32 ? 32 : 64; // kStageRows
   g->ksteps = (D + kc - 1) / kc;
   const auto al = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   g->tma = D > 0 && (D * isz) % 16 == 0 && (F * isz) % 16 == 0 && al(x) &&
-           al(w) && !(trans && dtype == 0);
+           al(w);
   const int x_bytes = g->piece * kc * isz, w_bytes = kc * kFt * isz;
   g->bm = g->piece; g->bk = kc; g->tile = kFt; g->ldb = kFt;
   g->b_off = x_bytes;
@@ -357,7 +342,7 @@ template <typename T, class Tile, int P, bool kT>
 cudaError_t launch(const CUtensorMap& xm, const CUtensorMap& wm, const void* x,
                    const int* eot, const void* w, void* y, const MoeGeo& g,
                    size_t smem, cudaStream_t st) {
-  auto kernel = moe_kernel<T, Tile, kStageRows<T, P>, kT>;
+  auto kernel = moe_kernel<T, Tile, kStageRows<T, P, kT>, kT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -379,6 +364,9 @@ cudaError_t launch_mode(int dtype, const CUtensorMap& xm,
   if (dtype == 1)
     return launch<__nv_bfloat16, MoeWgmma<P, kT>, P, kT>(xm, wm, x, eot, w, y,
                                                          g, smem, st);
+  if constexpr (kT)
+    return launch<float, MoeFfmaK<P>, P, kT>(xm, wm, x, eot, w, y, g, smem,
+                                             st);
   return launch<float, FfmaFor<P>, P, kT>(xm, wm, x, eot, w, y, g, smem, st);
 }
 
@@ -407,8 +395,11 @@ cudaError_t run_moe(const void* x, const int* eot, const void* w, void* y,
   memset(&xm, 0, sizeof(xm));
   memset(&wm, 0, sizeof(wm));
   const int isz = dtype ? 2 : 4;
-  const bool swz = dtype == 1;
+  const bool swz = dtype == 1 || trans;      // f32 dx: the k-major tile
   if (g.tma) {
+    // cuTensorMapEncodeTiled needs this thread's context: bind it first
+    // (an autograd worker's first CUDA call can be this launch)
+    if ((err = cudaFree(nullptr)) != cudaSuccess) return err;
     // w's dims innermost first: (N, K, E), or (K, N, E) with trans; the
     // box is (64 of N, bk of K), or (bk of K, 64 of N)
     const uint64_t inner = trans ? K : N, outer = trans ? N : K;
@@ -432,63 +423,450 @@ cudaError_t run_moe(const void* x, const int* eot, const void* w, void* y,
   }
 }
 
-// ---- dW
-constexpr int kDwTile = 64;       // rows of D and columns of F a CTA owns
-constexpr int kDwRows = 32;       // token rows a stage
-constexpr int kDwThreads = 256;   // 16 × 16 threads, 4 × 4 outputs each
+// ---- dW[e] (D, F) = Σ over expert e's tiles of x_tileᵀ · dy_tile
+//
+// No TPU kernel: the reference trains its MoE layer through einsum
+// (repro/models/moe.py:97-100), whose gradient XLA computes.  x is (T, D)
+// and dy (T, F), tiles of bt token rows, tile i owned by expert
+// expert_of_tile[i]; dW is (E, D, F) in x's dtype.
+//
+// What bounds it on the H100.  At granite-moe-3b's training shapes (E 48,
+// one tile of 56 rows an expert, D 1 536 and F 512 or the reverse) the
+// reduction is only 56 rows deep: f32 does 2·T·D·F = 4.2 GFLOPs (63 µs on
+// FFMA) and writes 151 MB (45 µs), bf16 on the tensor cores is bound by
+// writing its 75 MB (22 µs).  So the kernel keeps the loads, the products
+// and the stores of dW in flight at once:
+//   - Persistent CTAs, as many as the card holds at once, walk
+//     the (expert, 64 rows of D, 128 columns of F) output tiles, expert
+//     outermost, so that an expert's rows are read from L2 by all its
+//     tiles at about the same time.
+//   - One producer warp keeps a ring of 2 to 4 stages full on mbarriers:
+//     a stage is kr token rows of one tile (bf16 up to 64, a multiple of
+//     16; f32 up to 24, a multiple of 8), x's (kr, 64) panel and dy's
+//     (kr, 128) panel as they lie in memory, by TMA boxes of 3D tensor
+//     maps over x and dy viewed as (T / bt, bt, ·): a box that runs past
+//     the tile's bt rows (granite's 56, a tile of 8) comes in as zeros,
+//     not as the next expert's rows.  Where D·size or F·size is not a
+//     multiple of 16 bytes, the producer's own copies write the same
+//     layout with the same zeros.  It walks expert e's tiles in ascending
+//     order (a ballot over expert_of_tile, whose first 128 entries each
+//     warp holds in registers) and each tile's rows in order.
+//   - bf16 multiplies on wgmma: A = x_tileᵀ (64 D, k16) and B = dy_tile
+//     (k16, 64 F) are both MN-major (the transpose bits) in 128-byte rows
+//     with the 128-byte swizzle, two n64 atoms a k16 step, f32 in
+//     registers; f32 on FFMA, an 8 × 8 register tile a thread (two float4
+//     of x's row and two of dy's row per token: 64 FFMAs for 4 shared
+//     loads), IEEE products, no TF32, rows past the tile skipped.  Each
+//     f32 element is one FFMA chain over the expert's rows in ascending
+//     tile and row order.
+//   - The tile is rounded once to the weights' dtype into a shared-memory
+//     buffer (bf16 one of two) and leaves by TMA stores (a 3D map over
+//     (E, D, F): nothing past D or F is written), which overlap the next
+//     tile's products; with the producer's copies, the threads store it.
+//     bf16 takes 2 CTAs an SM, f32 (bound by its FFMAs) 3.
+// An expert with no tile gets zeros.  No atomics: reruns are bit-identical.
 
-// grid: (ceil(F / 64), ceil(D / 64), E).  Thread (ty, tx) owns rows
-// 4·ty .. of D and columns 4·tx .. of F; a stage holds kDwRows token rows
-// of x's and dy's panels in f32, and each row adds its outer product to
-// the accumulators in row order.
-template <typename T>
-__global__ void __launch_bounds__(kDwThreads)
-moe_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-              const int* __restrict__ eot, T* __restrict__ dw, int D, int F,
-              int bt, int n_tiles) {
-  __shared__ __align__(16) float xs[kDwRows][kDwTile];
-  __shared__ __align__(16) float gs[kDwRows][kDwTile];
-  const int f0 = blockIdx.x * kDwTile, d0 = blockIdx.y * kDwTile;
-  const int e = blockIdx.z, t = threadIdx.x, tx = t % 16, ty = t / 16;
-  float acc[4][4];
+constexpr int kDwD = 64;           // D rows of a tile (wgmma's M)
+constexpr int kDwF = 128;          // F columns of a tile (two n64 atoms)
+constexpr int kDwMaxStages = 4;
+constexpr int kDwMaxOut = 2;
+// a CTA's ring and out buffers: bf16 2 CTAs an SM, f32 (bound by its
+// FFMAs) 3
+constexpr int kDwBudgetBf16 = 112 * 1024;
+constexpr int kDwBudgetF32 = 72 * 1024;
+
+struct DwGeo {
+  int D, F, bt, n_tiles;
+  int kr;            // token rows a stage
+  int spt;           // stages a token tile
+  int d_tiles, f_tiles, items;
+  int tma;           // 1: tensor maps; 0: the threads' own copies
+  int stages, stage_bytes, b_off;   // x's (kr, 64) at 0, dy's (kr, 128)
+  int out_bufs, out_bytes, out_off; // (64, 128) tiles in x's dtype
+  uint32_t tx;
+};
+
+// expert_of_tile as a warp reads it, in words of 32 tiles (lane l: tile
+// 32·w + l): the first kEotHeld words are held in registers, read once,
+// so that finding an expert's tiles takes no load on the path of each
+// output tile; later words are read when asked.
+constexpr int kEotHeld = 4;
+
+struct EotWords {
+  int held[kEotHeld];
+
+  __device__ EotWords(const int* __restrict__ eot, int n_tiles, int lane) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int k = 0; k < kEotHeld; ++k)
+      held[k] = 32 * k + lane < n_tiles ? eot[32 * k + lane] : -1;
+  }
+
+  // bit l: tile 32·w + l belongs to expert e
+  __device__ unsigned match(const int* __restrict__ eot, int n_tiles, int w,
+                            int e, int lane) const {
+    int v = -1;
+    if (w < kEotHeld) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    if (eot[tile] != e) continue;            // the same for every thread
-    const int end = (tile + 1) * bt;
-    for (int r0 = tile * bt; r0 < end; r0 += kDwRows) {
-      const int rows = min(kDwRows, end - r0);
-      __syncthreads();                       // the last stage is consumed
-      for (int idx = t; idx < rows * kDwTile; idx += kDwThreads) {
-        const int r = idx / kDwTile, c = idx % kDwTile;
-        const int64_t row = r0 + r;
-        xs[r][c] = d0 + c < D ? to_f32(x[row * D + d0 + c]) : 0.0f;
-        gs[r][c] = f0 + c < F ? to_f32(dy[row * F + f0 + c]) : 0.0f;
+      for (int k = 0; k < kEotHeld; ++k)
+        if (k == w) v = held[k];
+    } else if (32 * w + lane < n_tiles) {
+      v = eot[32 * w + lane];
+    }
+    return __ballot_sync(0xffffffffu, v == e);
+  }
+};
+
+// output tile `item`: expert e, rows d0 .. of D, columns f0 .. of F
+__device__ __forceinline__ void dw_item(const DwGeo& g, int item, int& e,
+                                        int& d0, int& f0) {
+  const int rest = item / g.f_tiles;
+  f0 = (item % g.f_tiles) * kDwF;
+  d0 = (rest % g.d_tiles) * kDwD;
+  e = rest / g.d_tiles;
+}
+
+// bf16: D(64 D × 128 F) += x_tileᵀ (64 × 16) · dy_tile (16 × 128), both
+// MN-major: 16 token rows of 128 bytes a k16 step, 8-row groups 1 KB
+// apart; dy's panel is two (kr, 64) sub-panels, one an n64 atom
+struct DwWgmma {
+  static constexpr int R = 64;
+
+  __device__ static void step(float (&acc)[R], const unsigned char* stage,
+                              const DwGeo& geo, int live, int /*t*/) {
+    const uint32_t x0 = smem_u32(stage), g0 = x0 + geo.b_off;
+    const uint32_t g1 = g0 + geo.kr * 128;
+    const int ks = (live + 15) / 16;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      if (kk < ks) {
+        const uint64_t da = gmma_desc(x0 + 2048 * kk, 1024);
+        wgmma_n64<1, 1, 0>(acc, da, gmma_desc(g0 + 2048 * kk, 1024));
+        wgmma_n64<1, 1, 32>(acc, da, gmma_desc(g1 + 2048 * kk, 1024));
       }
-      __syncthreads();
-      for (int r = 0; r < rows; ++r) {
-        const float4 a = *reinterpret_cast<const float4*>(&xs[r][4 * ty]);
-        const float4 b = *reinterpret_cast<const float4*>(&gs[r][4 * tx]);
-        const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+    wgmma_commit_wait();
+  }
+
+  // the tile in bf16 as two (64, 64) boxes of 128-byte rows, swizzled
+  __device__ static int offset(int r, int c) {
+    const int cc = c % 64;
+    return (c / 64) * kDwD * 128 + r * 128 + (((cc / 8) ^ (r & 7)) << 4) +
+           (cc % 8) * 2;
+  }
+
+  __device__ static void put(const float (&acc)[R], unsigned char* out,
+                             int t) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
+    for (int i = 0; i < R; i += 2) {
+      int r, c;
+      wgmma_at(i, t, r, c);
+      *reinterpret_cast<__nv_bfloat162*>(out + offset(r, c)) =
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
     }
   }
+
+  __device__ static void store(const CUtensorMap* map,
+                               const unsigned char* out, const DwGeo& geo,
+                               int e, int d0, int f0) {
+    tma_store_3d(map, out, f0, d0, e);
+    if (f0 + 64 < geo.F) tma_store_3d(map, out + kDwD * 128, f0 + 64, d0, e);
+  }
+
+  // the 16-byte unit u (columns 8·u ..) of row r
+  __device__ static const unsigned char* unit(const unsigned char* out,
+                                              int r, int u) {
+    return out + offset(r, 8 * u);
+  }
+};
+
+// f32: thread (ty, tx) = (t / 16, t % 16) holds D rows 4·ty + i % 4 +
+// 32·(i / 4) and F columns 4·tx + j % 4 + 64·(j / 4), i, j < 8; each token
+// row adds the outer product of two float4 pairs (x's row broadcast over
+// a half warp, dy's row read 256 contiguous bytes a half warp)
+struct DwFfma {
+  static constexpr int R = 64;
+
+  __device__ static void step(float (&acc)[R], const unsigned char* stage,
+                              const DwGeo& geo, int live, int t) {
+    const float* xs = reinterpret_cast<const float*>(stage) + 4 * (t / 16);
+    const float* gs =
+        reinterpret_cast<const float*>(stage + geo.b_off) + 4 * (t % 16);
+#pragma unroll 2
+    for (int k = 0; k < live; ++k) {
+      float a[8], b[8];
+      Vec4<float>::unpack(*reinterpret_cast<const float4*>(xs + k * kDwD), a);
+      Vec4<float>::unpack(
+          *reinterpret_cast<const float4*>(xs + k * kDwD + 32), a + 4);
+      Vec4<float>::unpack(*reinterpret_cast<const float4*>(gs + k * kDwF), b);
+      Vec4<float>::unpack(
+          *reinterpret_cast<const float4*>(gs + k * kDwF + 64), b + 4);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int d = d0 + 4 * ty + i;
-    if (d >= D) continue;
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int f = f0 + 4 * tx + j;
-      if (f < F) dw[((int64_t)e * D + d) * F + f] = from_f32<T>(acc[i][j]);
+        for (int j = 0; j < 8; ++j)
+          acc[i * 8 + j] = fmaf(a[i], b[j], acc[i * 8 + j]);
     }
   }
+
+  // the tile in f32 as one (64, 128) box of 512-byte rows
+  __device__ static void put(const float (&acc)[R], unsigned char* out,
+                             int t) {
+    float* o = reinterpret_cast<float*>(out);
+    const int tx = t % 16, ty = t / 16;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* v = acc + i * 8 + 4 * h;
+        *reinterpret_cast<float4*>(
+            o + (4 * ty + i % 4 + 32 * (i / 4)) * kDwF + 4 * tx + 64 * h) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+  }
+
+  __device__ static void store(const CUtensorMap* map,
+                               const unsigned char* out, const DwGeo& /*geo*/,
+                               int e, int d0, int f0) {
+    tma_store_3d(map, out, f0, d0, e);
+  }
+
+  // the 16-byte unit u (columns 4·u ..) of row r
+  __device__ static const unsigned char* unit(const unsigned char* out,
+                                              int r, int u) {
+    return out + r * kDwF * 4 + 16 * u;
+  }
+};
+
+// The tile from shared memory by the consumer threads, 16 bytes a
+// thread, 16 (f32 32) threads a row; rows past D and columns past F left
+// out.
+template <typename T, class Tile>
+__device__ __forceinline__ void store_tile(const unsigned char* out,
+                                           T* __restrict__ dw,
+                                           const DwGeo& geo, int e, int d0,
+                                           int f0, int t) {
+  constexpr int E = 16 / sizeof(T), units = kDwF / E;
+  const bool vec = (geo.F * sizeof(T)) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dw) % 16 == 0;
+  for (int idx = t; idx < kDwD * units; idx += kConsumers) {
+    const int r = idx / units, u = idx % units, f = f0 + u * E;
+    if (d0 + r >= geo.D || f >= geo.F) continue;
+    T* dst = dw + ((int64_t)e * geo.D + d0 + r) * geo.F + f;
+    const uint4 v = *reinterpret_cast<const uint4*>(Tile::unit(out, r, u));
+    if (vec && f + E <= geo.F) {
+      *reinterpret_cast<uint4*>(dst) = v;
+    } else {
+      const T* el = reinterpret_cast<const T*>(&v);
+      for (int j = 0; j < E && f + j < geo.F; ++j) dst[j] = el[j];
+    }
+  }
+}
+
+// grid: persistent, CTA x takes output tiles x, x + gridDim.x, ...;
+// threads 0 .. 127 consume, 128 .. 159 produce
+template <typename T, class Tile>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 3)
+moe_dw_kernel(const __grid_constant__ CUtensorMap x_map,
+              const __grid_constant__ CUtensorMap dy_map,
+              const __grid_constant__ CUtensorMap dw_map,
+              const T* __restrict__ x, const T* __restrict__ dy,
+              const int* __restrict__ eot, T* __restrict__ dw, DwGeo geo) {
+  constexpr int R = Tile::R;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + geo.out_off + geo.out_bufs * geo.out_bytes);
+  uint64_t* empty = full + kDwMaxStages;
+  const int t = threadIdx.x, lane = t & 31;
+
+  if (t == 0) {
+    for (int s = 0; s < geo.stages; ++s) {
+      mbar_init(&full[s], 32);               // every producer lane arrives
+      mbar_init(&empty[s], kConsumers / 32); // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (t >= kConsumers) {
+    // ---- producer warp: each tile of expert e, in ascending order
+    const EotWords words(eot, geo.n_tiles, lane);
+    int it = 0;
+    for (int item = blockIdx.x; item < geo.items; item += gridDim.x) {
+      int e, d0, f0;
+      dw_item(geo, item, e, d0, f0);
+      for (int w = 0; 32 * w < geo.n_tiles; ++w) {
+        unsigned mine = words.match(eot, geo.n_tiles, w, e, lane);
+        while (mine) {
+          const int tile = 32 * w + __ffs(mine) - 1;
+          mine &= mine - 1;
+          for (int s = 0; s < geo.spt; ++s, ++it) {
+            const int st = it % geo.stages, r0 = s * geo.kr;
+            mbar_wait(&empty[st], ((it / geo.stages) & 1) ^ 1);
+            unsigned char* stage = smem + st * geo.stage_bytes;
+            unsigned char* gst = stage + geo.b_off;
+            if (geo.tma) {
+              if (lane == 0) {
+                mbar_expect_tx(&full[st], geo.tx);
+                tma_3d(stage, &x_map, d0, r0, tile, &full[st]);
+                tma_3d(gst, &dy_map, f0, r0, tile, &full[st]);
+                if constexpr (sizeof(T) == 2)
+                  tma_3d(gst + geo.kr * 128, &dy_map, f0 + 64, r0, tile,
+                         &full[st]);
+              }
+            } else {
+              const int64_t row = (int64_t)tile * geo.bt + r0;
+              const int rows_ok = min(geo.kr, geo.bt - r0);
+              copy_panel<T, kDwD>(stage, x + row * geo.D + d0, geo.D,
+                                  geo.kr, rows_ok, geo.D - d0, lane);
+              const T* g = dy + row * geo.F + f0;
+              if constexpr (sizeof(T) == 2) {
+                copy_panel<T, 64>(gst, g, geo.F, geo.kr, rows_ok,
+                                  geo.F - f0, lane);
+                copy_panel<T, 64>(gst + geo.kr * 128, g + 64, geo.F, geo.kr,
+                                  rows_ok, geo.F - f0 - 64, lane);
+              } else {
+                copy_panel<T, kDwF>(gst, g, geo.F, geo.kr, rows_ok,
+                                    geo.F - f0, lane);
+              }
+              fence_async_smem();
+            }
+            mbar_arrive(&full[st]);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup
+  const EotWords words(eot, geo.n_tiles, lane);
+  int it = 0, ob = 0;
+  for (int item = blockIdx.x; item < geo.items; item += gridDim.x) {
+    int e, d0, f0;
+    dw_item(geo, item, e, d0, f0);
+    int n = 0;                               // expert e's tiles
+    for (int w = 0; 32 * w < geo.n_tiles; ++w)
+      n += __popc(words.match(eot, geo.n_tiles, w, e, lane));
+    float acc[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = 0.0f;
+    for (int s = 0; s < n * geo.spt; ++s, ++it) {
+      const int st = it % geo.stages;
+      mbar_wait(&full[st], (it / geo.stages) & 1);
+      const int live = min(geo.kr, geo.bt - (s % geo.spt) * geo.kr);
+      Tile::step(acc, smem + st * geo.stage_bytes, geo, live, t);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+    // the tile through shared memory, rounded once
+    unsigned char* out = smem + geo.out_off + ob * geo.out_bytes;
+    if (t == 0 && geo.tma) {                 // this buffer's last store
+      if (geo.out_bufs == 2) bulk_wait_read<1>();
+      else bulk_wait_read<0>();
+    }
+    consumer_sync();                         // the buffer is free
+    Tile::put(acc, out, t);
+    if (geo.tma) {
+      fence_async_smem();
+      consumer_sync();                       // the tile is written
+      if (t == 0) {
+        Tile::store(&dw_map, out, geo, e, d0, f0);
+        bulk_commit();
+      }
+    } else {
+      consumer_sync();
+      store_tile<T, Tile>(out, dw, geo, e, d0, f0, t);
+    }
+    ob = ob + 1 == geo.out_bufs ? 0 : ob + 1;
+  }
+  if (t == 0 && geo.tma) bulk_wait_all();
+}
+
+// Everything a dW launch needs but the grid: the stage rows, TMA or the
+// threads' copies, and the most out buffers (up to 2) beside 2 stages,
+// then the most stages (up to 4), that fit the dtype's budget.
+cudaError_t plan_dw(int dtype, const void* x, const void* dy, const void* dw,
+                    int T, int D, int F, int E, int bt, DwGeo* g) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  if (bt <= 0 || T % bt) return cudaErrorInvalidValue;
+  const int isz = dtype ? 2 : 4;
+  *g = DwGeo{};
+  g->D = D; g->F = F; g->bt = bt; g->n_tiles = T / bt;
+  const int q = dtype ? 16 : 8, cap = dtype ? 64 : 24;
+  g->kr = min(cap, (bt + q - 1) / q * q);
+  g->spt = (bt + g->kr - 1) / g->kr;
+  g->d_tiles = (D + kDwD - 1) / kDwD;
+  g->f_tiles = (F + kDwF - 1) / kDwF;
+  const int64_t items = (int64_t)E * g->d_tiles * g->f_tiles;
+  if (items > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  g->items = (int)items;
+  const auto al = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  g->tma = T > 0 && (D * isz) % 16 == 0 && (F * isz) % 16 == 0 && al(x) &&
+           al(dy) && al(dw);
+  const int x_bytes = g->kr * kDwD * isz;    // a multiple of 1024
+  g->b_off = x_bytes;
+  g->stage_bytes = x_bytes + g->kr * kDwF * isz;
+  g->tx = g->stage_bytes;
+  const int budget = dtype ? kDwBudgetBf16 : kDwBudgetF32;
+  g->out_bytes = kDwD * kDwF * isz;
+  g->out_bufs = (budget - 2 * g->stage_bytes) / g->out_bytes;
+  g->out_bufs = max(1, min(kDwMaxOut, g->out_bufs));
+  g->stages = (budget - g->out_bufs * g->out_bytes) / g->stage_bytes;
+  g->stages = max(1, min(kDwMaxStages, g->stages));
+  g->out_off = g->stages * g->stage_bytes;
+  return cudaSuccess;
+}
+
+template <typename T, class Tile>
+cudaError_t launch_dw(const DwGeo& g, int E, const void* x, const void* dy,
+                      const int* eot, void* dw, cudaStream_t st) {
+  auto kernel = moe_dw_kernel<T, Tile>;
+  const size_t smem = 1024 + g.out_off + (size_t)g.out_bufs * g.out_bytes +
+                      2 * kDwMaxStages * 8;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+    return err;
+  int64_t grid = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  if (grid > g.items) grid = g.items;
+  CUtensorMap maps[3];
+  memset(maps, 0, sizeof(maps));
+  if (g.tma) {
+    // cuTensorMapEncodeTiled needs this thread's context: bind it first
+    if ((err = cudaFree(nullptr)) != cudaSuccess) return err;
+    const int dt = sizeof(T) == 2;
+    const uint64_t isz = sizeof(T);
+    const uint32_t fb = dt ? 64 : kDwF;      // bf16: 128-byte swizzled boxes
+    const uint64_t xd[3] = {(uint64_t)g.D, (uint64_t)g.bt,
+                            (uint64_t)g.n_tiles};
+    const uint64_t xs[2] = {g.D * isz, (uint64_t)g.bt * g.D * isz};
+    const uint32_t xb[3] = {kDwD, (uint32_t)g.kr, 1};
+    const uint64_t gd[3] = {(uint64_t)g.F, (uint64_t)g.bt,
+                            (uint64_t)g.n_tiles};
+    const uint64_t gs[2] = {g.F * isz, (uint64_t)g.bt * g.F * isz};
+    const uint32_t gb[3] = {fb, (uint32_t)g.kr, 1};
+    const uint64_t wd[3] = {(uint64_t)g.F, (uint64_t)g.D, (uint64_t)E};
+    const uint64_t ws[2] = {g.F * isz, (uint64_t)g.D * g.F * isz};
+    const uint32_t wb[3] = {fb, kDwD, 1};
+    if (!encode_map(&maps[0], dt, x, 3, xd, xs, xb, dt) ||
+        !encode_map(&maps[1], dt, dy, 3, gd, gs, gb, dt) ||
+        !encode_map(&maps[2], dt, dw, 3, wd, ws, wb, dt))
+      return cudaErrorInvalidValue;
+  }
+  kernel<<<(unsigned)grid, kThreads, smem, st>>>(
+      maps[0], maps[1], maps[2], (const T*)x, (const T*)dy, eot, (T*)dw, g);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -521,6 +899,20 @@ int maple_moe_layout_dx(int dtype, int T, int D, int F, int bt, int aligned,
   return (int)err;
 }
 
+// The layout of a dW launch: out[0..7) = token rows a stage, stages a
+// token tile, 1 for tensor maps (0: the threads' copies), stages of the
+// ring, out buffers, tiles of D, tiles of F; `aligned` stands for x's,
+// dy's and dW's pointers.
+int maple_moe_layout_dw(int dtype, int T, int D, int F, int bt, int aligned,
+                        int* out) {
+  DwGeo g;
+  const void* p = reinterpret_cast<const void*>(aligned ? 0 : 8);
+  const cudaError_t err = plan_dw(dtype, p, p, p, T, D, F, 1, bt, &g);
+  out[0] = g.kr; out[1] = g.spt; out[2] = g.tma; out[3] = g.stages;
+  out[4] = g.out_bufs; out[5] = g.d_tiles; out[6] = g.f_tiles;
+  return (int)err;
+}
+
 // dtype: 0 = float32, 1 = bfloat16 (x, w and y alike).  bt is a positive
 // multiple of 8 that divides T; expert_of_tile holds T / bt ids in
 // [0, E); w is (E, D, F).
@@ -540,26 +932,20 @@ int maple_moe_gemm_dx(const void* dy, const int* expert_of_tile,
 }
 
 // dw (E, D, F) = Σ over expert e's tiles of x_tileᵀ · dy_tile; x (T, D),
-// dy (T, F); bt divides T.
+// dy (T, F); bt divides T.  Every element of dw is written.
 int maple_moe_dw(const void* x, const void* dy, const int* expert_of_tile,
                  void* dw, int dtype, int T_rows, int D, int F, int E, int bt,
                  void* stream) {
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  if (bt <= 0 || T_rows % bt) return (int)cudaErrorInvalidValue;
-  if (D == 0 || F == 0 || E == 0) return (int)cudaSuccess;
-  const dim3 grid((F + kDwTile - 1) / kDwTile, (D + kDwTile - 1) / kDwTile, E);
-  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidConfiguration;
+  DwGeo g;
+  const cudaError_t err =
+      plan_dw(dtype, x, dy, dw, T_rows, D, F, E, bt, &g);
+  if (err != cudaSuccess) return (int)err;
+  if (g.items == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  const int n_tiles = T_rows / bt;
   if (dtype == 1)
-    moe_dw_kernel<__nv_bfloat16><<<grid, kDwThreads, 0, st>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)dy, expert_of_tile,
-        (__nv_bfloat16*)dw, D, F, bt, n_tiles);
-  else
-    moe_dw_kernel<float><<<grid, kDwThreads, 0, st>>>(
-        (const float*)x, (const float*)dy, expert_of_tile, (float*)dw, D, F,
-        bt, n_tiles);
-  return (int)cudaGetLastError();
+    return (int)launch_dw<__nv_bfloat16, DwWgmma>(g, E, x, dy, expert_of_tile,
+                                                  dw, st);
+  return (int)launch_dw<float, DwFfma>(g, E, x, dy, expert_of_tile, dw, st);
 }
 
 const char* maple_error_string(int err) {

@@ -147,7 +147,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                    lib.maple_moe_dw):
             fn.argtypes = [p] * 4 + [i] * 6 + [p]
             fn.restype = i
-        for fn in (lib.maple_moe_layout, lib.maple_moe_layout_dx):
+        for fn in (lib.maple_moe_layout, lib.maple_moe_layout_dx,
+                   lib.maple_moe_layout_dw):
             fn.argtypes = [i] * 6 + [p]
             fn.restype = i
     elif name == "block_attn":

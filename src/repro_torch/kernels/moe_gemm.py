@@ -21,9 +21,10 @@ For CUDA tensors it launches its kernel or raises; the forward and dx
 launches add one to ``moe_gemm.launches``, dW's to
 ``moe_gemm_dw.launches``.  The reference needs D and F to be multiples
 of its 128-wide Pallas tiles; the kernels take any D and F, and a token
-tile bt that is a multiple of 8 (the MoE layer's capacity always is).
-:func:`moe_route` is the host's side of a launch: the consumer, the token
-piece of a thread block, and whether the operands come by TMA.
+tile bt that is a multiple of 8 (the MoE layer's capacity always is; dW
+takes any bt).  :func:`moe_route` (forward and dx) and
+:func:`moe_dw_route` are the host's side of a launch: the consumer, what
+a thread block owns, and whether the operands come by TMA.
 """
 
 from __future__ import annotations
@@ -38,6 +39,9 @@ PIECES = (8, 16, 32, 64, 96, 128)   # token pieces a thread block can take
 F_TILE = 64                         # output columns of a thread block
 _RING = 48 * 1024                   # bytes of a block's ring
 _MAX_STAGES = 8
+DW_TILE = (64, 128)                 # (D rows, F columns) of a dW tile
+_DW_BUDGET = {torch.bfloat16: 112 * 1024, torch.float32: 72 * 1024}
+_DW_MAX_STAGES, _DW_MAX_OUT = 4, 2
 
 
 def moe_route(dtype: torch.dtype, t: int, d: int, f: int, bt: int, *,
@@ -57,25 +61,68 @@ def moe_route(dtype: torch.dtype, t: int, d: int, f: int, bt: int, *,
     ``(piece + 64) · kc`` elements; ``stages`` of them fill a 48 KB ring
     (2 to 8).  ``transposed`` is dx's launch over w ``(E, d, f)``
     (``plan_moe``'s ``trans``): f is the reduction and d the output
-    columns (``f_tiles`` counts d's tiles), and f32 reads w by the
-    producer's copies, which write its panel transposed."""
+    columns (``f_tiles`` counts d's tiles), and w's panel comes as it
+    lies (64 rows of d, ``kc`` of f); f32 stages ``kc`` 32 (one 128-byte
+    row, swizzled) at every piece and multiplies on the k-major FFMA tile
+    (``"ffma_k"``: both operands' rows along f)."""
     if bt <= 0 or bt % 8 or t % bt:
         raise ValueError(f"bt={bt} must be a positive multiple of 8 that "
                          f"divides T={t}")
     isz = 2 if dtype == torch.bfloat16 else 4
     piece = next((p for p in PIECES if p >= bt), PIECES[-1])
     k, n = (f, d) if transposed else (d, f)
-    tma = (k > 0 and (k * isz) % 16 == 0 and (n * isz) % 16 == 0 and aligned
-           and not (transposed and dtype == torch.float32))
-    kc = 64 if dtype == torch.bfloat16 or piece < 32 else 32
+    tma = k > 0 and (k * isz) % 16 == 0 and (n * isz) % 16 == 0 and aligned
+    if dtype == torch.bfloat16:
+        kc, consumer = 64, "wgmma"
+    elif transposed:
+        kc, consumer = 32, "ffma_k"
+    else:
+        kc, consumer = (64 if piece < 32 else 32), "ffma"
     stage = (piece + F_TILE) * kc * isz
-    return {"consumer": "wgmma" if dtype == torch.bfloat16 else "ffma",
+    return {"consumer": consumer,
             "register_tile": (None if dtype == torch.bfloat16
                               else ffma_tile(piece, F_TILE)),
             "piece": piece, "pieces": -(-bt // piece), "kc": kc,
             "copy": "tma" if tma else "producer",
             "stages": min(max(_RING // stage, 2), _MAX_STAGES),
             "f_tiles": -(-n // F_TILE)}
+
+
+def moe_dw_route(dtype: torch.dtype, t: int, d: int, f: int, bt: int, *,
+                 aligned: bool = True) -> dict:
+    """How a ``moe_dw_kernel`` launch runs on the card (``plan_dw`` in
+    ``csrc/moe_gemm.cu``).  Persistent thread blocks walk the (expert,
+    :data:`DW_TILE`) output tiles; bf16 multiplies on ``"wgmma"`` (both
+    operands MN-major), f32 on ``"ffma"`` with an 8 × 8 register tile.  A
+    stage holds ``rows`` token rows of one tile (bf16 up to 64, a multiple
+    of 16; f32 up to 24, a multiple of 8): ``stages_a_tile`` of them cover
+    ``bt``, the last one's ``tail`` rows past the tile arriving as zeros.
+    x's and dy's panels and the dW tile go by ``"tma"`` where D·size and
+    F·size are multiples of 16 bytes and the pointers 16-byte aligned,
+    else by the threads' own copies (``"producer"``).  The most out
+    buffers (up to 2) beside 2 stages, then the most stages (up to 4), fit
+    112 KB in bf16 (2 blocks an SM) and 72 KB in f32 (3 blocks an SM, for
+    the FFMAs)."""
+    if bt <= 0 or t % bt:
+        raise ValueError(f"bt={bt} must be positive and divide T={t}")
+    bf16 = dtype == torch.bfloat16
+    isz = 2 if bf16 else 4
+    step, most = (16, 64) if bf16 else (8, 24)
+    rows = min(most, -(-bt // step) * step)
+    per_tile = -(-bt // rows)
+    tma = t > 0 and (d * isz) % 16 == 0 and (f * isz) % 16 == 0 and aligned
+    stage = rows * (DW_TILE[0] + DW_TILE[1]) * isz
+    out = DW_TILE[0] * DW_TILE[1] * isz
+    budget = _DW_BUDGET[dtype]
+    out_buffers = max(1, min(_DW_MAX_OUT, (budget - 2 * stage) // out))
+    stages = max(1, min(_DW_MAX_STAGES,
+                        (budget - out_buffers * out) // stage))
+    return {"consumer": "wgmma" if bf16 else "ffma",
+            "register_tile": None if bf16 else (8, 8), "tile": DW_TILE,
+            "rows": rows, "stages_a_tile": per_tile,
+            "tail": rows * per_tile - bt, "copy": "tma" if tma else "producer",
+            "stages": stages, "out_buffers": out_buffers,
+            "d_tiles": -(-d // DW_TILE[0]), "f_tiles": -(-f // DW_TILE[1])}
 
 
 def _check(x, expert_of_tile, w, bt: int, *, transposed: bool = False

@@ -898,13 +898,19 @@ def test_moe_layer_on_the_card_matches_the_cpu(cuda):
     _close(got[0].cpu(), want, torch.float32)
 
 
-# (expert of each tile, E, D, F, bt): several tiles an expert, experts
-# with no tile, D and F off multiples of 16 (70 × 44: the producer's
-# copies in both dtypes), a tile of 216 rows (two pieces), granite-moe-3b's
-# training tile (56 rows at 1536 × 512)
+# (expert of each tile, E, D, F, bt): bt 8, 16, 56, 96 and 216 (two
+# pieces of dx; dW's last stage past the tile), several tiles an expert,
+# adjacent or not, experts with no tile, D and F off multiples of 16 (72 ×
+# 40: TMA in both dtypes; 70 × 44: the producer's copies in both; 100 × 36
+# and 200 × 300: TMA in f32, the copies in bf16), granite-moe-3b's training
+# tile (56 rows at 1536 × 512)
 MOE_BACKWARD = [([0, 0, 2], 3, 256, 128, 8), ([1, 1, 3, 3], 4, 72, 40, 16),
                 ([0, 2, 2], 3, 70, 44, 96), ([1, 1], 3, 64, 48, 216),
-                ([0, 0, 0, 2, 2], 4, 1536, 512, 56)]
+                ([0, 0, 0, 2, 2], 4, 1536, 512, 56),
+                ([3, 1, 3, 0, 3], 5, 72, 40, 56),
+                ([2, 0, 2, 1, 2], 4, 70, 44, 8),
+                ([0, 1, 0], 2, 100, 36, 216),
+                ([1, 0, 1], 3, 200, 300, 96)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -955,6 +961,28 @@ def test_moe_dx_route_matches_the_library(cuda):
                     assert list(out) == [r["piece"], r["pieces"],
                                          int(r["copy"] == "tma"),
                                          r["stages"], r["f_tiles"]]
+
+
+def test_moe_dw_route_matches_the_library(cuda):
+    """dW's route is the one the C launcher plans."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.moe_gemm import moe_dw_route
+    lib = _build.library("moe_gemm")
+    out = (ctypes.c_int * 7)()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for bt in (3, 8, 16, 56, 96, 216):
+            for d, f in ((1536, 512), (512, 1536), (70, 44), (72, 40),
+                         (100, 36)):
+                for aligned in (True, False):
+                    r = moe_dw_route(dtype, 4 * bt, d, f, bt,
+                                     aligned=aligned)
+                    assert lib.maple_moe_layout_dw(code, 4 * bt, d, f, bt,
+                                                   int(aligned), out) == 0
+                    assert list(out) == [
+                        r["rows"], r["stages_a_tile"],
+                        int(r["copy"] == "tma"), r["stages"],
+                        r["out_buffers"], r["d_tiles"], r["f_tiles"]]
 
 
 def test_moe_gemm_gradients_on_the_card_match_the_cpu(cuda):

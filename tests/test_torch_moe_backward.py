@@ -27,7 +27,7 @@ from repro_torch.kernels import (block_attention, local_block_attention,
 from repro_torch.kernels.moe_gemm import (moe_gemm, moe_gemm_dw,
                                           moe_gemm_dw_plain, moe_gemm_dx,
                                           moe_gemm_dx_plain, moe_gemm_plain,
-                                          moe_route)
+                                          moe_dw_route, moe_route)
 
 
 def _close(got, want):
@@ -119,16 +119,74 @@ def test_bf16_backward_rounds_once():
 
 @pytest.mark.parametrize("transposed", [False, True])
 def test_moe_route_of_the_dx_launch(transposed):
-    """dx reduces over F and writes D's tiles; f32 reads w through the
-    producer's transposing copies, bf16 by TMA where the strides allow."""
+    """dx reduces over F and writes D's tiles; both dtypes read w as it
+    lies, by TMA where the strides allow; f32 dx multiplies on the k-major
+    FFMA tile, 32 of F (one swizzled 128-byte row) a stage at every
+    piece."""
     f32 = moe_route(torch.float32, 96, 1536, 512, 96, transposed=transposed)
     bf16 = moe_route(torch.bfloat16, 96, 1536, 512, 96,
                      transposed=transposed)
     assert f32["f_tiles"] == bf16["f_tiles"] == (24 if transposed else 8)
-    assert f32["copy"] == ("producer" if transposed else "tma")
-    assert bf16["copy"] == "tma"
+    assert f32["copy"] == bf16["copy"] == "tma"
+    assert f32["consumer"] == ("ffma_k" if transposed else "ffma")
+    assert bf16["consumer"] == "wgmma"
+    small = moe_route(torch.float32, 16, 1536, 512, 16, transposed=transposed)
+    assert small["kc"] == (32 if transposed else 64)
+    assert small["register_tile"] == (2, 4)
     assert moe_route(torch.bfloat16, 16, 36, 64, 16,
                      transposed=transposed)["copy"] == "producer"
+    assert moe_route(torch.float32, 16, 70, 44, 16,
+                     transposed=transposed)["copy"] == "producer"
+
+
+@pytest.mark.parametrize("dtype,bt,rows,per_tile,tail", [
+    (torch.bfloat16, 8, 16, 1, 8), (torch.float32, 8, 8, 1, 0),
+    (torch.bfloat16, 56, 64, 1, 8), (torch.float32, 56, 24, 3, 16),
+    (torch.bfloat16, 216, 64, 4, 40), (torch.float32, 216, 24, 9, 0),
+    (torch.bfloat16, 3, 16, 1, 13), (torch.float32, 96, 24, 4, 0)])
+def test_moe_dw_route_covers_the_token_tile(dtype, bt, rows, per_tile, tail):
+    """dW's stages cover a token tile in order; the last stage's rows
+    past the tile (a 3D box past bt) arrive as zeros, never the next
+    expert's rows."""
+    r = moe_dw_route(dtype, 4 * bt, 1536, 512, bt)
+    assert (r["rows"], r["stages_a_tile"], r["tail"]) == (rows, per_tile,
+                                                          tail)
+    assert r["rows"] * r["stages_a_tile"] - r["tail"] == bt
+    assert 0 <= r["tail"] < r["rows"]
+    assert r["rows"] % (16 if dtype == torch.bfloat16 else 8) == 0
+
+
+@pytest.mark.parametrize("dtype,d,f,aligned,copy", [
+    (torch.bfloat16, 1536, 512, True, "tma"),
+    (torch.float32, 1536, 512, True, "tma"),
+    (torch.bfloat16, 72, 40, True, "tma"),
+    (torch.float32, 70, 44, True, "producer"),     # 280-byte rows of x
+    (torch.bfloat16, 100, 36, True, "producer"),   # 200-byte rows
+    (torch.float32, 100, 36, True, "tma"),
+    (torch.bfloat16, 200, 300, True, "producer"),  # 600-byte rows of dy
+    (torch.bfloat16, 1536, 512, False, "producer")])
+def test_moe_dw_route_takes_tma_only_where_the_strides_allow(dtype, d, f,
+                                                             aligned, copy):
+    assert moe_dw_route(dtype, 112, d, f, 56,
+                        aligned=aligned)["copy"] == copy
+
+
+@pytest.mark.parametrize("dtype,bt,consumer,tile,stages,outs", [
+    (torch.bfloat16, 56, "wgmma", None, 3, 2),
+    (torch.float32, 56, "ffma", (8, 8), 2, 1),
+    (torch.bfloat16, 8, "wgmma", None, 4, 2),
+    (torch.float32, 8, "ffma", (8, 8), 4, 1)])
+def test_moe_dw_route_consumer_and_ring(dtype, bt, consumer, tile, stages,
+                                        outs):
+    """bf16 on wgmma with two out buffers, f32 on an 8 × 8 FFMA tile
+    with one; 2 to 4 stages; granite's gate (D 1 536, F 512) in 24 × 4
+    tiles an expert."""
+    r = moe_dw_route(dtype, 48 * bt, 1536, 512, bt)
+    assert (r["consumer"], r["register_tile"], r["stages"],
+            r["out_buffers"]) == (consumer, tile, stages, outs)
+    assert (r["tile"], r["d_tiles"], r["f_tiles"]) == ((64, 128), 24, 4)
+    with pytest.raises(ValueError, match="divide"):
+        moe_dw_route(dtype, 100, 1536, 512, 8)
 
 
 def test_backward_wrappers_refuse_bad_operands():

@@ -14,6 +14,9 @@ The leading arguments that are directories are the trees.
 ``maple_spmm_compact`` and ``maple_spmm_planned`` (B1, B4: the serving
 and training shapes), ``maple_spmm_naive`` (B3: the MLP at G 4, N 1, 112
 and 128), ``moe_gemm`` (B8: granite-moe-3b's four expert products),
+``moe_backward`` (``chip_smoke.moe_train_rows``: B8's forward, its dx and
+``moe_dw_kernel`` at granite-moe-3b's training shapes, gate and down, f32
+and bf16, each row's ``kernel`` and ``shape`` saying which),
 ``maple_sddmm_bsr`` (B2: dA of the MLP at N 256 and of the head at N 4,
 as ``chip_smoke.py``'s training shapes build them) and
 ``maple_spmspm_ell`` (B7: the cage12 clone's ELL times a dense (n, 64)
@@ -34,8 +37,9 @@ import sys
 from pathlib import Path
 
 ALL = ("maple_spmm_compact", "maple_spmm_planned", "maple_spmm_naive",
-       "moe_gemm", "maple_sddmm_bsr", "maple_spmspm_ell", "block_attention",
-       "maple_spgemm_numeric", "maple_sddmm_csr", "maple_spgemm_db")
+       "moe_gemm", "moe_backward", "maple_sddmm_bsr", "maple_spmspm_ell",
+       "block_attention", "maple_spgemm_numeric", "maple_sddmm_csr",
+       "maple_spgemm_db")
 SOURCES = ("maple_spmm.cu", "moe_gemm.cu", "maple_sddmm.cu",
            "maple_spmspm.cu", "maple_spgemm.cu", "block_attn.cu")
 TURN = r"""
@@ -57,6 +61,9 @@ if {"maple_spmm_compact", "maple_spmm_planned"} & set(names):
     rows += cs.training_shapes(spec, flush)[0]
 if "moe_gemm" in names:
     rows += cs.moe_rows(spec, flush)
+if "moe_backward" in names:
+    rows += [dict(r, kernel=r["name"], name="moe_backward")
+             for r in cs.moe_train_rows(spec, flush)]
 if "maple_sddmm_bsr" in names:
     from repro_torch.kernels.maple_sddmm import maple_sddmm_bsr
     rng = np.random.default_rng(cs.SEED + 3)
@@ -134,8 +141,9 @@ if set(spgemm_names) & set(names):
 for r in rows:
     if r["name"] in names:
         print(json.dumps({"tree": sys.argv[1], **{k: r[k] for k in (
-            "name", "dtype", "shape", "G", "N", "bt", "ms",
-            "compact_merge_ms", "library_ms", "bound_ms") if k in r}}),
+            "name", "kernel", "dtype", "shape", "G", "N", "bt", "ms",
+            "compact_merge_ms", "plain_ms", "library_ms", "bound_ms")
+            if k in r}}),
             flush=True)
 """
 

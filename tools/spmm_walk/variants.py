@@ -4,7 +4,7 @@
 Run from the repository root on a machine with one H100::
 
     python3 tools/spmm_walk/variants.py \
-        [--kernel b4|b3|b8|b2|b7|b9|b6|b5|db] [variant ...]
+        [--kernel b4|b3|b8|dx|dw|b2|b7|b9|b6|b5|db] [variant ...]
 
 Each variant is the kernel's source (or ``hopper.cuh``) with some text
 replaced (``VARIANTS`` below); all are built at once with ``nvcc`` into
@@ -14,7 +14,9 @@ around the launch (``chip_smoke.time_ms``, what ``chip_smoke.py``
 reports) and the kernel's own device time from ``torch.profiler``.  The
 cases: B4 at the MLP forward and Aᵀ dB plans (N = 256) and the logit head
 (N = 1); B3 at the MLP over 4 batches, N = 1, 112 and 128; B8 at
-granite-moe-3b's four expert products; B2 (dA) at the MLP (N = 256) and
+granite-moe-3b's four expert products; B8's dx (``dx``) and
+``moe_dw_kernel`` (``dw``) at its training shapes (capacity 56, gate and
+down); B2 (dA) at the MLP (N = 256) and
 the head (N = 4); f32 and bf16; B7 at the cage12 clone's ELL times a
 dense (n, 64) B, f32; B9 at recurrentgemma-9b's local attention, f32
 and bf16; B5 (the SpGEMM's numeric phase), B6 (its dA) and dB on C = A×A
@@ -113,7 +115,102 @@ VARIANTS = {
         "lb2": [("__launch_bounds__(kThreads, 3)\nmoe_kernel",
                  "__launch_bounds__(kThreads, 2)\nmoe_kernel")]}),
 }
+DX_STEP = ("    Tile::step(acc, ring + st * geo.stage_bytes, geo, t, 0);\n",
+           "\n")
+DW_LOADS = ("""                mbar_expect_tx(&full[st], geo.tx);
+                tma_3d(stage, &x_map, d0, r0, tile, &full[st]);
+                tma_3d(gst, &dy_map, f0, r0, tile, &full[st]);
+                if constexpr (sizeof(T) == 2)
+                  tma_3d(gst + geo.kr * 128, &dy_map, f0 + 64, r0, tile,
+                         &full[st]);
+""", "")
+DW_STEP = ("      Tile::step(acc, smem + st * geo.stage_bytes, geo, live, "
+           "t);\n", "\n")
+DW_EPI = [("    Tile::put(acc, out, t);\n", "\n"),
+          ("        Tile::store(&dw_map, out, geo, e, d0, f0);\n", "\n")]
+DW_SYNC = [("    consumer_sync();                         // the buffer is "
+            "free\n", "\n"),
+           ("      consumer_sync();                       // the tile is "
+            "written\n", "\n")]
+DW_FENCE = ("    if (geo.tma) {\n      fence_async_smem();",
+            "    if (geo.tma) {\n")
 VARIANTS.update({
+    "dx": ("moe_gemm", {
+        "base": [],
+        "nocompute": [DX_STEP],
+        # w and dy by the producer's copies into the same swizzled layout
+        "producer": [("           al(w);\n", "           al(w) && !trans;\n")],
+        "lb2": [("__launch_bounds__(kThreads, 3)\nmoe_kernel",
+                 "__launch_bounds__(kThreads, 2)\nmoe_kernel")],
+        "lb4": [("__launch_bounds__(kThreads, 3)\nmoe_kernel",
+                 "__launch_bounds__(kThreads, 4)\nmoe_kernel")],
+        # the k-major tile's quads one or four a loop turn (two: base)
+        "unroll1": [("                         128, 2>;",
+                     "                         128, 1>;")],
+        "unroll4": [("                         128, 2>;",
+                     "                         128, 4>;")]}),
+    "dw": ("moe_gemm", {
+        "base": [],
+        # the loads and stores kept, the products taken away
+        "nocompute": [DW_STEP],
+        # dW never stored: what the TMA stores cost
+        "nostore": [("        Tile::store(&dw_map, out, geo, e, d0, f0);\n",
+                     "\n")],
+        # x's panel never loaded: what its (L2) reads cost
+        "nox": [("                mbar_expect_tx(&full[st], geo.tx);\n"
+                 "                tma_3d(stage, &x_map, d0, r0, tile, "
+                 "&full[st]);\n",
+                 "                mbar_expect_tx(&full[st], geo.tx - "
+                 "geo.b_off);\n")],
+        # the producer's and the threads' own copies at every shape
+        "producer": [("  g->tma = T > 0 &&", "  g->tma = false &&")],
+        # dy's panel never loaded: what its (L2) reads cost
+        "nody": [("                tma_3d(gst, &dy_map, f0, r0, tile, "
+                  "&full[st]);\n                if constexpr (sizeof(T) "
+                  "== 2)\n                  tma_3d(gst + geo.kr * 128, "
+                  "&dy_map, f0 + 64, r0, tile,\n                         "
+                  "&full[st]);\n", ""),
+                 ("mbar_expect_tx(&full[st], geo.tx);",
+                  "mbar_expect_tx(&full[st], geo.b_off);")],
+        # bf16: one out buffer, then as many stages as fit
+        "outs1": [("max(1, min(kDwMaxOut, g->out_bufs))",
+                   "max(1, min(1, g->out_bufs))")],
+        # each CTA a run of consecutive tiles, not every gridDim-th
+        "chunked": [("for (int item = blockIdx.x; item < geo.items; "
+                     "item += gridDim.x) {",
+                     "for (int item = (int)((int64_t)blockIdx.x * geo.items "
+                     "/ gridDim.x); item < (int)((int64_t)(blockIdx.x + 1) "
+                     "* geo.items / gridDim.x); ++item) {")],
+        # bf16: one CTA an SM, 2 out buffers and 8 stages
+        "stages8": [("kDwBudgetBf16 = 112 * 1024;",
+                     "kDwBudgetBf16 = 224 * 1024;"),
+                    ("constexpr int kDwMaxStages = 4;",
+                     "constexpr int kDwMaxStages = 8;"),
+                    ("sizeof(T) == 2 ? 2 : 3)", "sizeof(T) == 2 ? 1 : 3)")],
+        # the tile stored by the consumer threads, 16 bytes each, where
+        # the TMA could store it
+        "threadstore": [("    if (geo.tma) {\n      fence_async_smem();",
+                         "    if (false) {\n      fence_async_smem();")],
+        # the stages never loaded (their barriers complete on the
+        # producer's arrivals), the tiles never put or stored, or both, or
+        # also no products: what the loads, the epilogue and the loop
+        # skeleton cost; the kernel ending after its set-up (its fixed cost)
+        "noload": [DW_LOADS],
+        "noepi": DW_EPI,
+        "skeleton": [DW_LOADS] + DW_EPI,
+        "skelnocomp": [DW_LOADS, DW_STEP] + DW_EPI,
+        "skelnosync": [DW_LOADS, DW_STEP] + DW_EPI + DW_SYNC,
+        "skelnofence": [DW_LOADS, DW_STEP] + DW_EPI + [DW_FENCE],
+        "empty": [("  if (t >= kConsumers) {\n    // ---- producer warp: each",
+                   "  if (geo.items >= 0) return;\n  if (t >= kConsumers) {\n"
+                   "    // ---- producer warp: each")],
+        # bf16: 3 CTAs an SM, stages of 32 token rows
+        "bf16x3": [("kDwBudgetBf16 = 112 * 1024;", "kDwBudgetBf16 = 72 * 1024;"),
+                   ("cap = dtype ? 64 : 24;", "cap = dtype ? 32 : 24;"),
+                   ("sizeof(T) == 2 ? 2 : 3)", "sizeof(T) == 2 ? 3 : 3)")],
+        # f32 stages of 16 or 32 token rows
+        "f32rows16": [("cap = dtype ? 64 : 24;", "cap = dtype ? 64 : 16;")],
+        "f32rows32": [("cap = dtype ? 64 : 24;", "cap = dtype ? 64 : 32;")]}),
     "b2": ("maple_sddmm", {
         "base": [],
         "nocompute": [("        Tile::step(acc, a, stage, geo, "
@@ -157,8 +254,8 @@ VARIANTS.update({
                    "constexpr int kMaxCtas = 3;")],
         "ctas2": [("constexpr int kMaxCtas = 4;",
                    "constexpr int kMaxCtas = 2;")],
-        "unroll2": [("#pragma unroll 1\n    for (int q = 0; q < quads;",
-                     "#pragma unroll 2\n    for (int q = 0; q < quads;")]}),
+        "unroll2": [("using Tile = FfmaTileK<T, TM, TN, BM, BK, PITCH>;",
+                     "using Tile = FfmaTileK<T, TM, TN, BM, BK, PITCH, 2>;")]}),
     "b7": ("maple_spmspm", {
         "base": [],
         # the loads kept, the products and sums taken away
@@ -319,6 +416,7 @@ VARIANTS.update({
 # output, computed once
 PLAIN, WANT = {}, {}
 KERNEL_NAME = {"b4": "run_kernel", "b3": "run_kernel", "b8": "moe_kernel",
+               "dx": "moe_kernel", "dw": "moe_dw_kernel",
                "b2": "sddmm_kernel", "b7": "spmspm_kernel",
                "b9": "block_attn_kernel", "b6": "sddmm_csr_kernel",
                "b5": "spgemm_kernel", "db": "spgemm_db_kernel"}
@@ -407,6 +505,41 @@ def b8_cases():
             yield (f"{name} {str(dtype)[6:]}",
                    lambda x=x, eot=eot, w=w, cap=cap:
                    moe_gemm(x, eot, w, bt=cap))
+
+
+def train_moe_operands():
+    """granite-moe-3b's training products (capacity 56, E 48, gate and
+    down), f32 and bf16: (tag, x, dy, w, expert_of_tile), as
+    ``chip_smoke.moe_train_rows`` makes them."""
+    e, cap = cs.MOE_E, cs.MOE_TRAIN_CAP
+    eot = torch.arange(e, dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, d, f in (("gate", 1536, 512), ("down", 512, 1536)):
+            rng = np.random.default_rng(cs.SEED + d)
+            x, dy = (torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).cuda().to(dtype)
+                for shape in ((e * cap, d), (e * cap, f)))
+            w = torch.from_numpy((rng.standard_normal((e, d, f)) / np.sqrt(d))
+                                 .astype(np.float32)).cuda().to(dtype)
+            yield f"train {name} {str(dtype)[6:]}", x, dy, w, eot
+
+
+def dx_cases():
+    from repro_torch.kernels.moe_gemm import moe_gemm_dx, moe_gemm_dx_plain
+    for tag, _, dy, w, eot in train_moe_operands():
+        PLAIN[tag] = lambda dy=dy, eot=eot, w=w: moe_gemm_dx_plain(
+            dy, eot, w, bt=cs.MOE_TRAIN_CAP)
+        yield (tag, lambda dy=dy, eot=eot, w=w: moe_gemm_dx(
+            dy, eot, w, bt=cs.MOE_TRAIN_CAP))
+
+
+def dw_cases():
+    from repro_torch.kernels.moe_gemm import moe_gemm_dw, moe_gemm_dw_plain
+    for tag, x, dy, _, eot in train_moe_operands():
+        PLAIN[tag] = lambda x=x, dy=dy, eot=eot: moe_gemm_dw_plain(
+            x, dy, eot, cs.MOE_E, bt=cs.MOE_TRAIN_CAP)
+        yield (tag, lambda x=x, dy=dy, eot=eot: moe_gemm_dw(
+            x, dy, eot, cs.MOE_E, bt=cs.MOE_TRAIN_CAP))
 
 
 def b2_cases():
@@ -545,7 +678,7 @@ def main() -> int:
     libs = build(source, table, names)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     cases = list({"b4": b4_cases, "b3": b3_cases, "b8": b8_cases,
-                  "b2": b2_cases, "b7": b7_cases, "b9": b9_cases,
+                  "dx": dx_cases, "dw": dw_cases, "b2": b2_cases, "b7": b7_cases, "b9": b9_cases,
                   "b6": b6_cases, "b5": b5_cases,
                   "db": db_cases}[args.kernel]())
     res = {name: {} for name, _ in cases}
