@@ -305,8 +305,44 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
     4 096 tokens: held against the plain masked softmax, timed after the
     L2 flush beside it, one ``scaled_dot_product_attention`` with the same
     mask and the bound; recorded, not gated.
-28. the ``{"kernels": [...]}`` summary (``launches_by_path`` has every
+28. moe_ep_reference — expert parallelism (``moe_layer_ep``) on one
+    card's mesh, ``("data", "model") = (1, 4)`` of ``"cuda"`` entries
+    (every peer's work on the one card; a mesh of several cards is not
+    run): the granite-moe-3b smoke config with ``moe_impl="ep_a2a"`` at
+    capacity 1.25, the same weights under the card mesh and a CPU mesh
+    of the same shape: prefill logits within 1e-4, greedy tokens equal,
+    B8 exactly 3 × 4 peers a layer a forward pass; one microbatch's loss
+    and every gradient card against CPU (``train_against_cpu``).
+29. moe_ep_serve — granite-moe-3b at full width and depth, its own
+    config (EP, capacity 1.25), f32: ``generate`` on 4 prompts, 16
+    greedy tokens, under the mesh; B8 launches exactly 3 × 4 × 32 a
+    forward pass (the sort path's ``moe_serve``: 3 × 32); tokens/s,
+    prefill and decode-step wall and device ms, peak GiB, the slots
+    dropped at each level over a prefill's layers; layer 0's MoE card EP
+    against CPU EP and, at capacity 8.0 (no slot dropped), EP against the
+    sort path, within 1e-5·max + 1e-6; the same layer's forward and
+    backward at phase 30's shapes (a 1 × 256 microbatch: e_loc 12,
+    cap_exp 272), card mesh against CPU mesh: y, dx and every expert and
+    router gradient within 1e-5·max + 1e-6.  The decode step's profile is
+    also summed by ``key_averages`` beside the one-pass sums.
+30. train_moe_ep — phase 27's ``train_moe`` under the mesh through
+    ``launch.train.run``: B8 (forward, remat, dx) and ``moe_dw_kernel``
+    launches each × 4 peers.
+31. qwen3_moe_ep_serve — phase 29 on qwen3-moe-235b-a22b at full width
+    (d_model 4 096, 128 experts, top-8, d_expert 1 536), cut to the
+    deepest stack whose reckoned f32 peak leaves 4 GiB free (the cut and
+    the full config's 94 layers printed).
+32. train_resume — whisper-base at full width and depth through
+    ``launch/train.py``'s CLI, f32: run A 4 steps (twice), run B 2 steps
+    with ``--ckpt-dir`` then 4 from it (resumed at 2); B's parameters and
+    optimizer state equal A's bit for bit (or, where A's two runs differ,
+    within that); checkpoint save and load seconds and bytes on disk;
+    ``launch/serve.py --ckpt-dir`` gives ``generate``'s greedy tokens on
+    B's parameters.
+33. the ``{"kernels": [...]}`` summary (``launches_by_path`` has every
     path above), then the final ``{"ok": true, ...}``.
+
+Every phase's line carries ``t_s``, the seconds since the start.
 """
 
 from __future__ import annotations
@@ -417,7 +453,14 @@ CARD_SPECS = {
     "H200": (4.8e12, {torch.float32: 67e12, torch.bfloat16: 989e12})}
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries ``t_s``, the seconds
+    since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1491,12 +1534,15 @@ def grads_close(got, want, what):
     return err
 
 
-def train_against_cpu(cfg, batch, cpu, n_micro=2):
+def train_against_cpu(cfg, batch, cpu, n_micro=2, meshes=None):
     """The loss and every gradient of ``batch`` under the trainer's
     parameters ``cpu`` (per-layer layout) on the card against the CPU,
     then one ``make_train_step`` step (``n_micro`` microbatches) on both
     from the same weights: (losses, largest gradient error, number of
-    gradients, largest parameter error after the step, lr)."""
+    gradients, largest parameter error after the step, lr).  ``meshes``
+    maps ``"cpu"`` and ``"cuda"`` to the mesh bound around each side's
+    forward and backward (none without it)."""
+    from repro_torch.distributed.sharding import use_mesh
     from repro_torch.models import lm
     from repro_torch.train import (OptimizerConfig, init_opt_state,
                                    make_train_step)
@@ -1508,10 +1554,11 @@ def train_against_cpu(cfg, batch, cpu, n_micro=2):
                               ("cuda", own(cpu, "cuda"), "cuda")):
         for _, t in named_leaves(params):
             t.requires_grad_(True)
-        loss, _ = lm.loss_fn(params, cfg, {k: v.to(dev) for k, v in
-                                           batch.items()},
-                             mlp_plan=lm.sparse_mlp_plan(params))
-        loss.backward()
+        with use_mesh((meshes or {}).get(dev)):
+            loss, _ = lm.loss_fn(params, cfg, {k: v.to(dev) for k, v in
+                                               batch.items()},
+                                 mlp_plan=lm.sparse_mlp_plan(params))
+            loss.backward()
         losses[name] = float(loss.detach())
         grads[name] = {k: t.grad.detach().cpu().clone()
                        for k, t in named_leaves(params)}
@@ -1527,8 +1574,9 @@ def train_against_cpu(cfg, batch, cpu, n_micro=2):
         params = tree_map(lambda t: t.detach().to(dev).clone(), cpu)
         step = make_train_step(cfg, ocfg, n_micro,
                                mlp_plan=lm.sparse_mlp_plan(params))
-        params, _, m = step(params, init_opt_state(ocfg, params),
-                            {k: v.to(dev) for k, v in batch.items()})
+        with use_mesh((meshes or {}).get(dev)):
+            params, _, m = step(params, init_opt_state(ocfg, params),
+                                {k: v.to(dev) for k, v in batch.items()})
         after[name] = {k: t.detach() for k, t in named_leaves(params)}
     lr = float(m["lr"])
     param_err = max(float((after["cuda"][k].cpu() - p).abs().max())
@@ -2800,8 +2848,8 @@ def moe_serve(card):
                             .manual_seed(SEED), device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    # the random init holds a stacked leaf twice (draw, then scale); the
-    # serving peak is read from here on
+    # the random init's peak (each stacked leaf drawn, then scaled in
+    # place); the serving peak is read from here on
     init_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     n_params = sum(t.numel() for _, t in named_leaves(params))
@@ -4220,18 +4268,21 @@ def train_families_reference():
     return {"phase": "train_families_reference", "models": out, "ok": True}
 
 
-def train_family(card, phase, arch, argv, cfg=None):
+def train_family(card, phase, arch, argv, cfg=None, mesh=None):
     """``launch/train.main`` on ``arch`` at full width and depth
-    (``TRAIN_FAMILY_ARGV``), or, given ``cfg`` (a depth cut),
-    ``launch/train.run`` on it with ``argv`` its keywords: every Maple
-    kernel's launches zeroed just before and read just after, against the
-    count the path implies (sparse MLP: ``train``'s formula; MoE: per
-    layer and microbatch 9 B8 launches, 3 forward, 3 recomputed, 3 dx,
-    and 3 ``moe_dw_kernel``; 0 otherwise, B9 among them: attention trains
-    on ``chunked_attention``); finite losses and grad norms; steps 2 and
-    3's wall, tokens/s, the peak GiB; one more step profiled."""
+    (``TRAIN_FAMILY_ARGV``), or, given ``cfg`` (a depth cut, or a config
+    run under ``mesh``), ``launch/train.run`` on it with ``argv`` its
+    keywords: every Maple kernel's launches zeroed just before and read
+    just after, against the count the path implies (sparse MLP:
+    ``train``'s formula; MoE: per layer and microbatch 9 B8 launches, 3
+    forward, 3 recomputed, 3 dx, and 3 ``moe_dw_kernel``, each once a
+    ``model`` peer of an expert-parallel ``mesh``; 0 otherwise, B9 among
+    them: attention trains on ``chunked_attention``); finite losses and
+    grad norms; steps 2 and 3's wall, tokens/s, the peak GiB; one more
+    step profiled (under ``mesh`` too)."""
     from repro_torch.configs import get_config
     from repro_torch.data import synth_batch
+    from repro_torch.distributed.sharding import use_mesh
     from repro_torch.launch import train as launch_train
     from repro_torch.models import lm
     from repro_torch.train.optimizer import named_leaves
@@ -4245,7 +4296,8 @@ def train_family(card, phase, arch, argv, cfg=None):
         argv = ["--arch", arch, *argv, *TRAIN_FAMILY_ARGV]
         run = launch_train.main(argv)
     else:
-        run = launch_train.run(cfg, **argv)
+        with use_mesh(mesh):
+            run = launch_train.run(cfg, **argv)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = {k: f.launches for k, f in fns.items()}
@@ -4258,8 +4310,9 @@ def train_family(card, phase, arch, argv, cfg=None):
     if plan is not None:
         add_sparse_train_launches(expect, cfg, plan, steps)
     if cfg.ffn_kind == "moe":
-        expect["moe_gemm"] = 3 * (3 if cfg.remat else 2) * per_layer
-        expect["moe_gemm_dw"] = 3 * per_layer
+        peers = ep_peers(mesh, cfg)
+        expect["moe_gemm"] = 3 * (3 if cfg.remat else 2) * per_layer * peers
+        expect["moe_gemm_dw"] = 3 * per_layer * peers
     if launches != expect:
         raise AssertionError(f"{phase}: kernel launches {launches}, "
                              f"expected {expect}")
@@ -4270,9 +4323,12 @@ def train_family(card, phase, arch, argv, cfg=None):
     step_ms = [rec["step_s"] * 1e3 for rec in run.history]
     batch = {k: v.cuda() for k, v in synth_batch(run.data, steps,
                                                  run.extra).items()}
-    prof = profile(lambda: run.step_fn(run.params, run.opt, batch),
-                   warmup=False, totals=("run_kernel", "sddmm_kernel",
-                                         "moe_kernel", "moe_dw_kernel"))
+    t0 = time.perf_counter()
+    with use_mesh(mesh):
+        prof = profile(lambda: run.step_fn(run.params, run.opt, batch),
+                       warmup=False, totals=("run_kernel", "sddmm_kernel",
+                                             "moe_kernel", "moe_dw_kernel"))
+    prof["profile_s"] = time.perf_counter() - t0
     line = {
         "phase": phase, "config": f"{arch}" + (" sparse_mlp (64,64) d=0.25"
                                                if cfg.sparse_mlp else "")
@@ -4511,13 +4567,514 @@ def moe_train_rows(spec, flush):
     return rows
 
 
-def profile(fn, warmup: bool = True, totals=()) -> dict:
+# --------------------------------------------------------------------------
+# phases 28 to 32: expert parallelism on one card's mesh; checkpoint and
+# resume
+# --------------------------------------------------------------------------
+
+# the expert-parallel phases' mesh: ("data", "model") = (1, 4), every
+# coordinate on the one card (granite: e_loc 12; qwen3-moe: e_loc 32); a
+# mesh of several cards is not run
+EP_MESH = (1, 4)
+EP_NOTE = ("one card's mesh: (data, model) = (1, 4) of 'cuda' entries, every "
+           "peer's work on the one card; a mesh of several cards is not run")
+QWEN3_MOE_ARCH = "qwen3-moe-235b-a22b"
+# qwen3-moe at full width, cut to the deepest stack whose reckoned f32
+# serving peak leaves EP_FREE of the card free
+EP_FREE = 4 * 2**30
+# whisper-base trained through the CLI for the resume check: run A 4 steps,
+# run B 2 steps with a checkpoint, then resumed to 4
+RESUME_ARCH = ENCDEC_ARCH
+RESUME_ARGV = ["--arch", RESUME_ARCH, "--seq-len", "256", "--global-batch",
+               "4", "--seed", str(SEED), "--device", "cuda"]
+RESUME_DIR = ROOT / "build" / "smoke_ckpt"
+# train_moe_ep's microbatch: 8 × 256 tokens in 8 microbatches
+EP_TRAIN_SEQ = 256
+
+
+def ep_mesh(device):
+    from repro_torch.launch.mesh import make_debug_mesh
+    return make_debug_mesh(EP_MESH, device=device)
+
+
+def ep_peers(mesh, cfg) -> int:
+    """B8 launches a product per MoE call: one a ``model`` peer where
+    ``cfg`` takes the expert-parallel path on ``mesh``, else one."""
+    if mesh is None or cfg.moe_impl != "ep_a2a":
+        return 1
+    return mesh.shape["model"]
+
+
+def moe_ep_reference():
+    """granite-moe-3b's smoke config with ``moe_impl="ep_a2a"`` at
+    capacity 1.25, the same weights under a card mesh and a CPU mesh of
+    the same shape: prefill logits within 1e-4, greedy tokens equal, and
+    one microbatch's loss and every gradient (``train_against_cpu``)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, synth_batch
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_dw
+    from repro_torch.models import lm
+    from repro_torch.models import moe as M
+    from repro_torch.serve import SamplingConfig, generate
+    from repro_torch.train.optimizer import tree_map
+    cfg = dataclasses.replace(get_smoke_config(MOE_ARCH),
+                              moe_impl="ep_a2a", moe_capacity_factor=1.25)
+    cpu = lm.init_params(cfg, torch.Generator().manual_seed(SEED),
+                         device="cpu")
+    gpu = tree_map(lambda t: t.cuda(), cpu)
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (3, 11)))
+    sampling = SamplingConfig(max_new_tokens=8)
+    with use_mesh(ep_mesh("cpu")):
+        tok_cpu, _ = generate(cpu, cfg, {"tokens": prompts}, sampling)
+        lg_cpu, _ = lm.prefill(cpu, cfg, {"tokens": prompts})
+    moe_gemm.launches = 0
+    with use_mesh(ep_mesh("cuda")):
+        tok_gpu, _ = generate(gpu, cfg, {"tokens": prompts.cuda()}, sampling)
+        lg_gpu, _ = lm.prefill(gpu, cfg, {"tokens": prompts.cuda()})
+        (_, _), (p0, h0) = layer0_moe_input(
+            lambda: lm.prefill(gpu, cfg, {"tokens": prompts.cuda()}))
+        drops = M.ep_dropped_slots(p0, lm._moe_cfg(cfg), h0)
+    launches = {"moe_gemm": moe_gemm.launches}
+    # generate's prefill and 8 decode steps, then two prefills
+    expect = 3 * EP_MESH[1] * cfg.n_layers * (1 + sampling.max_new_tokens + 2)
+    if launches["moe_gemm"] != expect:
+        raise AssertionError(f"moe_ep_reference: B8 {launches}, expected "
+                             f"{expect}")
+    err = float((lg_gpu.cpu() - lg_cpu).abs().max())
+    if not torch.allclose(lg_gpu.cpu(), lg_cpu, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"EP prefill logits, card against CPU: {err}")
+    if not torch.equal(tok_cpu, tok_gpu.cpu()):
+        raise AssertionError("EP greedy tokens, card against CPU, differ")
+    batch = synth_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                   global_batch=4, seed=SEED), 0, {})
+    moe_gemm.launches = moe_gemm_dw.launches = 0
+    losses, grad_err, n_grads, param_err, lr = train_against_cpu(
+        cfg, batch, lm.unstack_layers(cpu), n_micro=1,
+        meshes={"cpu": ep_mesh("cpu"), "cuda": ep_mesh("cuda")})
+    line = {"phase": "moe_ep_reference", "config": f"{MOE_ARCH} smoke, "
+            "moe_impl ep_a2a, capacity 1.25, f32", "mesh": EP_NOTE,
+            "prefill_max_abs_err": err, "greedy_tokens_equal": True,
+            "new_tokens": int(tok_gpu.shape[1]),
+            "layer0_prefill_dropped_slots": drops,
+            "train_microbatches": 1, "loss_cpu": losses["cpu"],
+            "loss_cuda": losses["cuda"], "grad_max_abs_err": grad_err,
+            "n_grads": n_grads, "param_max_abs_err_after_step": param_err,
+            "lr": lr, "train_launches": {"moe_gemm": moe_gemm.launches,
+                                         "moe_gemm_dw": moe_gemm_dw.launches},
+            "ok": True}
+    return launches, line
+
+
+def ep_drops_over_layers(fn):
+    """Run ``fn`` with ``moe.moe_layer_ep`` wrapped: what ``fn`` returns,
+    and the slots dropped at each level summed over every EP call."""
+    from repro_torch.models import moe as M
+    total = {"first_level": 0, "second_level": 0, "calls": 0}
+    ep = M.moe_layer_ep
+
+    def record(p, mcfg, x):
+        for k, v in M.ep_dropped_slots(p, mcfg, x).items():
+            total[k] += v
+        total["calls"] += 1
+        return ep(p, mcfg, x)
+    M.moe_layer_ep = record
+    try:
+        out = fn()
+    finally:
+        M.moe_layer_ep = ep
+    return out, total
+
+
+def ep_layer_checks(p0, h0, cfg):
+    """Layer 0's MoE on its prefill input: card EP against CPU EP on the
+    same input, then, at capacity 8.0 where neither path drops a slot, EP
+    against the sort path, each within 1e-5·max + 1e-6; then the forward
+    and backward at the training shapes (:func:`ep_train_shape_check`)."""
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.models import lm
+    from repro_torch.models import moe as M
+    mcfg = lm._moe_cfg(cfg)
+    with use_mesh(ep_mesh("cuda")):
+        card = M.moe_layer(p0, mcfg, h0)
+    with use_mesh(ep_mesh("cpu")):
+        cpu = M.moe_layer({k: v.cpu() for k, v in p0.items()}, mcfg,
+                          h0.cpu())
+    out = {"card_vs_cpu_max_abs_err": check_close(
+        card.cpu(), cpu, torch.float32, "layer-0 EP, card against CPU")}
+    wide = dataclasses.replace(mcfg, capacity_factor=8.0)
+    with use_mesh(ep_mesh("cuda")):
+        ep = M.moe_layer(p0, wide, h0)
+        drops = M.ep_dropped_slots(p0, wide, h0)
+    sort = M.moe_layer(p0, dataclasses.replace(wide, impl="gspmd"), h0)
+    xt = h0.reshape(-1, cfg.d_model)
+    kept = M.route(p0["router"], wide, xt, M._capacity(xt.shape[0], wide))
+    if any(drops.values()) or not bool(kept["keep"].all()):
+        raise AssertionError(f"capacity 8.0 drops slots: EP {drops}")
+    out["ep_vs_sort_cf8_max_abs_err"] = check_close(
+        ep, sort, torch.float32, "layer-0 EP against the sort path, cf 8")
+    out["train_shape"] = ep_train_shape_check(p0, h0, cfg)
+    return out
+
+
+def ep_train_shape_check(p0, h0, cfg):
+    """Layer 0's MoE forward and backward at ``train_moe_ep``'s shapes: a
+    1 × ``EP_TRAIN_SEQ`` microbatch (granite: e_loc 12, cap_exp 272 rows
+    a peer's expert) of the layer's prefill input, under the card mesh
+    and under a CPU mesh of the same shape, of the loss ``sum(y·R)``
+    (R drawn from the seed): y, dx and every expert and router gradient,
+    card against CPU, within 1e-5·max + 1e-6 (B8's forward, dx mode and
+    ``moe_dw_kernel`` against their plain versions in place)."""
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.models import lm
+    from repro_torch.models import moe as M
+    mcfg = lm._moe_cfg(cfg)
+    xt = h0.reshape(-1, cfg.d_model)
+    if xt.shape[0] < EP_TRAIN_SEQ:
+        raise AssertionError(f"the prefill has {xt.shape[0]} tokens, fewer "
+                             f"than a training microbatch's {EP_TRAIN_SEQ}")
+    x = xt[:EP_TRAIN_SEQ].reshape(1, EP_TRAIN_SEQ, cfg.d_model)
+    r = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        x.shape).astype(np.float32))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        p = {k: v.detach().to(dev).clone().requires_grad_(True)
+             for k, v in p0.items()}
+        xd = x.detach().to(dev).clone().requires_grad_(True)
+        with use_mesh(ep_mesh(dev)):
+            y = M.moe_layer(p, mcfg, xd)
+            drops = M.ep_dropped_slots(p, mcfg, xd.detach())
+        (y * r.to(dev)).sum().backward()
+        got[dev] = {"y": y.detach().cpu(), "dx": xd.grad.cpu(),
+                    **{"d" + k: t.grad.cpu() for k, t in p.items()}}
+        del p, xd, y
+    errs = {k: check_close(got["cuda"][k], want, torch.float32,
+                           f"EP train shape {k}, card against CPU")
+            for k, want in got["cpu"].items()}
+    return {"sizes": M.ep_sizes(ep_mesh("cpu"), mcfg, 1, EP_TRAIN_SEQ),
+            "dropped_slots": drops, "max_abs_err": errs,
+            "tolerance": "1e-5·max + 1e-6", "loss": "sum(y·R)"}
+
+
+def moe_ep_serve(card, arch=MOE_ARCH, phase="moe_ep_serve"):
+    """``generate`` on ``arch`` at full width (``EP_MESH``, its own config:
+    EP, capacity 1.25), f32, random weights from seed 0: 4 prompts, 16
+    greedy tokens; B8 launches zeroed just before and read just after,
+    3 products × 4 peers × layers a forward pass.  granite at full depth,
+    with layer 0 held card EP against CPU EP and, at capacity 8.0, EP
+    against the sort path; qwen3-moe at the depth of
+    :func:`qwen3_moe_config`.  Prints tokens/s, prefill and decode-step
+    wall and device ms (profiled), the peak GiB and the slots dropped at
+    each level over a prefill's layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.models import lm
+    from repro_torch.models import moe as M
+    from repro_torch.serve import SamplingConfig, generate
+    from repro_torch.train.optimizer import named_leaves
+    torch.cuda.empty_cache()
+    reckoned = None
+    if arch == QWEN3_MOE_ARCH:
+        cfg, reckoned = qwen3_moe_config()
+    else:
+        cfg = get_config(arch)
+    if cfg.moe_impl != "ep_a2a":
+        raise AssertionError(f"{arch} does not ask for expert parallelism")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(SEED), device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    init_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    n_params = sum(t.numel() for _, t in named_leaves(params))
+    rng = np.random.default_rng(SEED)
+    prompt_len = int(rng.integers(16, 129))
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (4, prompt_len))).cuda()}
+    new = 16
+    mesh = ep_mesh("cuda")
+    peers = ep_peers(mesh, cfg)
+    with use_mesh(mesh):
+        moe_gemm.launches = 0
+        t0 = time.perf_counter()
+        tokens, _ = generate(params, cfg, batch,
+                             SamplingConfig(max_new_tokens=new))
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = {"moe_gemm": moe_gemm.launches}
+        expect = {"moe_gemm": 3 * peers * cfg.n_layers * (1 + new)}
+        if launches != expect:
+            raise AssertionError(f"{phase}: B8 launches {launches}, "
+                                 f"expected {expect}")
+        if tokens.shape != (4, new) or not bool(
+                ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+            raise AssertionError(f"{phase}: generate returned "
+                                 f"{tuple(tokens.shape)} tokens outside the "
+                                 f"vocabulary")
+        max_seq = prompt_len + new
+        ((logits, state), (p0, h0)), drops = ep_drops_over_layers(
+            lambda: layer0_moe_input(lambda: lm.prefill(
+                params, cfg, batch, max_seq=max_seq)))
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{phase}: non-finite logits")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm.prefill(params, cfg, batch, max_seq=max_seq)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        step_tok = tokens[:, :1]
+        t0 = time.perf_counter()
+        for _ in range(4):
+            _, state = lm.decode_step(params, cfg, state, step_tok)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / 4
+        totals = ("moe_kernel",)
+        prof_prefill = profile(lambda: lm.prefill(params, cfg, batch,
+                                                  max_seq=max_seq),
+                               warmup=False, totals=totals)
+        prof_decode = profile(lambda: lm.decode_step(params, cfg, state,
+                                                     step_tok),
+                              totals=totals, cross_check=arch == MOE_ARCH)
+    z = M.ep_sizes(mesh, lm._moe_cfg(cfg), 4, prompt_len)
+    line = {
+        "phase": phase, "config": f"{arch}, its own config (moe_impl "
+        f"{cfg.moe_impl}, capacity {cfg.moe_capacity_factor}), f32, random "
+        f"weights from seed {SEED}", "mesh": EP_NOTE,
+        "n_layers": cfg.n_layers, "n_layers_full": get_config(arch).n_layers,
+        "depth_reduced": cfg.n_layers < get_config(arch).n_layers,
+        "reckoned": reckoned, "d_model": cfg.d_model,
+        "n_experts": cfg.n_experts, "n_experts_padded": cfg.n_experts_padded,
+        "top_k": cfg.top_k, "d_expert": cfg.d_expert, "e_loc": z["e_loc"],
+        "n_params": n_params, "batch": 4, "prompt_len": prompt_len,
+        "new_tokens": new, "prefill_sizes": z,
+        "decode_sizes": M.ep_sizes(mesh, lm._moe_cfg(cfg), 4, 1),
+        "prefill_dropped_slots": drops, "setup_s": setup_s,
+        "generate_s": gen_s, "generate_tok_per_s": 4 * new / gen_s,
+        "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+        "launches": launches, "launches_expected": expect, "card": card,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "init_peak_mem_gib": init_peak_gib,
+        "profile_prefill": prof_prefill, "profile_decode_step": prof_decode}
+    if arch == MOE_ARCH:
+        line["layer0_check"] = ep_layer_checks(p0, h0, cfg)
+    del params, state, logits, p0, h0
+    torch.cuda.empty_cache()
+    return launches, line
+
+
+def qwen3_moe_config():
+    """qwen3-moe-235b-a22b at full width (d_model 4 096, 128 experts,
+    top-8, d_expert 1 536) at the deepest stack whose reckoned f32 serving
+    peak leaves ``EP_FREE`` of the card's free memory: 4 bytes a parameter
+    (the init scales each leaf in place) and 1 GiB of activations, KV and
+    EP buffers; (config, reckoning)."""
+    from repro_torch.configs import get_config
+    full = get_config(QWEN3_MOE_ARCH)
+    free, total = torch.cuda.mem_get_info()
+    for n_layers in range(full.n_layers, 0, -1):
+        cfg = dataclasses.replace(full, n_layers=n_layers)
+        n = cfg.param_count()
+        peak = 4 * n + 2**30
+        if peak + EP_FREE <= free:
+            return cfg, {"n_layers": n_layers, "n_layers_full": full.n_layers,
+                         "params_reckoned": n,
+                         "peak_reckoned_gib": peak / 2**30,
+                         "free_before_gib": free / 2**30,
+                         "card_gib": total / 2**30}
+    raise AssertionError(f"not one layer of {QWEN3_MOE_ARCH} fits in "
+                         f"{free / 2**30:.1f} GiB free")
+
+
+def train_moe_ep(card):
+    """``train_family`` on granite-moe-3b at full width and depth, its own
+    config (EP, capacity 1.25), 8 × 256 tokens in its 8 microbatches, 3
+    steps through ``launch.train.run`` under ``EP_MESH``: B8 forward,
+    remat and dx, and ``moe_dw_kernel``, each × 4 peers.  The kernels are
+    held against their plain versions at these shapes by
+    :func:`ep_train_shape_check` (in ``moe_ep_serve``)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH)
+    launches, line = train_family(
+        card, "train_moe_ep", MOE_ARCH,
+        dict(steps=3, seq_len=EP_TRAIN_SEQ, global_batch=8, seed=SEED,
+             device="cuda"), cfg=cfg, mesh=ep_mesh("cuda"))
+    line.update(mesh=EP_NOTE, moe_impl=cfg.moe_impl,
+                capacity_factor=cfg.moe_capacity_factor,
+                kernels_held_at_these_shapes="moe_ep_serve: layer0_check."
+                "train_shape")
+    return launches, line
+
+
+def tree_max_diff(a, b) -> dict:
+    """Per leaf of two trees of tensors the largest |a - b| (as f64),
+    only where they differ."""
+    from repro_torch.train.optimizer import named_leaves
+    la, lb = dict(named_leaves(a)), dict(named_leaves(b))
+    if la.keys() != lb.keys():
+        raise AssertionError("the trees' leaves differ")
+    return {k: float((la[k].double() - lb[k].double()).abs().max())
+            for k in la if not torch.equal(la[k], lb[k])}
+
+
+def train_resume(card):
+    """whisper-base at full width and depth through ``launch/train.py``'s
+    CLI, f32, seed 0: run A, 4 steps (twice: is the step deterministic on
+    the card?); run B, 2 steps with ``--ckpt-dir``, then 4 from the same
+    directory, which resumes from 2.  B's parameters and optimizer state
+    against A's: bit for bit, or, where A's two runs differ, within that
+    difference.  Then ``launch/serve.py --ckpt-dir`` serves B's checkpoint:
+    the same greedy tokens as ``generate`` on B's parameters in memory.
+    Prints save and load seconds and bytes on disk."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.ft import checkpoint as ckpt
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import lm
+    from repro_torch.serve import SamplingConfig, generate
+    from repro_torch.train.optimizer import named_leaves
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    runs = [launch_train.main([*RESUME_ARGV, "--steps", "4"])
+            for _ in range(2)]
+    a_diff = {**tree_max_diff(runs[0].params, runs[1].params),
+              **tree_max_diff(runs[0].opt._asdict(), runs[1].opt._asdict())}
+    first = launch_train.main([*RESUME_ARGV, "--steps", "2", "--ckpt-dir",
+                               str(RESUME_DIR)])
+    if ckpt.latest_step(str(RESUME_DIR)) != 2:
+        raise AssertionError("run B saved no step-2 checkpoint")
+    resumed = launch_train.main([*RESUME_ARGV, "--steps", "4", "--ckpt-dir",
+                                 str(RESUME_DIR)])
+    if [r["step"] for r in resumed.history] != [2, 3]:
+        raise AssertionError(f"run B did not resume from step 2: "
+                             f"{[r['step'] for r in resumed.history]}")
+    b_diff = {**tree_max_diff(resumed.params, runs[0].params),
+              **tree_max_diff(resumed.opt._asdict(), runs[0].opt._asdict())}
+    if a_diff:
+        over = {k: v for k, v in b_diff.items() if v > a_diff.get(k, 0.0)}
+        if over:
+            raise AssertionError(f"resumed run B past run A's own spread: "
+                                 f"{dict(list(over.items())[:5])}")
+    elif b_diff:
+        raise AssertionError(f"resumed run B differs from run A: "
+                             f"{dict(list(b_diff.items())[:5])}")
+    state = {"params": resumed.params, "opt": resumed.opt}
+    timing_dir = RESUME_DIR / "timing"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ckpt.save(str(timing_dir), 4, state)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    t0 = time.perf_counter()
+    _, back = ckpt.load(str(timing_dir), state)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if tree_max_diff(back["params"], state["params"]):
+        raise AssertionError("a checkpoint load changed the parameters")
+    del back
+    shutil.rmtree(timing_dir)
+
+    new = 16
+    argv = ["--arch", RESUME_ARCH, "--batch", "4", "--prompt-len", "112",
+            "--max-new", str(new), "--seed", str(SEED), "--device", "cuda"]
+    served = launch_serve.main([*argv, "--ckpt-dir", str(RESUME_DIR)])
+    cfg = get_config(RESUME_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    lm.init_params(cfg, gen, device="cuda")     # the CLI's draws, in order
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 112),
+                                     generator=gen, device="cuda"),
+             "enc_frames": torch.randn((4, cfg.enc_seq, cfg.d_model),
+                                       generator=gen, device="cuda")}
+    with torch.no_grad():
+        want, _ = generate(lm.stack_layers(resumed.params), cfg, batch,
+                           SamplingConfig(max_new_tokens=new), gen)
+    if not torch.equal(served, want):
+        raise AssertionError("serve --ckpt-dir tokens differ from generate "
+                             "on the resumed parameters")
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    line = {"phase": "train_resume", "config": f"{RESUME_ARCH}, f32, "
+            f"AdamW, seed {SEED}, 4 x 256 tokens a step", "card": card,
+            "argv": RESUME_ARGV, "run_a_steps": 4,
+            "run_b": "--steps 2 --ckpt-dir D, then --steps 4 --ckpt-dir D",
+            "run_a_twice_max_diff": a_diff,
+            "bit_identical": not b_diff, "run_b_max_diff": b_diff,
+            "loss_a": [r["loss"] for r in runs[0].history],
+            "loss_b": [r["loss"] for r in first.history + resumed.history],
+            "n_params": sum(t.numel() for _, t in
+                            named_leaves(resumed.params)),
+            "checkpoint_bytes": nbytes, "save_s": save_s, "load_s": load_s,
+            "serve_ckpt_tokens_equal": True, "serve_new_tokens": new,
+            "ok": True}
+    del runs, first, resumed, state
+    torch.cuda.empty_cache()
+    return line
+
+
+def profile_events(events):
+    """The profiler's raw events, aggregated in one pass (``key_averages``
+    takes minutes over a train step's million events): device events by
+    name as [count, ns]; host events by name as [count, self ns], self
+    being an event's duration less its direct children's on its thread."""
+    import collections
+    dev = collections.defaultdict(lambda: [0, 0])
+    host = collections.defaultdict(lambda: [0, 0])
+    threads = collections.defaultdict(list)
+    for e in events:
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            row = dev[e.name()]
+            row[0] += 1
+            row[1] += e.duration_ns()
+        elif e.device_type() == torch.autograd.DeviceType.CPU:
+            threads[e.start_thread_id()].append(
+                (e.start_ns(), -e.duration_ns(), e.name()))
+    for evs in threads.values():
+        evs.sort()                      # by start, the enclosing one first
+        stack = []                      # [end, name, self ns]
+        for start, neg, name in evs:
+            while stack and stack[-1][0] <= start:
+                _, done, self_ns = stack.pop()
+                host[done][1] += self_ns
+            if stack:
+                stack[-1][2] += neg
+            host[name][0] += 1
+            stack.append([start - neg, name, -neg])
+        for _, done, self_ns in stack:
+            host[done][1] += self_ns
+    return dev, host
+
+
+def key_averages_check(prof, kernels, hosts) -> dict:
+    """``profile_events``' sums beside ``key_averages``' for the same
+    profile: device ms and launches over the CUDA entries, and each of the
+    top host operators' count and self ms."""
+    ka = prof.key_averages()
+    cuda = [e for e in ka
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_key = {e.key: e for e in ka}
+    return {
+        "device_ms": {"profile_events": sum(ns for _, (_, ns) in kernels)
+                      / 1e6, "key_averages": sum(
+                          e.self_device_time_total for e in cuda) / 1e3},
+        "launches": {"profile_events": sum(n for _, (n, _) in kernels),
+                     "key_averages": sum(e.count for e in cuda)},
+        "host_top": [{"op": k[:60], "count": [n, by_key[k].count
+                                              if k in by_key else None],
+                      "self_cpu_ms": [ns / 1e6, by_key[k].self_cpu_time_total
+                                      / 1e3 if k in by_key else None]}
+                     for k, (n, ns) in hosts[:8]]}
+
+
+def profile(fn, warmup: bool = True, totals=(), cross_check=False) -> dict:
     """One call of ``fn`` under torch.profiler (after one call outside it
     with ``warmup``): wall ms, the device time summed over kernels, the
     kernels that took the most of it, the device ms and launches of the
     kernels whose names contain each string of ``totals``, and the host
     operators with the most self time (inflated by the profiler's own
-    cost)."""
+    cost); with ``cross_check`` also :func:`key_averages_check`."""
     from torch.profiler import ProfilerActivity
     if warmup:
         fn()
@@ -4528,29 +5085,23 @@ def profile(fn, warmup: bool = True, totals=()) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA] or \
-        [e for e in events if e.self_device_time_total > 0]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    host = sorted((e for e in events
-                   if e.device_type == torch.autograd.DeviceType.CPU),
-                  key=lambda e: e.self_cpu_time_total, reverse=True)
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "launches": sum(e.count for e in kernels),
-            "totals": {sub: {"device_ms": sum(e.self_device_time_total
-                                              for e in kernels
-                                              if sub in e.key) / 1e3,
-                             "launches": sum(e.count for e in kernels
-                                             if sub in e.key)}
+    dev, host = profile_events(prof.profiler.kineto_results.events())
+    kernels = sorted(dev.items(), key=lambda kv: kv[1][1], reverse=True)
+    hosts = sorted(host.items(), key=lambda kv: kv[1][1], reverse=True)
+    checked = ({"key_averages_check": key_averages_check(prof, kernels, hosts)}
+               if cross_check else {})
+    return {**checked, "wall_ms": wall_ms,
+            "device_ms": sum(ns for _, (_, ns) in kernels) / 1e6,
+            "launches": sum(n for _, (n, _) in kernels),
+            "totals": {sub: {"device_ms": sum(ns for k, (_, ns) in kernels
+                                              if sub in k) / 1e6,
+                             "launches": sum(n for k, (n, _) in kernels
+                                             if sub in k)}
                        for sub in totals},
-            "top": [{"kernel": e.key[:80], "count": e.count,
-                     "device_ms": e.self_device_time_total / 1e3}
-                    for e in kernels[:8]],
-            "host_top": [{"op": e.key[:60], "count": e.count,
-                          "self_cpu_ms": e.self_cpu_time_total / 1e3}
-                         for e in host[:8]]}
+            "top": [{"kernel": k[:80], "count": n, "device_ms": ns / 1e6}
+                    for k, (n, ns) in kernels[:8]],
+            "host_top": [{"op": k[:60], "count": n, "self_cpu_ms": ns / 1e6}
+                         for k, (n, ns) in hosts[:8]]}
 
 
 def main() -> int:
@@ -4686,6 +5237,19 @@ def main() -> int:
     emit({"phase": "chunked_attention", "card": smi,
           "rows": chunked_attention_rows(spec, flush)})
     del flush
+    torch.cuda.empty_cache()
+
+    ep_launches = {}
+    ep_launches["moe_ep_reference"], line = moe_ep_reference()
+    emit(line)
+    ep_launches["moe_ep_serve"], line = moe_ep_serve(smi)
+    emit(line)
+    ep_launches["train_moe_ep"], line = train_moe_ep(smi)
+    emit(line)
+    ep_launches["qwen3_moe_ep_serve"], line = moe_ep_serve(
+        smi, QWEN3_MOE_ARCH, phase="qwen3_moe_ep_serve")
+    emit(line)
+    emit(train_resume(smi))
 
     # launches: each path's run, counted from 0
     by_path = {**serve_launches, "train": train_launches,
@@ -4698,7 +5262,7 @@ def main() -> int:
                "hybrid_batcher": hb_launches, **ssm_launches,
                "encdec_reference": encdec_ref_launches, **encdec_launches,
                "vlm_reference": vlm_ref_launches, **vlm_launches,
-               **family_launches}
+               **family_launches, **ep_launches}
     f32 = lambda n: lambda r: r["dtype"] == "float32" and r.get("N") == n
     headline = {"maple_spmm_naive": f32(1), "maple_spmm_compact": f32(1),
                 "maple_spmm_planned": f32(1),

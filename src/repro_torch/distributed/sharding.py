@@ -1,15 +1,19 @@
-"""The partitioned kernels' mesh (the partition part of
-``repro.distributed.sharding``): a bound-mesh context, the axis names, and
-``partition_mesh`` with the reference's resolution order and raises.
+"""The device mesh (the mesh part of ``repro.distributed.sharding``): a
+bound-mesh context, the axis names, and ``partition_mesh`` with the
+reference's resolution order and raises.
 
 The reference's mesh is a ``jax.sharding.Mesh`` over
 ``jax.local_devices()``, in one process.  The port's is one process too: a
-:class:`Mesh` is a ``(n_shards, n_col_shards)`` grid of ``torch.device`` s
-(one per ``(PARTITION_AXIS, COL_AXIS)`` coordinate), and the executors in
-``kernels.ops`` place each shard's work on its device and bring the
-results back.  There are no process groups: like the reference, nothing
-here needs ``torch.distributed``.  The logical-axis rules, ``shard`` and
-the parameter and state specs of the reference module are not ported yet.
+:class:`Mesh` is a grid of ``torch.device`` s with named axes, and the
+code that runs on it places each coordinate's work on that coordinate's
+device (:meth:`Mesh.device_at`) and brings the results back.  The
+partitioned Maple kernels (``kernels.ops``) take a ``(PARTITION_AXIS,
+COL_AXIS)`` grid; the expert-parallel MoE layer (``models.moe``) takes
+the production meshes' ``("data", "model")`` and ``("pod", "data",
+"model")`` grids (``launch.mesh``).  There are no process groups: like the
+reference, nothing here needs ``torch.distributed``.  The logical-axis
+rules, ``shard`` and the parameter and state specs of the reference
+module are not ported yet.
 """
 
 from __future__ import annotations
@@ -51,14 +55,40 @@ class Mesh:
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
 
+    def device_at(self, **coords: int) -> torch.device:
+        """The device at the named coordinates, e.g. ``device_at(data=1,
+        model=3)``: index 0 along every axis not named; an axis the mesh
+        lacks, or an index outside its axis, raises."""
+        idx = [0] * len(self.axis_names)
+        for axis, i in coords.items():
+            if axis not in self.axis_names:
+                raise KeyError(f"mesh axes {self.axis_names} have no "
+                               f"{axis!r}")
+            n = self.devices.shape[self.axis_names.index(axis)]
+            if not 0 <= i < n:
+                raise IndexError(f"{axis}={i} outside the mesh's {n}")
+            idx[self.axis_names.index(axis)] = i
+        return self.devices[tuple(idx)]
+
     def device(self, shard: int, col: int = 0) -> torch.device:
         """The device at ``shard`` along ``PARTITION_AXIS`` and ``col``
         along ``COL_AXIS`` (index 0 along any other axis)."""
-        idx = [0] * len(self.axis_names)
-        idx[self.axis_names.index(PARTITION_AXIS)] = shard
+        coords = {PARTITION_AXIS: shard}
         if col:
-            idx[self.axis_names.index(COL_AXIS)] = col
-        return self.devices[tuple(idx)]
+            coords[COL_AXIS] = col
+        return self.device_at(**coords)
+
+    def check_operands(self, *operands: torch.Tensor) -> None:
+        """Raise unless every device of the mesh has the operands' device
+        type: card tensors never send a coordinate's work to the CPU (nor
+        CPU tensors to a card)."""
+        types = {t.device.type for t in operands}
+        for dev in self.devices.reshape(-1):
+            if types != {dev.type}:
+                raise ValueError(
+                    f"the bound mesh holds {dev} but the operands are on "
+                    f"{sorted(types)}: a mesh runs its coordinates on "
+                    f"devices of the operands' type")
 
 
 class _Ctx(threading.local):
@@ -73,7 +103,10 @@ _ctx = _Ctx()
 @contextlib.contextmanager
 def use_mesh(mesh: Optional[Mesh]):
     """Bind ``mesh`` for the block (the reference's ``use_mesh_rules``,
-    reduced to the mesh: the logical-axis rules are not ported)."""
+    reduced to the mesh: the logical-axis rules are not ported).  Any
+    mesh binds; what reads it decides whether its axes apply
+    (``partition_mesh`` reuses one with a ``PARTITION_AXIS``, the MoE
+    layer takes expert parallelism on one with a ``"model"`` axis)."""
     prev = _ctx.mesh
     _ctx.mesh = mesh
     try:
@@ -84,6 +117,26 @@ def use_mesh(mesh: Optional[Mesh]):
 
 def active_mesh() -> Optional[Mesh]:
     return _ctx.mesh
+
+
+def recompute_context():
+    """A ``context_fn`` for ``torch.utils.checkpoint``: the forward runs
+    as it is; the recompute in the backward runs under the mesh and the
+    partition switch that were bound when the forward ran.  The binding
+    is per thread, and on CUDA the backward runs on autograd's own
+    thread, where a recompute would otherwise see no mesh and take
+    another path than the forward did."""
+    mesh, disabled = _ctx.mesh, _ctx.partition_disabled
+
+    @contextlib.contextmanager
+    def rebound():
+        prev = (_ctx.mesh, _ctx.partition_disabled)
+        _ctx.mesh, _ctx.partition_disabled = mesh, disabled
+        try:
+            yield
+        finally:
+            _ctx.mesh, _ctx.partition_disabled = prev
+    return contextlib.nullcontext(), rebound()
 
 
 def local_devices() -> List[torch.device]:

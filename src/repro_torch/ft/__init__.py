@@ -1,7 +1,8 @@
-"""Fault tolerance (port of ``repro.ft``): straggler detection.
-Checkpointing (``repro.ft.checkpoint``) is not ported yet."""
+"""Fault tolerance (port of ``repro.ft``): straggler detection and
+checkpointing with resume (``checkpoint``)."""
 
+from repro_torch.ft import checkpoint
 from repro_torch.ft.straggler import (StepTimer, StragglerConfig,
                                       StragglerMonitor)
 
-__all__ = ["StragglerConfig", "StragglerMonitor", "StepTimer"]
+__all__ = ["StragglerConfig", "StragglerMonitor", "StepTimer", "checkpoint"]

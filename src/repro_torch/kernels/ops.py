@@ -385,13 +385,7 @@ def _mesh_for(n_shards: int, n_col: int, *operands: torch.Tensor):
     send a shard's work to the CPU (nor CPU tensors to a card)."""
     mesh, _ = partition_mesh(n_shards, n_col)
     if mesh is not None:
-        types = {t.device.type for t in operands}
-        for dev in mesh.devices.reshape(-1):
-            if types != {dev.type}:
-                raise ValueError(
-                    f"the bound mesh holds {dev} but the operands are on "
-                    f"{sorted(types)}: a partitioned plan runs its shards "
-                    f"on devices of the operands' type")
+        mesh.check_operands(*operands)
     return mesh
 
 

@@ -1,9 +1,17 @@
 """Serving launcher: batched generation against a randomly initialised
-model — prefill + decode with sampling (port of ``repro.launch.serve``).
+or restored model — prefill + decode with sampling (port of
+``repro.launch.serve``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
-      --smoke --batch 4 --prompt-len 16 --max-new 32 --temperature 0.8
+      --smoke --batch 4 --prompt-len 16 --max-new 32 --temperature 0.8 \
+      [--ckpt-dir /tmp/ckpt]
+
+``--ckpt-dir`` loads ``{"params": …}`` from the directory's latest
+training checkpoint (``launch.train --ckpt-dir``).  The trainer saves its
+per-layer layout (``lm.unstack_layers``) and ``generate`` takes the
+stacked one, so the parameters are loaded into the per-layer layout and
+then stacked (``lm.stack_layers``).
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.ft import checkpoint as ckpt
 from repro_torch.models import lm
 from repro_torch.serve import SamplingConfig, generate
 
@@ -33,13 +42,15 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir: checkpoint loading is not "
-                                  "ported yet")
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = lm.init_params(cfg, gen, device=dev)
+    if args.ckpt_dir:
+        _, restored = ckpt.load(
+            args.ckpt_dir, {"params": lm.unstack_layers(params, copy=False)})
+        del params
+        params = lm.stack_layers(restored.pop("params"))
     batch = {"tokens": torch.randint(0, cfg.vocab_size,
                                      (args.batch, args.prompt_len),
                                      generator=gen, device=dev)}

@@ -7,18 +7,24 @@ them), with the config's two-level remat and gradient accumulator.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
-      --smoke --device cpu --steps 3 [--sparse-mlp]
+      --smoke --device cpu --steps 20 [--sparse-mlp] \
+      [--ckpt-dir /tmp/ckpt --ckpt-every 10]
   (--arch: any config, e.g. recurrentgemma-9b, qwen3-moe-235b-a22b,
   granite-moe-3b-a800m, mamba2-2.7b, whisper-base, internvl2-1b)
 
 A caller holding a :class:`ModelConfig` of its own (a depth cut, say)
 runs it through :func:`run`, which ``main`` calls after parsing.
 
-``--device`` (default ``cuda``) and ``--sparse-mlp`` (the config's
-block-sparse MLP down-projection, trained through the Maple kernels) are
-the port's own flags.  Checkpointing is not ported yet: ``--ckpt-dir``
-raises and the reference's ``--ckpt-every`` is not accepted, so this
-launcher keeps no checkpoint.
+With ``--ckpt-dir`` the run resumes from the directory's latest
+checkpoint (``ft.checkpoint``), saves ``{"params", "opt"}`` (parameters in
+the trainer's per-layer layout) every ``--ckpt-every`` steps and at the
+last, and keeps the newest 3, as the reference's launcher does; a resumed
+run continues the same per-step data, so it ends where an uninterrupted
+one does.  ``--device`` (default ``cuda``) and ``--sparse-mlp`` (the
+config's block-sparse MLP down-projection, trained through the Maple
+kernels) are the port's own flags.  A caller that binds a mesh
+(``distributed.sharding.use_mesh``) around :func:`run` trains an
+``moe_impl="ep_a2a"`` config on the expert-parallel path.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import ARCHS, ModelConfig, get_config, \
     get_smoke_config
 from repro_torch.data import DataConfig, synth_batch
+from repro_torch.ft import checkpoint as ckpt
 from repro_torch.ft.straggler import StepTimer, StragglerMonitor
 from repro_torch.models import lm
 from repro_torch.train import OptimizerConfig, init_opt_state, make_train_step
@@ -57,11 +64,14 @@ class TrainRun:
 
 def run(cfg: ModelConfig, *, steps: int = 20, seq_len: int = 64,
         global_batch: int = 4, micro_batches=None, lr: float = 3e-3,
-        seed: int = 0, device="cuda") -> TrainRun:
-    """Train ``cfg`` for ``steps`` AdamW steps on ``synth_batch`` data of
-    ``global_batch`` sequences of ``seq_len`` tokens (``micro_batches``:
+        seed: int = 0, device="cuda", ckpt_dir=None,
+        ckpt_every: int = 50) -> TrainRun:
+    """Train ``cfg`` up to step ``steps`` with AdamW on ``synth_batch`` data
+    of ``global_batch`` sequences of ``seq_len`` tokens (``micro_batches``:
     the config's own when None), parameters drawn from ``seed`` on
-    ``device``; prints every fifth step's loss."""
+    ``device``; prints every fifth step's loss.  With ``ckpt_dir``: resume
+    from its latest checkpoint, save every ``ckpt_every`` steps and at the
+    last, keep the newest 3."""
     dev = resolve_device(device)
     ocfg = OptimizerConfig(peak_lr=lr, warmup_steps=5,
                            total_steps=max(steps, 10))
@@ -76,15 +86,22 @@ def run(cfg: ModelConfig, *, steps: int = 20, seq_len: int = 64,
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = lm.unstack_layers(lm.init_params(cfg, gen, device=dev))
     opt = init_opt_state(ocfg, params)
-    # sparse-MLP configs: one host-side pass over the shared pattern; every
-    # step reuses the forward + transpose-side plan (None when dense)
+    start = 0
+    if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
+        start, restored = ckpt.load(ckpt_dir, {"params": params, "opt": opt})
+        params, opt = restored["params"], restored["opt"]
+        del restored
+        print(f"resumed from step {start}")
+    # sparse-MLP configs: one host-side pass over the shared pattern (of
+    # the restored parameters); every step reuses the forward +
+    # transpose-side plan (None when dense)
     step_fn = make_train_step(cfg, ocfg, micro_batches,
                               mlp_plan=lm.sparse_mlp_plan(params))
     monitor = StragglerMonitor()
     host = "host0"
     history: List[Dict[str, float]] = []
 
-    for step in range(steps):
+    for step in range(start, steps):
         batch = {k: v.to(dev)
                  for k, v in synth_batch(dcfg, step, extra).items()}
         with StepTimer(monitor, host):
@@ -102,6 +119,12 @@ def run(cfg: ModelConfig, *, steps: int = 20, seq_len: int = 64,
             print(f"step {step:5d} loss={rec['loss']:.4f} "
                   f"gnorm={rec['grad_norm']:.3f} lr={rec['lr']:.2e}",
                   flush=True)
+        if ckpt_dir and ((step + 1) % ckpt_every == 0
+                         or step == steps - 1):
+            path = ckpt.save(ckpt_dir, step + 1,
+                             {"params": params, "opt": opt})
+            ckpt.garbage_collect(ckpt_dir, keep=3)
+            print(f"checkpointed → {path}", flush=True)
     return TrainRun(cfg=cfg, params=params, opt=opt, step_fn=step_fn,
                     data=dcfg, extra=extra, device=dev, history=history)
 
@@ -119,20 +142,19 @@ def main(argv=None) -> TrainRun:
     ap.add_argument("--micro-batches", type=int, default=None)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir: checkpointing "
-                                  "(repro.ft.checkpoint) is not ported yet")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.sparse_mlp:
         cfg = dataclasses.replace(cfg, sparse_mlp=True)
     return run(cfg, steps=args.steps, seq_len=args.seq_len,
                global_batch=args.global_batch,
                micro_batches=args.micro_batches, lr=args.lr, seed=args.seed,
-               device=args.device)
+               device=args.device, ckpt_dir=args.ckpt_dir,
+               ckpt_every=args.ckpt_every)
 
 
 if __name__ == "__main__":

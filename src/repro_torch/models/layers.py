@@ -41,8 +41,9 @@ from repro_torch.kernels.ops import maple_spmm
 def dense_init(generator: torch.Generator, shape, in_axis_size: int,
                dtype=torch.float32) -> torch.Tensor:
     scale = 1.0 / math.sqrt(max(in_axis_size, 1))
-    return (torch.randn(tuple(shape), generator=generator,
-                        device=generator.device) * scale).to(dtype)
+    # scaled in place: a stacked leaf is held once, not twice, at init
+    return torch.randn(tuple(shape), generator=generator,
+                       device=generator.device).mul_(scale).to(dtype)
 
 
 def _rms_norm_math(x, weight, eps):

@@ -32,7 +32,8 @@ The trainer holds the same tree with ``groups["b<i>"]`` as a list of
 per-layer subtrees instead (:func:`unstack_layers`), each leaf a tensor
 of its own: autograd then gives each layer its own gradient, where
 indexing a stacked leaf would allocate a zero tensor as large as the
-stack per layer in the backward (the encoder's stack as well).
+stack per layer in the backward (the encoder's stack as well);
+:func:`stack_layers` goes back (a training checkpoint served).
 ``forward`` and ``loss_fn`` take that layout and train every family:
 the encoder and its cross-attentions, the vision prefix (whose positions
 carry no loss), the MoE layer on B8's forward and backward, the SSD and
@@ -48,12 +49,14 @@ import dataclasses
 import math
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.csr import BlockCSR
+from repro_torch.distributed.sharding import recompute_context
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
@@ -152,14 +155,16 @@ def _blocks(params, caches, cfg: ModelConfig):
                 yield kind, per[i][li], _layer(caches[key][f"b{i}"], li)
 
 
-def unstack_layers(params):
+def unstack_layers(params, *, copy: bool = True):
     """The trainer's layout: each stacked group becomes a list of
     per-layer subtrees whose leaves are tensors of their own (copies; a
-    sparse weight keeps its one host pattern).  Other leaves are shared
-    with ``params``."""
+    sparse weight keeps its one host pattern), or views of the stack
+    without ``copy``.  Other leaves are shared with ``params``."""
     def own(t):
         if isinstance(t, dict):
             return {k: own(v) for k, v in t.items()}
+        if not copy:
+            return t
         if isinstance(t, BlockCSR):
             return dataclasses.replace(t, blocks=t.blocks.clone())
         return t.clone()
@@ -175,6 +180,38 @@ def unstack_layers(params):
     if "encoder" in params:
         out["encoder"] = dict(params["encoder"],
                               groups=per_layer(params["encoder"]["groups"]))
+    return out
+
+
+def stack_layers(params):
+    """The serving layout from the trainer's (:func:`unstack_layers`'s
+    inverse): each group's per-layer list stacked along a new leading
+    axis; a sparse weight's layers must share one pattern."""
+    def stack(layers):
+        first = layers[0]
+        if isinstance(first, dict):
+            return {k: stack([l[k] for l in layers]) for k in first}
+        if isinstance(first, BlockCSR):
+            for l in layers[1:]:
+                if not all(np.array_equal(getattr(l, f), getattr(first, f))
+                           for f in ("block_col", "block_row", "row_ptr")):
+                    raise ValueError("stacked sparse layers must share one "
+                                     "pattern")
+            return dataclasses.replace(
+                first, blocks=torch.stack([l.blocks for l in layers]),
+                device_meta={})
+        return torch.stack(layers)
+
+    def per_group(groups):
+        return {name: stack(layers) for name, layers in groups.items()}
+
+    out = dict(params)
+    for key in ("groups", "tail"):
+        if key in params:
+            out[key] = per_group(params[key])
+    if "encoder" in params:
+        out["encoder"] = dict(params["encoder"],
+                              groups=per_group(params["encoder"]["groups"]))
     return out
 
 
@@ -347,10 +384,12 @@ def _run_block(p, cfg: ModelConfig, kind: str, x, positions, rope,
                enc_out, mlp_plan, remat: bool):
     """:func:`_apply_block`, under ``torch.utils.checkpoint`` with
     ``remat`` (non-reentrant: only the block's inputs are saved, the
-    reference's ``nothing_saveable`` policy)."""
+    reference's ``nothing_saveable`` policy; the recompute under the mesh
+    bound at the forward)."""
     if remat:
         return checkpoint(_apply_block, p, cfg, kind, x, positions, rope,
-                          enc_out, mlp_plan, use_reentrant=False)
+                          enc_out, mlp_plan, use_reentrant=False,
+                          context_fn=recompute_context)
     return _apply_block(p, cfg, kind, x, positions, rope, enc_out, mlp_plan)
 
 
@@ -408,7 +447,8 @@ def forward(params, cfg: ModelConfig, batch, *, remat: bool = True,
             for c0 in range(0, count, chunk):
                 x = checkpoint(_run_groups, groups[c0:c0 + chunk], kinds,
                                cfg, x, positions, rope, enc_out, mlp_plan,
-                               True, use_reentrant=False)
+                               True, use_reentrant=False,
+                               context_fn=recompute_context)
         else:
             x = _run_groups(groups, kinds, cfg, x, positions, rope, enc_out,
                             mlp_plan, remat)

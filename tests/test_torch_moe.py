@@ -30,6 +30,7 @@ from repro.models import moe as RM
 from repro.serve import engine as ref_engine
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import params_from_numpy
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import moe_expert_gemm
 from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain
 from repro_torch.kernels.ops import expert_of_tile
@@ -212,15 +213,22 @@ def test_moe_layer_matches_reference(case):
 
 
 def test_moe_layer_ep_without_a_mesh_is_the_sort_path():
+    """The dispatch reads the bound mesh, as the reference's: no mesh, the
+    sort path; a mesh with a ``model`` axis, the EP path for
+    ``impl="ep_a2a"`` only (``test_torch_moe_ep`` holds that path)."""
+    from repro_torch.launch.mesh import make_debug_mesh
     fields, (b, s) = MOE_CASES["smoke"]
     cfg = M.MoEConfig(**fields)
     ep = dataclasses.replace(cfg, impl="ep_a2a")
     p = M.init_moe(torch.Generator().manual_seed(0), cfg)
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (b, s, cfg.d_model)).astype(np.float32))
-    assert torch.equal(M.moe_layer(p, ep, x), M.moe_layer(p, cfg, x))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        M.moe_layer(p, ep, x, mesh=object())
+    sort = M.moe_layer(p, cfg, x)
+    assert torch.equal(M.moe_layer(p, ep, x), sort)
+    with sh.use_mesh(make_debug_mesh((1, 4), device="cpu")):
+        assert M._ep_applicable(ep)
+        assert torch.equal(M.moe_layer(p, cfg, x), sort)
+        assert torch.equal(M.moe_layer(p, ep, x), M.moe_layer_ep(p, ep, x))
 
 
 def test_moe_layer_is_deterministic_and_matches_a_per_token_loop():

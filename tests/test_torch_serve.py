@@ -244,14 +244,32 @@ def test_planned_head_launch_counter_stays_zero_on_cpu(models):
             maple_spmm_planned.launches) == before
 
 
-def test_serve_cli_runs_on_cpu_and_refuses_checkpoints(capsys):
+def test_serve_cli_runs_on_cpu_and_refuses_checkpoints(capsys, tmp_path):
+    """The serving CLI on random weights, then with ``--ckpt-dir`` on a
+    training checkpoint: the trainer's parameters are served (its
+    per-layer layout loaded, then stacked) and give ``generate``'s greedy
+    tokens on them; another model's checkpoint is refused."""
     from repro_torch.launch.serve import main
-    tokens = main(["--arch", "qwen3-4b", "--smoke", "--device", "cpu",
-                   "--batch", "2", "--prompt-len", "5", "--max-new", "3"])
+    from repro_torch.launch.train import main as train_main
+    args = ["--arch", "qwen3-4b", "--smoke", "--device", "cpu",
+            "--batch", "2", "--prompt-len", "5", "--max-new", "3"]
+    tokens = main(args)
     assert tokens.shape == (2, 3) and "on cpu" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(["--arch", "qwen3-4b", "--smoke", "--device", "cpu",
-              "--ckpt-dir", "x"])
+    run = train_main(["--arch", "qwen3-4b", "--smoke", "--device", "cpu",
+                      "--steps", "2", "--ckpt-dir", str(tmp_path)])
+    served = main([*args, "--ckpt-dir", str(tmp_path)])
+    cfg = run.cfg
+    gen = torch.Generator().manual_seed(0)
+    lm.init_params(cfg, gen, device="cpu")       # the CLI's draws, in order
+    prompts = torch.randint(0, cfg.vocab_size, (2, 5), generator=gen)
+    with torch.no_grad():
+        want, _ = generate(lm.stack_layers(run.params), cfg,
+                           {"tokens": prompts},
+                           SamplingConfig(max_new_tokens=3), gen)
+    assert torch.equal(served, want) and not torch.equal(served, tokens)
+    with pytest.raises(KeyError, match="missing leaf"):
+        main(["--arch", "qwen2-7b", "--smoke", "--device", "cpu",
+              "--ckpt-dir", str(tmp_path)])
 
 
 def test_unported_families_and_converter_misuse_raise():

@@ -13,6 +13,7 @@ Parameters are initialised by the reference and carried across with
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -365,7 +366,8 @@ def test_train_refuses_what_is_not_ported(smoke):
 
 @pytest.mark.parametrize("extra", [[], ["--sparse-mlp", "--micro-batches",
                                         "2"]])
-def test_train_cli_runs_on_cpu(capsys, extra):
+def test_train_cli_runs_on_cpu(capsys, extra, tmp_path):
+    from repro_torch.ft import checkpoint as ckpt
     from repro_torch.launch.train import main
     run = main(["--arch", "qwen3-4b", "--smoke", "--device", "cpu",
                 "--steps", "3", *extra])
@@ -375,6 +377,18 @@ def test_train_cli_runs_on_cpu(capsys, extra):
     assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
                for r in run.history)
     assert run.cfg.sparse_mlp == bool(extra)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(["--arch", "qwen3-4b", "--smoke", "--device", "cpu",
-              "--ckpt-dir", "x"])
+    # --ckpt-dir / --ckpt-every: a save every 2 steps and at the last,
+    # then a resume that runs only the steps still to go
+    flags = ["--arch", "qwen3-4b", "--smoke", "--device", "cpu",
+             "--ckpt-dir", str(tmp_path), "--ckpt-every", "2", *extra]
+    main([*flags, "--steps", "3"])
+    out = capsys.readouterr().out
+    assert out.count("checkpointed → ") == 2 and "resumed" not in out
+    assert ckpt.latest_step(str(tmp_path)) == 3
+    assert sorted(os.listdir(tmp_path)) == ["step_00000002",
+                                            "step_00000003"]
+    resumed = main([*flags, "--steps", "4"])
+    out = capsys.readouterr().out
+    assert "resumed from step 3" in out and "step     3 loss=" in out
+    assert [r["step"] for r in resumed.history] == [3]
+    assert int(resumed.opt.step) == 4
