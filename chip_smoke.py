@@ -339,7 +339,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
     within that); checkpoint save and load seconds and bytes on disk;
     ``launch/serve.py --ckpt-dir`` gives ``generate``'s greedy tokens on
     B's parameters.
-33. the ``{"kernels": [...]}`` summary (``launches_by_path`` has every
+33. pipeline — GPipe ``pipeline_apply`` on one card's ``("pod",)`` mesh of
+    4 ``"cuda"`` entries: first the qwen3-4b smoke config (8 layers, a
+    sparse MLP at (8, 8)) card mesh against a CPU mesh (output and every
+    gradient within 1e-4·max + 1e-6); then qwen3-4b at full width and
+    depth (36 layers, f32, the train phase's sparse MLP), 4 microbatches
+    of a 4 × 256 batch, each stage's 9 blocks by ``lm.apply_layers``: the
+    output and the gradients of ``sum(y·R)`` against the same blocks run
+    in order on each microbatch and against the whole batch through them
+    at once, within 1e-5·max + 1e-6; B4 and B2 launches exactly as the
+    stage calls give them; wall ms, a profiled forward + backward's device
+    ms beside the train phase's step, peak GiB.
+34. dryrun — ``repro_torch.launch.dryrun`` over every arch × shape on
+    both production meshes, walked on ``meta`` by worker processes (host
+    only): each cell's status, GiB per chip, dominant term and step time,
+    the host seconds; a ``FAILED`` cell fails the phase.  Meanwhile dense
+    qwen3-4b, bf16 parameters, on a (1, 1) mesh: a train step (4 × 256 in
+    4 microbatches) and a decode step (4 × 4 096) walked on ``meta`` and
+    on the card with equal FLOPs, bytes, dot FLOPs and ops; the reckoned
+    memory against ``max_memory_allocated`` and the roofline step time
+    against the measured device ms, as ratios (recorded, not gated).
+35. the ``{"kernels": [...]}`` summary (``launches_by_path`` has every
     path above), then the final ``{"ok": true, ...}``.
 
 Every phase's line carries ``t_s``, the seconds since the start.
@@ -5014,6 +5034,315 @@ def train_resume(card):
     return line
 
 
+# --------------------------------------------------------------------------
+# phase 33: the GPipe pipeline on one card's pod mesh
+# --------------------------------------------------------------------------
+
+# qwen3-4b at full width and depth with the train phase's sparse MLP,
+# pipelined over 4 stages of 9 blocks, 4 microbatches of a 4 × 256 batch
+PIPE_STAGES, PIPE_MICRO, PIPE_BATCH, PIPE_SEQ = 4, 4, 4, 256
+
+
+def error_and_share(got, want):
+    """max|got - want| and its share of the 1e-5·max|want| + 1e-6 limit
+    (the kernels' f32 rule)."""
+    err = float((got.float() - want.float().to(got.device)).abs().max())
+    return err, err / (1e-5 * float(want.float().abs().max()) + 1e-6)
+
+
+def close_within(got, want, what):
+    """Within 1e-5·max|want| + 1e-6; returns the error and its share of
+    the limit."""
+    err, part = error_and_share(got, want)
+    if not part <= 1.0:
+        raise AssertionError(f"{what}: max|got - want| = {err} is {part} "
+                             f"of the limit 1e-5·max|want| + 1e-6")
+    return err, part
+
+
+def pipe_grads(layers, fn, x, r):
+    """``fn(x)`` and the gradients of ``sum(fn(x)·r)`` for every leaf of
+    ``layers`` (the leaves' ``.grad`` cleared after) and for x."""
+    from repro_torch.train.optimizer import named_leaves
+    leaves = [t for _, t in named_leaves(layers)]
+    for t in leaves:
+        t.requires_grad_(True)
+        t.grad = None
+    xg = x.detach().clone().requires_grad_(True)
+    y = fn(xg)
+    (y * r).sum().backward()
+    grads = [t.grad for t in leaves]
+    for t in leaves:
+        t.grad = None
+    return y.detach(), grads, xg.grad
+
+
+def pipe_stage_fn(cfg, plan):
+    from repro_torch.models import lm
+    return lambda stage, h: lm.apply_layers(stage, cfg, h, mlp_plan=plan)
+
+
+def pipeline_smoke_against_cpu():
+    """The qwen3-4b smoke config (8 layers, sparse MLP at (8, 8)) through
+    ``pipeline_apply`` over (4,) pod meshes of ``"cuda"`` and of
+    ``"cpu"`` entries: output and every gradient card against CPU within
+    1e-4·max + 1e-6."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_smoke_config("qwen3-4b"), n_layers=8,
+                              sparse_mlp=True, sparse_block=(8, 8))
+    cpu = lm.unstack_layers(lm.init_params(
+        cfg, torch.Generator().manual_seed(SEED), device="cpu"))["groups"][
+            "b0"]
+    card = [cuda_tree(layer) for layer in cpu]
+    g = torch.Generator().manual_seed(SEED + 1)
+    x = torch.randn((4, 16, cfg.d_model), generator=g)
+    r = torch.randn(x.shape, generator=g)
+    out = {}
+    for dev, layers in (("cpu", cpu), ("cuda", card)):
+        mesh = make_debug_mesh((PIPE_STAGES,), ("pod",), device=dev)
+        fn = pipe_stage_fn(cfg, lm.sparse_mlp_plan(layers))
+        out[dev] = pipe_grads(
+            layers, lambda h: pipeline_apply(fn, mesh, PIPE_MICRO, layers,
+                                             h), x.to(dev), r.to(dev))
+    y_err = grads_close(out["cuda"][0], out["cpu"][0], "smoke output")
+    g_err = max(grads_close(a, b, f"smoke grad {i}") for i, (a, b) in
+                enumerate(zip(out["cuda"][1], out["cpu"][1])))
+    return {"config": "qwen3-4b smoke, 8 layers, sparse_mlp (8,8), "
+            "4 x 16 tokens", "y_max_abs_err": y_err,
+            "grad_max_abs_err": g_err,
+            "dx_max_abs_err": grads_close(out["cuda"][2], out["cpu"][2],
+                                          "smoke dx")}
+
+
+def pipeline_phase(card, train_device_ms):
+    """qwen3-4b at full width and depth (36 layers, f32, the train phase's
+    sparse MLP) through ``pipeline_apply`` over one card's ``("pod",)``
+    mesh of 4, 4 microbatches of a 4 × 256 batch of embedded tokens, each
+    stage's 9 blocks by ``lm.apply_layers`` (remat per block) on the
+    shared MLP plan; the gradients of ``sum(y·R)`` for a fixed R.  Held
+    against the same blocks run in order on each microbatch: y, dx and
+    every gradient within 1e-5·max + 1e-6, and the same against the whole
+    batch through the blocks at once.  Launches zeroed just before the
+    pipelined forward and backward and read just after: per block and microbatch the MLP
+    forward and its recompute in the forward plan's layout, dB in the
+    transpose-side plan's, dA on B2."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.kernels.maple_sddmm import maple_sddmm_bsr
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import named_leaves
+    smoke = pipeline_smoke_against_cpu()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("qwen3-4b"), sparse_mlp=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = lm.init_params(cfg, gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (PIPE_BATCH, PIPE_SEQ),
+                           generator=gen, device="cuda")
+    x = params["embed_tokens"][tokens]
+    layers = lm.unstack_layers({"groups": params["groups"]})["groups"]["b0"]
+    del params
+    torch.cuda.empty_cache()
+    r = torch.randn(x.shape, generator=gen, device="cuda")
+    plan = lm.sparse_mlp_plan(layers)
+    stage_fn = pipe_stage_fn(cfg, plan)
+    mesh = make_debug_mesh((PIPE_STAGES,), ("pod",), device="cuda")
+    piped = lambda h: pipeline_apply(stage_fn, mesh, PIPE_MICRO, layers, h)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_spmm_counters()
+    maple_sddmm_bsr.launches = 0
+    t0 = time.perf_counter()
+    y_pipe, g_pipe, dx_pipe = pipe_grads(layers, piped, x, r)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {**spmm_counters(),
+                "maple_sddmm_bsr": maple_sddmm_bsr.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    blocks = PIPE_MICRO * cfg.n_layers      # P·M stage calls of L/P blocks
+    expect = {"maple_spmm_naive": 0, "maple_spmm_compact": 0,
+              "maple_spmm_planned": 0, "maple_sddmm_bsr": blocks}
+    expect[PLANNED[plan.fwd.fused]] += 2 * blocks
+    expect[PLANNED[plan.bwd.fused]] += blocks
+    if launches != expect:
+        raise AssertionError(f"pipeline launches {launches}, expected "
+                             f"{expect}")
+
+    # the same blocks in order, microbatch by microbatch (the products
+    # at the pipeline's shapes, so on the same kernels)
+    sequential = lambda h: torch.cat(
+        [stage_fn(layers, mb) for mb in h.chunk(PIPE_MICRO)])
+    y_seq, g_seq, dx_seq = pipe_grads(layers, sequential, x, r)
+    y_err = close_within(y_pipe, y_seq, "pipelined output")
+    dx_err = close_within(dx_pipe, dx_seq, "pipelined dx")
+    g_errs = [close_within(a, b, f"pipelined grad {i}")
+              for i, (a, b) in enumerate(zip(g_pipe, g_seq))]
+    del g_seq, y_seq, dx_seq
+    # and the whole batch through the blocks at once, whose products run
+    # at 4× the rows on other GEMM tiles: within the same limit
+    y_all, g_all, dx_all = pipe_grads(layers,
+                                      lambda h: stage_fn(layers, h), x, r)
+    whole = [close_within(y_pipe, y_all, "pipelined output, whole batch"),
+             close_within(dx_pipe, dx_all, "pipelined dx, whole batch")] + [
+        close_within(a, b, f"pipelined grad {i}, whole batch")
+        for i, (a, b) in enumerate(zip(g_pipe, g_all))]
+    del y_all, g_all, dx_all
+
+    leaves = [t for _, t in named_leaves(layers)]
+
+    def fwd_bwd():
+        (piped(x) * r).sum().backward()
+        for t in leaves:
+            t.grad = None
+    prof = profile(fwd_bwd, warmup=False,
+                   totals=("run_kernel", "sddmm_kernel"))
+    line = {"phase": "pipeline", "config": "qwen3-4b sparse_mlp (64,64) "
+            "d=0.25, f32, remat per block", "n_layers": cfg.n_layers,
+            "depth_reduced": False, "mesh": {"pod": PIPE_STAGES},
+            "devices": "one card at every coordinate",
+            "microbatches": PIPE_MICRO, "tokens": [PIPE_BATCH, PIPE_SEQ],
+            "stage_calls": PIPE_STAGES * PIPE_MICRO,
+            "launches": launches, "launches_expected": expect,
+            "plan_fused": [plan.fwd.fused, plan.bwd.fused],
+            "y_max_abs_err": y_err[0], "dx_max_abs_err": dx_err[0],
+            "grad_max_abs_err": max(e for e, _ in g_errs),
+            "worst_share_of_limit": max([y_err[1], dx_err[1]]
+                                        + [s for _, s in g_errs]),
+            "whole_batch_max_abs_err": max(e for e, _ in whole),
+            "whole_batch_worst_share": max(p for _, p in whole),
+            "n_grads": len(g_errs), "wall_ms": wall_ms,
+            "device_ms": prof["device_ms"],
+            "train_step_device_ms": train_device_ms,
+            "peak_mem_gib": peak_gib, "smoke_card_vs_cpu": smoke,
+            "card": card, "profile": prof}
+    del layers, leaves, g_pipe, x, r
+    torch.cuda.empty_cache()
+    return launches, line
+
+
+# --------------------------------------------------------------------------
+# phase 34: the dry run over the grid, and its walk tied to the card
+# --------------------------------------------------------------------------
+
+def dryrun_tie(card):
+    """Dense qwen3-4b with bf16 parameters on a (1, 1) mesh at shapes one
+    card holds: the walker's counts of each step on ``meta`` against its
+    counts of the same step on the card (equal: one op stream), then the
+    reckoned memory and roofline step time (``dryrun.cell_report`` on the
+    (1, 1) mesh) against the card's peak bytes and device ms, as ratios
+    (recorded, not gated)."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.distributed.sharding import use_mesh_rules
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    import repro_torch.roofline.jaxpr_cost as walk
+    cfg = get_config("qwen3-4b")
+    rows = []
+    for shape in (ShapeSpec("train_card", 256, 4, "train"),
+                  ShapeSpec("decode_card", 4096, 4, "decode")):
+        train = shape.kind == "train"
+        ocfg = dryrun.optimizer_config(cfg) if train else None
+        micro = cfg.train_microbatches if train else 1
+        t0 = time.perf_counter()
+        with use_mesh_rules(make_debug_mesh((1, 1), device="meta")):
+            meta = walk.jaxpr_cost(dryrun.step_call(cfg, shape, ocfg,
+                                                    micro))
+        meta_s = time.perf_counter() - t0
+        reckoned = dryrun.cell_report(
+            cfg, shape, make_debug_mesh((1, 1), device="meta"),
+            hbm=torch.cuda.get_device_properties(0).total_memory)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        with use_mesh_rules(make_debug_mesh((1, 1), device="cuda")):
+            run = dryrun.step_call(cfg, shape, ocfg, micro, device="cuda",
+                                   generator=gen)
+            t0 = time.perf_counter()
+            on_card = walk.jaxpr_cost(run)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            prof = profile(run, warmup=False)
+        counts = {k: [getattr(meta, k), getattr(on_card, k)]
+                  for k in ("flops", "bytes", "dot_flops", "ops")}
+        if any(a != b for a, b in counts.values()):
+            raise AssertionError(f"{shape.name}: the walk on meta and on "
+                                 f"the card differ: {counts}")
+        total = reckoned["memory"]["total_hbm_bytes"]
+        step_s = reckoned["roofline"]["step_time_s"]
+        rows.append({
+            "shape": dataclasses.asdict(shape), "microbatches": micro,
+            "counts_meta_card": counts, "peak_live_meta_card": [
+                meta.peak_bytes, on_card.peak_bytes],
+            "walk_s_meta": meta_s, "walk_s_card": card_s,
+            "reckoned": reckoned["memory"],
+            "max_memory_allocated": peak,
+            "reckoned_over_peak": total / peak,
+            "roofline": reckoned["roofline"],
+            "device_ms": prof["device_ms"], "wall_ms": prof["wall_ms"],
+            "launches": prof["launches"],
+            "device_ms_over_roofline_ms": prof["device_ms"]
+            / (step_s * 1e3)})
+        del run
+        torch.cuda.empty_cache()
+    return rows
+
+
+def dryrun_phase(card):
+    """The port's dry run (``repro_torch.launch.dryrun``) over every arch ×
+    shape cell on both production meshes, walked on ``meta`` by worker
+    processes (host only): each cell's status, per-device GiB, dominant
+    term and roofline step time, the host seconds and the counts; any
+    ``FAILED`` cell fails the phase.  :func:`dryrun_tie` runs meanwhile
+    (its wall ms share the host with the grid's workers).  The workers are
+    spawned and re-import the main module, so a script that calls this
+    runs nothing at import: an unguarded one has each worker rerun it,
+    on the card too."""
+    import concurrent.futures
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.launch import dryrun
+
+    def grid():
+        t0 = time.perf_counter()
+        out = dryrun.run_grid(sorted(ARCHS), sorted(SHAPES), [False, True],
+                              log=lambda line: None)
+        return out, time.perf_counter() - t0
+    # the grid's worker processes walk on the host while the tie runs the
+    # card from this one
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        walking = ex.submit(grid)
+        tie = dryrun_tie(card)
+        results, host_s = walking.result()
+    failed = [r for r in results if r["status"] == "FAILED"]
+    if failed:
+        raise AssertionError(f"dry run: {len(failed)} cells FAILED: "
+                             + "; ".join(f"{r['arch']}|{r['shape']}|"
+                                         f"{r['mesh']}: {r['error']}"
+                                         for r in failed))
+    cells = []
+    for r in results:
+        cell = {"cell": f"{r['arch']}|{r['shape']}|{r['mesh']}",
+                "status": r["status"]}
+        if r["status"] == "ok":
+            cell.update(hbm_gib_per_chip=r["hbm_gib_per_chip"],
+                        fits_hbm=r["fits_hbm"],
+                        dominant=r["roofline"]["dominant"],
+                        step_time_s=r["roofline"]["step_time_s"],
+                        trace_s=r["trace_s"])
+        cells.append(cell)
+    return {"phase": "dryrun", "meshes": ["16x16", "2x16x16"],
+            "workers": min(len(results), max(1, (os.cpu_count() or 1) - 1)),
+            "host_s": host_s,
+            "summary": dryrun.summary_line(results),
+            "counts": {s: sum(r["status"] == s for r in results)
+                       for s in ("ok", "skipped", "FAILED")},
+            "cells": cells, "tie": tie, "card": card}
+
+
 def profile_events(events):
     """The profiler's raw events, aggregated in one pass (``key_averages``
     takes minutes over a train step's million events): device events by
@@ -5250,6 +5579,10 @@ def main() -> int:
         smi, QWEN3_MOE_ARCH, phase="qwen3_moe_ep_serve")
     emit(line)
     emit(train_resume(smi))
+    pipe_launches, line = pipeline_phase(smi,
+                                         train_line["profile"]["device_ms"])
+    emit(line)
+    emit(dryrun_phase(smi))
 
     # launches: each path's run, counted from 0
     by_path = {**serve_launches, "train": train_launches,
@@ -5262,7 +5595,8 @@ def main() -> int:
                "hybrid_batcher": hb_launches, **ssm_launches,
                "encdec_reference": encdec_ref_launches, **encdec_launches,
                "vlm_reference": vlm_ref_launches, **vlm_launches,
-               **family_launches, **ep_launches}
+               **family_launches, **ep_launches,
+               "pipeline": pipe_launches}
     f32 = lambda n: lambda r: r["dtype"] == "float32" and r.get("N") == n
     headline = {"maple_spmm_naive": f32(1), "maple_spmm_compact": f32(1),
                 "maple_spmm_planned": f32(1),

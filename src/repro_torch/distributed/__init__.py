@@ -1,6 +1,6 @@
-"""Multi-device execution (port of ``repro.distributed``): the mesh of the
-partitioned Maple kernels."""
+"""Multi-device execution (port of ``repro.distributed``): the mesh, the
+logical-axis sharding rules and the GPipe pipeline."""
 
-from repro_torch.distributed import sharding
+from repro_torch.distributed import pipeline, sharding
 
-__all__ = ["sharding"]
+__all__ = ["pipeline", "sharding"]

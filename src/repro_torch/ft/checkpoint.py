@@ -18,9 +18,13 @@ BlockCSR's pattern (``block_col``, ``block_row``, ``row_ptr``) beside its
 bfloat16: a bf16 leaf is saved as its uint16 bits under dtype
 ``"bfloat16"`` and restored bit for bit.
 
-The reference re-slices every leaf onto the current mesh's sharding on
-load (elastic restarts); the port saves and loads whole tensors in one
-process, and reshard-on-load waits for the sharding rules.
+Reshard-on-load (elastic restarts): given ``shardings``, a tree of
+:class:`~repro_torch.distributed.sharding.NamedSharding` in ``like``'s
+structure (``param_shardings`` of the new mesh), each leaf goes onto its
+sharding's mesh.  The port saves and loads whole tensors in one process,
+so a mesh places a leaf on its one device; a mesh whose coordinates name
+several devices raises (the per-device slices of such a mesh are not
+ported, ROADMAP queue A item 10).
 """
 
 from __future__ import annotations
@@ -35,33 +39,23 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.csr import BlockCSR
+from repro_torch.distributed.sharding import (leaves_with_path, map_with_path,
+                                              one_device, path_str)
 
 _PATTERN = ("block_col", "block_row", "row_ptr")
 
 
-def _children(node) -> Optional[List[Tuple[str, Any]]]:
-    """``node``'s named children, or None for a leaf."""
-    if isinstance(node, dict):
-        return [(str(k), v) for k, v in node.items()]
-    if isinstance(node, tuple) and hasattr(node, "_fields"):
-        return [(f, getattr(node, f)) for f in node._fields]
-    if isinstance(node, (list, tuple)):
-        return [(str(i), v) for i, v in enumerate(node)]
-    if isinstance(node, BlockCSR):
-        return [(f, getattr(node, f)) for f in ("blocks",) + _PATTERN]
-    if isinstance(node, (torch.Tensor, np.ndarray)):
-        return None
-    raise TypeError(f"cannot checkpoint a {type(node).__name__}")
+def _name(path) -> str:
+    return path_str(path, "name")
 
 
-def _flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:
-    kids = _children(tree)
-    if kids is None:
-        return [(prefix, tree)]
+def _flatten(tree) -> List[Tuple[str, Any]]:
+    """``(name, leaf)`` for every leaf of ``tree``, in order."""
     out = []
-    for name, child in kids:
-        out += _flatten(child, f"{prefix}/{name}" if prefix else name)
+    for path, leaf in leaves_with_path(tree):
+        if not isinstance(leaf, (torch.Tensor, np.ndarray)):
+            raise TypeError(f"cannot checkpoint a {type(leaf).__name__}")
+        out.append((_name(path), leaf))
     return out
 
 
@@ -140,37 +134,51 @@ def _restore(arr: np.ndarray, dtype: str, like):
     return t.to(device=like.device, dtype=like.dtype)
 
 
-def _rebuild(like, prefix: str, loaded: Dict[str, Any]):
-    kids = _children(like)
-    if kids is None:
-        return loaded[prefix]
-    sub = {name: _rebuild(child, f"{prefix}/{name}" if prefix else name,
-                          loaded) for name, child in kids}
-    if isinstance(like, dict):
-        return {k: sub[str(k)] for k in like}
-    if isinstance(like, tuple) and hasattr(like, "_fields"):
-        return type(like)(**sub)
-    if isinstance(like, (list, tuple)):
-        return type(like)(sub[str(i)] for i in range(len(like)))
-    for f in _PATTERN:                  # BlockCSR: the pattern must match
-        if not np.array_equal(sub[f], getattr(like, f)):
-            raise ValueError(f"{prefix}: the saved sparse pattern's {f} "
+def _same_pattern(like, fields, path):
+    """``like`` with its loaded ``blocks``, the saved pattern being
+    ``like``'s own."""
+    for f in _PATTERN:
+        if not np.array_equal(fields[f], getattr(like, f)):
+            raise ValueError(f"{_name(path)}: the saved sparse pattern's {f} "
                              f"differs from the one loaded into")
-    return dataclasses.replace(like, blocks=sub["blocks"])
+    return dataclasses.replace(like, blocks=fields["blocks"])
+
+
+def _rebuild(like, loaded: Dict[str, Any]):
+    return map_with_path(lambda path, leaf: loaded[_name(path)], like,
+                         bsr=_same_pattern)
+
+
+def _placed(like, shardings):
+    """``like`` with every tensor leaf on its sharding's mesh device (an
+    empty tensor of the leaf's shape and dtype there), numpy leaves as
+    they are; ``shardings`` is walked beside ``like``, leaf for leaf."""
+    targets = leaves_with_path(shardings)
+
+    def place(path, leaf):
+        target_path, target = next(targets, (None, None))
+        if target_path is None or _name(target_path) != _name(path):
+            raise KeyError(f"shardings have no entry for leaf {_name(path)}")
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        return torch.empty(leaf.shape, dtype=leaf.dtype, device=one_device(
+            target.mesh, "load(shardings=...)"))
+    return map_with_path(place, like, bsr=lambda node, fields, path:
+                         dataclasses.replace(node, **fields))
 
 
 def load(ckpt_dir: str, like: Any, step: Optional[int] = None,
          mesh=None, shardings=None) -> Tuple[int, Any]:
     """Restore into the structure of ``like``: each leaf on ``like``'s
-    device in ``like``'s dtype.  Raises ``KeyError`` for a leaf the
-    checkpoint lacks and ``ValueError`` for a shape (or a sparse pattern)
-    that differs.  ``mesh`` is accepted as the reference's is (unused);
-    ``shardings`` raises: reshard-on-load needs the sharding rules."""
+    device in ``like``'s dtype, or, with ``shardings`` (a tree of
+    ``NamedSharding`` in ``like``'s structure, a BlockCSR's as a dict by
+    field), on its sharding's mesh device; the values are the saved bits.
+    Raises ``KeyError`` for a leaf the checkpoint lacks and ``ValueError``
+    for a shape (or a sparse pattern) that differs; a sharding over a
+    mesh of several devices raises ``NotImplementedError``.  ``mesh`` is
+    accepted as the reference's is (unused)."""
     if shardings is not None:
-        raise NotImplementedError(
-            "load(shardings=...): reshard-on-load needs the logical-axis "
-            "sharding rules of distributed/sharding.py, not ported yet "
-            "(ROADMAP queue A item 6)")
+        like = _placed(like, shardings)
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -192,7 +200,7 @@ def load(ckpt_dir: str, like: Any, step: Optional[int] = None,
                     f"{name}: saved {arr.shape} vs expected "
                     f"{tuple(leaf.shape)}")
             loaded[name] = _restore(arr, dtype, leaf)
-    return step, _rebuild(like, "", loaded)
+    return step, _rebuild(like, loaded)
 
 
 def garbage_collect(ckpt_dir: str, keep: int = 3) -> None:

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.regions import region
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -71,6 +72,7 @@ def _check(q, k, v, kv_map, bq: int, bk: int) -> None:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
+@region
 def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_map: torch.Tensor, *, bq: int = 128, bk: int = 128,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
@@ -84,6 +86,8 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "block_attention (B9) has no backward: local attention's "
             "backward is not ported yet (the reference's kernel has no "
             "gradient either)")
+    if q.is_meta:
+        return torch.empty_like(q)
     if not q.is_cuda:
         return block_attention_plain(q, k, v, kv_map, bq=bq, bk=bk,
                                      causal=causal, window=window)

@@ -33,6 +33,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.maple_spgemm import (  # noqa: F401  (re-export)
     maple_sddmm_csr, maple_sddmm_csr_plain)
+from repro_torch.regions import region
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # slots a CTA (at most 32); 0 lets the launcher spread the slots evenly
@@ -86,6 +87,7 @@ def _check_operands(dc, b3, block_row, block_col, bm, bk):
             raise TypeError(f"{name} must be int32, got {t.dtype}")
 
 
+@region
 def maple_sddmm_bsr(dc: torch.Tensor, b3: torch.Tensor,
                     block_row: torch.Tensor, block_col: torch.Tensor, *,
                     bm: int, bk: int, bn: int = 128) -> torch.Tensor:
@@ -93,6 +95,9 @@ def maple_sddmm_bsr(dc: torch.Tensor, b3: torch.Tensor,
     (row+1)·bm] @ B[g, col·bk : (col+1)·bk]ᵀ`` with ``row, col =
     block_row[s], block_col[s]``; slots with ``col < 0`` hold 0."""
     _check_operands(dc, b3, block_row, block_col, bm, bk)
+    if dc.is_meta:
+        return dc.new_empty((block_col.shape[0], bm, bk),
+                            dtype=torch.float32)
     if not dc.is_cuda:
         return maple_sddmm_bsr_plain(dc, b3, block_row, block_col, bm=bm,
                                      bk=bk)

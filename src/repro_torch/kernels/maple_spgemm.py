@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.regions import region
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _WARPS = 8               # warps a block of B6 and dB (4 rows a warp)
@@ -67,6 +68,7 @@ def _stream() -> int:
 # B5: the numeric phase
 # --------------------------------------------------------------------------
 
+@region
 def maple_spgemm_numeric(a_value: torch.Tensor, b_value: torch.Tensor,
                          plan, *, cap: int) -> torch.Tensor:
     """C's padded-CSR value vector ``(cap,)`` in A's dtype: slot
@@ -78,6 +80,8 @@ def maple_spgemm_numeric(a_value: torch.Tensor, b_value: torch.Tensor,
                  plan.stats.nnz_a, plan.stats.nnz_b)
     if cap < plan.nnz_c:
         raise ValueError(f"cap={cap} < nnz(C)={plan.nnz_c}")
+    if a_value.is_meta:
+        return a_value.new_empty((cap,))
     if not a_value.is_cuda:
         return maple_spgemm_numeric_plain(a_value, b_value, plan, cap=cap)
     out = torch.empty((cap,), dtype=a_value.dtype, device=a_value.device)
@@ -173,6 +177,7 @@ def maple_spgemm_numeric_plain(a_value, b_value, plan, *,
 # B6: dA of the backward
 # --------------------------------------------------------------------------
 
+@region
 def maple_sddmm_csr(dc: torch.Tensor, b_value: torch.Tensor, plan, *,
                     n_slots: int) -> torch.Tensor:
     """dA ``(n_slots,)`` f32 in A's value layout for the SpGEMM ``plan``:
@@ -183,6 +188,8 @@ def maple_sddmm_csr(dc: torch.Tensor, b_value: torch.Tensor, plan, *,
                  plan.stats.nnz_b)
     if n_slots < nnz_a:
         raise ValueError(f"n_slots={n_slots} < nnz(A)={nnz_a}")
+    if dc.is_meta:
+        return dc.new_empty((n_slots,), dtype=torch.float32)
     if not dc.is_cuda:
         return maple_sddmm_csr_plain(dc, b_value, plan, n_slots=n_slots)
     out = torch.empty((n_slots,), dtype=torch.float32, device=dc.device)
@@ -219,6 +226,7 @@ def maple_sddmm_csr_plain(dc, b_value, plan, *, n_slots: int) -> torch.Tensor:
 # dB of the backward
 # --------------------------------------------------------------------------
 
+@region
 def maple_spgemm_db(dc: torch.Tensor, a_value: torch.Tensor, plan, *,
                     n_slots: int) -> torch.Tensor:
     """dB ``(n_slots,)`` f32 in B's value layout: entry ``b_rptr[k'] + u``
@@ -229,6 +237,8 @@ def maple_spgemm_db(dc: torch.Tensor, a_value: torch.Tensor, plan, *,
                  plan.stats.nnz_a)
     if n_slots < nnz_b:
         raise ValueError(f"n_slots={n_slots} < nnz(B)={nnz_b}")
+    if dc.is_meta:
+        return dc.new_empty((n_slots,), dtype=torch.float32)
     if not dc.is_cuda:
         return maple_spgemm_db_plain(dc, a_value, plan, n_slots=n_slots)
     out = torch.empty((n_slots,), dtype=torch.float32, device=dc.device)

@@ -41,6 +41,7 @@ import types
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.regions import region
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -258,6 +259,7 @@ def _stream() -> int:
 # naive schedule (B3)
 # --------------------------------------------------------------------------
 
+@region
 def maple_spmm_naive(blocks: torch.Tensor, row_ptr: torch.Tensor,
                      block_col: torch.Tensor, b3: torch.Tensor, *,
                      bn: int = 128) -> torch.Tensor:
@@ -269,6 +271,9 @@ def maple_spmm_naive(blocks: torch.Tensor, row_ptr: torch.Tensor,
     _check_operands(blocks, b3, (("row_ptr", row_ptr),
                                  ("block_col", block_col)), bn)
     _check_run_operands(blocks)
+    if b3.is_meta:
+        return b3.new_empty((b3.shape[0], (row_ptr.numel() - 1)
+                             * blocks.shape[1], b3.shape[2]))
     if not b3.is_cuda:
         return maple_spmm_naive_plain(blocks, row_ptr, block_col, b3)
     nb, bm, bk = blocks.shape
@@ -316,6 +321,7 @@ def maple_spmm_naive_plain(blocks, row_ptr, block_col, b3) -> torch.Tensor:
 # planned compact layout (B1)
 # --------------------------------------------------------------------------
 
+@region
 def maple_spmm_compact(blocks: torch.Tensor, order: torch.Tensor,
                        step_col: torch.Tensor, runs: torch.Tensor,
                        b3: torch.Tensor, *, n_slots: int, bn: int = 128,
@@ -344,6 +350,9 @@ def maple_spmm_compact(blocks: torch.Tensor, order: torch.Tensor,
         raise ValueError(f"out must be contiguous float32 "
                          f"{(g, n_slots * bm, n)} on {b3.device}, got "
                          f"{out.dtype} {tuple(out.shape)} on {out.device}")
+    if b3.is_meta:
+        return out if out is not None else b3.new_empty(
+            (g, n_slots * bm, n), dtype=torch.float32)
     if not b3.is_cuda:
         return maple_spmm_compact_plain(blocks, order, step_col, runs, b3,
                                         n_slots=n_slots, out=out)
@@ -412,6 +421,7 @@ def maple_spmm_compact_plain(blocks, order, step_col, runs, b3, *,
 # planned rmw layout (B4)
 # --------------------------------------------------------------------------
 
+@region
 def maple_spmm_planned(blocks: torch.Tensor, order: torch.Tensor,
                        step_col: torch.Tensor, row_runs: torch.Tensor,
                        row_run_ptr: torch.Tensor, b3: torch.Tensor, *,
@@ -433,6 +443,10 @@ def maple_spmm_planned(blocks: torch.Tensor, order: torch.Tensor,
     if row_run_ptr.dim() != 1 or row_run_ptr.numel() < 1:
         raise ValueError("row_run_ptr must be (gm + 1,)")
     _check_run_operands(blocks)
+    if b3.is_meta:
+        return b3.new_empty((b3.shape[0], (row_run_ptr.numel() - 1)
+                             * blocks.shape[1], b3.shape[2]),
+                            dtype=torch.float32)
     if not b3.is_cuda:
         return maple_spmm_planned_plain(blocks, order, step_col, row_runs,
                                         row_run_ptr, b3)

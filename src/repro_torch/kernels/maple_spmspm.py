@@ -18,10 +18,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.regions import region
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+@region
 def maple_spmspm_ell(values: torch.Tensor, col_ids: torch.Tensor,
                      b: torch.Tensor) -> torch.Tensor:
     """``(M, N)`` in A's dtype: ``C[i] = Σ_t values[i, t] ·
@@ -40,6 +42,8 @@ def maple_spmspm_ell(values: torch.Tensor, col_ids: torch.Tensor,
             raise ValueError(f"{name} is on {t.device}, B on {b.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if b.is_meta:
+        return values.new_empty((values.shape[0], b.shape[1]))
     if not b.is_cuda:
         return maple_spmspm_ell_plain(values, col_ids, b)
     m, slots = values.shape

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.maple_spmm import ffma_tile
+from repro_torch.regions import region
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PIECES = (8, 16, 32, 64, 96, 128)   # token pieces a thread block can take
@@ -168,7 +169,10 @@ def _check_tile(bt: int) -> None:
                          f"multiple of 8, got {bt}")
 
 
+@region
 def _forward(x, expert_of_tile, w, bt: int) -> torch.Tensor:
+    if x.is_meta:
+        return x.new_empty((x.shape[0], w.shape[2]))
     if not x.is_cuda:
         return moe_gemm_plain(x, expert_of_tile, w, bt=bt)
     _check_tile(bt)
@@ -219,6 +223,7 @@ def moe_gemm(x: torch.Tensor, expert_of_tile: torch.Tensor,
 moe_gemm.launches = 0
 
 
+@region
 def moe_gemm_dx(dy: torch.Tensor, expert_of_tile: torch.Tensor,
                 w: torch.Tensor, *, bt: int) -> torch.Tensor:
     """dx ``(T, D)`` of :func:`moe_gemm`: ``dy (T, F)`` tile ``i`` times
@@ -227,6 +232,8 @@ def moe_gemm_dx(dy: torch.Tensor, expert_of_tile: torch.Tensor,
     ``moe_gemm.launches``."""
     e, d, f = w.shape
     _check(dy, expert_of_tile, w, bt, transposed=True)
+    if dy.is_meta:
+        return dy.new_empty((dy.shape[0], d))
     if not dy.is_cuda:
         return moe_gemm_dx_plain(dy, expert_of_tile, w, bt=bt)
     _check_tile(bt)
@@ -241,6 +248,7 @@ def moe_gemm_dx(dy: torch.Tensor, expert_of_tile: torch.Tensor,
     return dx
 
 
+@region
 def moe_gemm_dw(x: torch.Tensor, dy: torch.Tensor,
                 expert_of_tile: torch.Tensor, n_experts: int, *,
                 bt: int) -> torch.Tensor:
@@ -253,6 +261,8 @@ def moe_gemm_dw(x: torch.Tensor, dy: torch.Tensor,
     if dy.dtype != x.dtype:
         raise TypeError(f"dy must have x's dtype {x.dtype}, got {dy.dtype}")
     w_shape = (n_experts, x.shape[1], dy.shape[1])
+    if x.is_meta:
+        return x.new_empty(w_shape)
     if not x.is_cuda:
         return moe_gemm_dw_plain(x, dy, expert_of_tile, n_experts, bt=bt)
     dw = torch.empty(w_shape, dtype=x.dtype, device=x.device)

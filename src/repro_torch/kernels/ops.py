@@ -30,7 +30,8 @@ from torch.utils.weak import WeakIdKeyDictionary
 from repro_torch.core import formats
 from repro_torch.core.csr import (CSR, BlockCSR, grow_nnz_max,
                                   transpose_payload)
-from repro_torch.distributed.sharding import local_devices, partition_mesh
+from repro_torch.distributed.sharding import (local_devices, partition_mesh,
+                                              record_collective)
 from repro_torch.kernels.block_attn import (block_attention,
                                            local_window_kv_map)
 from repro_torch.kernels.maple_sddmm import (maple_sddmm_bsr, maple_sddmm_csr,
@@ -461,6 +462,11 @@ def _partitioned_tiles(blocks, b3, plan: PartitionedSpmmPlan, *, bn: int,
         for d in range(plan.n_shards):
             dev = home if mesh is None else mesh.device(d, c)
             sd = plan.on_device(dev)["shards"][d]
+            if mesh is not None:        # the shard's slots, gathered
+                shard = plan.shards[d]
+                record_collective("all-gather", 4 * g * (hi - lo)
+                                  * shard.n_lanes * shard.r_max
+                                  * plan.block_m)
             if dev == home == blocks.device:
                 if payload is None:
                     payload = transpose_payload(blocks, *transposed)
@@ -555,8 +561,13 @@ def _partitioned_sddmm_f32(dc, b3, train: SpmmTrainPlan, *,
                     _panel(dc, lo, hi, n_col, dev),
                     _panel(b3, lo, hi, n_col, dev), row, col, bm=bm, bk=bk,
                     bn=bn).to(home)
+            if mesh is not None and n_col > 1:    # the psum over COL_AXIS
+                record_collective("all-reduce",
+                                  part.numel() * part.element_size())
             acc = part if acc is None else acc + part
         if acc is not None:               # N = 0: dA is 0
+            if mesh is not None:          # the shard's dA, gathered
+                record_collective("all-gather", own.numel() * bm * bk * 4)
             da.index_copy_(0, own, acc[:own.numel()])
     return da
 

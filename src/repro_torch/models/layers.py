@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.core.csr import BlockCSR
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import maple_spmm
+from repro_torch.regions import region
 
 
 # --------------------------------------------------------------------------
@@ -383,6 +384,69 @@ def _check_heads(q, k, v):
                          f"dividing H")
 
 
+@region
+def _flash_forward_impl(q, k, v, tiles, whole: bool, causal: bool, window,
+                        q_offset: int, with_lse: bool):
+    """The flash forward over ``tiles``: ``out`` in q's dtype and, with
+    ``with_lse``, the f32 log-sum-exp the backward reads (else None).  A
+    fused region for the roofline's walk (the reference's named
+    ``_flash_forward_impl``)."""
+    b, sq, h, hd = q.shape
+    kvh, grp = k.shape[2], h // k.shape[2]
+    qs = _rows(q, kvh) * (1.0 / math.sqrt(hd))
+    k32 = k.float().transpose(1, 2).contiguous()
+    v32 = v.float().transpose(1, 2).contiguous()
+    run = None if whole else (
+        torch.full(qs.shape[:3], float("-inf"), device=q.device),
+        torch.zeros(qs.shape[:3], device=q.device),
+        torch.zeros_like(qs))
+    for t in tiles:
+        hidden = None if t.full else _tile_hidden(t, causal, window,
+                                                  q_offset, q.device)
+        out = _forward_tile(slice(t.r0 * grp, t.r1 * grp),
+                            slice(t.k0, t.k1), qs, k32, v32, hidden,
+                            grp, run)
+    m, l, acc = run if run is not None else out
+    l = torch.clamp(l, min=1e-20)
+    out = _unrows(acc / l[..., None], sq, q.dtype)
+    lse = (torch.where(torch.isfinite(m), m, 0.0) + torch.log(l)
+           if with_lse else None)
+    return out, lse
+
+
+@region
+def _flash_backward_impl(q, k, v, out, lse, dout, tiles, whole: bool,
+                         causal: bool, window, q_offset: int):
+    """The flash backward: ``p`` recomputed tile by tile from the saved
+    log-sum-exp; returns (dQ, dK, dV) in their operands' dtypes.  A fused
+    region for the roofline's walk (the reference's
+    ``_flash_backward_impl``)."""
+    b, sq, h, hd = q.shape
+    kvh, grp = k.shape[2], h // k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    q32 = _rows(q, kvh)
+    qs = q32 * scale
+    k32 = k.float().transpose(1, 2).contiguous()
+    v32 = v.float().transpose(1, 2).contiguous()
+    dout32 = _rows(dout, kvh)
+    delta = (dout32 * _rows(out, kvh)).sum(dim=-1)    # rowsum(dO ⊙ O)
+    if not whole:
+        dq, dk, dv = (torch.zeros_like(t) for t in (q32, k32, v32))
+    for t in tiles:
+        hidden = None if t.full else _tile_hidden(t, causal, window,
+                                                  q_offset, q.device)
+        rs, ks = slice(t.r0 * grp, t.r1 * grp), slice(t.k0, t.k1)
+        grads = _backward_tile(rs, ks, qs, q32, k32, v32, dout32, lse,
+                               delta, hidden, grp, scale)
+        if whole:
+            dq, dk, dv = grads
+        else:
+            dq[:, :, rs] += grads[0]
+            dk[:, :, ks], dv[:, :, ks] = grads[1:]
+    return (_unrows(dq, sq, q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
 class _ChunkedAttention(torch.autograd.Function):
     """Flash attention with the reference's custom VJP: the forward keeps
     ``out`` and the f32 log-sum-exp, the backward recomputes ``p`` tile
@@ -391,30 +455,15 @@ class _ChunkedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_chunk, kv_chunk, q_offset):
-        b, sq, h, hd = q.shape
-        kvh, grp = k.shape[2], h // k.shape[2]
-        tiles = _tiles(sq, k.shape[1], causal, window, q_chunk, kv_chunk,
-                       q_offset)
+        tiles = _tiles(q.shape[1], k.shape[1], causal, window, q_chunk,
+                       kv_chunk, q_offset)
         whole = len(tiles) == 1 and (tiles[0].r0, tiles[0].r1, tiles[0].k0,
-                                     tiles[0].k1) == (0, sq, 0, k.shape[1])
-        qs = _rows(q, kvh) * (1.0 / math.sqrt(hd))
-        k32 = k.float().transpose(1, 2).contiguous()
-        v32 = v.float().transpose(1, 2).contiguous()
-        run = None if whole else (
-            torch.full(qs.shape[:3], float("-inf"), device=q.device),
-            torch.zeros(qs.shape[:3], device=q.device),
-            torch.zeros_like(qs))
-        for t in tiles:
-            hidden = None if t.full else _tile_hidden(t, causal, window,
-                                                      q_offset, q.device)
-            out = _forward_tile(slice(t.r0 * grp, t.r1 * grp),
-                                slice(t.k0, t.k1), qs, k32, v32, hidden,
-                                grp, run)
-        m, l, acc = run if run is not None else out
-        l = torch.clamp(l, min=1e-20)
-        out = _unrows(acc / l[..., None], sq, q.dtype)
-        if any(ctx.needs_input_grad[:3]):     # the backward's residuals
-            lse = torch.where(torch.isfinite(m), m, 0.0) + torch.log(l)
+                                     tiles[0].k1) == (0, q.shape[1], 0,
+                                                      k.shape[1])
+        grad = any(ctx.needs_input_grad[:3])
+        out, lse = _flash_forward_impl(q, k, v, tiles, whole, causal, window,
+                                       q_offset, grad)
+        if grad:                              # the backward's residuals
             ctx.save_for_backward(q, k, v, out, lse)
             ctx.meta = (tiles, whole, causal, window, q_offset)
         return out
@@ -422,32 +471,8 @@ class _ChunkedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        tiles, whole, causal, window, q_offset = ctx.meta
-        b, sq, h, hd = q.shape
-        kvh, grp = k.shape[2], h // k.shape[2]
-        scale = 1.0 / math.sqrt(hd)
-        q32 = _rows(q, kvh)
-        qs = q32 * scale
-        k32 = k.float().transpose(1, 2).contiguous()
-        v32 = v.float().transpose(1, 2).contiguous()
-        dout32 = _rows(dout, kvh)
-        delta = (dout32 * _rows(out, kvh)).sum(dim=-1)    # rowsum(dO ⊙ O)
-        if not whole:
-            dq, dk, dv = (torch.zeros_like(t) for t in (q32, k32, v32))
-        for t in tiles:
-            hidden = None if t.full else _tile_hidden(t, causal, window,
-                                                      q_offset, q.device)
-            rs, ks = slice(t.r0 * grp, t.r1 * grp), slice(t.k0, t.k1)
-            grads = _backward_tile(rs, ks, qs, q32, k32, v32, dout32, lse,
-                                   delta, hidden, grp, scale)
-            if whole:
-                dq, dk, dv = grads
-            else:
-                dq[:, :, rs] += grads[0]
-                dk[:, :, ks], dv[:, :, ks] = grads[1:]
-        return (_unrows(dq, sq, q.dtype), dk.transpose(1, 2).to(k.dtype),
-                dv.transpose(1, 2).to(v.dtype), None, None, None, None,
-                None)
+        return (*_flash_backward_impl(q, k, v, out, lse, dout, *ctx.meta),
+                None, None, None, None, None)
 
 
 def chunked_attention(q, k, v, causal: bool = True,

@@ -288,15 +288,32 @@ def _ffn(p, cfg: ModelConfig, x, mlp_plan=None):
     return x
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
+class _ShapeOnly(torch.Generator):
+    """A generator whose draws are ``meta`` tensors: shapes and dtypes,
+    no values (``torch.randn(..., device="meta")`` draws nothing)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
                 dtype=torch.float32, *, device="cuda"):
     """Random parameters, drawn from ``generator`` on ``device`` (the
-    generator must live there)."""
+    generator must live there).  ``device="meta"`` is the shape-only
+    init (the reference's ``jax.eval_shape(init_params)``): every leaf a
+    ``meta`` tensor of its shape and dtype, no draws, ``generator`` None
+    (a sparse MLP's block pattern is still drawn on the host, from
+    ``cfg.sparse_mask_seed``: it is structure, not values)."""
     _check_ported(cfg)
     dev = resolve_device(device)
-    if generator.device.type != dev.type:
-        raise ValueError(f"generator is on {generator.device}, params go to "
-                         f"{dev}: make the generator on the device")
+    if dev.type == "meta":
+        generator = _ShapeOnly()
+    elif generator is None or generator.device.type != dev.type:
+        raise ValueError(f"generator is on "
+                         f"{None if generator is None else generator.device}"
+                         f", params go to {dev}: make the generator on the "
+                         f"device")
     cross = cfg.n_enc_layers > 0
     params = {"embed_tokens": L.dense_init(generator,
                                            (cfg.vocab_padded, cfg.d_model),
@@ -401,6 +418,21 @@ def _run_groups(groups, kinds, cfg: ModelConfig, x, positions, rope,
         for p, kind in zip(group, kinds):
             x = _run_block(p, cfg, kind, x, positions, rope, enc_out,
                            mlp_plan, remat)
+    return x
+
+
+def apply_layers(layers, cfg: ModelConfig, x, *, mlp_plan=None):
+    """``x`` (B, S, D) through consecutive attention blocks (per-layer
+    parameter subtrees of the trainer's layout, e.g. a pipeline stage's
+    share of ``unstack_layers(params)["groups"]["b0"]``) with
+    :func:`forward`'s block function: positions ``0 .. S-1``, the RoPE
+    tables made once, each block under remat."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    rope = _rope(cfg, positions)
+    for p in layers:
+        x = _run_block(p, cfg, "attn", x, positions, rope, None, mlp_plan,
+                       True)
     return x
 
 

@@ -36,7 +36,7 @@ from typing import Dict, List
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import Mesh, active_mesh
+from repro_torch.distributed.sharding import Mesh, active_mesh, moved
 from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.models.layers import dense_init
 
@@ -380,8 +380,11 @@ def _ep_forward(p, cfg: MoEConfig, x: torch.Tensor) -> torch.Tensor:
         # one send buffer stand for every source's
         r = _ep_route(p["router"], cfg, x_loc, msize, e_loc, cap_send)
         x_send, eid_send = _ep_send(x_loc, r, msize, cap_send)
-        # all-to-all out; every peer groups what it received by expert (one
-        # batched sort) and runs its experts
+        # all-to-all out (every one of the msize sources sends its buffers);
+        # every peer groups what it received by expert (one batched sort)
+        # and runs its experts
+        x_send = moved(x_send, "all-to-all", copies=msize)
+        eid_send = moved(eid_send, "all-to-all", copies=msize)
         row = _ep_group(_received(eid_send, msize).view(msize, -1), e_loc,
                         cap_exp).reshape(-1)
         buf = x_send.new_zeros((msize * n_buf + 1, d))
@@ -391,8 +394,8 @@ def _ep_forward(p, cfg: MoEConfig, x: torch.Tensor) -> torch.Tensor:
               for pe in range(msize)]
         # the grouping undone: each received slot's row, or zeros, as
         # (peer, source, cap_send, D)
-        y_back = _Take.apply(_with_zero_row(ys), row).view(
-            msize, msize, cap_send, d)
+        y_back = moved(_Take.apply(_with_zero_row(ys), row).view(
+            msize, msize, cap_send, d), "all-to-all")
         # all-to-all back: source src receives y_back[p][src] from each
         # peer p, for the first n_src sources at once; each token's k
         # gated slots summed in their top-k order

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.regions import region
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,8 +80,10 @@ def _segsum(x):
     return torch.cumsum(terms, dim=-2).masked_fill(~lower, float("-inf"))
 
 
+@region
 def ssd_scan(x, dt, a_log, b, c, *, chunk: int):
-    """The SSD chunked scan.
+    """The SSD chunked scan (a fused region for the roofline's walk: the
+    reference's named ``_ssd_scan_impl``).
 
     x:  (B, S, H, P) — inputs per head
     dt: (B, S, H)    — softplus'd step sizes

@@ -2,9 +2,11 @@
 ``tests/test_checkpoint.py``: atomic commit, latest-step discovery, GC,
 refused shapes and leaves, and bit-identical training resume through
 ``launch.train.run``; then what the port adds: bf16 and integer leaves bit
-for bit, a sparse weight's pattern checked on load, ``shardings=``
-refused, and the on-disk format read across by the reference's ``load``
-(and the reference's by the port's)."""
+for bit, a sparse weight's pattern checked on load, reshard-on-load
+(``shardings=``) bit for bit and the reference's elastic restart onto
+other meshes, a mesh of several devices refused, and the on-disk format
+read across by the reference's ``load`` (and the reference's by the
+port's)."""
 
 import os
 
@@ -16,7 +18,9 @@ import torch
 from repro.ft import checkpoint as ref_ckpt
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.csr import BlockCSR
+from repro_torch.distributed import sharding as sh
 from repro_torch.ft import checkpoint as ckpt
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.launch.train import run
 from repro_torch.train.optimizer import OptState, named_leaves
 
@@ -167,10 +171,95 @@ def test_block_csr_pattern_is_saved_and_checked(tmp_path):
 
 
 def test_shardings_raise(tmp_path):
+    """Reshard-on-load onto a mesh whose coordinates name several devices
+    raises (a leaf's per-device slices are not ported: queue A item 10);
+    onto an abstract mesh (no devices) too."""
     tree = {"w": torch.zeros((4, 4))}
     ckpt.save(str(tmp_path), 2, tree)
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        ckpt.load(str(tmp_path), tree, shardings={"w": None})
+    several = sh.Mesh([["cpu", "meta"], ["cpu", "cpu"]], ("data", "model"))
+    with pytest.raises(NotImplementedError, match="queue A item 10"):
+        ckpt.load(str(tmp_path), tree,
+                  shardings=sh.param_shardings(tree, several))
+    with pytest.raises(ValueError, match="abstract mesh"):
+        ckpt.load(str(tmp_path), tree, shardings=sh.param_shardings(
+            tree, sh.abstract_mesh((2, 2), ("data", "model"))))
+    with pytest.raises(KeyError, match="shardings"):
+        ckpt.load(str(tmp_path), tree, shardings={})
+
+
+def test_reshard_on_load_is_bit_for_bit(tmp_path):
+    """Every kind of leaf (f32, bf16, int, a sparse weight's payload and
+    pattern, an OptState) loads onto the sharding's mesh device with the
+    saved bits; ``meta`` stands for a device other than ``like``'s."""
+    g = torch.Generator().manual_seed(3)
+    tree = {"w": torch.randn((6, 4), generator=g),
+            "h": torch.randn((5,), generator=g).to(torch.bfloat16),
+            "n": torch.arange(7, dtype=torch.int32),
+            "mlp": [_bsr(np.array([[1, 0], [1, 1]]), 2)],
+            "opt": OptState(step=torch.tensor(3, dtype=torch.int32),
+                            m={"w": torch.randn((6, 4), generator=g)},
+                            v={"w": torch.rand((6, 4), generator=g)},
+                            error={"w": torch.zeros(())})}
+    ckpt.save(str(tmp_path), 9, tree)
+    mesh = make_debug_mesh((2, 2), device="cpu")
+    step, got = ckpt.load(str(tmp_path), tree,
+                          shardings=sh.param_shardings(tree, mesh))
+    assert step == 9
+    _assert_trees_equal(got, tree)
+    assert torch.equal(got["n"], tree["n"])
+    assert torch.equal(got["opt"].step, tree["opt"].step)
+    for f in ("block_col", "block_row", "row_ptr"):
+        np.testing.assert_array_equal(getattr(got["mlp"][0], f),
+                                      getattr(tree["mlp"][0], f))
+    meta = make_debug_mesh((2, 2), device="meta")
+    _, placed = ckpt.load(str(tmp_path), tree,
+                          shardings=sh.param_shardings(tree, meta))
+    assert placed["w"].device.type == "meta"
+    assert placed["mlp"][0].blocks.device.type == "meta"
+    assert placed["opt"].m["w"].device.type == "meta"
+
+
+@pytest.mark.timeout(120)
+def test_elastic_restart_onto_other_meshes(tmp_path):
+    """The reference's elastic scenario (``tests/test_elastic.py``) on the
+    port: 4 steps under a (4, 2) mesh against 2 steps, a checkpoint,
+    reshard-on-load onto (2, 2) and (8, 1) CPU meshes and 2 more steps.
+    One process, one device: the continued run equals the uninterrupted
+    one bit for bit (the reference holds it within rtol 2e-3 across its
+    devices' reduction orders)."""
+    from repro_torch.data import DataConfig, synth_batch
+    from repro_torch.models import lm
+    from repro_torch.train import (OptimizerConfig, init_opt_state,
+                                   make_train_step)
+    cfg = get_smoke_config("qwen3-4b")
+    ocfg = OptimizerConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=8)
+    step_fn = make_train_step(cfg, ocfg, micro_batches=1)
+
+    def fresh():
+        params = lm.unstack_layers(lm.init_params(
+            cfg, torch.Generator().manual_seed(0), device="cpu"))
+        return params, init_opt_state(ocfg, params)
+
+    def run_steps(mesh, params, opt, steps, start):
+        with sh.use_mesh_rules(mesh):
+            for s in range(start, start + steps):
+                params, opt, _ = step_fn(params, opt, synth_batch(dcfg, s))
+        return params, opt
+
+    mesh_a = make_debug_mesh((4, 2), device="cpu")
+    ref, _ = run_steps(mesh_a, *fresh(), 4, 0)
+    p2, o2 = run_steps(mesh_a, *fresh(), 2, 0)
+    ckpt.save(str(tmp_path), 2, {"params": p2, "opt": o2})
+    for shape in ((2, 2), (8, 1)):
+        mesh_b = make_debug_mesh(shape, device="cpu")
+        params, opt = fresh()
+        like = {"params": params, "opt": opt}
+        shardings = {"params": sh.param_shardings(params, mesh_b),
+                     "opt": sh.param_shardings(opt, mesh_b)}
+        _, restored = ckpt.load(str(tmp_path), like, shardings=shardings)
+        p4, _ = run_steps(mesh_b, restored["params"], restored["opt"], 2, 2)
+        _assert_trees_equal(p4, ref)
 
 
 def test_reference_reads_the_port_format(tmp_path):
