@@ -58,6 +58,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    step and a head call, and profiles one prefill, one decode step and
    one head call with ``torch.profiler`` (wall ms, summed kernel ms, the
    top kernels).
+   ``generate``, ``complete_static`` and the batcher decode through the
+   cached callables (``serve.jitted_decode_step``): on the card a CUDA
+   graph, captured on a state's second step and replayed after it (the
+   launch counts above count each replay).  Every serving phase (serve,
+   qwen2_serve, hybrid_serve, ssm_serve, encdec_serve, vlm_serve,
+   moe_serve, moe_ep_serve, qwen3_moe_ep_serve: ``replay_check``; batcher
+   and hybrid_batcher: ``fused_graph_check`` on the fused step and the
+   head) holds 8 replays against the eager step on a copy of the same
+   state, outputs and every cache ``torch.equal`` (a difference would be
+   recorded and held within 1e-5·max + 1e-6), and prints the graph's
+   capture ms, node count and pool bytes, and the replayed step's wall ms
+   beside the eager one.
 5. train_reference — the qwen3-4b smoke config with a sparse MLP at
    (8, 8) blocks: the loss and every gradient of one batch on the card
    against the same weights and batch on the CPU (plain path), then one
@@ -1213,17 +1225,19 @@ def extra_inputs(cfg, b, gen):
 def head_route(params, cfg, head, prompt, extra, new):
     """One request with its own extra inputs scored by ``head``, greedy:
     ``prefill(return_hidden=True)`` and one
-    ``decode_step(return_hidden=True)`` a further token, as
-    ``complete_static`` walks a token-only request.  Returns (new tokens,
-    "length" or "error" on non-finite logits, None)."""
-    from repro_torch.models import lm
-    from repro_torch.serve import SamplingConfig
+    ``decode_step(return_hidden=True)`` a further token, through the
+    cached callables, as ``complete_static`` walks a token-only request.
+    Returns (new tokens, "length" or "error" on non-finite logits,
+    None)."""
+    from repro_torch.serve import (SamplingConfig, jitted_decode_step,
+                                   jitted_prefill)
     from repro_torch.serve.engine import sample_token
     tok = torch.from_numpy(np.asarray(prompt)).to(
         params["embed_tokens"].device)[None]
-    hidden, state = lm.prefill(params, cfg, {"tokens": tok, **extra},
-                               max_seq=tok.shape[1] + cfg.n_patches + new,
-                               return_hidden=True)
+    step_fn = jitted_decode_step(cfg, return_hidden=True)
+    hidden, state = jitted_prefill(
+        cfg, tok.shape[1] + cfg.n_patches + new, return_hidden=True)(
+            params, batch={"tokens": tok, **extra})
     out = []
     while True:
         row = head(hidden)[:, -1]
@@ -1233,8 +1247,7 @@ def head_route(params, cfg, head, prompt, extra, new):
         out.append(int(nxt[0]))
         if len(out) >= new:
             return out, "length", None
-        hidden, state = lm.decode_step(params, cfg, state, nxt[:, None],
-                                       return_hidden=True)
+        hidden, state = step_fn(params, state=state, tokens=nxt[:, None])
 
 
 def serve(card, arch=SERVE_ARCH, phase="serve", autotuned=True,
@@ -1394,10 +1407,13 @@ def serve(card, arch=SERVE_ARCH, phase="serve", autotuned=True,
     if cfg.n_enc_layers:
         profiles["encoder"] = profile(
             lambda: lm._encode(params, cfg, extra["enc_frames"]))
+    _, state = lm.prefill(params, cfg, batch, max_seq=seq + 32)
+    graph = replay_check(params, cfg, state, step_tok, phase)
     del state, logits, hidden
     long = None
     if continuation is not None:
         long = continuation_check(params, cfg, *continuation)
+    release_graphs()
     return by_path, {
         "phase": phase, "config": f"{arch} "
         f"{'sparse_mlp (64,64) d=0.25, ' if n_mlp else ''}"
@@ -1420,6 +1436,8 @@ def serve(card, arch=SERVE_ARCH, phase="serve", autotuned=True,
         "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
         "prefill_device_ms": profiles["prefill"]["device_ms"],
         "decode_step_device_ms": profiles["decode_step"]["device_ms"],
+        "replayed_decode_step_ms": graph["replayed_decode_step_ms"],
+        "decode_step_graph": graph,
         "encoder_device_ms": profiles["encoder"]["device_ms"]
         if "encoder" in profiles else None,
         "sparse_head_ms": head_ms, "launches": launches,
@@ -1801,6 +1819,199 @@ def device_ms(fn, calls: int = 10) -> float:
         raise AssertionError(f"enqueueing {calls} calls took {host_s} s: "
                              f"the card may have waited for the host")
     return start.elapsed_time(end) / calls
+
+
+# --------------------------------------------------------------------------
+# captured decode steps (CUDA graphs) against the eager step
+# --------------------------------------------------------------------------
+
+GRAPH_STEPS = 8       # replays held against the eager step
+GRAPH_TIMED = 8       # replays timed after them
+
+
+def tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: tree_clone(v) for k, v in tree.items()}
+    return tree.clone() if torch.is_tensor(tree) else tree
+
+
+def tree_pairs(got, want, path="state"):
+    """(name, got, want) of each tensor leaf of two trees of one layout."""
+    if isinstance(got, dict):
+        for k in got:
+            yield from tree_pairs(got[k], want[k], f"{path}/{k}")
+    elif torch.is_tensor(got):
+        yield path, got, want
+
+
+def held_equal(pairs, step, differs, what):
+    """Each (name, got, want) ``torch.equal``; one that is not (cuBLAS
+    taking another algorithm under capture) is recorded in ``differs``
+    and held within 1e-5·max + 1e-6."""
+    for name, got, want in pairs:
+        if torch.equal(got, want):
+            continue
+        err = float((got.double() - want.double()).abs().max())
+        top = float(want.double().abs().max())
+        differs.append({"step": step, "tensor": name, "max_abs_err": err,
+                        "max_abs": top})
+        if not err <= 1e-5 * top + 1e-6:
+            raise AssertionError(f"{what}: replay {step} differs from the "
+                                 f"eager step at {name} by {err} (max "
+                                 f"{top})")
+
+
+def release_graphs():
+    """Drop every cached decode callable's graph, and the weights and
+    state it holds."""
+    from repro_torch.serve.engine import release_graphs as release
+    release()
+
+
+def graph_numbers(graph):
+    return {"captures": graph.captures, "capture_ms": graph.capture_ms,
+            "nodes": graph.nodes, "pool_bytes": graph.pool_bytes}
+
+
+def replay_check(params, cfg, state, tokens, what):
+    """``serve.jitted_decode_step(cfg)`` on ``state``: its eager warm-up,
+    its capture and ``GRAPH_STEPS`` replays, each against the eager
+    ``lm.decode_step`` on a copy of the state fed the same greedy tokens
+    (logits and every cache ``torch.equal``, else ``held_equal``; each
+    call's launches equal to the eager step's); then ``GRAPH_TIMED``
+    replays timed on the host clock as ``decode_step_ms`` times the eager
+    step, and one under ``profile``.  Drops the graph after."""
+    from repro_torch.kernels import launch_counters
+    from repro_torch.models import lm
+    from repro_torch.serve import jitted_decode_step
+    fn = jitted_decode_step(cfg)
+    graph = fn.graph
+    counters = launch_counters()
+    counts = lambda: {k: f.launches for k, f in counters.items()}  # noqa
+    before = graph.captures, graph.replays
+    other = tree_clone(state)
+    differs = []
+    for step in range(GRAPH_STEPS + 1):
+        c0 = counts()
+        out, state = fn(params, state=state, tokens=tokens)
+        c1 = counts()
+        want, other = lm.decode_step(params, cfg, other, tokens)
+        c2 = counts()
+        mine = {k: c1[k] - c0[k] for k in c0}
+        eager = {k: c2[k] - c1[k] for k in c0}
+        if mine != eager:
+            raise AssertionError(f"{what}: call {step} counted {mine}, the "
+                                 f"eager step {eager}")
+        if state["pos"] != other["pos"]:
+            raise AssertionError(f"{what}: pos {state['pos']} against "
+                                 f"{other['pos']}")
+        held_equal([("logits", out, want), *tree_pairs(
+            {k: v for k, v in state.items() if k != "pos"},
+            {k: v for k, v in other.items() if k != "pos"})], step, differs,
+            what)
+        tokens = want[:, -1, :cfg.vocab_size].argmax(-1)[:, None].to(
+            tokens.dtype)
+    if (graph.captures - before[0], graph.replays - before[1]) != \
+            (1, GRAPH_STEPS):
+        raise AssertionError(f"{what}: {graph.captures - before[0]} captures"
+                             f", {graph.replays - before[1]} replays")
+    del other
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GRAPH_TIMED):
+        _, state = fn(params, state=state, tokens=tokens)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / GRAPH_TIMED
+    prof = profile(lambda: fn(params, state=state, tokens=tokens),
+                   warmup=False)
+    line = {"replays_held": GRAPH_STEPS, "bit_equal": not differs,
+            "n_differs": len(differs), "differs": differs[:8],
+            "replayed_decode_step_ms": wall_ms,
+            "replayed_device_ms": prof["device_ms"],
+            "replayed_launches": prof["launches"],
+            "replayed_profile_wall_ms": prof["wall_ms"],
+            **graph_numbers(graph)}
+    release_graphs()
+    return line
+
+
+def fused_graph_check(params, cfg, head, max_slots, page_size, prompt=64):
+    """The batcher's fused step (the paged step and the head, one graph)
+    at full occupancy: ``max_slots`` requests of ``prompt`` tokens
+    admitted at round 0, whose fused step is the graph's eager warm-up;
+    then ``GRAPH_STEPS`` rounds, the first capturing, each fused step held
+    against the eager one (``ContinuousBatcher._fused``) on a copy of the
+    caches fed the same packed (tokens | pos | table): logits, the new
+    positions and every cache ``torch.equal`` (else ``held_equal``).  Each
+    fused step is timed alone (the call, then a synchronize), replayed
+    and eager; then ``GRAPH_TIMED`` rounds' walls (host clock)."""
+    from repro_torch.serve import (BatcherConfig, ContinuousBatcher, Request,
+                                   RequestQueue)
+    from repro_torch.serve.workload import worst_pool
+    rng = np.random.default_rng(SEED + 11)
+    reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, prompt)
+                    .astype(np.int32),
+                    max_new_tokens=GRAPH_STEPS + GRAPH_TIMED + 4, rid=i)
+            for i in range(max_slots)]
+    queue = RequestQueue()
+    queue.submit_all(reqs)
+    eng = ContinuousBatcher(params, cfg, queue, BatcherConfig(
+        max_slots=max_slots, page_size=page_size,
+        n_pages=worst_pool(reqs, max_slots, page_size),
+        max_seq=prompt + GRAPH_STEPS + GRAPH_TIMED + 8), head=head)
+    eng.step(0.0)
+    if eng.live() != max_slots or eng.graph.captured:
+        raise AssertionError("the fused check's first round")
+    replayed = eng._decode
+    differs, replay_ms, eager_ms = [], [], []
+
+    def checked(host):
+        caches = {k: v for k, v in eng.state.items()
+                  if k not in ("pos", "table")}
+        copy = tree_clone(caches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, new_state = replayed(host)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want, pos, _ = eng._fused(copy, torch.from_numpy(host).to(
+            eng.device))
+        torch.cuda.synchronize()
+        replay_ms.append((t1 - t0) * 1e3)
+        eager_ms.append((time.perf_counter() - t1) * 1e3)
+        held_equal([("logits", out, want), ("pos", new_state["pos"], pos),
+                    *tree_pairs(caches, copy)], len(eager_ms), differs,
+                   "the fused step")
+        return out, new_state
+
+    eng._decode = checked
+    for t in range(1, GRAPH_STEPS + 1):
+        eng.step(float(t))
+    del eng._decode
+    if (eng.graph.captures, eng.graph.replays) != (1, GRAPH_STEPS):
+        raise AssertionError(f"the fused step: {eng.graph.captures} "
+                             f"captures, {eng.graph.replays} replays")
+    walls = []
+    for t in range(GRAPH_TIMED):
+        t0 = time.perf_counter()
+        eng.step(float(GRAPH_STEPS + 1 + t))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    if eng.live() != max_slots:
+        raise AssertionError("the fused check's rounds retired a request")
+    line = {"slots": max_slots, "prompt": prompt,
+            "replays_held": GRAPH_STEPS, "bit_equal": not differs,
+            "n_differs": len(differs), "differs": differs[:8],
+            # the first replay follows its capture (timed with it)
+            "replayed_step_ms": replay_ms[1:],
+            "replayed_step_ms_median": statistics.median(replay_ms[1:]),
+            "capture_and_first_replay_ms": replay_ms[0],
+            "eager_step_ms": eager_ms,
+            "eager_step_ms_median": statistics.median(eager_ms),
+            "round_wall_ms": walls,
+            "round_wall_ms_median": statistics.median(walls),
+            **graph_numbers(eng.graph)}
+    del eng
+    return line
 
 
 def greedy_steps(r, want, got, rows, vocab, what):
@@ -2922,6 +3133,9 @@ def moe_serve(card):
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) * 1e3 / 4
     prof = profile(lambda: lm.decode_step(params, cfg, state, step_tok))
+    _, gstate = lm.prefill(params, cfg, batch, max_seq=prompt_len + 32)
+    graph = replay_check(params, cfg, gstate, step_tok, "moe_serve")
+    del gstate
     mcfg = lm._moe_cfg(cfg)
     line = {
         "phase": "moe_serve", "config": f"{MOE_ARCH}, f32, random weights "
@@ -2934,6 +3148,9 @@ def moe_serve(card):
         "cap_decode": M._capacity(4, mcfg), "setup_s": setup_s,
         "generate_s": gen_s, "generate_tok_per_s": 4 * new / gen_s,
         "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+        "decode_step_device_ms": prof["device_ms"],
+        "replayed_decode_step_ms": graph["replayed_decode_step_ms"],
+        "decode_step_graph": graph,
         "launches": launches, "launches_expected": expect, "card": card,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "init_peak_mem_gib": init_peak_gib, "layer0_check": layer0,
@@ -3150,7 +3367,9 @@ def held_against_plain(errors, where="the batcher"):
     (``check_close`` at the f32 tolerance); ``errors`` maps each (kernel,
     G, K, N) of B3 / B4 and (kernel, B, S, H, hd) of B9 seen to its
     largest error, and ``where`` names the run in a failure's message.  No
-    launch is added: the kernel's own output goes on down the path."""
+    launch is added: the kernel's own output goes on down the path.  A
+    launch inside a CUDA graph's capture is not held (a check reads the
+    card on the host): the step's eager warm-up ran the same shapes."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.block_attn import (block_attention,
                                                 block_attention_plain)
@@ -3162,6 +3381,8 @@ def held_against_plain(errors, where="the batcher"):
     def held(kernel, plain, operand):
         def call(*args, **kw):
             out = kernel(*args, **kw)
+            if torch.cuda.is_current_stream_capturing():
+                return out      # a graph's capture: its warm-up was held
             x = args[operand]
             key = (kernel.__name__, *x.shape)
             # the plain versions take every option but the N tile
@@ -3373,6 +3594,9 @@ def batcher(card):
                                                "run A")
     run_a["full_occupancy"] = full_step_profile(params, cfg, head,
                                                 BATCH_GEOMETRY)
+    run_a["fused_graph"] = fused_graph_check(
+        params, cfg, head, BATCH_GEOMETRY["max_slots"],
+        BATCH_GEOMETRY["page_size"])
     del eng
 
     # ---- run B: chaos ----------------------------------------------------
@@ -3513,6 +3737,7 @@ def batcher(card):
     run_e["sampled_tokens_equal_uninterrupted"] = sum(
         len(c.tokens) for c in got.values())
     del eng, params, head
+    release_graphs()          # the static path's graphs hold the weights
     torch.cuda.empty_cache()
 
     # ---- run C: granite-moe-3b through the same engine --------------------
@@ -3555,6 +3780,7 @@ def batcher(card):
              "prefill_ms_by_round": [x * 1e3 for x in admit_c],
              "launches": moe_launches, "launches_expected": moe_expect}
     del eng, mparams
+    release_graphs()
     torch.cuda.empty_cache()
     return ({"batcher": launches, "batcher_moe": moe_launches}, {
         "phase": "batcher", "config": f"{SERVE_ARCH} sparse_mlp (64,64) "
@@ -3940,7 +4166,10 @@ def hybrid_batcher(card):
         "launches": launches, "launches_expected": expect, "card": card}
     line["vs_complete_static"] = static_check(params, cfg, head, comps, reqs,
                                               "hybrid_batcher")
-    del eng, params, head
+    del eng
+    line["fused_graph"] = fused_graph_check(params, cfg, head, 4, page)
+    del params, head
+    release_graphs()
     torch.cuda.empty_cache()
     return launches, line
 
@@ -4194,14 +4423,8 @@ MOE_TRAIN_WAS_MS = {
 
 def maple_counters():
     """Every Maple kernel wrapper that counts its launches, by name."""
-    from repro_torch.kernels.block_attn import block_attention
-    from repro_torch.kernels.maple_sddmm import maple_sddmm_bsr
-    from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_dw
-    fns = {f.__name__: f for f in _spmm_kernels()}
-    fns.update(spgemm_counters())
-    fns.update(maple_sddmm_bsr=maple_sddmm_bsr, moe_gemm=moe_gemm,
-               moe_gemm_dw=moe_gemm_dw, block_attention=block_attention)
-    return fns
+    from repro_torch.kernels import launch_counters
+    return launch_counters()
 
 
 def moe_backward_kernels_edge():
@@ -4859,6 +5082,9 @@ def moe_ep_serve(card, arch=MOE_ARCH, phase="moe_ep_serve"):
         prof_decode = profile(lambda: lm.decode_step(params, cfg, state,
                                                      step_tok),
                               totals=totals, cross_check=arch == MOE_ARCH)
+        _, gstate = lm.prefill(params, cfg, batch, max_seq=prompt_len + 32)
+        graph = replay_check(params, cfg, gstate, step_tok, phase)
+        del gstate
     z = M.ep_sizes(mesh, lm._moe_cfg(cfg), 4, prompt_len)
     line = {
         "phase": phase, "config": f"{arch}, its own config (moe_impl "
@@ -4875,6 +5101,9 @@ def moe_ep_serve(card, arch=MOE_ARCH, phase="moe_ep_serve"):
         "prefill_dropped_slots": drops, "setup_s": setup_s,
         "generate_s": gen_s, "generate_tok_per_s": 4 * new / gen_s,
         "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+        "decode_step_device_ms": prof_decode["device_ms"],
+        "replayed_decode_step_ms": graph["replayed_decode_step_ms"],
+        "decode_step_graph": graph,
         "launches": launches, "launches_expected": expect, "card": card,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "init_peak_mem_gib": init_peak_gib,

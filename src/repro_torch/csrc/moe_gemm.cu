@@ -380,6 +380,17 @@ cudaError_t launch_piece(int dtype, int trans, const CUtensorMap& xm,
   return launch_mode<P, false>(dtype, xm, wm, x, eot, w, y, g, smem, st);
 }
 
+// Bind this thread's context with cudaFree(nullptr), which stream capture
+// refuses.  A stream under capture was begun where the context is bound
+// (a CUDA graph of a serving step), so a captured launch skips the call.
+cudaError_t bind_context(cudaStream_t st) {
+  cudaStreamCaptureStatus capturing = cudaStreamCaptureStatusNone;
+  const cudaError_t err = cudaStreamIsCapturing(st, &capturing);
+  if (err != cudaSuccess) return err;
+  return capturing == cudaStreamCaptureStatusNone ? cudaFree(nullptr)
+                                                  : cudaSuccess;
+}
+
 // x (T, K) times w's panels: out (T, N), K the reduction; w is (E, K, N),
 // or (E, N, K) with trans.  The forward and dx launches both end here.
 cudaError_t run_moe(const void* x, const int* eot, const void* w, void* y,
@@ -399,7 +410,7 @@ cudaError_t run_moe(const void* x, const int* eot, const void* w, void* y,
   if (g.tma) {
     // cuTensorMapEncodeTiled needs this thread's context: bind it first
     // (an autograd worker's first CUDA call can be this launch)
-    if ((err = cudaFree(nullptr)) != cudaSuccess) return err;
+    if ((err = bind_context(st)) != cudaSuccess) return err;
     // w's dims innermost first: (N, K, E), or (K, N, E) with trans; the
     // box is (64 of N, bk of K), or (bk of K, 64 of N)
     const uint64_t inner = trans ? K : N, outer = trans ? N : K;
@@ -844,7 +855,7 @@ cudaError_t launch_dw(const DwGeo& g, int E, const void* x, const void* dy,
   memset(maps, 0, sizeof(maps));
   if (g.tma) {
     // cuTensorMapEncodeTiled needs this thread's context: bind it first
-    if ((err = cudaFree(nullptr)) != cudaSuccess) return err;
+    if ((err = bind_context(st)) != cudaSuccess) return err;
     const int dt = sizeof(T) == 2;
     const uint64_t isz = sizeof(T);
     const uint32_t fb = dt ? 64 : kDwF;      // bf16: 128-byte swizzled boxes

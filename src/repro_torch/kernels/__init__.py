@@ -17,7 +17,10 @@ from repro_torch.kernels.maple_sddmm import maple_sddmm_bsr, maple_sddmm_csr
 from repro_torch.kernels.maple_spmm import (maple_spmm_compact,
                                             maple_spmm_naive,
                                             maple_spmm_planned)
-from repro_torch.kernels.moe_gemm import moe_gemm
+from repro_torch.kernels.maple_spgemm import (maple_spgemm_db,
+                                              maple_spgemm_numeric)
+from repro_torch.kernels.maple_spmspm import maple_spmspm_ell
+from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_dw
 from repro_torch.kernels.ops import (csr_to_ell, local_block_attention,
                                      maple_spgemm, maple_spmm, maple_spmspm,
                                      moe_expert_gemm)
@@ -32,9 +35,22 @@ from repro_torch.kernels.schedule import (ExecutionPlan, SpgemmPlan,
                                           plan_spmm, plan_spmm_vjp,
                                           spmm_knob_space)
 
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper that counts its launches (its ``launches``
+    attribute, one a launch of its kernel), by name."""
+    fns = (maple_spmm_naive, maple_spmm_compact, maple_spmm_planned,
+           maple_sddmm_bsr, maple_sddmm_csr, maple_spgemm_numeric,
+           maple_spgemm_db, maple_spmspm_ell, moe_gemm, moe_gemm_dw,
+           block_attention)
+    return {f.__name__: f for f in fns}
+
+
 __all__ = ["ExecutionPlan", "PartitionedSpmmPlan", "RowReorder", "SearchReport", "SpgemmPlan",
            "SpmmPlan", "SpmmTrainPlan", "apply_reorder", "auto_plan",
            "block_attention", "bsr_stats", "csr_to_ell", "fit_calibration",
+           "launch_counters",
            "load_calibration", "local_block_attention",
            "local_window_kv_map", "maple_sddmm_bsr", "maple_sddmm_csr",
            "maple_spgemm", "maple_spmm", "maple_spmm_compact",

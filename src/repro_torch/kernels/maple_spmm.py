@@ -237,15 +237,26 @@ def naive_route(dtype: torch.dtype, g: int, gm: int, n: int, k: int,
 
 
 _COUNTERS: dict = {}
+_OUTGROWN: list = []
 
 
 def _row_counters(device: torch.device, n: int) -> torch.Tensor:
     """B4's per-(batch, tile, row, quarter) arrival counters, zero between
     launches (the last run of a split row resets its counter), kept per
     device: B4 launches that share them run one after another on one
-    stream."""
+    stream.  A CUDA graph replays the address of the counters it was
+    captured with, so counters a larger launch outgrows are kept, never
+    freed; and they are allocated (and zeroed) outside any capture, by a
+    step's eager warm-up."""
     have = _COUNTERS.get(str(device))
     if have is None or have.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"B4 needs {n} arrival counters on {device}, more than it "
+                f"holds, inside a CUDA graph capture: run the step once "
+                f"eagerly first")
+        if have is not None:
+            _OUTGROWN.append(have)
         have = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _COUNTERS[str(device)] = have
     return have

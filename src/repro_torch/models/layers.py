@@ -568,27 +568,33 @@ def attention_prefill(p, cfg: AttnConfig, x, positions, *, cache_len: int,
     return out, k_cache, v_cache
 
 
-def attention_decode(p, cfg: AttnConfig, x, cache_k, cache_v, pos: int, *,
+def attention_decode(p, cfg: AttnConfig, x, cache_k, cache_v, pos, *,
                      rope=None):
     """One-token decode step against a static KV cache.
 
     x: (B, 1, D); cache_k/v: (B, S_cache, KVH, hd); ``pos`` the absolute
-    position of the new token (``rope``, optional, its
-    :func:`rope_tables`).  A global cache takes the new K/V at slot
-    ``pos``; a rolling local-window cache (``S_cache == window``) at
-    ``pos % S_cache``, its slots masked by the absolute position each
-    holds and by the window.  The new K/V are written into the caches
-    **in place** (the reference returns updated copies; updating in place
-    keeps one cache buffer).  Returns (out, cache_k, cache_v)."""
+    position of the new token, a Python int or a 0-dim integer tensor on
+    x's device (``rope``, optional, its :func:`rope_tables`).  A global
+    cache takes the new K/V at slot ``pos``; a rolling local-window cache
+    (``S_cache == window``) at ``pos % S_cache``, its slots masked by the
+    absolute position each holds and by the window.  The new K/V are
+    written into the caches **in place** (the reference returns updated
+    copies; updating in place keeps one cache buffer).  The position is
+    never read on the host: the write index and the masks are built from
+    it on the device, so a captured step replays at the position its
+    buffer holds.  Returns (out, cache_k, cache_v)."""
+    if not torch.is_tensor(pos):
+        pos = torch.full((), pos, dtype=torch.long, device=x.device)
     if rope is None:
-        rope = rope_tables(torch.full((x.shape[0], 1), pos, device=x.device),
+        rope = rope_tables(pos.reshape(1, 1).expand(x.shape[0], 1),
                            cfg.head_dim, cfg.rope_theta)
     s_cache = cache_k.shape[1]
     rolling = cfg.window is not None and s_cache == cfg.window
     write_idx = pos % s_cache if rolling else pos
     q, k_new, v_new = _project_qkv(p, cfg, x, rope)
-    cache_k[:, write_idx] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, write_idx] = v_new[:, 0].to(cache_v.dtype)
+    at = write_idx.reshape(1).long()
+    cache_k.index_copy_(1, at, k_new.to(cache_k.dtype))
+    cache_v.index_copy_(1, at, v_new.to(cache_v.dtype))
     slot = torch.arange(s_cache, device=x.device)
     # the absolute position each slot holds
     abs_pos = pos - torch.remainder(write_idx - slot, s_cache) if rolling \

@@ -707,7 +707,8 @@ def prefill_cross_kv(params, cfg: ModelConfig, state, enc_frames,
 def _mix_decode(p, cfg: ModelConfig, kind: str, h, cache, pos, rope,
                 table=None):
     """A block's temporal mixer for one new token a row, against the
-    static cache (``table`` None, ``pos`` an int) or the paged pool
+    static cache (``table`` None, ``pos`` a 0-dim device tensor) or the
+    paged pool
     (``table`` and per-row ``pos`` on the device); caches are updated in
     place."""
     if kind in ATTENTION:
@@ -737,14 +738,21 @@ def decode_step(params, cfg: ModelConfig, state, tokens, *,
     """One decode step.  tokens: (B, 1) → (logits (B, 1, V) or the hidden
     state, new state).  The caches in ``state`` are updated in place and
     carried into the returned state with ``pos + 1``; a decoder block's
-    cross-attention reads the cross K/V its cache holds."""
+    cross-attention reads the cross K/V its cache holds.  ``state["pos"]``
+    is an int, or a 0-dim integer tensor on the device (a captured step's
+    position buffer); the returned ``pos`` is of the same kind.  The step
+    never reads the position on the host: an int is filled into a device
+    scalar once and the layers build their write indices and masks from
+    it there."""
     _check_ported(cfg)
-    pos = int(state["pos"])
+    pos = state["pos"]
     x = params["embed_tokens"][tokens]
-    rope = _rope(cfg, torch.full((x.shape[0], 1), pos, device=x.device))
+    at = pos if torch.is_tensor(pos) else torch.full(
+        (), int(pos), dtype=torch.long, device=x.device)
+    rope = _rope(cfg, at.reshape(1, 1).expand(x.shape[0], 1))
     for kind, p, cache in _blocks(params, state, cfg):
         h = L.apply_norm(x, p["norm1"], cfg.norm)
-        x = x + _mix_decode(p, cfg, kind, h, cache, pos, rope)
+        x = x + _mix_decode(p, cfg, kind, h, cache, at, rope)
         if "cross" in p:
             x = _cross(p, cfg, x, cache["cross_k"], cache["cross_v"])
         x = _ffn(p, cfg, x)

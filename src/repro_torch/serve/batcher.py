@@ -11,17 +11,20 @@ round (:meth:`step`):
    ``status="deadline_exceeded"``; queued requests past theirs are shed
    before admission.
 2. **Admit**: while a ready request, a free slot and enough KV pages
-   exist, run a batch-1 ``lm.prefill``, write its caches into the slot's
-   pages (in place) and sample the first token.  Malformed prompts (token
-   ids outside ``[0, vocab_size)``) are quarantined at the door
-   (``status="rejected"``).  When pages run short the engine **preempts**
-   the lowest-progress slot: its pages are freed and it re-enters the
-   queue carrying its generated tokens, generator and timestamps, so
-   resume is a re-prefill over prompt + generated.
+   exist, run a batch-1 prefill (``engine.jitted_prefill``), write its
+   caches into the slot's pages (in place) and sample the first token.
+   Malformed prompts (token ids outside ``[0, vocab_size)``) are
+   quarantined at the door (``status="rejected"``).  When pages run short
+   the engine **preempts** the lowest-progress slot: its pages are freed
+   and it re-enters the queue carrying its generated tokens, generator
+   and timestamps, so resume is a re-prefill over prompt + generated.
 3. **Decode**: one fused ``lm.decode_step_paged`` over all ``max_slots``
-   rows (free slots ride along writing into the dead page, so every step
-   has the same shapes); per-slot positions let slots sit at different
-   depths.  The call sits inside a **bounded-retry wrapper**: an injected
+   rows, scored by the head when there is one (free slots ride along
+   writing into the dead page, so every step has the same shapes);
+   per-slot positions let slots sit at different depths.  On the card
+   the step and the head are one CUDA graph, captured on the engine's
+   second step and replayed after it (``serve.graphs.StepGraph``).  The
+   call sits inside a **bounded-retry wrapper**: an injected
    :class:`~repro_torch.serve.faults.TransientStepError` is raised before
    the step runs, so the pool (updated in place by a step) is untouched
    and a replay is exact; after ``max_retries`` the round degrades to the
@@ -42,7 +45,13 @@ Differences from the reference, on purpose:
 * **State.** The page pool, and the recurrent layers' per-slot rows, are
   updated in place by the prefill scatter and by each fused step; the
   reference swaps in functional copies.
-* **No jit cache.** Prefill and the fused step run eagerly.
+* **Compiled steps.** The reference jits the fused step
+  (``jitted_decode_step``) and the head apart; here the fused step and
+  the head are captured together as one CUDA graph on the card, fed by
+  one copy of (tokens | pos | table) into its static buffer.  Sampling
+  and fault injection stay outside it, as outside the reference's jitted
+  step.  The admission prefill goes through ``jitted_prefill`` and runs
+  eagerly.
 * **Host syncs.** A fused step copies its host inputs (tokens, positions,
   block table) to the device in one copy and brings back, in one copy,
   each row's token, finiteness flag (and entropy), sampled on the
@@ -66,9 +75,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
 from repro_torch.serve.engine import (SamplingConfig, SparseLogitHead,
-                                      complete_static, sample_token,
+                                      complete_static, jitted_decode_step,
+                                      jitted_prefill, sample_token,
                                       token_entropy)
 from repro_torch.serve.faults import FaultSchedule, TransientStepError
+from repro_torch.serve.graphs import StepGraph
 from repro_torch.serve.paged_cache import (DEAD_PAGE, PageAllocator,
                                            assert_paged_memory_bound,
                                            make_table, pages_for,
@@ -147,6 +158,10 @@ class ContinuousBatcher:
             cfg, bcfg.max_slots, bcfg.n_pages, bcfg.page_size,
             bcfg.max_pages, device=self.device)
         self.slots: List[Optional[_Slot]] = [None] * bcfg.max_slots
+        self._step_fn = jitted_decode_step(cfg, paged=True,
+                                           return_hidden=head is not None)
+        # the fused step and the head, captured as one graph on the card
+        self.graph = StepGraph(f"the fused step of {cfg.name}")
         self.completions: List[Completion] = []
         self.steps = 0
         self.rounds = 0              # step() calls: the fault-clock key
@@ -278,9 +293,9 @@ class ContinuousBatcher:
             pages = [DEAD_PAGE] * dead + pages
         padded_len = len(pages) * self.bcfg.page_size
         tokens = torch.from_numpy(ctx.astype(np.int64))[None].to(self.device)
-        out, pstate = lm.prefill(self.params, self.cfg, {"tokens": tokens},
-                                 max_seq=max(padded_len, total),
+        prefill = jitted_prefill(self.cfg, max(padded_len, total),
                                  return_hidden=self.head is not None)
+        out, pstate = prefill(self.params, batch={"tokens": tokens})
         logits = self.head(out) if self.head is not None else out
         scatter_prefill_state(self.state, pstate, slot_id, pages,
                               self.bcfg.page_size)
@@ -441,20 +456,36 @@ class ContinuousBatcher:
                 self.errors += 1
             self._retire(i, reason, now)
 
-    def _decode(self, host: np.ndarray):
-        """The fused step on ``host`` = (tokens | pos | table) per slot,
-        int32, copied to the device at once.  Returns the logits
-        ``(max_slots, 1, V)`` and the new state.  The head scores the
-        slots as the ``max_slots`` columns of one product (the
-        reference: one batch each), so its weight is read once a step."""
-        dev = torch.from_numpy(host).to(self.device, non_blocking=True)
-        state = dict(self.state, pos=dev[:, 1], table=dev[:, 2:])
-        out, new_state = lm.decode_step_paged(
-            self.params, self.cfg, state, dev[:, :1],
-            return_hidden=self.head is not None)
+    def _fused(self, caches, packed: torch.Tensor):
+        """The fused step on ``packed`` = (tokens | pos | table) per slot,
+        int32 on the device: the eager paged step, then the head, which
+        scores the slots as the ``max_slots`` columns of one product (the
+        reference: one batch each), so its weight is read once a step.
+        Returns the logits ``(max_slots, 1, V)``, the new ``pos`` and the
+        table."""
+        state = dict(caches, pos=packed[:, 1], table=packed[:, 2:])
+        out, new_state = self._step_fn.eager(self.params, state,
+                                             packed[:, :1])
         if self.head is not None:
             out = self.head(out.transpose(0, 1)).transpose(0, 1)
-        return out, new_state
+        return out, new_state["pos"], new_state["table"]
+
+    def _decode(self, host: np.ndarray):
+        """The fused step on ``host`` = (tokens | pos | table) per slot,
+        int32, copied to the device at once (on the card into the
+        graph's static buffer, then the graph replays).  Returns the
+        logits ``(max_slots, 1, V)`` and the new state."""
+        caches = {k: v for k, v in self.state.items()
+                  if k not in ("pos", "table")}
+        packed = torch.from_numpy(host)
+        if self.device.type == "cuda":
+            out, pos, table = self.graph(
+                lambda feeds: self._fused(caches, feeds["packed"]),
+                {"packed": packed}, (self.params, caches, self.head),
+                self.device)
+        else:
+            out, pos, table = self._fused(caches, packed.to(self.device))
+        return out, dict(self.state, pos=pos, table=table)
 
     def step(self, now: float = 0.0) -> List[Completion]:
         """One scheduling round: expire, admit, fused-decode (with

@@ -7,15 +7,21 @@ Randomness: sampled decoding draws from an explicit ``torch.Generator``
 on the logits' device.  It cannot reproduce the reference's
 ``jax.random`` draws; greedy decoding (temperature 0) matches it.
 
-The reference's ``jitted_prefill`` / ``jitted_decode_step`` (``jax.jit``
-caches) have no counterpart: the port calls ``lm.prefill`` and
-``lm.decode_step`` / ``lm.decode_step_paged`` eagerly.
+Compiled steps: ``jitted_prefill`` and ``jitted_decode_step`` are the
+reference's cached callables, one per key, called as the reference's
+are.  A decode callable on the card captures its step once as a CUDA
+graph and replays it (:class:`~repro_torch.serve.graphs.StepGraph`: the
+first call on a state is eager, the second captures, every later one
+replays; the caches are updated in place); on the CPU it runs the eager
+step.  Prompt lengths differ request to request, so a prefill runs
+eagerly on every device.  ``generate`` and ``complete_static`` go
+through both, as the reference's do.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -29,6 +35,7 @@ from repro_torch.kernels.schedule import (SpmmPlan, SpmmTrainPlan, plan_spmm,
                                           plan_spmm_vjp)
 from repro_torch.models import lm
 from repro_torch.models.layers import sparse_linear
+from repro_torch.serve.graphs import StepGraph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +128,101 @@ def token_entropy(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
     return -torch.sum(probs * torch.log(probs + 1e-9), dim=-1)
 
 
+# --------------------------------------------------------------------------
+# the compiled-step cache: one callable per key, as the reference's (its
+# jax.jit traces live per callable), so back-to-back generate() calls
+# reuse one decode callable and its graph's warm-up
+# --------------------------------------------------------------------------
+
+_PREFILL_JIT: Dict[tuple, Any] = {}
+_DECODE_JIT: Dict[tuple, Any] = {}
+
+
+class PrefillStep:
+    """``lm.prefill`` for one (cfg, max_seq, return_hidden), called as the
+    reference's jitted one: ``fn(params, batch=...)`` → (logits or the
+    hidden state, decode state).  It runs eagerly on every device."""
+
+    def __init__(self, cfg: ModelConfig, max_seq: int, return_hidden: bool):
+        self.cfg, self.max_seq = cfg, max_seq
+        self.return_hidden = return_hidden
+
+    def __call__(self, params, batch):
+        return lm.prefill(params, self.cfg, batch, max_seq=self.max_seq,
+                          return_hidden=self.return_hidden)
+
+
+class DecodeStep:
+    """``lm.decode_step`` (``paged``: ``decode_step_paged``) for one cfg,
+    called as the reference's jitted one: ``fn(params, state=...,
+    tokens=...)`` → (logits or the hidden state, new state).
+
+    On tensors on the CPU it runs the eager step.  On the card it runs
+    through :attr:`graph`, fed the tokens and the state's ``pos`` (and
+    ``table`` when paged); the caches are updated in place, as the eager
+    step updates them.  The state's ``pos`` comes back of the kind it
+    went in: an int stays an int."""
+
+    def __init__(self, cfg: ModelConfig, paged: bool, return_hidden: bool):
+        self.cfg, self.paged = cfg, paged
+        self.return_hidden = return_hidden
+        step = "decode_step_paged" if paged else "decode_step"
+        self.graph = StepGraph(f"{step} of {cfg.name}")
+
+    def eager(self, params, state, tokens):
+        step = lm.decode_step_paged if self.paged else lm.decode_step
+        return step(params, self.cfg, state, tokens,
+                    return_hidden=self.return_hidden)
+
+    def __call__(self, params, state, tokens):
+        if not tokens.is_cuda:
+            return self.eager(params, state, tokens)
+        names = ("pos", "table") if self.paged else ("pos",)
+        caches = {k: v for k, v in state.items() if k not in names}
+
+        def fn(feeds):
+            out, new = self.eager(
+                params, dict(caches, **{k: feeds[k] for k in names}),
+                feeds["tokens"])
+            return out, new["pos"]
+
+        feeds = {"tokens": tokens, **{k: state[k] for k in names}}
+        out, pos = self.graph(fn, feeds, (params, caches), tokens.device)
+        if not torch.is_tensor(state["pos"]):
+            pos = state["pos"] + 1
+        return out, dict(state, pos=pos)
+
+
+def jitted_prefill(cfg: ModelConfig, max_seq: int, *,
+                   return_hidden: bool = False) -> PrefillStep:
+    """The cached prefill callable for (cfg, max_seq, return_hidden)."""
+    key = (cfg, int(max_seq), bool(return_hidden))
+    fn = _PREFILL_JIT.get(key)
+    if fn is None:
+        fn = _PREFILL_JIT[key] = PrefillStep(cfg, int(max_seq),
+                                             bool(return_hidden))
+    return fn
+
+
+def jitted_decode_step(cfg: ModelConfig, *, paged: bool = False,
+                       return_hidden: bool = False) -> DecodeStep:
+    """The cached decode callable for (cfg, paged, return_hidden): on the
+    card, a captured CUDA graph replayed (see :class:`DecodeStep`)."""
+    key = (cfg, bool(paged), bool(return_hidden))
+    fn = _DECODE_JIT.get(key)
+    if fn is None:
+        fn = _DECODE_JIT[key] = DecodeStep(cfg, bool(paged),
+                                           bool(return_hidden))
+    return fn
+
+
+def release_graphs() -> None:
+    """Drop every cached decode callable's graph and the parameters and
+    state it holds (the callables stay cached)."""
+    for fn in _DECODE_JIT.values():
+        fn.graph.release()
+
+
 def _default_generator(device: torch.device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(0)
 
@@ -155,9 +257,11 @@ def complete_static(params, cfg: ModelConfig, tokens, max_new: int, *,
     if generator is None:
         generator = _default_generator(device)
     use_head = head is not None
-    out, state = lm.prefill(
-        params, cfg, {"tokens": torch.from_numpy(tokens)[None].to(device)},
-        max_seq=tokens.size + max_new, return_hidden=use_head)
+    prefill = jitted_prefill(cfg, tokens.size + max_new,
+                             return_hidden=use_head)
+    step_fn = jitted_decode_step(cfg, return_hidden=use_head)
+    out, state = prefill(params, batch={
+        "tokens": torch.from_numpy(tokens)[None].to(device)})
     logits = head(out) if use_head else out
     new_tokens: list = []
     while True:
@@ -170,10 +274,8 @@ def complete_static(params, cfg: ModelConfig, tokens, max_new: int, *,
             return new_tokens, "eos", generator
         if len(new_tokens) >= max_new:
             return new_tokens, "length", generator
-        out, state = lm.decode_step(
-            params, cfg, state,
-            torch.full((1, 1), tok, dtype=torch.int64, device=device),
-            return_hidden=use_head)
+        out, state = step_fn(params, state=state, tokens=torch.full(
+            (1, 1), tok, dtype=torch.int64, device=device))
         logits = head(out) if use_head else out
 
 
@@ -194,7 +296,9 @@ def generate(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     if max_seq is None:
         max_seq = (tokens.shape[1] + max(cfg.n_patches, 0)
                    + sampling.max_new_tokens)
-    logits, state = lm.prefill(params, cfg, batch, max_seq=max_seq)
+    prefill = jitted_prefill(cfg, max_seq)
+    step_fn = jitted_decode_step(cfg)
+    logits, state = prefill(params, batch=batch)
     b = tokens.shape[0]
     done = torch.zeros((b,), dtype=torch.bool, device=device)
     outs = []
@@ -214,5 +318,5 @@ def generate(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             done = done | (tok == sampling.eos_id)
             if bool(done.all()):
                 break
-        logits, state = lm.decode_step(params, cfg, state, tok[:, None])
+        logits, state = step_fn(params, state=state, tokens=tok[:, None])
     return torch.stack(outs, dim=1), entropies

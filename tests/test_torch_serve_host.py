@@ -42,9 +42,9 @@ def test_status_names_and_exports_match_reference():
     for name in ("ContinuousBatcher", "BatcherConfig", "RequestQueue",
                  "Request", "Completion", "FaultSchedule",
                  "PageAllocator", "STATUSES", "TransientStepError",
-                 "apply_malformed", "corrupt_tokens"):
+                 "apply_malformed", "corrupt_tokens", "jitted_prefill",
+                 "jitted_decode_step"):
         assert name in port_serve.__all__ and hasattr(port_serve, name)
-    assert "jitted_prefill" not in port_serve.__all__
     assert ({f.name for f in dataclasses.fields(queue.Request)}
             == {f.name for f in dataclasses.fields(ref_queue.Request)})
     assert ({f.name for f in dataclasses.fields(queue.Completion)}
