@@ -76,12 +76,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    ``make_train_step`` step on both (parameters within 2·lr).
 6. train   — ``repro_torch.launch.train`` on qwen3-4b at full width and
    depth with ``--sparse-mlp``, f32, seed 0, 4 × 256 tokens in 4
-   microbatches, 3 AdamW steps.  Launch counts are zeroed just before and
+   microbatches, 4 AdamW steps.  On the card the launcher compiles its
+   step (``train.jitted_train_step``): step 1 is eager (the warm-up),
+   step 2 captures the whole step as one CUDA graph and replays it, steps
+   3 and 4 are replays alone.  Launch counts are zeroed just before and
    read just after and must equal the count derived from the plan's
    layouts: per layer and microbatch, the forward plan's kernel for the
    forward and the remat recompute, the transpose-side plan's for dB,
-   the SDDMM once for dA.  Prints loss and grad norm per step,
-   the step ms of steps 2 and 3, tokens/s, the peak GiB and one profiled
+   the SDDMM once for dA.  Prints loss and grad norm per step, the
+   graph (one capture, a replay a step after it; capture ms, nodes,
+   pool GiB), the warm-up, capture and replayed steps' walls, tokens/s,
+   the peak GiB, the host syncs of one more replayed step (none allowed,
+   CUDA's sync debug mode) and one replayed step profiled.  Then the same
+   4 steps from the same seed through ``make_train_step`` itself, eagerly
+   (``held_against_eager``): losses, grad norms and every parameter
+   equal bit for bit (where two eager runs are not bit-equal themselves,
+   their gap is printed and the replay held to the card-against-CPU
+   tolerance), with the eager run's peak GiB and one profiled eager
    step.
 7. head_backward — a backward through a full-size
    ``SparseLogitHead.build(trainable=True)``, its launches counted by
@@ -291,13 +302,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
     (4 × 256 tokens, each beside 1 536 encoder frames), internvl2-1b with
     the sparse MLP (4 × (256 patches + 256 tokens)), granite-moe-3b-a800m
     (8 × 256 tokens in its 8 microbatches) and mamba2-2.7b (4 × 256), each
-    at full width and depth through ``launch/train.main``, f32, 3 AdamW
-    steps, remat per layer.  Every Maple kernel's launches are zeroed
-    just before and read just after: B2 and B4 by phase 6's formula on
-    internvl, 9 B8 (3 forward, 3 recomputed, 3 dx) and 3 ``moe_dw_kernel``
-    per layer and microbatch on granite, none on the other two.  Finite
-    losses and grad norms, steps 2 and 3's wall and tokens/s, the peak
-    GiB, one more step profiled.  Then B8's forward and dx and
+    at full width and depth through ``launch/train.main``, f32, 4 AdamW
+    steps through the captured step as phase 6, remat per layer.  Every
+    Maple kernel's launches are zeroed just before and read just after:
+    B2 and B4 by phase 6's formula on internvl, 9 B8 (3 forward, 3
+    recomputed, 3 dx) and 3 ``moe_dw_kernel`` per layer and microbatch on
+    granite, none on the other two.  Finite losses and grad norms, the
+    graph and the steps' walls, tokens/s, the peak GiB, a replayed step's
+    host syncs and one more replayed step profiled; whisper-base and
+    granite are also held against the eager step as phase 6.  Then B8's
+    forward and dx and
     ``moe_dw_kernel`` at granite's training shapes (capacity 56, E 48;
     gate/up and down), f32 and bf16, timed beside their bound, plain
     version, one ``torch.bmm`` and the earlier kernels' ms (``was_ms``).
@@ -305,9 +319,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
     4 096, 16 heads over 1 KV head, hd 256, d_ff 12 288, lru_width 4 096,
     window 2 048, vocab 256 000) with the sparse MLP at (64, 64), d 0.25,
     cut to the deepest 3u + 2 layers whose reckoned f32 peak
-    (``reckon_train_peak``) leaves 4 GiB of the card free (``n_layers``,
+    (``reckon_train_peak``) leaves 12 GiB of the card free for the
+    captured step's pool (8 layers; 11 ran out in the capture) (``n_layers``,
     ``depth_reduced`` and the full config's 38 printed): 8 sequences of
-    2 304 tokens in its 8 microbatches, 3 AdamW steps, remat per layer.
+    2 304 tokens in its 8 microbatches, 3 AdamW steps through the
+    captured step (the capture at that depth: no eager fall-back), remat
+    per layer.
     B4 and B2 by phase 6's formula, B9 0 (local attention trains on
     ``chunked_attention``, the reference's route).
 27b. chunked_attention — ``layers.chunked_attention`` (not a TPU kernel:
@@ -338,15 +355,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
     router gradient within 1e-5·max + 1e-6.  The decode step's profile is
     also summed by ``key_averages`` beside the one-pass sums.
 30. train_moe_ep — phase 27's ``train_moe`` under the mesh through
-    ``launch.train.run``: B8 (forward, remat, dx) and ``moe_dw_kernel``
-    launches each × 4 peers.
+    ``launch.train.run``, 3 steps, the step captured under the bound
+    mesh: B8 (forward, remat, dx) and ``moe_dw_kernel`` launches each × 4
+    peers.
 31. qwen3_moe_ep_serve — phase 29 on qwen3-moe-235b-a22b at full width
     (d_model 4 096, 128 experts, top-8, d_expert 1 536), cut to the
     deepest stack whose reckoned f32 peak leaves 4 GiB free (the cut and
     the full config's 94 layers printed).
 32. train_resume — whisper-base at full width and depth through
-    ``launch/train.py``'s CLI, f32: run A 4 steps (twice), run B 2 steps
-    with ``--ckpt-dir`` then 4 from it (resumed at 2); B's parameters and
+    ``launch/train.py``'s CLI, f32, through the captured step (each run,
+    the resumed one on the checkpoint's tensors too, warms up, captures
+    its second step and replays after it): run A 4 steps (twice), run B 2
+    steps with ``--ckpt-dir`` then 4 from it (resumed at 2); B's
+    parameters and
     optimizer state equal A's bit for bit (or, where A's two runs differ,
     within that); checkpoint save and load seconds and bytes on disk;
     ``launch/serve.py --ckpt-dir`` gives ``generate``'s greedy tokens on
@@ -452,7 +473,7 @@ CAGE12, CAGE12_SCALE = "cg", 1.0
 # average 15 and reach 36
 POISSON = "p3"
 SPMSPM_N = 64
-TRAIN_ARGV = ["--arch", "qwen3-4b", "--sparse-mlp", "--steps", "3",
+TRAIN_ARGV = ["--arch", "qwen3-4b", "--sparse-mlp", "--steps", "4",
               "--global-batch", "4", "--seq-len", "256", "--seed", "0",
               "--device", "cuda"]
 # the MoE slice: granite-moe-3b-a800m served at full width and depth; its
@@ -1645,6 +1666,142 @@ def train_reference():
 
 
 # --------------------------------------------------------------------------
+# the captured train step (a CUDA graph) against the eager step
+# --------------------------------------------------------------------------
+
+def train_graph(run, batch, mesh=None):
+    """The captured step of a launcher ``run`` (``train.jitted_train_step``):
+    one capture, a replay every step after the warm-up; its capture ms,
+    nodes and pool; the steps' walls as warm-up, capture and replays; the
+    host syncs of one more replayed step on ``batch`` under the run's
+    ``mesh`` (none allowed: the loss read after it is outside it); the
+    GiB the card holds after it."""
+    from repro_torch.distributed.sharding import use_mesh
+    graph = run.step_fn.graph
+    steps = len(run.history)
+    if not graph.captured or (graph.captures, graph.replays) != (1,
+                                                                 steps - 1):
+        raise AssertionError(f"{graph.name}: {graph.captures} captures, "
+                             f"{graph.replays} replays over {steps} steps")
+    with use_mesh(mesh):
+        syncs = host_syncs(lambda: run.step_fn(run.params, run.opt, batch))
+    if graph.replays != steps:
+        raise AssertionError(f"{graph.name} did not replay on the same "
+                             f"tensors")
+    if syncs:
+        raise AssertionError(f"a replayed step of {graph.name} synced the "
+                             f"host: {syncs}")
+    torch.cuda.synchronize()
+    step_ms = [rec["step_s"] * 1e3 for rec in run.history]
+    return {"capture_ms": graph.capture_ms, "nodes": graph.nodes,
+            "pool_gib": graph.pool_bytes / 2**30,
+            "step_ms_warm_up": step_ms[0], "step_ms_capture": step_ms[1],
+            "step_ms_replayed": step_ms[2:],
+            "host_syncs_replayed_step": len(syncs),
+            "reserved_gib_after": torch.cuda.memory_reserved() / 2**30}
+
+
+def host_leaves(params) -> dict:
+    """Every parameter leaf copied to the host, by path."""
+    from repro_torch.train.optimizer import named_leaves
+    return {k: t.detach().cpu() for k, t in named_leaves(params)}
+
+
+def leaf_gaps(a, b) -> dict:
+    """Per leaf of two ``host_leaves`` the largest |a - b|, only where
+    they differ."""
+    return {k: float((t.double() - b[k].double()).abs().max())
+            for k, t in a.items() if not torch.equal(t, b[k])}
+
+
+def without_state(run):
+    """``run``'s record without its parameters, optimizer state and step
+    (the captured step holds its graph and the parameters), so that the
+    card can be freed for an eager run of the same steps."""
+    return dataclasses.replace(run, params=None, opt=None, step_fn=None)
+
+
+def eager_train(spec, totals=()):
+    """The steps a launcher run took (``spec``: its ``without_state``),
+    from the seed it started from, on its data, through
+    ``make_train_step`` itself, no graph; then one more step profiled.
+    Returns (parameters, [(loss, grad norm)] a step, peak GiB, the
+    profile with each step's wall up to its loss on the host)."""
+    from repro_torch.data import synth_batch
+    from repro_torch.models import lm
+    from repro_torch.train import init_opt_state, make_train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = spec.device
+    gen = torch.Generator(device=dev).manual_seed(spec.data.seed)
+    params = lm.unstack_layers(lm.init_params(spec.cfg, gen, device=dev))
+    opt = init_opt_state(spec.opt_cfg, params)
+    step = make_train_step(spec.cfg, spec.opt_cfg, spec.micro_batches,
+                           mlp_plan=lm.sparse_mlp_plan(params))
+    batch = lambda i: {k: v.to(dev) for k, v in synth_batch(
+        spec.data, i, spec.extra).items()}
+    metrics, walls = [], []
+    for i in range(len(spec.history)):
+        b = batch(i)
+        t0 = time.perf_counter()       # as the launcher: up to the loss
+        params, opt, m = step(params, opt, b)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    after = host_leaves(params)
+    nxt = batch(len(spec.history))
+    prof = profile(lambda: step(params, opt, nxt), warmup=False,
+                   totals=totals)
+    del params, opt, step, nxt
+    torch.cuda.empty_cache()
+    return after, metrics, peak_gib, {**prof, "step_ms": walls}
+
+
+def held_against_eager(spec, captured, what, totals=()):
+    """A captured run (``spec``, its parameters ``captured`` on the host)
+    against the same steps run eagerly: losses, grad norms and every
+    parameter bit for bit.  Where they differ, the eager run is repeated:
+    if two eager runs are bit-equal the replay is at fault; if not, the
+    gap between them is recorded and the replay held to the card-against-
+    CPU tolerance (losses 1e-5 relative, grad norms 1e-4, parameters
+    within 2·lr a step)."""
+    want = [(r["loss"], r["grad_norm"]) for r in spec.history]
+    eager, got, peak_gib, prof = eager_train(spec, totals)
+    diffs = leaf_gaps(captured, eager)
+    line = {"eager_peak_gib": peak_gib, "eager_profile": prof,
+            "eager_loss": [m[0] for m in got],
+            "eager_grad_norm": [m[1] for m in got],
+            "bit_equal": got == want and not diffs}
+    if line["bit_equal"]:
+        return {**line, "eager_gap": None}
+    again, got2, _, _ = eager_train(spec)
+    gap = leaf_gaps(again, eager)
+    if got2 == got and not gap:
+        raise AssertionError(
+            f"{what}: the replayed steps differ from the eager step, which "
+            f"is bit-stable: losses {want} against {got}, parameters "
+            f"{dict(list(diffs.items())[:5])}")
+    lrs = sum(r["lr"] for r in spec.history)
+    for (loss, gn), (l2, g2) in zip(want, got):
+        if not (abs(loss - l2) <= 1e-5 * abs(l2)
+                and abs(gn - g2) <= 1e-4 * abs(g2)):
+            raise AssertionError(f"{what}: replay {loss} / {gn} against "
+                                 f"eager {l2} / {g2}")
+    over = {k: v for k, v in diffs.items() if v > 2 * lrs}
+    if over:
+        raise AssertionError(f"{what}: parameters past 2·lr a step "
+                             f"({2 * lrs}): {dict(list(over.items())[:5])}")
+    return {**line, "eager_gap": {
+        "loss": [a[0] - b[0] for a, b in zip(got, got2)],
+        "grad_norm": [a[1] - b[1] for a, b in zip(got, got2)],
+        "params": dict(sorted(gap.items(), key=lambda kv: -kv[1])[:8]),
+        "n_params_differ": len(gap)},
+        "replay_against_eager": {
+            "params": dict(sorted(diffs.items(), key=lambda kv: -kv[1])[:8]),
+            "n_params_differ": len(diffs), "limit": 2 * lrs}}
+
+
+# --------------------------------------------------------------------------
 # phase 6: train qwen3-4b at full width and depth
 # --------------------------------------------------------------------------
 
@@ -1681,19 +1838,28 @@ def train(card):
     expect = {"maple_spmm_naive": 0, "maple_spmm_compact": 0,
               "maple_spmm_planned": 0, "maple_sddmm_bsr": 0}
     add_sparse_train_launches(expect, cfg, plan, steps)
+    fused = [plan.fwd.fused, plan.bwd.fused]
     if launches != expect:
         raise AssertionError(f"kernel launches on the train path "
                              f"{launches}, expected {expect}")
     for rec in run.history:
         if not (np.isfinite(rec["loss"]) and np.isfinite(rec["grad_norm"])):
             raise AssertionError(f"non-finite step {rec}")
-    step_ms = [rec["step_s"] * 1e3 for rec in run.history]
-    # one more step, outside the counted run, under the profiler
+    captured = host_leaves(run.params)
+    # more replayed steps, outside the counted run: one under the sync
+    # debug mode, one under the profiler
     from repro_torch.data import synth_batch
     batch = {k: v.cuda() for k, v in synth_batch(run.data, steps).items()}
+    graph = train_graph(run, batch)
     # the run walk (B1 / B4) and the block SDDMM (B2), summed by name
+    totals = ("run_kernel", "sddmm_kernel")
     prof = profile(lambda: run.step_fn(run.params, run.opt, batch),
-                   warmup=False, totals=("run_kernel", "sddmm_kernel"))
+                   warmup=False, totals=totals)
+    spec = without_state(run)
+    del run, batch, plan
+    held = held_against_eager(spec, captured, "train", totals)
+    del captured
+    replayed = graph["step_ms_replayed"]
     return launches, {
         "phase": "train", "config": "qwen3-4b sparse_mlp (64,64) d=0.25, "
         "f32, AdamW, remat per layer", "argv": TRAIN_ARGV,
@@ -1701,14 +1867,14 @@ def train(card):
         "d_model": cfg.d_model, "d_ff": cfg.d_ff,
         "vocab_size": cfg.vocab_size, "microbatches": micro,
         "tokens_per_step": tokens,
-        "loss": [rec["loss"] for rec in run.history],
-        "grad_norm": [rec["grad_norm"] for rec in run.history],
-        "step_ms": step_ms, "step_ms_2_3": step_ms[1:3],
-        "tok_per_s_2_3": [tokens / (ms / 1e3) for ms in step_ms[1:3]],
+        "loss": [rec["loss"] for rec in spec.history],
+        "grad_norm": [rec["grad_norm"] for rec in spec.history],
+        "step_ms": [rec["step_s"] * 1e3 for rec in spec.history],
+        "graph": graph,
+        "tok_per_s_replayed": [tokens / (ms / 1e3) for ms in replayed],
         "run_s": total_s, "peak_mem_gib": peak_gib, "launches": launches,
-        "launches_expected": expect, "plan_fused": [plan.fwd.fused,
-                                                   plan.bwd.fused],
-        "card": card, "profile": prof}
+        "launches_expected": expect, "plan_fused": fused,
+        "held_against_eager": held, "card": card, "profile": prof}
 
 
 # --------------------------------------------------------------------------
@@ -3455,13 +3621,39 @@ def static_check(params, cfg, head, comps, reqs, what):
             "min_margin": min(s["margin"] for s in steps)}
 
 
+def host_syncs(fn) -> list:
+    """``fn()`` under CUDA's sync debug mode: for each host sync it
+    makes, the innermost three repo frames (a sync in autograd's backward
+    thread is reported from the ``backward`` call that waited for it)."""
+    import traceback
+    import warnings
+    syncs, stepping = [], []
+
+    def on_warning(message, *a, **kw):
+        if stepping and "synchroniz" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if f.filename.startswith(str(ROOT / "src"))]
+            syncs.append(" < ".join(f"{Path(f.filename).name}:{f.lineno}"
+                                    for f in frames[::-1][:3]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        try:                  # only the call's syncs: not the mode's own
+            stepping.append(True)
+            fn()
+            stepping.clear()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return syncs
+
+
 def full_step_profile(params, cfg, head, bcfg_kw):
     """Fused steps at full occupancy: ``max_slots`` requests of 128
     prompt tokens admitted at round 0, then the wall of 8 rounds with no
-    admission, the host syncs of one more round (CUDA's sync debug mode: how many, and the innermost repo
-    frames of each), and one round under ``profile``."""
-    import traceback
-    import warnings
+    admission, the host syncs of one more round (``host_syncs``), and one
+    round under ``profile``."""
     from repro_torch.serve import (BatcherConfig, ContinuousBatcher, Request,
                                    RequestQueue)
     from repro_torch.serve.workload import worst_pool
@@ -3484,25 +3676,7 @@ def full_step_profile(params, cfg, head, bcfg_kw):
         eng.step(float(t))
         walls.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
-    syncs, stepping = [], []
-
-    def on_warning(message, *a, **kw):   # the repo's frames of each sync
-        if stepping and "synchroniz" in str(message):
-            frames = [f for f in traceback.extract_stack()[:-1]
-                      if f.filename.startswith(str(ROOT / "src"))]
-            syncs.append(" < ".join(f"{Path(f.filename).name}:{f.lineno}"
-                                    for f in frames[::-1][:3]))
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = on_warning
-        torch.cuda.set_sync_debug_mode("warn")
-        try:                  # only the step's syncs: not the mode's own
-            stepping.append(True)
-            eng.step(9.0)
-            stepping.clear()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    syncs = host_syncs(lambda: eng.step(9.0))
     prof = profile(lambda: eng.step(10.0), totals=("run_kernel",))
     if eng.live() != n or eng.steps != 12:
         raise AssertionError("the full-occupancy rounds admitted or retired")
@@ -4380,23 +4554,29 @@ TRAIN_FAMILY_SMOKE = ((ENCDEC_ARCH, {}, 16, (2,)),
                                          sparse_block=(8, 8)), 48, (2,)),
                       ("qwen2-72b", {}, 16, (2,)),
                       ("qwen3-moe-235b-a22b", {}, 16, (1, 2)))
-# each family at full width and depth through launch/train.main: 3 AdamW
+# each family at full width and depth through launch/train.main: AdamW
 # steps of 256 tokens an example, f32, remat per layer, seed 0 (granite-
 # moe-3b takes its config's 8 microbatches, the others their 4)
-TRAIN_FAMILIES = (("train_encdec", ENCDEC_ARCH, ["--global-batch", "4"]),
-                  ("train_vlm", VLM_ARCH, ["--sparse-mlp",
-                                           "--global-batch", "4"]),
-                  ("train_moe", MOE_ARCH, ["--global-batch", "8"]),
-                  ("train_ssm", SSM_ARCH, ["--global-batch", "4"]))
-TRAIN_FAMILY_ARGV = ["--steps", "3", "--seq-len", "256", "--seed", "0",
+# (phase, arch, argv, held against the eager step)
+TRAIN_FAMILIES = (
+    ("train_encdec", ENCDEC_ARCH, ["--global-batch", "4"], True),
+    ("train_vlm", VLM_ARCH, ["--sparse-mlp", "--global-batch", "4"], False),
+    ("train_moe", MOE_ARCH, ["--global-batch", "8"], True),
+    ("train_ssm", SSM_ARCH, ["--global-batch", "4"], False))
+# 4 steps: the warm-up, the capture, then two steps replayed alone
+TRAIN_FAMILY_ARGV = ["--steps", "4", "--seq-len", "256", "--seed", "0",
                      "--device", "cuda"]
 # recurrentgemma-9b trained at full width: f32 with the sparse MLP at
 # (64, 64) d 0.25, 8 sequences of 2 304 tokens (longer than its window of
 # 2 048) in the config's own 8 microbatches, 3 steps; depth cut to the
-# deepest 3u + 2 layers whose reckoned peak leaves HYBRID_TRAIN_FREE free
+# deepest 3u + 2 layers whose reckoned peak leaves HYBRID_TRAIN_FREE free.
+# The reckoning is the eager step's; the captured step's pool holds more
+# (a capture cannot give cached blocks back to retry an allocation): 11
+# layers, 71.9 GiB reckoned and 72.88 measured eager, ran out of the card's
+# 79.18 in the capture, 8 fit (34.1 GiB of pool), so the margin is 12 GiB
 HYBRID_TRAIN = dict(steps=3, seq_len=2304, global_batch=8, seed=SEED,
                     device="cuda")
-HYBRID_TRAIN_FREE = 4 * 2**30
+HYBRID_TRAIN_FREE = 12 * 2**30
 # chunked_attention beside one SDPA call: train_hybrid's local attention
 # (one microbatch) and a global causal qwen3-4b layer at 4 096 tokens
 CHUNKED_SHAPES = (("recurrentgemma-9b local, train_hybrid",
@@ -4511,7 +4691,7 @@ def train_families_reference():
     return {"phase": "train_families_reference", "models": out, "ok": True}
 
 
-def train_family(card, phase, arch, argv, cfg=None, mesh=None):
+def train_family(card, phase, arch, argv, cfg=None, mesh=None, held=False):
     """``launch/train.main`` on ``arch`` at full width and depth
     (``TRAIN_FAMILY_ARGV``), or, given ``cfg`` (a depth cut, or a config
     run under ``mesh``), ``launch/train.run`` on it with ``argv`` its
@@ -4521,8 +4701,11 @@ def train_family(card, phase, arch, argv, cfg=None, mesh=None):
     forward, 3 recomputed, 3 dx, and 3 ``moe_dw_kernel``, each once a
     ``model`` peer of an expert-parallel ``mesh``; 0 otherwise, B9 among
     them: attention trains on ``chunked_attention``); finite losses and
-    grad norms; steps 2 and 3's wall, tokens/s, the peak GiB; one more
-    step profiled (under ``mesh`` too)."""
+    grad norms; the captured step (``train_graph``: the warm-up, capture
+    and replayed steps' walls, tokens/s, a replayed step's host syncs),
+    the peak GiB; one more step profiled (under ``mesh`` too).  With
+    ``held``, the run is then held against the same steps run eagerly
+    (``held_against_eager``)."""
     from repro_torch.configs import get_config
     from repro_torch.data import synth_batch
     from repro_torch.distributed.sharding import use_mesh
@@ -4563,15 +4746,20 @@ def train_family(card, phase, arch, argv, cfg=None, mesh=None):
         if not (np.isfinite(rec["loss"]) and np.isfinite(rec["grad_norm"])):
             raise AssertionError(f"{phase}: non-finite step {rec}")
     tokens = run.data.global_batch * run.data.seq_len
-    step_ms = [rec["step_s"] * 1e3 for rec in run.history]
+    n_params = sum(t.numel() for _, t in named_leaves(run.params))
+    captured = host_leaves(run.params) if held else None
     batch = {k: v.cuda() for k, v in synth_batch(run.data, steps,
                                                  run.extra).items()}
+    graph = train_graph(run, batch, mesh)
+    totals = ("run_kernel", "sddmm_kernel", "moe_kernel", "moe_dw_kernel")
     t0 = time.perf_counter()
     with use_mesh(mesh):
         prof = profile(lambda: run.step_fn(run.params, run.opt, batch),
-                       warmup=False, totals=("run_kernel", "sddmm_kernel",
-                                             "moe_kernel", "moe_dw_kernel"))
+                       warmup=False, totals=totals)
     prof["profile_s"] = time.perf_counter() - t0
+    spec = without_state(run)
+    del run, batch, plan
+    torch.cuda.empty_cache()
     line = {
         "phase": phase, "config": f"{arch}" + (" sparse_mlp (64,64) d=0.25"
                                                if cfg.sparse_mlp else "")
@@ -4579,19 +4767,22 @@ def train_family(card, phase, arch, argv, cfg=None, mesh=None):
         "n_layers": cfg.n_layers, "n_enc_layers": cfg.n_enc_layers,
         "depth_reduced": cfg.n_layers < get_config(arch).n_layers,
         "n_layers_full": get_config(arch).n_layers, "d_model": cfg.d_model,
-        "n_params": sum(t.numel() for _, t in named_leaves(run.params)),
+        "n_params": n_params,
         "microbatches": micro, "tokens_per_step": tokens,
-        "positions_per_step": run.data.global_batch * (run.data.seq_len
-                                                       + cfg.n_patches),
-        "extra_inputs": run.extra,
-        "loss": [rec["loss"] for rec in run.history],
-        "grad_norm": [rec["grad_norm"] for rec in run.history],
-        "finite": True, "step_ms": step_ms, "step_ms_2_3": step_ms[1:3],
-        "tok_per_s_2_3": [tokens / (ms / 1e3) for ms in step_ms[1:3]],
+        "positions_per_step": spec.data.global_batch * (spec.data.seq_len
+                                                        + cfg.n_patches),
+        "extra_inputs": spec.extra,
+        "loss": [rec["loss"] for rec in spec.history],
+        "grad_norm": [rec["grad_norm"] for rec in spec.history],
+        "finite": True,
+        "step_ms": [rec["step_s"] * 1e3 for rec in spec.history],
+        "graph": graph, "tok_per_s_replayed": [
+            tokens / (ms / 1e3) for ms in graph["step_ms_replayed"]],
         "run_s": total_s, "peak_mem_gib": peak_gib, "launches": launches,
         "launches_expected": expect, "card": card, "profile": prof}
-    del run, batch
-    torch.cuda.empty_cache()
+    if held:
+        line["held_against_eager"] = held_against_eager(spec, captured,
+                                                        phase, totals)
     return launches, line
 
 
@@ -4654,7 +4845,9 @@ def train_hybrid(card):
                              f"B9 {launches['block_attention']}")
     line.update(reckoned=reckoned, window=cfg.window,
                 lru_width=cfg.lru_width, d_ff=cfg.d_ff,
-                vocab_size=cfg.vocab_size)
+                vocab_size=cfg.vocab_size,
+                depth_cut_for_the_capture="HYBRID_TRAIN_FREE 12 GiB, not 4: "
+                "at 11 layers the captured step ran out of the card")
     return launches, line
 
 
@@ -5201,6 +5394,14 @@ def train_resume(card):
     if [r["step"] for r in resumed.history] != [2, 3]:
         raise AssertionError(f"run B did not resume from step 2: "
                              f"{[r['step'] for r in resumed.history]}")
+    # every run warms up, captures its second step and replays after it;
+    # the resumed run on the checkpoint's tensors too
+    graphs = {name: (r.step_fn.graph.captures, r.step_fn.graph.replays)
+              for name, r in (("run_a", runs[0]), ("run_a_again", runs[1]),
+                              ("run_b", first), ("run_b_resumed", resumed))}
+    if graphs != {"run_a": (1, 3), "run_a_again": (1, 3), "run_b": (1, 1),
+                  "run_b_resumed": (1, 1)}:
+        raise AssertionError(f"train_resume: (captures, replays) {graphs}")
     b_diff = {**tree_max_diff(resumed.params, runs[0].params),
               **tree_max_diff(resumed.opt._asdict(), runs[0].opt._asdict())}
     if a_diff:
@@ -5249,6 +5450,7 @@ def train_resume(card):
             f"AdamW, seed {SEED}, 4 x 256 tokens a step", "card": card,
             "argv": RESUME_ARGV, "run_a_steps": 4,
             "run_b": "--steps 2 --ckpt-dir D, then --steps 4 --ckpt-dir D",
+            "graph_captures_replays": graphs,
             "run_a_twice_max_diff": a_diff,
             "bit_identical": not b_diff, "run_b_max_diff": b_diff,
             "loss_a": [r["loss"] for r in runs[0].history],
@@ -5782,8 +5984,9 @@ def main() -> int:
 
     emit(train_families_reference())
     family_launches = {}
-    for phase, arch, argv in TRAIN_FAMILIES:
-        family_launches[phase], line = train_family(smi, phase, arch, argv)
+    for phase, arch, argv, held in TRAIN_FAMILIES:
+        family_launches[phase], line = train_family(smi, phase, arch, argv,
+                                                    held=held)
         emit(line)
     family_launches["train_hybrid"], line = train_hybrid(smi)
     emit(line)

@@ -20,7 +20,12 @@ checkpoint (``ft.checkpoint``), saves ``{"params", "opt"}`` (parameters in
 the trainer's per-layer layout) every ``--ckpt-every`` steps and at the
 last, and keeps the newest 3, as the reference's launcher does; a resumed
 run continues the same per-step data, so it ends where an uninterrupted
-one does.  ``--device`` (default ``cuda``) and ``--sparse-mlp`` (the
+one does.  On the card the step is compiled once, as the reference's
+``jax.jit``: the first step is eager (the warm-up), the second captures
+the whole step as a CUDA graph and every later one replays it
+(``train.jitted_train_step``); a resumed run hands over new parameter
+tensors and so warms up and captures afresh.  On the CPU the step stays
+eager.  ``--device`` (default ``cuda``) and ``--sparse-mlp`` (the
 config's block-sparse MLP down-projection, trained through the Maple
 kernels) are the port's own flags.  A caller that binds a mesh
 (``distributed.sharding.use_mesh``) around :func:`run` trains an
@@ -31,7 +36,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -42,20 +47,25 @@ from repro_torch.data import DataConfig, synth_batch
 from repro_torch.ft import checkpoint as ckpt
 from repro_torch.ft.straggler import StepTimer, StragglerMonitor
 from repro_torch.models import lm
-from repro_torch.train import OptimizerConfig, init_opt_state, make_train_step
+from repro_torch.train import (OptimizerConfig, init_opt_state,
+                               jitted_train_step, make_train_step)
 
 
 @dataclasses.dataclass
 class TrainRun:
     """What a run leaves behind: the final parameters (per-layer layout)
-    and optimizer state, the step function, data config and extra input
-    shapes (``synth_batch(extra=…)``) it ran, and
+    and optimizer state, the step function (on the card a
+    ``train_step.CapturedTrainStep``), the optimizer config and microbatch count it
+    was built with, data config and extra input shapes
+    (``synth_batch(extra=…)``) it ran, and
     one record per step (``step``, ``loss``, ``grad_norm``, ``lr``,
     ``step_s`` — wall seconds up to the step's loss on the host)."""
     cfg: ModelConfig
     params: Dict[str, Any]
     opt: Any
     step_fn: Callable
+    opt_cfg: OptimizerConfig
+    micro_batches: Optional[int]
     data: DataConfig
     extra: Dict[str, tuple]
     device: torch.device
@@ -95,8 +105,9 @@ def run(cfg: ModelConfig, *, steps: int = 20, seq_len: int = 64,
     # sparse-MLP configs: one host-side pass over the shared pattern (of
     # the restored parameters); every step reuses the forward +
     # transpose-side plan (None when dense)
-    step_fn = make_train_step(cfg, ocfg, micro_batches,
-                              mlp_plan=lm.sparse_mlp_plan(params))
+    step_fn = jitted_train_step(
+        make_train_step(cfg, ocfg, micro_batches,
+                        mlp_plan=lm.sparse_mlp_plan(params)), dev)
     monitor = StragglerMonitor()
     host = "host0"
     history: List[Dict[str, float]] = []
@@ -126,7 +137,8 @@ def run(cfg: ModelConfig, *, steps: int = 20, seq_len: int = 64,
             ckpt.garbage_collect(ckpt_dir, keep=3)
             print(f"checkpointed → {path}", flush=True)
     return TrainRun(cfg=cfg, params=params, opt=opt, step_fn=step_fn,
-                    data=dcfg, extra=extra, device=dev, history=history)
+                    opt_cfg=ocfg, micro_batches=micro_batches, data=dcfg,
+                    extra=extra, device=dev, history=history)
 
 
 def main(argv=None) -> TrainRun:

@@ -1,25 +1,37 @@
-"""Serving steps captured once as CUDA graphs and replayed: the port's
-counterpart of the reference's ``jax.jit``-compiled steps.
+"""Steps captured once as CUDA graphs and replayed: the port's
+counterpart of the reference's ``jax.jit``-compiled serving and training
+steps.
 
 A :class:`StepGraph` runs a step function ``fn(feeds)`` on the card.
 ``feeds`` are the step's small per-call inputs (tokens, positions, a
-block table): ints or tensors on any device.  Everything else the step
-reads or writes (parameters, caches, a logit head) it closes over; the
-caller names those objects in ``held``.
+block table; a training batch): ints or tensors on any device.
+Everything else the step reads or writes (parameters, caches, a logit
+head; the optimizer state) it closes over; the caller names those
+objects in ``held``.
 
 * The first call on a set of held objects runs the step eagerly: the
   warm-up, where kernels are built and lazily made device arrays (a
   plan's index tensors, B4's arrival counters) are allocated.
-* The next call on the same objects captures the step under
-  ``torch.no_grad()`` into a ``torch.cuda.CUDAGraph`` (into static feed
-  buffers allocated for it), then replays it; every later call copies
-  its feeds into those buffers and replays.
+* The next call on the same objects captures the step into a
+  ``torch.cuda.CUDAGraph`` (into static feed buffers allocated for it),
+  then replays it; every later call copies its feeds into those buffers
+  and replays.  The cached blocks of the warm-up are given back to the
+  card before the capture, so that they and the graph's private pool are
+  not held side by side.
+* A serving step warms up and is captured under ``torch.no_grad()``.  A
+  training step (``grad=True``) runs both with autograd on, as torch's
+  whole-network recipe does: on a side stream of its own, so that the
+  backward, which autograd runs on the stream of its forward, and every
+  per-stream workspace a library makes on its first use, are the
+  capture's from the warm-up on.  Its gradients and accumulators are
+  allocated inside the capture, in the graph's pool.
 * A graph replays raw addresses, so it holds references to every held
   object and to the bound mesh it was captured under, and is dropped
   (recaptured after a new warm-up) when it is handed other objects,
   other feed shapes, or another mesh is bound.  It never replays onto
   memory it does not hold.
 * Outputs come back as fresh tensors (clones of the graph's outputs).
+  A step that updates held tensors in place returns only what is new.
 * The kernel wrappers count launches in Python, so a capture counts and
   a replay does not: the capture's increments are undone, and their
   delta is added on every replay (``kernels.launch_counters``).
@@ -94,14 +106,16 @@ def _pool_bytes(pool, device) -> int:
 
 
 class StepGraph:
-    """One serving step captured as a CUDA graph (see the module's
-    docstring).  ``captures`` and ``replays`` count what it did;
-    ``capture_ms`` (the capture and the graph's instantiation), ``nodes``
-    and ``pool_bytes`` (the graph's private memory pool) describe the
-    last capture."""
+    """One step captured as a CUDA graph (see the module's docstring);
+    ``grad=True`` for a training step.  ``captures`` and ``replays``
+    count what it did; ``capture_ms`` (the capture and the graph's
+    instantiation), ``nodes`` and ``pool_bytes`` (the graph's private
+    memory pool) describe the last capture."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, *, grad: bool = False):
         self.name = name
+        self.grad = grad
+        self._stream = None
         self.captures = 0
         self.replays = 0
         self.capture_ms: Optional[float] = None
@@ -140,9 +154,8 @@ class StepGraph:
         self._drop()
         if key != self._warm:
             self._warm = key
-            with torch.no_grad():
-                return fn({k: self._to_device(v, device)
-                           for k, v in feeds.items()})
+            return self._warm_up(fn, {k: self._to_device(v, device)
+                                      for k, v in feeds.items()}, device)
         self._capture(fn, feeds, device)
         self._key, self._held = key, leaves
         return self._replay(feeds)
@@ -153,18 +166,45 @@ class StepGraph:
             return v.to(device)
         return torch.full((), v, dtype=torch.long, device=device)
 
+    def _autograd(self):
+        return torch.enable_grad() if self.grad else torch.no_grad()
+
+    def _side_stream(self, device):
+        """A training step's own stream (None for a serving step: it
+        warms up on the current stream and is captured on torch's)."""
+        if self.grad and self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+        return self._stream
+
+    def _warm_up(self, fn, feeds, device) -> Any:
+        side = self._side_stream(device)
+        if side is None:
+            with self._autograd():
+                return fn(feeds)
+        # the caching allocator keeps freed blocks per stream: give the
+        # current stream's back, or they and the side stream's stay
+        # reserved side by side
+        torch.cuda.empty_cache()
+        side.wait_stream(torch.cuda.current_stream(device))
+        with self._autograd(), torch.cuda.stream(side):
+            out = fn(feeds)
+        torch.cuda.current_stream(device).wait_stream(side)
+        return out
+
     def _capture(self, fn, feeds, device) -> None:
         counters = launch_counters()
         before = {k: f.launches for k, f in counters.items()}
         self._buffers = {k: self._to_device(v, device).clone()
                          for k, v in feeds.items()}
         torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         # kept uninstantiated until its nodes are counted
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         first = []                        # the step's own error, if any
         try:
-            with torch.no_grad(), torch.cuda.graph(graph):
+            with self._autograd(), torch.cuda.graph(
+                    graph, stream=self._side_stream(device)):
                 try:
                     outs = fn(dict(self._buffers))
                 except Exception as err:

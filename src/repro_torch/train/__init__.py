@@ -3,7 +3,7 @@
 from repro_torch.train.optimizer import (OptimizerConfig, OptState,
                                          apply_updates, global_norm,
                                          init_opt_state, lr_at)
-from repro_torch.train.train_step import make_train_step
+from repro_torch.train.train_step import jitted_train_step, make_train_step
 
 __all__ = ["OptimizerConfig", "OptState", "init_opt_state", "apply_updates",
-           "lr_at", "global_norm", "make_train_step"]
+           "lr_at", "global_norm", "make_train_step", "jitted_train_step"]

@@ -12,7 +12,11 @@ is chosen from the path by the reference's tokens.
 
 The update runs in place: parameters and moments are overwritten leaf by
 leaf, with the f32 temporaries of one leaf at a time (the reference
-returns new arrays; in place keeps one copy of each on the card).
+returns new arrays; in place keeps one copy of each on the card).  The
+state it returns is the state it was given: the step count is
+incremented in place and each error-feedback residual is rewritten in
+its own buffer, so a step captured as a CUDA graph replays onto the
+same tensors.
 """
 
 from __future__ import annotations
@@ -132,22 +136,24 @@ def _decayable(path: str) -> bool:
 
 @torch.no_grad()
 def apply_updates(cfg: OptimizerConfig, params, grads, state: OptState):
-    """One AdamW step on ``params`` in place (``grads`` a tree of the same
-    structure); returns ``(params, state, {"lr", "grad_norm"})``."""
+    """One AdamW step on ``params`` and ``state`` in place (``grads`` a
+    tree of the same structure); returns ``(params, state, {"lr",
+    "grad_norm"})``, the same ``params`` and ``state`` objects."""
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                        max=1.0)
-    step = state.step + 1
+    step = state.step.add_(1)
     lr = lr_at(cfg, step)
     b1c = 1 - cfg.b1 ** step.float()
     b2c = 1 - cfg.b2 ** step.float()
     flat_g = dict(named_leaves(grads))
-    error = dict(state.error)
     for path, p in named_leaves(params):
         m, v = state.m[path], state.v[path]
         g32 = flat_g[path].float()
         if cfg.compress_grads:
-            g32, error[path] = _compress_int8(g32, error[path])
+            g32, err = _compress_int8(g32, state.error[path])
+            state.error[path].copy_(err)
+            del err
         g32 = g32 * clip
         m32 = m if m.dtype == torch.float32 else m.float()
         m32.mul_(cfg.b1).add_(g32 * (1 - cfg.b1))
@@ -164,5 +170,4 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state: OptState):
             p.sub_(update.mul_(lr))
         else:
             p.copy_(p.float() - update.mul_(lr))
-    new_state = OptState(step=step, m=state.m, v=state.v, error=error)
-    return params, new_state, {"lr": lr, "grad_norm": gnorm}
+    return params, state, {"lr": lr, "grad_norm": gnorm}

@@ -15,6 +15,13 @@ is host numpy and never part of the autograd graph, so no partition of
 trainable leaves is needed.  Hold the parameters in the per-layer layout
 (``lm.unstack_layers``) so that each layer's gradient is a tensor of its
 own.
+
+The reference compiles its step once, ``jax.jit(make_train_step(...))``;
+:func:`jitted_train_step` is the port's counterpart.  On the card the
+whole step (the forward with its remat, the hand-written backward, the
+microbatch accumulation, the global-norm clip and AdamW) is captured
+once as a CUDA graph and replayed (:class:`CapturedTrainStep`); on the
+CPU it is the eager step.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
+from repro_torch.serve.graphs import StepGraph
 from repro_torch.train.optimizer import (OptimizerConfig, OptState,
                                          apply_updates, named_leaves,
                                          tree_map)
@@ -44,9 +52,10 @@ def _split_microbatches(batch: Dict[str, torch.Tensor],
 def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
                     micro_batches: int | None = None, mlp_plan=None):
     """``train_step(params, opt_state, batch) → (params, opt_state,
-    metrics)``.  ``params`` are updated in place.  ``mlp_plan`` is the
-    shared ``SpmmTrainPlan`` of a sparse-MLP model
-    (``lm.sparse_mlp_plan(params)``, built once)."""
+    metrics)``.  ``params`` and ``opt_state`` are updated in place and
+    returned.  ``mlp_plan`` is the shared ``SpmmTrainPlan`` of a
+    sparse-MLP model (``lm.sparse_mlp_plan(params)``, built once); the
+    step carries it, and ``cfg``, as attributes."""
     n_micro = micro_batches or cfg.train_microbatches
     acc_dt = getattr(torch, cfg.grad_accum_dtype)
 
@@ -92,4 +101,45 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
         out.update({k: v for k, v in metrics.items() if k != "loss"})
         return params, opt_state, out
 
+    train_step.cfg, train_step.mlp_plan = cfg, mlp_plan
     return train_step
+
+
+class CapturedTrainStep:
+    """A built ``train_step`` on the card, called as it is:
+    ``fn(params, opt_state, batch) → (params, opt_state, metrics)``.
+
+    It runs through :attr:`graph` (a :class:`StepGraph` with autograd
+    on): the first call on a set of parameters and optimizer state is the
+    eager step (the warm-up), the next captures the whole step and
+    replays it, and every later one copies the batch's tensors (tokens,
+    labels and the config's extra inputs) into the graph's buffers and
+    replays.  The graph holds the parameters, the optimizer state and the
+    step's ``mlp_plan``; handed other tensors (a checkpoint's, say) it
+    warms up and captures again.  The step updates ``params`` and
+    ``opt_state`` in place, so it returns the objects it was handed; only
+    the metrics are fresh tensors."""
+
+    def __init__(self, train_step, device):
+        self.train_step = train_step
+        self.device = torch.device(device)
+        self.graph = StepGraph(f"the train step of {train_step.cfg.name}",
+                               grad=True)
+
+    def __call__(self, params, opt_state, batch):
+        def fn(feeds):
+            return self.train_step(params, opt_state, feeds)[2]
+
+        metrics = self.graph(fn, batch,
+                             (params, opt_state, self.train_step.mlp_plan),
+                             self.device)
+        return params, opt_state, metrics
+
+
+def jitted_train_step(train_step, device):
+    """The counterpart of the reference's ``jax.jit(make_train_step(...))``
+    for a built ``train_step``: on a CUDA ``device`` a
+    :class:`CapturedTrainStep`, elsewhere ``train_step`` itself."""
+    if torch.device(device).type != "cuda":
+        return train_step
+    return CapturedTrainStep(train_step, device)
