@@ -392,7 +392,31 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
     on the card with equal FLOPs, bytes, dot FLOPs and ops; the reckoned
     memory against ``max_memory_allocated`` and the roofline step time
     against the measured device ms, as ratios (recorded, not gated).
-35. the ``{"kernels": [...]}`` summary (``launches_by_path`` has every
+35. examples — the reference's four examples (``repro_torch.examples``),
+    each driven by its ``main`` on the card and held against the same
+    example run on the CPU in this process from the same weights, every
+    kernel's launches zeroed just before the card run and read just
+    after.  quickstart: layer A's text equal; layer B (``maple_spmm`` on a
+    ``BlockCSR`` with no plan) within 1e-5·max + 1e-6 of the plain
+    version, exactly one B4 launch; layer C's three captured steps' losses
+    within 1e-4 relative, greedy tokens equal.  accelerator_sim at
+    ``--scale 0.1 --matrices wg sc fb --spgemm --events``: the text equal
+    apart from ``max|dC|`` (at most 1e-5), exactly 3 B5 launches.
+    serve_lm (recurrentgemma-9b smoke): T=0 tokens, every completion's
+    rid, status, ``finished_by`` and tokens, both engines' fused steps,
+    ``memory_stats()`` and ``fault_stats()`` equal; B9 exactly once a
+    local-attention layer a prefill; one host sync a fused step once the
+    fused step is captured.  train_lm: lm-125m ``--sparse-mlp --steps 50
+    --ckpt-dir build/examples/train_lm`` at the example's widths and
+    depth through the captured step (B4 and B2 launches by the plan;
+    losses at steps 0 and 49; warm-up, capture and median replayed wall,
+    tok/s, peak GiB, 0 host syncs and one profiled replayed step; the
+    step-50 checkpoint loads back bit-equal); 3 steps at 2 × 32 tokens
+    card against CPU, losses within 1e-4 relative; ``--partition 2 --steps
+    3``, the stacked loop on one card: B1 and B2 launches per shard
+    exactly, losses within 1e-5 relative of the 50-step run's first three,
+    the replays bit-equal to the same run eager.
+36. the ``{"kernels": [...]}`` summary (``launches_by_path`` has every
     path above), then the final ``{"ok": true, ...}``.
 
 Every phase's line carries ``t_s``, the seconds since the start.
@@ -1805,14 +1829,27 @@ def held_against_eager(spec, captured, what, totals=()):
 # phase 6: train qwen3-4b at full width and depth
 # --------------------------------------------------------------------------
 
-def add_sparse_train_launches(expect, cfg, plan, steps):
+def add_sparse_train_launches(expect, cfg, plan, steps, micro=None):
     """Add a sparse-MLP train run's launches to ``expect``: per layer and
-    microbatch, the MLP forward and its remat recompute in the forward
-    plan's layout, dB in the transpose-side plan's, dA on the SDDMM (the
-    trainer's plan: the same knobs from the same pattern)."""
-    per_layer = cfg.train_microbatches * cfg.n_layers * steps
+    microbatch (``micro``, else the config's), the MLP forward and its
+    remat recompute in the forward plan's layout, dB in the transpose-side
+    plan's, dA on the SDDMM (the trainer's plan: the same knobs from the
+    same pattern).  A partitioned plan runs B1 once a column panel for
+    each shard that holds a run, on each side, and B2 once a shard and
+    panel (every shard holds the plan's slot capacity)."""
+    from repro_torch.kernels import PartitionedSpmmPlan
+    per_layer = (micro or cfg.train_microbatches) * cfg.n_layers * steps
+    fwd_calls = 2 if cfg.remat else 1
+    if isinstance(plan.fwd, PartitionedSpmmPlan):
+        b1 = lambda p: p.n_col_shards * sum(int(s.runs.shape[0] > 0)
+                                             for s in p.shards)
+        expect["maple_spmm_compact"] += per_layer * (
+            fwd_calls * b1(plan.fwd) + b1(plan.bwd))
+        expect["maple_sddmm_bsr"] += (per_layer * plan.fwd.n_shards
+                                      * plan.fwd.n_col_shards)
+        return
     expect["maple_sddmm_bsr"] += per_layer
-    expect[PLANNED[plan.fwd.fused]] += per_layer * (2 if cfg.remat else 1)
+    expect[PLANNED[plan.fwd.fused]] += per_layer * fwd_calls
     expect[PLANNED[plan.bwd.fused]] += per_layer
 
 
@@ -5774,6 +5811,342 @@ def dryrun_phase(card):
             "cells": cells, "tie": tie, "card": card}
 
 
+# --------------------------------------------------------------------------
+# phase 35: the reference's four examples on the card
+# --------------------------------------------------------------------------
+
+EXAMPLE_SIM_ARGV = ["--scale", "0.1", "--matrices", "wg", "sc", "fb",
+                    "--spgemm", "--events"]
+EXAMPLE_CKPT = ROOT / "build" / "examples" / "train_lm"
+EXAMPLE_TRAIN_ARGV = ["--sparse-mlp", "--steps", "50", "--ckpt-dir",
+                      str(EXAMPLE_CKPT)]
+EXAMPLE_SMALL_ARGV = ["--sparse-mlp", "--seq-len", "32", "--global-batch",
+                      "2", "--steps", "3"]
+EXAMPLE_PART_ARGV = ["--sparse-mlp", "--partition", "2", "--steps", "3"]
+
+
+def quiet(fn, *args, **kw):
+    """``fn(*args, **kw)`` with its printed text kept off the smoke's
+    output (an example returns what it prints)."""
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kw)
+
+
+def counted_launches(fn):
+    """``fn()`` with every kernel's launch count zeroed just before and
+    read just after: (its result, the counts that are not 0)."""
+    counters = maple_counters()
+    for f in counters.values():
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: f.launches for k, f in counters.items() if f.launches}
+
+
+def exact_launches(got, expect, what):
+    """``got`` (``counted_launches``' counts) must be ``expect`` exactly,
+    every other kernel launched no time."""
+    want = {k: v for k, v in expect.items() if v}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def relative_close(got, want, rtol, what):
+    """Each of ``got`` within ``rtol`` relative of ``want``'s; the largest
+    relative gap."""
+    gaps = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    if len(got) != len(want) or not max(gaps) <= rtol:
+        raise AssertionError(f"{what}: {got} against {want} (rtol {rtol})")
+    return max(gaps)
+
+
+def example_quickstart():
+    """quickstart on the card against the same run on the CPU: layer A's
+    text equal, layer B's product within 1e-5·max + 1e-6 of the plain
+    version's (one B4 launch, the only launch of the run), layer C's
+    losses within 1e-4 relative and its greedy tokens equal, its step
+    captured once and replayed after the warm-up."""
+    from repro_torch.examples import quickstart
+    cpu = quiet(quickstart.main, ["--device", "cpu"])
+    card, launches = counted_launches(lambda: quiet(quickstart.main, []))
+    exact_launches(launches, {"maple_spmm_planned": 1}, "quickstart")
+    if card["layer_a"]["lines"] != cpu["layer_a"]["lines"]:
+        raise AssertionError("quickstart layer A's text differs from the "
+                             "CPU's")
+    got, want = card["layer_b"]["out"].cpu(), cpu["layer_b"]["out"]
+    err = float((got - want).abs().max())
+    limit = 1e-5 * float(want.abs().max()) + 1e-6
+    if not err <= limit or card["layer_b"]["blocks"] != 5:
+        raise AssertionError(f"quickstart layer B: max|card - plain| = {err}"
+                             f" > {limit}")
+    gap = relative_close(card["layer_c"]["losses"], cpu["layer_c"]["losses"],
+                         1e-4, "quickstart layer C losses")
+    if card["layer_c"]["tokens"] != cpu["layer_c"]["tokens"]:
+        raise AssertionError("quickstart layer C's greedy tokens differ from "
+                             "the CPU's")
+    graph = card["layer_c"]["step_fn"].graph
+    if (graph.captures, graph.replays) != (1, 2):
+        raise AssertionError(f"quickstart layer C: {graph.captures} "
+                             f"captures, {graph.replays} replays")
+    graph.release()
+    return launches, {
+        "lines": card["layer_a"]["lines"] + card["layer_b"]["lines"]
+        + card["layer_c"]["lines"],
+        "layer_b_max_abs_err_vs_plain": err,
+        "layer_b_max_abs_err_vs_dense": card["layer_b"]["err"],
+        "layer_c_losses": card["layer_c"]["losses"],
+        "layer_c_losses_cpu": cpu["layer_c"]["losses"],
+        "layer_c_loss_rel_gap": gap,
+        "layer_c_tokens_equal": True, "launches": launches}
+
+
+def example_accelerator_sim():
+    """accelerator_sim at the reference's defaults with ``--spgemm
+    --events`` on the card against the CPU: the text equal apart from the
+    ``max|dC|=`` field (at most 1e-5 on both), 3 B5 launches (one a
+    pattern of the sweep) and no other."""
+    import re
+    from repro_torch.examples import accelerator_sim
+    dc = re.compile(r"max\|dC\|=(\S+)")
+    cpu = quiet(accelerator_sim.main, [*EXAMPLE_SIM_ARGV, "--device", "cpu"])
+    t0 = time.perf_counter()
+    card, launches = counted_launches(
+        lambda: quiet(accelerator_sim.main, EXAMPLE_SIM_ARGV))
+    card_s = time.perf_counter() - t0
+    exact_launches(launches, {"maple_spgemm_numeric": 3}, "accelerator_sim")
+    if [dc.sub("", x) for x in card["lines"]] != \
+            [dc.sub("", x) for x in cpu["lines"]]:
+        raise AssertionError("accelerator_sim's text differs from the CPU's")
+    errors = [float(m) for run in (card, cpu) for x in run["lines"]
+              for m in dc.findall(x)]
+    if len(errors) != 6 or not max(errors) <= 1e-5:
+        raise AssertionError(f"accelerator_sim max|dC| {errors}")
+    return launches, {
+        "argv": EXAMPLE_SIM_ARGV, "lines_equal": True,
+        "n_lines": len(card["lines"]),
+        "sweep_lines": card["lines"][:4], "max_dC": errors[:3],
+        "max_dC_cpu": errors[3:], "card_s": card_s, "launches": launches}
+
+
+@contextlib.contextmanager
+def round_syncs(rounds):
+    """While open, every ``ContinuousBatcher.step`` whose fused step was
+    already captured runs under ``host_syncs``: for each such round,
+    (host syncs, fused steps, admissions) go to ``rounds``."""
+    from repro_torch.serve import ContinuousBatcher
+    step = ContinuousBatcher.step
+
+    def counted(self, now=0.0):
+        if not self.graph.captured:
+            return step(self, now)
+        before = (self.steps, self.admitted)
+        out = []
+        syncs = host_syncs(lambda: out.append(step(self, now)))
+        rounds.append((syncs, self.steps - before[0],
+                       self.admitted - before[1]))
+        return out[0]
+
+    ContinuousBatcher.step = counted
+    try:
+        yield
+    finally:
+        ContinuousBatcher.step = step
+
+
+def example_serve_lm():
+    """serve_lm on the card against the CPU: the T=0 tokens equal; every
+    completion's rid, status, ``finished_by`` and tokens, the fused
+    steps, ``memory_stats()`` and ``fault_stats()`` of both engines
+    equal; B9 once a local-attention layer a prefill (the static prefill,
+    the two ``generate`` prefills, every admission) and nothing else; one
+    host sync a round of one fused step and no admission once the fused
+    step is captured."""
+    from repro_torch.examples import serve_lm
+    cpu = quiet(serve_lm.main, ["--device", "cpu"])
+    rounds = []
+    with round_syncs(rounds):
+        card, launches = counted_launches(lambda: quiet(serve_lm.main, []))
+    cfg = card["cfg"]
+    _, n_local = model_kernels(cfg)
+    engines = ("engine", "failure")
+    if any(card[e].fallbacks for e in engines):
+        raise AssertionError("serve_lm fell back to the static path")
+    prefills = 3 + sum(card[e].admitted for e in engines)
+    exact_launches(launches, {"block_attention": n_local * prefills},
+                   "serve_lm")
+    sig = lambda eng: [(c.rid, c.status, c.finished_by, list(c.tokens))
+                       for c in eng.completions]
+    for e in engines:
+        a, b = card[e], cpu[e]
+        if (sig(a), a.steps, a.memory_stats(), a.fault_stats()) != \
+                (sig(b), b.steps, b.memory_stats(), b.fault_stats()):
+            raise AssertionError(f"serve_lm {e}: the card's engine differs "
+                                 f"from the CPU's")
+    if not torch.equal(card["static"]["tokens"][0.0],
+                       cpu["static"]["tokens"][0.0]):
+        raise AssertionError("serve_lm T=0 tokens differ from the CPU's")
+    err = float((card["static"]["logits"].cpu()
+                 - cpu["static"]["logits"]).abs().max())
+    plain = [len(s) for s, n, a in rounds if n == 1 and a == 0]
+    if not plain or set(plain) != {1}:
+        raise AssertionError(f"serve_lm: host syncs a fused step {plain}")
+    for e in engines:
+        card[e].graph.release()
+    release_graphs()
+    return launches, {
+        "arch": serve_lm.ARCH, "lines": card["lines"],
+        "prefill_max_abs_err_vs_cpu": err, "t0_tokens_equal": True,
+        "engines_equal": True, "prefills": prefills,
+        "fused_steps": [card[e].steps for e in engines],
+        "fault_stats": card["failure"].fault_stats(),
+        "host_syncs_per_fused_step": 1,
+        "rounds_checked": len(plain), "launches": launches}
+
+
+def example_train_lm(card):
+    """train_lm on the card: run 1, ``--sparse-mlp --steps 50 --ckpt-dir``
+    at the example's widths and depth (B4 and B2 launches by the plan, the
+    step-50 checkpoint loading back bit-equal, the captured step's numbers
+    and one replayed step profiled); run 2, 3 steps at 2 × 32 tokens card
+    against CPU (losses 1e-4 relative); run 3, ``--partition 2``, the
+    stacked loop on one card (B1 and B2 launches per shard, losses 1e-5
+    relative of run 1's, the replays bit-equal to the same run eager)."""
+    import shutil
+    from repro_torch.data import synth_batch
+    from repro_torch.examples import train_lm
+    from repro_torch.ft import checkpoint as ckpt
+
+    def expected(run):
+        expect = dict.fromkeys(maple_counters(), 0)
+        add_sparse_train_launches(expect, run.cfg, run.mlp_plan,
+                                  len(run.history), micro=2)
+        return expect
+
+    shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run, launches = counted_launches(
+        lambda: quiet(train_lm.main, EXAMPLE_TRAIN_ARGV))
+    run_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    exact_launches(launches, expected(run), "train_lm")
+    losses = [r["loss"] for r in run.history]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_lm losses {losses}")
+    step, back = ckpt.load(str(EXAMPLE_CKPT), {"params": run.params,
+                                               "opt": run.opt})
+    bad = {**tree_max_diff(back["params"], run.params),
+           **tree_max_diff(back["opt"]._asdict(), run.opt._asdict())}
+    if step != 50 or bad or not torch.equal(back["opt"].step, run.opt.step):
+        raise AssertionError(f"train_lm checkpoint at step {step}: "
+                             f"{dict(list(bad.items())[:5])} differ")
+    del back
+    tokens = 256 * 8
+    batch = {k: v.cuda() for k, v in synth_batch(run.data, 50).items()}
+    graph = train_graph(run, batch)
+    prof = profile(lambda: run.step_fn(run.params, run.opt, batch),
+                   warmup=False, totals=("run_kernel", "sddmm_kernel"))
+    replayed = statistics.median(graph["step_ms_replayed"])
+    run.step_fn.graph.release()
+    first = {"argv": EXAMPLE_TRAIN_ARGV, "config": run.cfg.name,
+             "params": run.cfg.param_count(), "n_layers": run.cfg.n_layers,
+             "depth_reduced": False, "tokens_per_step": tokens,
+             "plan": run.lines[1], "plan_fused": [run.mlp_plan.fwd.fused,
+                                                  run.mlp_plan.bwd.fused],
+             "loss_step0": losses[0], "loss_step49": losses[-1],
+             "step_ms_warm_up": graph["step_ms_warm_up"],
+             "step_ms_capture": graph["step_ms_capture"],
+             "step_ms_replayed_median": replayed,
+             "tok_per_s_replayed": tokens / (replayed / 1e3),
+             "peak_mem_gib": peak_gib, "run_s": run_s,
+             "checkpoint": {"step": step, "bit_equal": True},
+             "graph": {k: v for k, v in graph.items()
+                       if k != "step_ms_replayed"},
+             "profile_replayed_step": prof, "launches": launches}
+    del run, batch
+
+    # run 2: card against CPU on the same weights
+    small_cpu = quiet(train_lm.main, [*EXAMPLE_SMALL_ARGV, "--device", "cpu"])
+    small = quiet(train_lm.main, EXAMPLE_SMALL_ARGV)
+    small.step_fn.graph.release()
+    gap = relative_close([r["loss"] for r in small.history],
+                         [r["loss"] for r in small_cpu.history], 1e-4,
+                         "train_lm card against CPU")
+    second = {"argv": EXAMPLE_SMALL_ARGV,
+              "loss": [r["loss"] for r in small.history],
+              "loss_cpu": [r["loss"] for r in small_cpu.history],
+              "loss_rel_gap": gap}
+    del small, small_cpu
+
+    # run 3: two shards, one after another on the card, against run 1's
+    # first steps and against the same steps eager
+    part, part_launches = counted_launches(
+        lambda: quiet(train_lm.main, EXAMPLE_PART_ARGV))
+    exact_launches(part_launches, expected(part), "train_lm --partition 2")
+    graph = part.step_fn.graph
+    if part.n_shards != 2 or (graph.captures, graph.replays) != (1, 2):
+        raise AssertionError(f"train_lm --partition 2: {part.n_shards} "
+                             f"shards, {graph.captures} captures, "
+                             f"{graph.replays} replays")
+    graph.release()
+    part_gap = relative_close([r["loss"] for r in part.history],
+                              losses[:3], 1e-5,
+                              "train_lm --partition 2 against --partition 1")
+    # the same run with the step left eager
+    compiled = train_lm.jitted_train_step
+    train_lm.jitted_train_step = lambda step, device: step
+    try:
+        eager = quiet(train_lm.main, EXAMPLE_PART_ARGV)
+    finally:
+        train_lm.jitted_train_step = compiled
+    metrics = lambda r: [(h["loss"], h["grad_norm"]) for h in r.history]
+    differ = {**tree_max_diff(part.params, eager.params),
+              **tree_max_diff(part.opt._asdict(), eager.opt._asdict())}
+    if metrics(part) != metrics(eager) or differ:
+        raise AssertionError(f"train_lm --partition 2: replays differ from "
+                             f"the eager steps: {metrics(part)} against "
+                             f"{metrics(eager)}, "
+                             f"{dict(list(differ.items())[:5])}")
+    third = {"argv": EXAMPLE_PART_ARGV, "n_shards": part.n_shards,
+             "shard_runs": [[int(s.runs.shape[0]) for s in p.shards]
+                            for p in (part.mlp_plan.fwd, part.mlp_plan.bwd)],
+             "device_count": torch.cuda.device_count(),
+             "loss": [r["loss"] for r in part.history],
+             "loss_rel_gap_vs_partition_1": part_gap,
+             "replays_bit_equal_to_eager": True,
+             "step_ms": [r["step_s"] * 1e3 for r in part.history],
+             "launches": part_launches}
+    del part, eager
+    torch.cuda.empty_cache()
+    return ({"examples_train_lm": launches,
+             "examples_train_lm_partitioned": part_launches},
+            {"run": first, "card_against_cpu": second, "partition_2": third,
+             "card": card})
+
+
+def examples_phase(card):
+    """The reference's four examples (``repro_torch.examples``), each
+    driven by its ``main`` on the card and held against the same example
+    run on the CPU in this process from the same weights (module
+    docstring, phase 35)."""
+    t0 = time.perf_counter()
+    launches, line = {}, {"phase": "examples", "card": card}
+    for name, fn in (("quickstart", example_quickstart),
+                     ("accelerator_sim", example_accelerator_sim),
+                     ("serve_lm", example_serve_lm)):
+        t1 = time.perf_counter()
+        launches[f"examples_{name}"], line[name] = fn()
+        line[name]["s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    train_launches, line["train_lm"] = example_train_lm(card)
+    line["train_lm"]["s"] = time.perf_counter() - t1
+    launches.update(train_launches)
+    line["phase_s"] = time.perf_counter() - t0
+    return launches, line
+
+
 def profile_events(events):
     """The profiler's raw events, aggregated in one pass (``key_averages``
     takes minutes over a train step's million events): device events by
@@ -6015,6 +6388,8 @@ def main() -> int:
                                          train_line["profile"]["device_ms"])
     emit(line)
     emit(dryrun_phase(smi))
+    examples_launches, line = examples_phase(smi)
+    emit(line)
 
     # launches: each path's run, counted from 0
     by_path = {**serve_launches, "train": train_launches,
@@ -6028,7 +6403,7 @@ def main() -> int:
                "encdec_reference": encdec_ref_launches, **encdec_launches,
                "vlm_reference": vlm_ref_launches, **vlm_launches,
                **family_launches, **ep_launches,
-               "pipeline": pipe_launches}
+               "pipeline": pipe_launches, **examples_launches}
     f32 = lambda n: lambda r: r["dtype"] == "float32" and r.get("N") == n
     headline = {"maple_spmm_naive": f32(1), "maple_spmm_compact": f32(1),
                 "maple_spmm_planned": f32(1),

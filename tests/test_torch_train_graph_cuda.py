@@ -234,3 +234,68 @@ def test_a_host_read_in_the_step_cannot_be_captured(cuda):
         assert _counts() == counts
     torch.cuda.synchronize()
     assert int(opt.step) == taken == 1
+
+
+def _sparse_launches(cfg, plan, n_micro, steps):
+    """B1 and B2 launches of a partitioned sparse-MLP plan's steps: per
+    layer and microbatch, B1 once a shard that holds a run for the
+    forward and its remat recompute and for dB, B2 once a shard for dA."""
+    b1 = lambda p: sum(int(s.runs.shape[0] > 0) for s in p.shards)
+    per_layer = n_micro * cfg.n_layers * steps
+    return {"maple_spmm_compact": per_layer * ((2 if cfg.remat else 1)
+                                               * b1(plan.fwd) + b1(plan.bwd)),
+            "maple_sddmm_bsr": per_layer * plan.fwd.n_shards}
+
+
+def test_partitioned_plan_replays_equal_the_eager_step(cuda):
+    """A sparse MLP under a plan partitioned over 2 shards (fewer cards
+    than shards: the shards run one after another on the card) is
+    captured and replayed as the single-device plan is: every step bit
+    for bit the eager step's, B1 and B2 launched per shard exactly."""
+    cfg, ocfg, n_micro, batches, _ = _setup(cuda, "qwen3_micro2")
+    runs = []
+    for jit in (True, False):
+        params = _model(cfg, cuda)
+        plan = lm.sparse_mlp_plan(params, n_shards=2)
+        assert plan.fwd.n_shards == plan.bwd.n_shards == 2
+        step = make_train_step(cfg, ocfg, n_micro, mlp_plan=plan)
+        fn = jitted_train_step(step, cuda) if jit else step
+        runs.append(_run(fn, params, init_opt_state(ocfg, params), batches,
+                         None))
+        if jit:
+            assert (fn.graph.captures, fn.graph.replays) == (1, STEPS - 1)
+            fn.graph.release()
+    _assert_equal_runs(*runs)
+    want = _sparse_launches(cfg, plan, n_micro, STEPS)
+    assert {k: v for k, v in runs[0][3].items() if v} == want
+
+
+def test_a_checkpoint_saved_between_replays_loads_bit_equal(cuda, tmp_path):
+    """``ckpt.save`` between two replays reads the tensors the graph
+    writes into: the checkpoint loads back bit-equal to them, and the
+    replays after it go on as an eager run with no save in between."""
+    cfg, ocfg, n_micro, batches, _ = _setup(cuda, "qwen3")
+    params = _model(cfg, cuda)
+    step = make_train_step(cfg, ocfg, n_micro,
+                           mlp_plan=lm.sparse_mlp_plan(params))
+    fn = jitted_train_step(step, cuda)
+    opt = init_opt_state(ocfg, params)
+    params, opt, first, _ = _run(fn, params, opt, batches[:3], None)
+    ckpt.save(str(tmp_path), 3, {"params": params, "opt": opt})
+    at, back = ckpt.load(str(tmp_path), {"params": params, "opt": opt})
+    assert at == 3
+    saved = dict(named_leaves(back["params"]))
+    for k, t in named_leaves(params):
+        assert torch.equal(saved[k], t), k
+    for name in ("m", "v"):
+        for k, t in getattr(opt, name).items():
+            assert torch.equal(getattr(back["opt"], name)[k], t), (name, k)
+    assert torch.equal(back["opt"].step, opt.step)
+    params, opt, rest, _ = _run(fn, params, opt, batches[3:], None)
+    assert (fn.graph.captures, fn.graph.replays) == (1, STEPS - 1)
+    fn.graph.release()
+    eager = _model(cfg, cuda)
+    want = _run(make_train_step(cfg, ocfg, n_micro,
+                                mlp_plan=lm.sparse_mlp_plan(eager)),
+                eager, init_opt_state(ocfg, eager), batches, None)
+    _assert_equal_runs((params, opt, first + rest, want[3]), want)
