@@ -5,6 +5,9 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --only moe_ep_cards`` runs the device phase and
+phase 36 alone (on a machine with four cards, its four-card part).
+
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device  — requires CUDA, prints the card's name and power limit (as
@@ -336,8 +339,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
     mask and the bound; recorded, not gated.
 28. moe_ep_reference — expert parallelism (``moe_layer_ep``) on one
     card's mesh, ``("data", "model") = (1, 4)`` of ``"cuda"`` entries
-    (every peer's work on the one card; a mesh of several cards is not
-    run): the granite-moe-3b smoke config with ``moe_impl="ep_a2a"`` at
+    (every peer's work on the one card; phase 36 runs a mesh of cards):
+    the granite-moe-3b smoke config with ``moe_impl="ep_a2a"`` at
     capacity 1.25, the same weights under the card mesh and a CPU mesh
     of the same shape: prefill logits within 1e-4, greedy tokens equal,
     B8 exactly 3 × 4 peers a layer a forward pass; one microbatch's loss
@@ -416,7 +419,34 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
     3``, the stacked loop on one card: B1 and B2 launches per shard
     exactly, losses within 1e-5 relative of the 50-step run's first three,
     the replays bit-equal to the same run eager.
-36. the ``{"kernels": [...]}`` summary (``launches_by_path`` has every
+36. moe_ep_cards — expert-parallel serving with each ``model`` peer's
+    experts on its own card: a ``(data=1, model=4)`` mesh over the cards
+    the process sees (four cards: ``cuda:0`` to ``cuda:3``; one card: four
+    ``cuda:0`` entries, the same per-peer code).  granite-moe-3b at full
+    width and depth, f32, drawn whole on ``cuda:0``: ``generate`` (4
+    prompts, 16 greedy tokens) under one card's ``(1, 4)`` mesh of
+    ``"cuda"`` entries on the whole tree, then under the mesh on the tree
+    placed by ``sharding.device_put_params`` (the whole tree dropped): the
+    prefill's and every decode step's logits and the tokens bit for bit;
+    B8 launches counted by the card current at each launch (3 a peer a
+    layer a forward pass, each peer's on its card); each card's
+    ``memory_allocated`` against the placed tree's bytes there (within
+    256 MiB; with four cards no card holds the whole expert stack);
+    prefill and eager decode-step wall and device ms by card (B8 and the
+    copies apart; the walls of 3 unprofiled calls beside) and tokens/s
+    on both meshes.  A mesh of several cards
+    decodes eagerly (``serve.engine.captured``); one card's captures.
+    With four cards also: qwen3-moe-235b at phase 31's depth the same way
+    (its whole expert leaves moved to the other cards first where the
+    slices do not fit beside them); qwen3-moe-235b at the deepest stack the four cards hold
+    (reckoned by card, drawn a layer at a time on the last card and
+    placed): ``generate`` twice with equal greedy tokens, finite logits,
+    B8 by card, layer 0's MoE against the CPU mesh within 1e-5·max +
+    1e-6, bytes by card, timings; the partitioned logit head at (D, C) =
+    (4, 1) and (2, 2), N = 1 and 4, on ``partition_mesh``'s private mesh
+    of cards, bit for bit against the stacked loop, B1 by card.  With
+    one card the line says the four-card part did not run.
+37. the ``{"kernels": [...]}`` summary (``launches_by_path`` has every
     path above), then the final ``{"ok": true, ...}``.
 
 Every phase's line carries ``t_s``, the seconds since the start.
@@ -5050,7 +5080,7 @@ def moe_train_rows(spec, flush):
 # mesh of several cards is not run
 EP_MESH = (1, 4)
 EP_NOTE = ("one card's mesh: (data, model) = (1, 4) of 'cuda' entries, every "
-           "peer's work on the one card; a mesh of several cards is not run")
+           "peer's work on the one card; moe_ep_cards runs a mesh of cards")
 QWEN3_MOE_ARCH = "qwen3-moe-235b-a22b"
 # qwen3-moe at full width, cut to the deepest stack whose reckoned f32
 # serving peak leaves EP_FREE of the card free
@@ -6147,6 +6177,559 @@ def examples_phase(card):
     return launches, line
 
 
+# --------------------------------------------------------------------------
+# expert-parallel serving across cards (phase 36)
+# --------------------------------------------------------------------------
+
+EP_CARDS = 4             # the model peers of moe_ep_cards' mesh
+EP_CARDS_NEW = 16        # generate's new tokens in moe_ep_cards
+# the partitioned head across cards: (D, C) at N = 1 and 4
+PARTITION_CARDS = ((4, 1), (2, 2))
+
+
+def cards_mesh():
+    """``moe_ep_cards``' ``(data=1, model=4)`` mesh over the cards this
+    process sees: ``cuda:0`` to ``cuda:3`` where there are four, else four
+    ``cuda:0`` entries (each peer's slices and products on the one card,
+    through the same per-peer code)."""
+    from repro_torch.distributed.sharding import Mesh
+    several = torch.cuda.device_count() >= EP_CARDS
+    names = [f"cuda:{i}" if several else "cuda:0" for i in range(EP_CARDS)]
+    return Mesh([names], ("data", "model"))
+
+
+def sync_all():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def card_bytes() -> list:
+    """``memory_allocated`` of every card, after a collection and the
+    allocator's cache given back."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [torch.cuda.memory_allocated(i)
+            for i in range(torch.cuda.device_count())]
+
+
+@contextlib.contextmanager
+def launches_by_card(source, fn_name):
+    """Count the launches of one ``csrc`` launcher (``fn_name`` of the
+    library built from ``source``) by the card current at each launch,
+    which ``kernels._build.launch`` makes the operands' card."""
+    import collections
+    from repro_torch.kernels import _build
+    lib = _build.library(source)
+    launcher = getattr(lib, fn_name)
+    counts = collections.Counter()
+
+    def counted(*args):
+        counts[torch.cuda.current_device()] += 1
+        return launcher(*args)
+    setattr(lib, fn_name, counted)
+    try:
+        yield counts
+    finally:
+        setattr(lib, fn_name, launcher)
+
+
+def by_card(counts, batch) -> dict:
+    """B8 launches by card of a ``generate`` under the bound mesh: the
+    launcher's counts where decode steps run eagerly; where they replay a
+    graph (one card's mesh) the launcher runs only at the warm-up and the
+    capture, so the card's count is ``moe_gemm.launches``, which adds the
+    graph's launches on every replay."""
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.serve.engine import captured
+    if not captured(batch["tokens"].device):
+        return dict(counts)
+    if set(counts) != {0}:
+        raise AssertionError(f"one card's mesh launched B8 on {dict(counts)}")
+    return {0: moe_gemm.launches}
+
+
+def recorded_generate(params, cfg, batch, new):
+    """``generate``'s greedy tokens (host), the logits of every step it
+    samples from (the prefill's, then each decode step's but the last;
+    host copies) and its wall seconds, every card synchronised."""
+    from repro_torch.serve import SamplingConfig, engine
+    seen = []
+    sample = engine.sample_token
+
+    def record(logits, *args, **kw):
+        seen.append(logits.cpu())
+        return sample(logits, *args, **kw)
+    engine.sample_token = record
+    try:
+        sync_all()
+        t0 = time.perf_counter()
+        tokens, _ = engine.generate(params, cfg, batch,
+                                    SamplingConfig(max_new_tokens=new))
+        sync_all()
+        wall = time.perf_counter() - t0
+    finally:
+        engine.sample_token = sample
+    return tokens.cpu(), seen, wall
+
+
+def device_ms_by_card(fn) -> dict:
+    """One call of ``fn`` under torch.profiler after one outside it: its
+    wall ms (every card synchronised) and, by card, the device ms of its
+    kernels (B8's apart) and of its copies and sets."""
+    import collections
+    from torch.profiler import ProfilerActivity
+    fn()
+    sync_all()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync_all()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by = collections.defaultdict(lambda: {"kernel_ms": 0.0, "launches": 0,
+                                          "b8_ms": 0.0, "b8_launches": 0,
+                                          "copy_ms": 0.0, "copies": 0})
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        row, ms, name = by[e.device_index()], e.duration_ns() / 1e6, e.name()
+        if name.startswith(("Memcpy", "Memset")):
+            row["copy_ms"] += ms
+            row["copies"] += 1
+            continue
+        row["kernel_ms"] += ms
+        row["launches"] += 1
+        if "moe_kernel" in name:
+            row["b8_ms"] += ms
+            row["b8_launches"] += 1
+    return {"wall_ms": wall_ms,
+            "by_card": {f"cuda:{i}": by[i] for i in sorted(by)}}
+
+
+def placed_bytes(tree) -> dict:
+    """The bytes each card holds of a placed parameter tree (each
+    tensor's size rounded up to the allocator's 512-byte blocks)."""
+    from repro_torch.distributed.sharding import PeerSlices, leaves_with_path
+    held = {}
+    for _, leaf in leaves_with_path(tree):
+        parts = leaf.parts if isinstance(leaf, PeerSlices) else (leaf,)
+        for t in parts:
+            if torch.is_tensor(t):
+                n = -(-t.numel() * t.element_size() // 512) * 512
+                held[t.device.index] = held.get(t.device.index, 0) + n
+    return held
+
+
+def held_against_reckoning(before, tree, what):
+    """Each card's ``memory_allocated`` since ``before`` against the
+    bytes of ``tree`` placed there; within 256 MiB (the decode callables'
+    graphs released; the libraries' workspaces are the rest)."""
+    now, want = card_bytes(), placed_bytes(tree)
+    out = {}
+    for i in range(len(now)):
+        got, reck = now[i] - before[i], want.get(i, 0)
+        out[f"cuda:{i}"] = {"allocated_gib": got / 2**30,
+                            "reckoned_gib": reck / 2**30}
+        if abs(got - reck) > 256 * 2**20:
+            raise AssertionError(f"{what}: cuda:{i} holds {got} bytes of "
+                                 f"the placed tree, reckoned {reck}")
+    return out
+
+
+def walls_ms(fn, calls: int = 3) -> list:
+    """The host wall ms of ``calls`` calls of ``fn``, each ended by a
+    synchronisation of every card."""
+    out = []
+    for _ in range(calls):
+        sync_all()
+        t0 = time.perf_counter()
+        fn()
+        sync_all()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def ep_timings(params, cfg, batch, max_seq):
+    """Prefill and one eager decode step under the bound mesh: the walls
+    of 3 calls each (:func:`walls_ms`), then one profiled by card
+    (:func:`device_ms_by_card`; its wall carries the profiler's cost)."""
+    from repro_torch.models import lm
+    _, state = lm.prefill(params, cfg, batch, max_seq=max_seq)
+    tok = batch["tokens"][:, :1]
+    calls = {"prefill": lambda: lm.prefill(params, cfg, batch,
+                                           max_seq=max_seq),
+             "decode_step": lambda: lm.decode_step(params, cfg, state, tok)}
+    return {name: {"wall_ms": walls_ms(fn), "profile": device_ms_by_card(fn)}
+            for name, fn in calls.items()}
+
+
+def ep_cards_compare(cfg, mesh, label):
+    """``cfg`` at full width, f32, random weights from the seed, drawn
+    whole on ``cuda:0``: ``generate`` (4 prompts, ``EP_CARDS_NEW`` greedy
+    tokens) under one card's ``(1, 4)`` mesh on the whole tree, then
+    under ``mesh`` on the tree placed by ``device_put_params`` (the whole
+    tree dropped first): the prefill's and every decode step's logits and
+    the tokens bit for bit; B8 launches by card, 3 a peer a layer a
+    forward pass, each peer's on its card; each card's
+    ``memory_allocated`` against the placed tree's bytes there; prefill
+    and eager decode-step wall and device ms by card and tokens/s on both
+    meshes.  Where the slices placed on ``cuda:0`` would not fit beside
+    the whole tree, its expert leaves wait on the other cards, from where
+    they are cut."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (EXPERT_LEAVES,
+                                                  device_put_params,
+                                                  mesh_devices, same_device,
+                                                  use_mesh)
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+    from repro_torch.train.optimizer import named_leaves
+    release_graphs()
+    torch.cuda.empty_cache()
+    before = card_bytes()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device="cuda:0")
+                            .manual_seed(SEED), device="cuda:0")
+    sync_all()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    prompt_len = int(rng.integers(16, 129))
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (4, prompt_len))).to("cuda:0")}
+    new, max_seq = EP_CARDS_NEW, prompt_len + EP_CARDS_NEW
+    forwards = cfg.n_layers * (1 + new)
+    runs = {}
+    with use_mesh(ep_mesh("cuda")):
+        moe_gemm.launches = 0
+        with launches_by_card("moe_gemm", "maple_moe_gemm") as counts:
+            tok, logits, wall = recorded_generate(params, cfg, batch, new)
+        runs["one_card"] = {"launches": moe_gemm.launches,
+                            "by_card": by_card(counts, batch),
+                            "generate_s": wall,
+                            "tok_per_s": 4 * new / wall,
+                            "decode": ("captured" if engine.captured(
+                                batch["tokens"].device) else "eager"),
+                            **ep_timings(params, cfg, batch, max_seq)}
+        release_graphs()
+    experts = sum(t.numel() * t.element_size()
+                  for k, t in named_leaves(params)
+                  if any(n in k for n in EXPERT_LEAVES))
+    # the slices placed beside the whole tree on cuda:0
+    on_home = sum(same_device(mesh.device_at(model=pe),
+                              torch.device("cuda", 0))
+                  for pe in range(EP_CARDS))
+    parked = {}
+    t0 = time.perf_counter()
+    if torch.cuda.mem_get_info(0)[0] < experts * on_home // EP_CARDS \
+            + EP_FREE:
+        # too little room on cuda:0: each whole expert leaf waits on
+        # another card, from where device_put_params cuts it
+        others = [d for d in mesh_devices(mesh) if d.index != 0]
+        if not others:
+            raise AssertionError(f"{label}: the slices do not fit beside "
+                                 f"the whole tree on one card")
+        for j, name in enumerate(EXPERT_LEAVES):
+            dev = others[j % len(others)]
+            moe = params["groups"]["b0"]["moe"]
+            moe[name] = moe[name].to(dev)
+            parked[name] = str(dev)
+        del moe
+        torch.cuda.empty_cache()
+    placed = device_put_params(params, mesh)
+    params = None
+    sync_all()
+    place_s = time.perf_counter() - t0
+    memory = held_against_reckoning(before, placed, label)
+    several = len(mesh_devices(mesh)) > 1
+    peers = {mesh.device_at(model=pe).index for pe in range(EP_CARDS)}
+    with use_mesh(mesh):
+        moe_gemm.launches = 0
+        with launches_by_card("moe_gemm", "maple_moe_gemm") as counts:
+            tok4, logits4, wall4 = recorded_generate(placed, cfg, batch, new)
+        runs["cards"] = {"launches": moe_gemm.launches,
+                         "by_card": by_card(counts, batch),
+                         "generate_s": wall4,
+                         "tok_per_s": 4 * new / wall4,
+                         "decode": ("captured" if engine.captured(
+                             batch["tokens"].device) else "eager"),
+                         **ep_timings(placed, cfg, batch, max_seq)}
+        release_graphs()
+    # the main path's run is generate's: the timings after it launch more
+    launches = {"moe_gemm": runs["cards"]["launches"]}
+    want = {i: 3 * forwards * EP_CARDS // len(peers) for i in peers}
+    for run in runs.values():
+        if run["launches"] != 3 * EP_CARDS * forwards:
+            raise AssertionError(f"{label}: B8 {run['launches']}, expected "
+                                 f"{3 * EP_CARDS * forwards}")
+    if runs["cards"]["by_card"] != want:
+        raise AssertionError(f"{label}: B8 by card "
+                             f"{runs['cards']['by_card']}, expected {want}")
+    if not torch.equal(tok, tok4) or len(logits) != len(logits4) or not all(
+            torch.equal(a, b) for a, b in zip(logits, logits4)):
+        raise AssertionError(f"{label}: the placed tree on {mesh.devices} "
+                             f"differs from the one-card mesh's whole tree")
+    if not all(bool(torch.isfinite(lg).all()) for lg in logits4):
+        raise AssertionError(f"{label}: non-finite logits")
+    if several and any(v["allocated_gib"] * 2**30 >= experts
+                       for v in memory.values()):
+        raise AssertionError(f"{label}: a card holds the whole expert "
+                             f"stack: {memory}")
+    line = {"config": f"{cfg.name}, {cfg.n_layers} of "
+            f"{get_config(cfg.name).n_layers} layers, full width, f32, "
+            f"moe_impl {cfg.moe_impl}, capacity {cfg.moe_capacity_factor}, "
+            f"seed {SEED}", "mesh": [str(d) for d in mesh.devices.flat],
+            "batch": 4, "prompt_len": prompt_len, "new_tokens": new,
+            "init_s": init_s, "experts_parked_on": parked,
+            "place_s": place_s, "expert_gib": experts / 2**30,
+            "memory_by_card": memory, "bit_equal": True,
+            "steps_compared": len(logits), "runs": runs,
+            "launches_expected_by_card": want}
+    del placed
+    torch.cuda.empty_cache()
+    return launches, line
+
+
+def deep_moe_reckoning(full, frees):
+    """The deepest stack of ``full`` (qwen3-moe) that four cards hold
+    placed, f32, drawn a layer at a time on the last peer's card: card 0
+    holds the embedding, head and final norm, every layer's attention,
+    norms and router and peer 0's experts; each other card its peer's
+    experts; the last card also one layer drawn whole and its slice; one
+    placed layer beside the stack; 1 GiB of activations and ``EP_FREE``
+    kept free on each.  (config, reckoning)."""
+    from repro_torch.distributed.sharding import (EXPERT_LEAVES,
+                                                  leaves_with_path, path_str)
+    from repro_torch.models import lm
+    one = lm.init_params(dataclasses.replace(full, n_layers=1), None,
+                         device="meta")
+    top = other = expert = 0
+    for path, t in leaves_with_path(one):
+        name = path_str(path, "str")
+        if not name.startswith("['groups']"):
+            top += t.numel()
+        elif any(k in name for k in EXPERT_LEAVES):
+            expert += t.numel()
+        else:
+            other += t.numel()
+    share = expert // EP_CARDS
+    act = 2**30 + EP_FREE
+
+    def peaks(n):
+        return [4 * (top + (n + 1) * (other + share)) + act,
+                *[4 * (n + 1) * share + act] * (EP_CARDS - 2),
+                4 * ((n + 1) * share + expert + other) + act]
+    for n in range(full.n_layers, 0, -1):
+        if all(p <= f for p, f in zip(peaks(n), frees)):
+            return dataclasses.replace(full, n_layers=n), {
+                "n_layers": n, "n_layers_full": full.n_layers,
+                "params_top": top, "params_layer_other": other,
+                "params_layer_experts": expert,
+                "peak_reckoned_gib": [p / 2**30 for p in peaks(n)],
+                "free_before_gib": [f / 2**30 for f in frees]}
+    raise AssertionError(f"not one placed layer of {full.name} fits")
+
+
+def deep_placed_params(cfg, mesh):
+    """``cfg``'s parameters drawn a layer at a time on the last peer's
+    card (the seed's generator there) and placed by ``device_put_params``
+    into stacks allocated once: no card ever holds a layer's experts whole
+    but the one that draws them, and card 0 never does."""
+    from repro_torch.distributed.sharding import (PeerSlices,
+                                                  device_put_params)
+    from repro_torch.models import lm
+    (key, kinds, _), = lm._stacks(cfg)
+    draw = mesh.device_at(model=EP_CARDS - 1)
+    gen = torch.Generator(device=draw).manual_seed(SEED)
+    params = device_put_params(lm.init_params(
+        dataclasses.replace(cfg, n_layers=1), gen, device=draw), mesh)
+    n = cfg.n_layers
+
+    def grow(leaf):
+        if isinstance(leaf, dict):
+            return {k: grow(v) for k, v in leaf.items()}
+        if isinstance(leaf, PeerSlices):
+            return PeerSlices(tuple(grow(t) for t in leaf.parts),
+                              leaf.axis, (n, *leaf.shape[1:]))
+        out = torch.empty((n, *leaf.shape[1:]), dtype=leaf.dtype,
+                          device=leaf.device)
+        out[0].copy_(leaf[0])
+        return out
+
+    def fill(stack, layer, i):
+        if isinstance(stack, dict):
+            for k in stack:
+                fill(stack[k], layer[k], i)
+        elif isinstance(stack, PeerSlices):
+            for big, t in zip(stack.parts, layer.parts):
+                big[i].copy_(t[0])
+        else:
+            stack[i].copy_(layer[0])
+    stack = grow(params[key]["b0"])
+    params[key]["b0"] = stack
+    for i in range(1, n):
+        layer = device_put_params(lm._init_block(
+            gen, cfg, kinds[0], stack=(1,), dtype=torch.float32), mesh)
+        fill(stack, layer, i)
+        del layer
+    return params
+
+
+def ep_cards_deep(mesh):
+    """qwen3-moe-235b at full width and the deepest stack the four cards
+    hold (:func:`deep_moe_reckoning`), drawn and placed layer by layer
+    (:func:`deep_placed_params`): ``generate`` twice (greedy tokens
+    equal, logits finite), B8 by card, layer 0's MoE on its prefill input
+    against the CPU mesh's on the whole layer within 1e-5·max + 1e-6,
+    each card's bytes against the reckoning, timings by card."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import PeerSlices, use_mesh
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.models import lm
+    from repro_torch.models import moe as M
+    release_graphs()
+    torch.cuda.empty_cache()
+    frees = [torch.cuda.mem_get_info(i)[0] for i in range(EP_CARDS)]
+    cfg, reckoned = deep_moe_reckoning(get_config(QWEN3_MOE_ARCH), frees)
+    before = card_bytes()
+    for i in range(EP_CARDS):
+        torch.cuda.reset_peak_memory_stats(i)
+    t0 = time.perf_counter()
+    params = deep_placed_params(cfg, mesh)
+    sync_all()
+    init_s = time.perf_counter() - t0
+    memory = held_against_reckoning(before, params, "deep qwen3-moe")
+    rng = np.random.default_rng(SEED)
+    prompt_len = int(rng.integers(16, 129))
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (4, prompt_len))).to("cuda:0")}
+    new = EP_CARDS_NEW
+    with use_mesh(mesh):
+        moe_gemm.launches = 0
+        with launches_by_card("moe_gemm", "maple_moe_gemm") as counts:
+            tok, logits, wall = recorded_generate(params, cfg, batch, new)
+        launches = {"moe_gemm": moe_gemm.launches}
+        tok2, _, wall2 = recorded_generate(params, cfg, batch, new)
+        (_, (p0, h0)) = layer0_moe_input(lambda: lm.prefill(
+            params, cfg, batch, max_seq=prompt_len + new))
+        mcfg = lm._moe_cfg(cfg)
+        card = M.moe_layer(p0, mcfg, h0).cpu()
+        timings = ep_timings(params, cfg, batch, prompt_len + new)
+    whole = {k: v.whole("cpu") if isinstance(v, PeerSlices) else v.cpu()
+             for k, v in p0.items()}
+    with use_mesh(ep_mesh("cpu")):
+        cpu = M.moe_layer(whole, mcfg, h0.cpu())
+    err = check_close(card, cpu, torch.float32,
+                      "deep qwen3-moe layer-0 EP, four cards against CPU")
+    expect = 3 * cfg.n_layers * (1 + new)
+    if dict(counts) != {i: expect for i in range(EP_CARDS)}:
+        raise AssertionError(f"deep qwen3-moe: B8 by card {dict(counts)}, "
+                             f"expected {expect} on each")
+    if not torch.equal(tok, tok2):
+        raise AssertionError("deep qwen3-moe: two generate calls' greedy "
+                             "tokens differ")
+    if not all(bool(torch.isfinite(lg).all()) for lg in logits):
+        raise AssertionError("deep qwen3-moe: non-finite logits")
+    line = {"config": f"{cfg.name} at full width, {cfg.n_layers} of "
+            f"{reckoned['n_layers_full']} layers, f32, seed {SEED}",
+            "reckoned": reckoned, "init_s": init_s,
+            "memory_by_card": memory,
+            "peak_gib_by_card": [torch.cuda.max_memory_allocated(i) / 2**30
+                                 for i in range(EP_CARDS)],
+            "batch": 4, "prompt_len": prompt_len, "new_tokens": new,
+            "launches_by_card": dict(counts), "generate_s": [wall, wall2],
+            "tok_per_s": 4 * new / wall2, "tokens_repeat": True,
+            "layer0_card_vs_cpu_max_abs_err": err,
+            "layer0_tolerance": "1e-5·max + 1e-6", **timings}
+    del params, p0, h0
+    torch.cuda.empty_cache()
+    return launches, line
+
+
+def partitioned_cards():
+    """The partitioned logit head (phase 7a's weight, f32) at each (D, C)
+    of :data:`PARTITION_CARDS` on ``partition_mesh``'s private mesh of
+    D·C cards, N = 1 and 4: bit for bit against the stacked loop on one
+    card (``local_partition_execution``), B1 launches by card (each
+    shard's on its mesh card)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels.maple_spmm import maple_spmm_compact
+    from repro_torch.models.layers import init_sparse_linear
+    from repro_torch.serve import SparseLogitHead
+    gen = torch.Generator(device="cuda:0").manual_seed(SEED + 7)
+    rng = np.random.default_rng(SEED + 7)
+    hw = init_sparse_linear(gen, HEAD["d_in"], HEAD["d_out"],
+                            block_shape=HEAD["block"],
+                            block_density=HEAD["density"])
+    cases = []
+    for d_, c_ in PARTITION_CARDS:
+        head = SparseLogitHead.build(hw, n_lanes=HEAD["n_lanes"],
+                                     n_shards=d_, n_col_shards=c_)
+        mesh, _ = sharding.partition_mesh(d_, c_)
+        if mesh is None or len(sharding.mesh_devices(mesh)) != d_ * c_:
+            raise AssertionError(f"partition_mesh({d_}, {c_}) gave "
+                                 f"{mesh and mesh.devices} on "
+                                 f"{torch.cuda.device_count()} cards")
+        for n in HEAD["N"]:
+            hidden = torch.from_numpy(rng.standard_normal(
+                (1, n, HEAD["d_in"])).astype(np.float32)).to("cuda:0")
+            before = maple_spmm_compact.launches
+            with launches_by_card("maple_spmm", "maple_spmm_compact") as by:
+                got = head(hidden)
+                sync_all()
+            mesh_launches = maple_spmm_compact.launches - before
+            with sharding.local_partition_execution():
+                want = head(hidden)
+            if not torch.equal(got, want) or not torch.equal(head(hidden),
+                                                             got):
+                raise AssertionError(f"partitioned head {(d_, c_)} N={n}: "
+                                     f"the mesh of cards differs from the "
+                                     f"stacked loop")
+            cases.append({"D": d_, "C": c_, "N": n,
+                          "mesh": [str(d) for d in mesh.devices.flat],
+                          "b1_launches": mesh_launches,
+                          "b1_by_card": dict(by), "bit_equal": True,
+                          "mesh_ms": device_ms_by_card(lambda: head(hidden)),
+                          })
+    return cases
+
+
+def moe_ep_cards(card):
+    """Expert-parallel serving with each peer's experts on its own card
+    (module docstring, phase 36) on :func:`cards_mesh`: granite-moe-3b at
+    full width and depth on the cards the process sees; with four cards
+    also qwen3-moe-235b at phase 31's depth, its deepest placed stack and
+    the partitioned head across cards."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    mesh = cards_mesh()
+    n_cards = torch.cuda.device_count()
+    several = n_cards >= EP_CARDS
+    launches, granite = ep_cards_compare(get_config(MOE_ARCH), mesh,
+                                         "moe_ep_cards granite")
+    line = {"phase": "moe_ep_cards", "card": card, "cards": n_cards,
+            "launches": launches,
+            "device_names": [torch.cuda.get_device_name(i)
+                             for i in range(n_cards)],
+            "decode_steps": ("eager: a mesh of several cards is not "
+                             "captured" if several else "captured: one "
+                             "card's mesh"),
+            "granite": granite}
+    if not several:
+        line["four_cards"] = (f"not run: this process sees {n_cards} "
+                              f"card(s); the four-card part needs four")
+    else:
+        qwen_cfg, reckoned = qwen3_moe_config()
+        _, line["qwen3_moe"] = ep_cards_compare(
+            qwen_cfg, mesh, "moe_ep_cards qwen3-moe")
+        line["qwen3_moe"]["one_card_depth_reckoned"] = reckoned
+        _, line["qwen3_moe_deep"] = ep_cards_deep(mesh)
+        line["partitioned_head"] = partitioned_cards()
+    line["phase_s"] = time.perf_counter() - t0
+    return launches, line
+
+
 def profile_events(events):
     """The profiler's raw events, aggregated in one pass (``key_averages``
     takes minutes over a train step's million events): device events by
@@ -6237,23 +6820,39 @@ def profile(fn, warmup: bool = True, totals=(), cross_check=False) -> dict:
                          for k, (n, ns) in hosts[:8]]}
 
 
-def main() -> int:
+def main(argv) -> int:
+    only = None
+    if argv:
+        if argv != ["--only", "moe_ep_cards"]:
+            print("usage: chip_smoke.py [--only moe_ep_cards]",
+                  file=sys.stderr)
+            return 2
+        only = argv[1]
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs one "
               "NVIDIA GPU", file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
 
-    smi = subprocess.run(
+    smi_all = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+        check=True).stdout.strip().splitlines()
+    smi = smi_all[0]
     name = torch.cuda.get_device_name(0)
     print(smi, flush=True)
     build_s = _build.build_all()
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kernel_build_s": build_s})
+          "kernel_build_s": build_s,
+          "device_count": torch.cuda.device_count(),
+          "nvidia_smi_all": smi_all})
+    if only == "moe_ep_cards":
+        _, line = moe_ep_cards(smi)
+        emit(line)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                     "count": torch.cuda.device_count()}})
+        return 0
     spec = card_spec(name)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
 
@@ -6390,6 +6989,8 @@ def main() -> int:
     emit(dryrun_phase(smi))
     examples_launches, line = examples_phase(smi)
     emit(line)
+    ep_launches["moe_ep_cards"], line = moe_ep_cards(smi)
+    emit(line)
 
     # launches: each path's run, counted from 0
     by_path = {**serve_launches, "train": train_launches,
@@ -6440,4 +7041,4 @@ if __name__ == "__main__":
         # fix the string hashes so that every run plans the same cage12
         os.execve(sys.executable, [sys.executable, *sys.argv],
                   {**os.environ, "PYTHONHASHSEED": "0"})
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -10,9 +10,12 @@ partitioned Maple kernels (``kernels.ops``) take a ``(PARTITION_AXIS,
 COL_AXIS)`` grid; the expert-parallel MoE layer (``models.moe``) takes
 the production meshes' ``("data", "model")`` and ``("pod", "data",
 "model")`` grids (``launch.mesh``).  There are no process groups: like the
-reference, nothing here needs ``torch.distributed``.  The logical-axis
-rules, ``shard`` and the parameter and state specs of the reference
-module are not ported yet.
+reference, nothing here needs ``torch.distributed``.
+
+:func:`device_put_params` is the port's ``jax.device_put(params,
+param_shardings(params, mesh))``: each MoE expert leaf cut into the
+``model`` peers' slices (:class:`PeerSlices`), each slice on its peer's
+device, every other leaf on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -242,21 +245,45 @@ def recompute_context():
     return contextlib.nullcontext(), rebound()
 
 
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two device names are one device (``"cuda"`` is the current
+    card)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or a.index == b.index:
+        return True
+    if a.index is not None and b.index is not None:
+        return False
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == \
+        (cur if b.index is None else b.index)
+
+
+def mesh_devices(mesh) -> List[torch.device]:
+    """The distinct devices that ``mesh``'s entries name, in the order
+    first met (:func:`same_device`: ``"cuda"`` and the current card's
+    ``"cuda:i"`` are one)."""
+    out: List[torch.device] = []
+    for dev in mesh.devices.reshape(-1):
+        if not any(same_device(dev, seen) for seen in out):
+            out.append(dev)
+    return out
+
+
 def one_device(mesh, what: str) -> torch.device:
     """The one device that every coordinate of ``mesh`` names.  ``what``
     runs on a mesh coordinate by coordinate in one process; on a mesh of
     several devices it raises ``NotImplementedError`` (not ported yet),
     on one with no devices (:class:`AbstractMesh`) ``ValueError``."""
-    grid = getattr(mesh, "devices", None)
-    if grid is None:
+    if getattr(mesh, "devices", None) is None:
         raise ValueError(f"{what}: an abstract mesh holds no devices")
-    devices = {str(d) for d in grid.reshape(-1)}
+    devices = mesh_devices(mesh)
     if len(devices) != 1:
         raise NotImplementedError(
-            f"{what} on a mesh of several devices ({sorted(devices)}) is "
-            f"not ported yet (ROADMAP queue A item 10); bind a mesh whose "
-            f"every entry is one device")
-    return torch.device(devices.pop())
+            f"{what} on a mesh of several devices "
+            f"({sorted(map(str, devices))}) is not ported yet (ROADMAP "
+            f"queue A item 10); bind a mesh whose every entry is one device")
+    return devices[0]
 
 
 def local_devices() -> List[torch.device]:
@@ -602,6 +629,91 @@ def describe_param_shardings(params, mesh) -> str:
         spec = spec_for_param(path, shape, mesh)
         lines.append(f"{path:70s} {str(shape):24s} {spec}")
     return "\n".join(lines)
+
+
+# --------------------------------------------------------------------------
+# placement: jax.device_put(params, param_shardings(params, mesh))
+# --------------------------------------------------------------------------
+
+# the leaves the port cuts over a mesh: the MoE experts, over ``model``
+EXPERT_LEAVES = ("experts_gate", "experts_up", "experts_down")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PeerSlices:
+    """A parameter leaf of global ``shape`` cut along ``axis`` into equal
+    slices, one a ``model`` peer: ``parts[pe]`` on peer ``pe``'s device
+    (:func:`device_put_params`).  Indexing an int takes that layer of a
+    stacked leaf from every slice, as the models index a stacked tensor
+    (``axis`` must not be the layer axis)."""
+
+    parts: Tuple[torch.Tensor, ...]
+    axis: int
+    shape: Tuple[int, ...]
+
+    def __getitem__(self, i: int) -> "PeerSlices":
+        if self.axis == 0:
+            raise IndexError("a leaf cut along its first axis has no "
+                             "layer axis to index")
+        return PeerSlices(tuple(t[i] for t in self.parts), self.axis - 1,
+                          tuple(self.shape[1:]))
+
+    @property
+    def requires_grad(self) -> bool:
+        return any(t.requires_grad for t in self.parts)
+
+    def whole(self, device=None) -> torch.Tensor:
+        """The slices joined on ``device`` (default: peer 0's)."""
+        device = self.parts[0].device if device is None else device
+        return torch.cat([t.to(device) for t in self.parts], self.axis)
+
+
+def _model_axis(spec: PartitionSpec) -> Optional[int]:
+    """The dimension a spec shards over ``model``, if any."""
+    for i, entry in enumerate(spec):
+        if entry == "model" or (isinstance(entry, tuple)
+                                and "model" in entry):
+            return i
+    return None
+
+
+def device_put_params(params, mesh: Mesh):
+    """``params`` placed on ``mesh``: the port's ``jax.device_put(params,
+    param_shardings(params, mesh))``.
+
+    Each MoE expert leaf (:data:`EXPERT_LEAVES`, stacked or per layer)
+    whose spec (:func:`spec_for_param` under the bound rules) puts
+    ``model`` on its expert axis is cut into the ``model`` peers'
+    ``e_loc`` slices along that axis, and slice ``pe`` is copied to
+    ``mesh.device_at(model=pe)``: a :class:`PeerSlices`, each slice a
+    tensor of its own, also where the peer is the leaf's device.  Every
+    other leaf goes whole to the mesh's ``(0, …, 0)`` device (no copy
+    where it is there already): the port has no tensor parallelism, so
+    the other axes a spec names (FSDP's ``data``, ``heads``, ``vocab``)
+    place nothing.  On a mesh whose entries are all one device the placed
+    tree computes the same bits as ``params``."""
+    home = mesh.devices.reshape(-1)[0]
+    msize = mesh.shape.get("model", 1)
+
+    def put(path, leaf):
+        if not torch.is_tensor(leaf):
+            return leaf
+        name = path_str(path, "str")
+        axis = None
+        if msize > 1 and any(k in name for k in EXPERT_LEAVES):
+            axis = _model_axis(spec_for_param(name, tuple(leaf.shape), mesh))
+        if axis is None:
+            return leaf.to(home)
+        e_loc = leaf.shape[axis] // msize
+        parts = []
+        for pe in range(msize):
+            part = leaf.narrow(axis, pe * e_loc, e_loc)
+            own = torch.empty(part.shape, dtype=part.dtype,
+                              device=mesh.device_at(model=pe))
+            parts.append(own.copy_(part))
+        return PeerSlices(tuple(parts), axis, tuple(leaf.shape))
+    return map_with_path(put, params, bsr=lambda node, fields, path:
+                         dataclasses.replace(node, **fields))
 
 
 # --------------------------------------------------------------------------

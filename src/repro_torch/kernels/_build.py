@@ -11,10 +11,16 @@ flags, so an edited source or header rebuilds and an unchanged one is
 reused.  Nothing builds at import:
 the first CUDA launch calls :func:`library`, and :func:`build_all` starts
 one ``nvcc`` per source, all at once.
+
+Every launch goes through :func:`launch`, on its operands' card: the
+launchers' ``cudaFuncSetAttribute``, their context bind
+(``cudaFree(nullptr)``) and the tensor maps they encode act on the
+current device, and a stream belongs to one card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,6 +30,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -166,3 +174,20 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {err} "
                            f"({lib.maple_error_string(err).decode()})")
+
+
+def on(device: torch.device):
+    """Make ``device`` current inside the block where it is a card (no-op
+    for any other device): what the block launches, allocates without a
+    device or synchronises acts on that card."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)``, a launcher of this module's libraries, with
+    ``device`` (the operands' card) current and ``stream`` its current
+    stream; returns the launcher's error code.  A launch under any other
+    current card would run there, on memory it cannot address."""
+    with on(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)

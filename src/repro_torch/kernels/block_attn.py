@@ -101,11 +101,11 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lib = _build.library("block_attn")
     nq, max_nb = kv_map.shape
-    err = lib.maple_block_attention(
+    err = _build.launch(
+        lib.maple_block_attention, q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_map.data_ptr(),
         out.data_ptr(), _DTYPES[q.dtype], b, s, h, hd, nq, max_nb, bq, bk,
-        int(causal), window, math.sqrt(hd),
-        torch.cuda.current_stream().cuda_stream)
+        int(causal), window, math.sqrt(hd))
     _build.check(lib, err, "block_attention")
     block_attention.launches += 1
     return out

@@ -108,11 +108,11 @@ def maple_sddmm_bsr(dc: torch.Tensor, b3: torch.Tensor,
     if n_blocks == 0:
         return out
     lib = _build.library("maple_sddmm")
-    err = lib.maple_sddmm_bsr(
+    err = _build.launch(
+        lib.maple_sddmm_bsr, dc.device,
         dc.data_ptr(), b3.data_ptr(), block_row.data_ptr(),
-        block_col.data_ptr(), out.data_ptr(), _DTYPES[dc.dtype], n_blocks,
-        g, m, b3.shape[1], n, bm, bk, CHUNK,
-        torch.cuda.current_stream().cuda_stream)
+        block_col.data_ptr(), out.data_ptr(), _DTYPES[dc.dtype], n_blocks, g,
+        m, b3.shape[1], n, bm, bk, CHUNK)
     _build.check(lib, err, "maple_sddmm_bsr")
     maple_sddmm_bsr.launches += 1
     return out

@@ -60,10 +60,6 @@ def check_values(what, x, y, x_len: int, y_len: int) -> None:
                          f"{x.device}")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 # --------------------------------------------------------------------------
 # B5: the numeric phase
 # --------------------------------------------------------------------------
@@ -99,11 +95,12 @@ def maple_spgemm_numeric(a_value: torch.Tensor, b_value: torch.Tensor,
     rows = max(1, min(_ROWS, _SMEM_DEFAULT // psb))
     route = numeric_route(plan, a_value.device)
     d = plan.on_device(a_value.device)
-    err = lib.maple_spgemm(
+    err = _build.launch(
+        lib.maple_spgemm, a_value.device,
         a_value.data_ptr(), b_value.data_ptr(), d["row_meta"].data_ptr(),
-        d["row_base"].data_ptr(), d["slot_b"].data_ptr(),
-        d["pos"].data_ptr(), out.data_ptr(), _DTYPES[a_value.dtype],
-        plan.shape_a[0], plan.lc, rows, route, _stream())
+        d["row_base"].data_ptr(), d["slot_b"].data_ptr(), d["pos"].data_ptr(),
+        out.data_ptr(), _DTYPES[a_value.dtype], plan.shape_a[0], plan.lc,
+        rows, route)
     _build.check(lib, err, "maple_spgemm")
     maple_spgemm_numeric.launches += 1
     return out
@@ -199,12 +196,12 @@ def maple_sddmm_csr(dc: torch.Tensor, b_value: torch.Tensor, plan, *,
         return out
     d = plan.on_device(dc.device)
     lib = _build.library("maple_spgemm")
-    err = lib.maple_sddmm_csr(
+    err = _build.launch(
+        lib.maple_sddmm_csr, dc.device,
         dc.data_ptr(), b_value.data_ptr(), d["a_rptr"].data_ptr(),
         d["a_cols"].data_ptr(), d["b_rptr"].data_ptr(),
         d["part_ptr"].data_ptr(), d["pos"].data_ptr(),
-        d["out_rptr"].data_ptr(), out.data_ptr(), _DTYPES[dc.dtype], m,
-        _WARPS, _stream())
+        d["out_rptr"].data_ptr(), out.data_ptr(), _DTYPES[dc.dtype], m, _WARPS)
     _build.check(lib, err, "maple_sddmm_csr")
     maple_sddmm_csr.launches += 1
     return out
@@ -248,11 +245,12 @@ def maple_spgemm_db(dc: torch.Tensor, a_value: torch.Tensor, plan, *,
         return out
     d = plan.on_device(dc.device)
     lib = _build.library("maple_spgemm")
-    err = lib.maple_spgemm_db(
+    err = _build.launch(
+        lib.maple_spgemm_db, dc.device,
         dc.data_ptr(), a_value.data_ptr(), d["fiber_meta"].data_ptr(),
         d["fiber_base"].data_ptr(), d["t_perm"].data_ptr(),
         plan.fiber_positions(dc.device).data_ptr(), out.data_ptr(),
-        _DTYPES[dc.dtype], kb, _WARPS, _stream())
+        _DTYPES[dc.dtype], kb, _WARPS)
     _build.check(lib, err, "maple_spgemm_db")
     maple_spgemm_db.launches += 1
     return out

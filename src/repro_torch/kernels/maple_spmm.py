@@ -262,10 +262,6 @@ def _row_counters(device: torch.device, n: int) -> torch.Tensor:
     return have
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 # --------------------------------------------------------------------------
 # naive schedule (B3)
 # --------------------------------------------------------------------------
@@ -297,10 +293,11 @@ def maple_spmm_naive(blocks: torch.Tensor, row_ptr: torch.Tensor,
                         n_slots=block_col.numel(), sms=_sm_count(b3.device),
                         aligned=b3.data_ptr() % 16 == 0)
     lib = _build.library("maple_spmm")
-    err = lib.maple_spmm_naive(
+    err = _build.launch(
+        lib.maple_spmm_naive, b3.device,
         blocks.data_ptr(), row_ptr.data_ptr(), block_col.data_ptr(),
-        b3.data_ptr(), out.data_ptr(), _DTYPES[b3.dtype], g, nb, gm, k, n,
-        bm, bk, route["bn"], route["stages"], _stream())
+        b3.data_ptr(), out.data_ptr(), _DTYPES[b3.dtype], g, nb, gm, k, n, bm,
+        bk, route["bn"], route["stages"])
     _build.check(lib, err, "maple_spmm_naive")
     maple_spmm_naive.launches += 1
     return out
@@ -375,11 +372,12 @@ def maple_spmm_compact(blocks: torch.Tensor, order: torch.Tensor,
     tile = walk_tile(b3.dtype, n, bm, bk, bn, runs=runs.shape[0], g=g,
                      sms=_sm_count(b3.device))
     lib = _build.library("maple_spmm")
-    err = lib.maple_spmm_compact(
+    err = _build.launch(
+        lib.maple_spmm_compact, b3.device,
         blocks.data_ptr(), order.data_ptr(), step_col.data_ptr(),
         runs.data_ptr(), b3.data_ptr(), out.data_ptr(), _DTYPES[b3.dtype], g,
         nb, runs.shape[0], order.shape[1], n_slots, k, n, bm, bk, tile,
-        ring_stages(order.numel(), runs.shape[0]), _stream())
+        ring_stages(order.numel(), runs.shape[0]))
     _build.check(lib, err, "maple_spmm_compact")
     maple_spmm_compact.launches += 1
     return out
@@ -475,12 +473,13 @@ def maple_spmm_planned(blocks: torch.Tensor, order: torch.Tensor,
                           dtype=torch.float32, device=b3.device)
     counters = _row_counters(b3.device, g * lay["n_tiles"] * gm * SEGMENTS)
     lib = _build.library("maple_spmm")
-    err = lib.maple_spmm_planned(
+    err = _build.launch(
+        lib.maple_spmm_planned, b3.device,
         blocks.data_ptr(), order.data_ptr(), step_col.data_ptr(),
         row_runs.data_ptr(), row_run_ptr.data_ptr(), b3.data_ptr(),
         out.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
         _DTYPES[b3.dtype], g, nb, gm, n_runs, order.shape[1], k, n, bm, bk,
-        tile, ring_stages(order.numel(), n_runs), _stream())
+        tile, ring_stages(order.numel(), n_runs))
     _build.check(lib, err, "maple_spmm_planned")
     maple_spmm_planned.launches += 1
     return out

@@ -52,9 +52,10 @@ def maple_spmspm_ell(values: torch.Tensor, col_ids: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = _build.library("maple_spmspm")
-    err = lib.maple_spmspm(
+    err = _build.launch(
+        lib.maple_spmspm, b.device,
         values.data_ptr(), col_ids.data_ptr(), b.data_ptr(), out.data_ptr(),
-        _DTYPES[b.dtype], m, slots, n, torch.cuda.current_stream().cuda_stream)
+        _DTYPES[b.dtype], m, slots, n)
     _build.check(lib, err, "maple_spmspm")
     maple_spmspm_ell.launches += 1
     return out

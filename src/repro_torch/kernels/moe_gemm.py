@@ -159,10 +159,6 @@ def _check(x, expert_of_tile, w, bt: int, *, transposed: bool = False
             raise ValueError(f"{name} must be contiguous")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 def _check_tile(bt: int) -> None:
     if bt % 8:
         raise ValueError(f"the CUDA kernel takes a token tile bt that is a "
@@ -179,9 +175,10 @@ def _forward(x, expert_of_tile, w, bt: int) -> torch.Tensor:
     e, d, f = w.shape
     y = torch.empty((x.shape[0], f), dtype=x.dtype, device=x.device)
     lib = _build.library("moe_gemm")
-    err = lib.maple_moe_gemm(x.data_ptr(), expert_of_tile.data_ptr(),
-                             w.data_ptr(), y.data_ptr(), _DTYPES[x.dtype],
-                             x.shape[0], d, f, e, bt, _stream())
+    err = _build.launch(
+        lib.maple_moe_gemm, x.device,
+        x.data_ptr(), expert_of_tile.data_ptr(), w.data_ptr(), y.data_ptr(),
+        _DTYPES[x.dtype], x.shape[0], d, f, e, bt)
     _build.check(lib, err, "moe_gemm")
     moe_gemm.launches += 1
     return y
@@ -239,10 +236,10 @@ def moe_gemm_dx(dy: torch.Tensor, expert_of_tile: torch.Tensor,
     _check_tile(bt)
     dx = torch.empty((dy.shape[0], d), dtype=dy.dtype, device=dy.device)
     lib = _build.library("moe_gemm")
-    err = lib.maple_moe_gemm_dx(dy.data_ptr(), expert_of_tile.data_ptr(),
-                                w.data_ptr(), dx.data_ptr(),
-                                _DTYPES[dy.dtype], dy.shape[0], d, f, e, bt,
-                                _stream())
+    err = _build.launch(
+        lib.maple_moe_gemm_dx, dy.device,
+        dy.data_ptr(), expert_of_tile.data_ptr(), w.data_ptr(), dx.data_ptr(),
+        _DTYPES[dy.dtype], dy.shape[0], d, f, e, bt)
     _build.check(lib, err, "moe_gemm_dx")
     moe_gemm.launches += 1
     return dx
@@ -267,10 +264,10 @@ def moe_gemm_dw(x: torch.Tensor, dy: torch.Tensor,
         return moe_gemm_dw_plain(x, dy, expert_of_tile, n_experts, bt=bt)
     dw = torch.empty(w_shape, dtype=x.dtype, device=x.device)
     lib = _build.library("moe_gemm")
-    err = lib.maple_moe_dw(x.data_ptr(), dy.data_ptr(),
-                           expert_of_tile.data_ptr(), dw.data_ptr(),
-                           _DTYPES[x.dtype], x.shape[0], w_shape[1],
-                           w_shape[2], n_experts, bt, _stream())
+    err = _build.launch(
+        lib.maple_moe_dw, x.device,
+        x.data_ptr(), dy.data_ptr(), expert_of_tile.data_ptr(), dw.data_ptr(),
+        _DTYPES[x.dtype], x.shape[0], w_shape[1], w_shape[2], n_experts, bt)
     _build.check(lib, err, "moe_gemm_dw")
     moe_gemm_dw.launches += 1
     return dw

@@ -19,7 +19,6 @@ the fiber-order dB kernel.
 
 from __future__ import annotations
 
-import contextlib
 import os
 from typing import List, Tuple
 
@@ -32,6 +31,7 @@ from repro_torch.core.csr import (CSR, BlockCSR, grow_nnz_max,
                                   transpose_payload)
 from repro_torch.distributed.sharding import (local_devices, partition_mesh,
                                               record_collective)
+from repro_torch.kernels import _build
 from repro_torch.kernels.block_attn import (block_attention,
                                            local_window_kv_map)
 from repro_torch.kernels.maple_sddmm import (maple_sddmm_bsr, maple_sddmm_csr,
@@ -373,13 +373,6 @@ def _scatter_merge_f32(tiles: torch.Tensor,
 # mesh-partitioned execution: B1 and B2 per shard, the row-offset merge
 # --------------------------------------------------------------------------
 
-def _on(device: torch.device):
-    """Launch on ``device``: the kernels' wrappers take the current
-    device's stream."""
-    return (torch.cuda.device(device) if device.type == "cuda"
-            else contextlib.nullcontext())
-
-
 def _mesh_for(n_shards: int, n_col: int, *operands: torch.Tensor):
     """``partition_mesh``'s mesh for a plan run on ``operands``.  A mesh
     device of another type than the operands' raises: card tensors never
@@ -475,7 +468,7 @@ def _partitioned_tiles(blocks, b3, plan: PartitionedSpmmPlan, *, bn: int,
                                    n_slots=plan.n_slots, bn=bn, out=buf)
                 continue
             p = plan.shards[d]
-            with _on(dev):
+            with _build.on(dev):
                 part = maple_spmm_compact(
                     _shard_payload(blocks, plan, d, dev, transposed),
                     sd["local_order"], sd["step_col"], sd["runs"],
@@ -555,7 +548,7 @@ def _partitioned_sddmm_f32(dc, b3, train: SpmmTrainPlan, *,
             if hi == lo:
                 continue                  # N < n_col: an empty panel adds 0
             dev = home if mesh is None else mesh.device(d, c)
-            with _on(dev):
+            with _build.on(dev):
                 row, col, _ = _sddmm_shards_on(train, dev)[d]
                 part = maple_sddmm_bsr(
                     _panel(dc, lo, hi, n_col, dev),

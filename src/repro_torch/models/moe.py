@@ -36,7 +36,10 @@ from typing import Dict, List
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import Mesh, active_mesh, moved
+from repro_torch.distributed.sharding import (EXPERT_LEAVES, Mesh,
+                                              PeerSlices, active_mesh, moved)
+from repro_torch.distributed.sharding import same_device as _same_device
+from repro_torch.kernels._build import on as _on
 from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.models.layers import dense_init
 
@@ -115,6 +118,11 @@ def moe_layer(p, cfg: MoEConfig, x: torch.Tensor, *,
     (:func:`_ep_applicable`); otherwise the sort-based path below."""
     if cfg.impl == "ep_a2a" and not return_aux and _ep_applicable(cfg):
         return moe_layer_ep(p, cfg, x)
+    if isinstance(p["experts_gate"], PeerSlices):
+        raise ValueError(
+            "expert weights placed over a mesh's model peers "
+            "(device_put_params) run only on the expert-parallel path: "
+            "impl='ep_a2a' under that mesh, without return_aux")
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
@@ -161,10 +169,12 @@ def moe_layer(p, cfg: MoEConfig, x: torch.Tensor, *,
 # tokens are split over the batch axes and replicated over ``model``, each
 # ``model`` peer owns ``e_loc`` consecutive experts, and one all_to_all over
 # ``model`` each way carries per-destination capacity buffers.  The port
-# runs the same program batch shard by batch shard in one process, every
-# coordinate's work on the one device its mesh names (a card's mesh, or
-# the CPU's): the all_to_all is the transpose ``R_p[s] = S_s[p]`` of the
-# send buffers, and the peers' work is batched where it can be.
+# runs the same program batch shard by batch shard in one process: the
+# all_to_all is the transpose ``R_p[s] = S_s[p]`` of the send buffers, the
+# peers' routing and grouping are batched on the tokens' device, and each
+# peer's expert products run on its weights' device (one device for a
+# card's or the CPU's mesh; each peer's own card where the weights were
+# placed over a mesh of several cards).
 
 
 def _ep_applicable(cfg: MoEConfig) -> bool:
@@ -308,18 +318,6 @@ def _with_zero_row(parts: List[torch.Tensor]) -> torch.Tensor:
     return torch.cat([*parts, zero])
 
 
-def _same_device(a: torch.device, b: torch.device) -> bool:
-    """Whether two device names are one device (``"cuda"`` is the current
-    card)."""
-    if a.type != b.type:
-        return False
-    if a.type != "cuda":
-        return True
-    cur = torch.cuda.current_device()
-    return (cur if a.index is None else a.index) == \
-        (cur if b.index is None else b.index)
-
-
 def _received(send: torch.Tensor, msize: int) -> torch.Tensor:
     """The all-to-all's receive side, ``R_p[s] = S_s[p]``, where every
     source's send buffer is ``send`` (``(msize, cap_send, ...)``: the
@@ -347,19 +345,61 @@ class _FirstCopy(torch.autograd.Function):
         return (g / ctx.n).expand(ctx.n, *g.shape)
 
 
+def _peer_weights(p, mesh: Mesh, x: torch.Tensor, e_loc: int,
+                  grad: bool):
+    """Each ``model`` peer's expert weights and the device its products run
+    on: the slices of leaves placed by ``device_put_params``, each on its
+    peer's device, or views of whole leaves on their one device.  Raises
+    where the mesh's entries name several devices and the path is not
+    ported: whole leaves (``ValueError``: place them), a gradient, or a
+    batch axis above 1 (``NotImplementedError``)."""
+    names = EXPERT_LEAVES
+    msize = mesh.shape["model"]
+    placed = isinstance(p["experts_gate"], PeerSlices)
+    several = not all(_same_device(dev, x.device)
+                      for dev in mesh.devices.flat)
+    if several and not placed:
+        raise ValueError(
+            "moe_layer_ep on a mesh of several devices takes expert weights "
+            "placed on their peers' devices: pass the tree through "
+            "distributed.sharding.device_put_params(params, mesh) first")
+    if several and grad:
+        raise NotImplementedError(
+            "moe_layer_ep under a gradient on a mesh of several devices "
+            "(training across cards) is not ported yet (ROADMAP queue A "
+            "item 10); train on a mesh whose every entry is one device")
+    if several and any(mesh.shape.get(ax, 1) > 1 for ax in ("pod", "data")):
+        raise NotImplementedError(
+            "moe_layer_ep on a mesh of several devices with a 'data' or "
+            "'pod' axis above 1 is not ported yet (ROADMAP queue A item "
+            "10); bind a (data=1, model=M) mesh")
+    if not placed:
+        parts = {n: p[n].split(e_loc) for n in names}
+        return [({n: parts[n][pe] for n in names}, x.device)
+                for pe in range(msize)]
+    out = []
+    for pe in range(msize):
+        w = {n: p[n].parts[pe] if isinstance(p[n], PeerSlices) else None
+             for n in names}
+        dev = mesh.device_at(model=pe)
+        if any(t is None or t.shape[0] != e_loc
+               or not _same_device(t.device, dev) for t in w.values()):
+            raise ValueError(
+                f"the expert weights are not placed for this mesh (peer "
+                f"{pe}: {e_loc} experts on {dev}): place them with "
+                f"device_put_params under the mesh they run on")
+        out.append((w, dev))
+    return out
+
+
 def _ep_forward(p, cfg: MoEConfig, x: torch.Tensor) -> torch.Tensor:
     """The EP program on the bound mesh: the ``(B, S, D)`` output as each
     ``model`` peer holds it, stacked, peer 0's first; only peer 0's where
-    no gradient is taken."""
+    no gradient is taken.  Routing, the send buffers, the grouping and
+    the combine run on x's device; each peer's three expert products run
+    on its weights' device (:func:`_peer_weights`)."""
     mesh = active_mesh()
     mesh.check_operands(x)
-    home = p["experts_gate"].device
-    if not all(_same_device(dev, home) for dev in mesh.devices.flat):
-        raise NotImplementedError(
-            "moe_layer_ep on a mesh of several devices (the all-to-all as "
-            "peer copies, each peer's experts on its own device) is not "
-            "ported yet (ROADMAP queue A item 10); bind a mesh whose every "
-            "entry is the expert weights' device")
     b, s, d = x.shape
     k = cfg.top_k
     z = ep_sizes(mesh, cfg, b, s)
@@ -371,8 +411,13 @@ def _ep_forward(p, cfg: MoEConfig, x: torch.Tensor) -> torch.Tensor:
         t.requires_grad for t in (x, p["router"], p["experts_gate"],
                                   p["experts_up"], p["experts_down"]))
     n_src = msize if grad else 1
-    parts = {name: p[name].split(e_loc)
-             for name in ("experts_gate", "experts_up", "experts_down")}
+    peers = _peer_weights(p, mesh, x, e_loc, grad)
+    home = x.device
+    # peers on other devices compute first: a copy back to x's device
+    # waits for what x's device has queued, so its own peers go last
+    away = [pe for pe, (_, dev) in enumerate(peers)
+            if not _same_device(dev, home)]
+    order = away + [pe for pe in range(msize) if pe not in away]
     outs = []
     for i in range(z["batch_div"]):
         x_loc = x[i * bl:(i + 1) * bl].reshape(t_loc, d)
@@ -389,9 +434,17 @@ def _ep_forward(p, cfg: MoEConfig, x: torch.Tensor) -> torch.Tensor:
                         cap_exp).reshape(-1)
         buf = x_send.new_zeros((msize * n_buf + 1, d))
         buf.index_put_((row,), _received(x_send, msize))
-        ys = [_experts({n: parts[n][pe] for n in parts},
-                       buf[pe * n_buf:(pe + 1) * n_buf], e_loc, cap_exp)
-              for pe in range(msize)]
+        # each peer's rows to its device, all enqueued before any product
+        # (no copy on x's device); the products then run on every device
+        # at once, and each peer's output comes back
+        ins = [buf[pe * n_buf:(pe + 1) * n_buf].to(dev)
+               for pe, (_, dev) in enumerate(peers)]
+        ys = [None] * msize
+        for pe in order:
+            w, dev = peers[pe]
+            with _on(dev):
+                ys[pe] = _experts(w, ins[pe], e_loc, cap_exp)
+        ys = [y.to(home) for y in ys]
         # the grouping undone: each received slot's row, or zeros, as
         # (peer, source, cap_send, D)
         y_back = moved(_Take.apply(_with_zero_row(ys), row).view(
@@ -428,10 +481,15 @@ def moe_layer_ep(p, cfg: MoEConfig, x: torch.Tensor) -> torch.Tensor:
 
     FSDP: the reference's expert weights arrive sharded over ``data`` on
     their ``d_model`` axis and are all-gathered inside the layer; in one
-    process the weights are whole and nothing is gathered.  Each peer
-    multiplies by a view of its ``e_loc`` experts; every mesh entry must
-    be the weights' device (a mesh of several devices raises
-    ``NotImplementedError``).
+    process the weights are whole over ``data`` and nothing is gathered.
+    Each peer multiplies by its ``e_loc`` experts: a view of whole leaves
+    on a mesh whose every entry is x's device, or its slices of leaves
+    placed by ``distributed.sharding.device_put_params``, on its own
+    device.  On a mesh of several devices (serving across cards) each
+    peer's rows of the grouped buffer are copied to its device, its
+    three B8 products run there and its output comes back to x's device;
+    whole leaves raise ``ValueError`` there, and a gradient or a batch
+    axis above 1 ``NotImplementedError`` (ROADMAP queue A item 10).
     """
     copies = _ep_forward(p, cfg, x)
     return copies[0] if len(copies) == 1 else _FirstCopy.apply(copies)

@@ -23,7 +23,9 @@ round (:meth:`step`):
    writing into the dead page, so every step has the same shapes);
    per-slot positions let slots sit at different depths.  On the card
    the step and the head are one CUDA graph, captured on the engine's
-   second step and replayed after it (``serve.graphs.StepGraph``).  The
+   second step and replayed after it (``serve.graphs.StepGraph``); under
+   a bound mesh of several cards the eager step runs
+   (``engine.captured``).  The
    call sits inside a **bounded-retry wrapper**: an injected
    :class:`~repro_torch.serve.faults.TransientStepError` is raised before
    the step runs, so the pool (updated in place by a step) is untouched
@@ -75,7 +77,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
 from repro_torch.serve.engine import (SamplingConfig, SparseLogitHead,
-                                      complete_static, jitted_decode_step,
+                                      captured, complete_static,
+                                      jitted_decode_step,
                                       jitted_prefill, sample_token,
                                       token_entropy)
 from repro_torch.serve.faults import FaultSchedule, TransientStepError
@@ -472,13 +475,14 @@ class ContinuousBatcher:
 
     def _decode(self, host: np.ndarray):
         """The fused step on ``host`` = (tokens | pos | table) per slot,
-        int32, copied to the device at once (on the card into the
-        graph's static buffer, then the graph replays).  Returns the
-        logits ``(max_slots, 1, V)`` and the new state."""
+        int32, copied to the device at once (on one card into the
+        graph's static buffer, then the graph replays; on the CPU or a
+        mesh of several cards the eager step).  Returns the logits
+        ``(max_slots, 1, V)`` and the new state."""
         caches = {k: v for k, v in self.state.items()
                   if k not in ("pos", "table")}
         packed = torch.from_numpy(host)
-        if self.device.type == "cuda":
+        if captured(self.device):
             out, pos, table = self.graph(
                 lambda feeds: self._fused(caches, feeds["packed"]),
                 {"packed": packed}, (self.params, caches, self.head),

@@ -12,9 +12,10 @@ reference's cached callables, one per key, called as the reference's
 are.  A decode callable on the card captures its step once as a CUDA
 graph and replays it (:class:`~repro_torch.serve.graphs.StepGraph`: the
 first call on a state is eager, the second captures, every later one
-replays; the caches are updated in place); on the CPU it runs the eager
-step.  Prompt lengths differ request to request, so a prefill runs
-eagerly on every device.  ``generate`` and ``complete_static`` go
+replays; the caches are updated in place); on the CPU, and under a
+bound mesh whose entries name several cards (:func:`captured`), it runs
+the eager step.  Prompt lengths differ request to request, so a prefill
+runs eagerly on every device.  ``generate`` and ``complete_static`` go
 through both, as the reference's do.
 """
 
@@ -28,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.csr import BlockCSR
+from repro_torch.distributed.sharding import active_mesh, mesh_devices
 from repro_torch.kernels.autotune import auto_plan
 from repro_torch.kernels.partition import (PartitionedSpmmPlan,
                                            plan_partitioned_spmm)
@@ -138,10 +140,23 @@ _PREFILL_JIT: Dict[tuple, Any] = {}
 _DECODE_JIT: Dict[tuple, Any] = {}
 
 
+def captured(device: torch.device) -> bool:
+    """Whether a serving step on ``device`` runs as a captured CUDA graph:
+    on a card, unless the bound mesh's entries name several cards.  A
+    capture records one card's stream into a pool of that card; peers'
+    launches and allocations on other cards would join it only through
+    the copies' events, outside that pool, so across cards the eager
+    step runs (capture across cards: ROADMAP queue A item 10)."""
+    mesh = active_mesh()
+    return device.type == "cuda" and (mesh is None
+                                      or len(mesh_devices(mesh)) == 1)
+
+
 class PrefillStep:
     """``lm.prefill`` for one (cfg, max_seq, return_hidden), called as the
     reference's jitted one: ``fn(params, batch=...)`` → (logits or the
-    hidden state, decode state).  It runs eagerly on every device."""
+    hidden state, decode state).  It runs eagerly on every device and
+    every mesh, one card's or several cards'."""
 
     def __init__(self, cfg: ModelConfig, max_seq: int, return_hidden: bool):
         self.cfg, self.max_seq = cfg, max_seq
@@ -157,11 +172,12 @@ class DecodeStep:
     called as the reference's jitted one: ``fn(params, state=...,
     tokens=...)`` → (logits or the hidden state, new state).
 
-    On tensors on the CPU it runs the eager step.  On the card it runs
-    through :attr:`graph`, fed the tokens and the state's ``pos`` (and
-    ``table`` when paged); the caches are updated in place, as the eager
-    step updates them.  The state's ``pos`` comes back of the kind it
-    went in: an int stays an int."""
+    On tensors on the CPU, and under a bound mesh of several cards
+    (:func:`captured` is false), it runs the eager step.  Otherwise, on
+    the card, it runs through :attr:`graph`, fed the tokens and the
+    state's ``pos`` (and ``table`` when paged); the caches are updated in
+    place, as the eager step updates them.  The state's ``pos`` comes
+    back of the kind it went in: an int stays an int."""
 
     def __init__(self, cfg: ModelConfig, paged: bool, return_hidden: bool):
         self.cfg, self.paged = cfg, paged
@@ -175,7 +191,7 @@ class DecodeStep:
                     return_hidden=self.return_hidden)
 
     def __call__(self, params, state, tokens):
-        if not tokens.is_cuda:
+        if not captured(tokens.device):
             return self.eager(params, state, tokens)
         names = ("pos", "table") if self.paged else ("pos",)
         caches = {k: v for k, v in state.items() if k not in names}
@@ -206,8 +222,9 @@ def jitted_prefill(cfg: ModelConfig, max_seq: int, *,
 
 def jitted_decode_step(cfg: ModelConfig, *, paged: bool = False,
                        return_hidden: bool = False) -> DecodeStep:
-    """The cached decode callable for (cfg, paged, return_hidden): on the
-    card, a captured CUDA graph replayed (see :class:`DecodeStep`)."""
+    """The cached decode callable for (cfg, paged, return_hidden): on one
+    card, a captured CUDA graph replayed; on the CPU or a mesh of several
+    cards, the eager step (see :class:`DecodeStep`)."""
     key = (cfg, bool(paged), bool(return_hidden))
     fn = _DECODE_JIT.get(key)
     if fn is None:

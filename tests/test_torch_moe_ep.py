@@ -6,7 +6,11 @@ One module-scoped subprocess runs the reference's ``moe_layer`` with
 ``tests/test_moe_ep.py`` does), jitted, on inputs and weights drawn here
 from numpy seeds and handed over in an npz; it writes each case's output
 and the gradients of ``sum(y²)``.  The port runs the same program on a CPU
-mesh of the same shape (``make_debug_mesh(..., device="cpu")``).
+mesh of the same shape (``make_debug_mesh(..., device="cpu")``), with
+whole expert leaves and with the tree placed by
+``sharding.device_put_params`` (each peer's slices, the serving path of
+a mesh of several cards); the subprocess also writes the reference's
+cut of each expert leaf (``NamedSharding.devices_indices_map``).
 
 Tolerances: y within 1e-5 (the two sum in different orders); dx and the
 expert-weight and router gradients within 1e-4·max + 1e-6, of two
@@ -66,6 +70,14 @@ CASES = {
     "peer0_full": ((1, 4), ("data", "model"), 8, 1.25, 4, 0, 2.5),
 }
 MATCHED = [c for c in CASES if c != "peer0_full"]
+# the serving meshes of device_put_params: (data, model) = (1, 4), (2, 4)
+PLACED = [c for c in MATCHED if CASES[c][1] == ("data", "model")]
+# expert leaves cut by the reference's param sharding: (mesh, path, shape)
+STACKED = "['groups']/['b0']/['moe']/['{}']"
+PER_LAYER = "['groups']/['b0']/[1]/['moe']/['{}']"
+CUTS = [((1, 4), STACKED, (3, 8, 64, 32), "experts_gate"),
+        ((2, 4), STACKED, (3, 8, 32, 64), "experts_down"),
+        ((2, 4), PER_LAYER, (8, 64, 32), "experts_up")]
 
 SCRIPT = textwrap.dedent("""
     import os, sys, json
@@ -73,9 +85,21 @@ SCRIPT = textwrap.dedent("""
     import jax, jax.numpy as jnp, numpy as np
     from repro.distributed.sharding import use_mesh_rules
     from repro.models import moe as M
+    from jax.sharding import NamedSharding
+    from repro.distributed.sharding import spec_for_param
     spec = json.load(open(sys.argv[1]))
     inp = np.load(sys.argv[2])
     out = {}
+    for i, c in enumerate(spec.pop("__cuts__")):
+        mesh = jax.make_mesh(tuple(c["shape"]), ("data", "model"))
+        leaf = tuple(c["leaf"])
+        where = NamedSharding(mesh, spec_for_param(
+            c["path"], leaf, mesh)).devices_indices_map(leaf)
+        rows = []
+        for coord in np.ndindex(mesh.devices.shape):
+            for dim, sl in enumerate(where[mesh.devices[coord]]):
+                rows.append([*coord, dim, *sl.indices(leaf[dim])[:2]])
+        out[f"cut{i}"] = np.asarray(rows)
     for name, c in spec.items():
         cfg = M.MoEConfig(**c["fields"])
         mesh = jax.make_mesh(tuple(c["shape"]), tuple(c["axes"]))
@@ -135,6 +159,9 @@ def reference(tmp_path_factory):
         arrays.update({f"{name}/{k}": v for k, v in w.items()})
         arrays[f"{name}/x"] = x
         arrays[f"{name}/r"] = _cotangent(name)
+    spec["__cuts__"] = [{"shape": shape, "path": path.format(leaf),
+                         "leaf": dims}
+                        for shape, path, dims, leaf in CUTS]
     (tmp / "spec.json").write_text(json.dumps(spec))
     np.savez(tmp / "inputs.npz", **arrays)
     env = dict(os.environ, JAX_PLATFORMS="cpu",
@@ -225,7 +252,7 @@ def test_ep_sizes_follow_the_reference_greedy_pick():
             z["e_loc"]) == (("data",), 64, 40, 56, 4)
 
 
-def test_ep_model_gradient_is_the_gradient_of_peer_0s_copy():
+def test_ep_returns_peer_0s_copy_and_hands_each_copy_the_cotangent():
     """With second-level drops the peers' copies differ: the output is
     peer 0's copy bit for bit, and the gradient hands every copy the
     output's cotangent over the peer count (the reference's transpose);
@@ -450,13 +477,174 @@ def test_received_is_the_all_to_all_transpose():
 
 
 def test_ep_mesh_of_several_devices_raises(monkeypatch):
-    """A mesh whose entries are not all the expert weights' device (a
-    mesh of several cards) raises until that path is ported; here the
-    CPU's entries stand for other devices."""
+    """A mesh whose entries are not all x's device (a mesh of several
+    cards) takes expert weights placed on their peers' devices: whole
+    leaves raise, naming the placement function; here the CPU's entries
+    stand for other devices."""
     monkeypatch.setattr(M, "_same_device", lambda a, b: False)
     cfg = M.MoEConfig(**_fields("mesh14_cf8"))
     p = M.init_moe(torch.Generator().manual_seed(0), cfg)
     x = torch.zeros((2, 8, D))
     with sh.use_mesh(make_debug_mesh((1, 4), device="cpu")), \
-            pytest.raises(NotImplementedError, match="queue A item 10"):
+            pytest.raises(ValueError, match="device_put_params"):
         M.moe_layer(p, cfg, x)
+
+
+def _placed(name, mesh):
+    """``name``'s weights placed on ``mesh`` by ``device_put_params``
+    beside the whole ones, its config and its input."""
+    cfg = M.MoEConfig(**_fields(name))
+    w, x = _inputs(name)
+    whole = {k: torch.from_numpy(v) for k, v in w.items()}
+    return whole, sh.device_put_params(whole, mesh), cfg, \
+        torch.from_numpy(x)
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("name", PLACED)
+def test_placed_tree_matches_reference(reference, name):
+    """The tree placed by ``device_put_params`` on a CPU (1, 4) or (2, 4)
+    mesh runs each peer's products on its slices: within 1e-5 of the
+    reference's ``moe_layer_ep``, and the whole tree's bits."""
+    shape, axes, *_ = CASES[name]
+    mesh = make_debug_mesh(shape, axes, device="cpu")
+    whole, placed, cfg, x = _placed(name, mesh)
+    with sh.use_mesh(mesh):
+        got = M.moe_layer(placed, cfg, x)
+        want = M.moe_layer(whole, cfg, x)
+    err = float(np.abs(got.numpy() - reference[f"{name}/y"]).max())
+    assert err <= 1e-5, f"{name} y: {err}"
+    assert torch.equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def cut_tree():
+    """The leaves of ``CUTS`` in one parameter tree (a stacked group and a
+    per-layer list, as ``lm`` holds them), drawn from a seed, with a
+    norm leaf that is not cut."""
+    rng = np.random.default_rng(9)
+    draw = lambda dims: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(dims).astype(np.float32))
+    stacked = {"moe": {leaf: draw(dims) for _, path, dims, leaf in CUTS
+                       if path == STACKED}, "norm1": {"scale": draw((3, D))}}
+    layers = [{"moe": {leaf: draw(dims) for _, path, dims, leaf in CUTS
+                       if path == PER_LAYER}} for _ in range(2)]
+    return {"groups": {"b0": stacked}, "per_layer": layers}
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("i", range(len(CUTS)))
+def test_placement_cuts_each_peer_the_references_slice(reference, cut_tree,
+                                                       i):
+    """``device_put_params``: every model peer's slice of an expert leaf
+    is the block of experts the reference's sharding gives that peer
+    (at every ``data`` coordinate), its own tensor, equal to the whole
+    leaf's bits; leaves that are not cut stay whole."""
+    shape, path, dims, leaf = CUTS[i]
+    tree = ({"groups": cut_tree["groups"]} if path == STACKED
+            else {"groups": {"b0": cut_tree["per_layer"]}})
+    mesh = make_debug_mesh(shape, device="cpu")
+    placed = dict(sh.leaves_with_path(sh.device_put_params(tree, mesh)))
+    whole = dict(sh.leaves_with_path(tree))
+    by_name = {sh.path_str(k, "str"): k for k in placed}
+    key = by_name[path.format(leaf)]
+    got = placed[key]
+    assert isinstance(got, sh.PeerSlices) and got.shape == dims
+    e_loc = dims[got.axis] // shape[1]
+    cut = reference[f"cut{i}"]                    # data, model, dim, lo, hi
+    for pe, part in enumerate(got.parts):
+        lo = pe * e_loc
+        rows = cut[(cut[:, 1] == pe) & (cut[:, 2] == got.axis)]
+        assert len(rows) == shape[0]
+        assert (rows[:, 3:] == [lo, lo + e_loc]).all(), rows
+        assert torch.equal(part, whole[key].narrow(got.axis, lo, e_loc))
+        assert part.data_ptr() != whole[key].data_ptr()
+    assert torch.equal(got.whole(), whole[key])
+    for k, t in placed.items():
+        if not isinstance(t, sh.PeerSlices):
+            assert t is whole[k]
+
+
+def test_placed_tree_serves_like_the_whole_tree(granite_ep):
+    """granite's smoke model on the EP path under a (1, 4) CPU mesh: the
+    placed tree's prefill and decode logits and its greedy tokens equal
+    the whole tree's bit for bit (a stacked leaf's layer is a
+    ``PeerSlices`` of every peer's layer)."""
+    from repro_torch.serve import SamplingConfig, generate
+    _, cfg, _, params = granite_ep
+    mesh = make_debug_mesh((1, 4), device="cpu")
+    placed = sh.device_put_params(params, mesh)
+    assert isinstance(placed["groups"]["b0"]["moe"]["experts_up"],
+                      sh.PeerSlices)
+    tok = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 7)))
+    out = []
+    with sh.use_mesh(mesh), torch.no_grad():
+        for tree in (params, placed):
+            logits, state = lm.prefill(tree, cfg, {"tokens": tok},
+                                       max_seq=12)
+            step, _ = lm.decode_step(tree, cfg, state, tok[:, :1])
+            tokens, _ = generate(tree, cfg, {"tokens": tok},
+                                 SamplingConfig(max_new_tokens=4))
+            out.append((logits, step, tokens))
+    for got, want in zip(*out):
+        assert torch.equal(got, want)
+
+
+def test_ep_gradient_on_several_devices_raises(monkeypatch):
+    """Training across cards is not ported: placed weights that take a
+    gradient on a mesh of several devices raise, naming ROADMAP item 10
+    (the CPU's entries stand for other devices)."""
+    mesh = make_debug_mesh((1, 4), device="cpu")
+    _, placed, cfg, x = _placed("mesh14_cf8", mesh)
+    for part in placed["experts_gate"].parts:
+        part.requires_grad_(True)
+    monkeypatch.setattr(M, "_same_device", lambda a, b: False)
+    with sh.use_mesh(mesh), \
+            pytest.raises(NotImplementedError, match="queue A item 10"):
+        M.moe_layer(placed, cfg, x)
+
+
+def test_ep_several_devices_with_data_above_1_raises(monkeypatch):
+    """A mesh of several devices with a ``data`` axis of 2 raises,
+    naming ROADMAP item 10 (the CPU's entries stand for other
+    devices)."""
+    mesh = make_debug_mesh((2, 4), device="cpu")
+    _, placed, cfg, x = _placed("mesh24_cf8", mesh)
+    monkeypatch.setattr(M, "_same_device", lambda a, b: False)
+    with sh.use_mesh(mesh), \
+            pytest.raises(NotImplementedError, match="queue A item 10"):
+        M.moe_layer(placed, cfg, x)
+
+
+@pytest.mark.parametrize("where", ["no_mesh", "another_mesh"])
+def test_placed_weights_outside_their_mesh_raise(where):
+    """Placed expert weights run only on the EP path of a mesh of their
+    placement: with no mesh bound (the sort path) or under a mesh of
+    another ``model`` size they raise ``ValueError``."""
+    _, placed, cfg, x = _placed(
+        "mesh14_cf8", make_debug_mesh((1, 4), device="cpu"))
+    mesh = None if where == "no_mesh" else make_debug_mesh((1, 2),
+                                                           device="cpu")
+    with sh.use_mesh(mesh), pytest.raises(ValueError, match="placed"):
+        M.moe_layer(placed, cfg, x)
+
+
+def test_serving_steps_capture_only_on_one_card():
+    """``engine.captured``: a decode step is captured on a card under no
+    mesh or a mesh whose entries are all one card, and runs eagerly on a
+    mesh of several cards (and on the CPU); ``mesh_devices`` counts
+    ``"cuda"`` and ``"cuda:i"`` entries by the device they name."""
+    from repro_torch.serve.engine import captured
+    card = torch.device("cuda", 0)
+    one = sh.Mesh([["cuda:0"] * 4], ("data", "model"))
+    four = sh.Mesh([[f"cuda:{i}" for i in range(4)]], ("data", "model"))
+    assert len(sh.mesh_devices(one)) == 1
+    assert len(sh.mesh_devices(four)) == 4
+    assert len(sh.mesh_devices(sh.Mesh([["cuda"] * 4],
+                                       ("data", "model")))) == 1
+    assert captured(card)
+    for mesh, want in ((one, True), (four, False)):
+        with sh.use_mesh(mesh):
+            assert captured(card) is want
+            assert not captured(torch.device("cpu"))
