@@ -6,7 +6,8 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --only moe_ep_cards`` runs the device phase and
-phase 36 alone (on a machine with four cards, its four-card part).
+phase 36 alone (on a machine with four cards, its four-card part, which
+trains across the cards as well).
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
@@ -446,6 +447,30 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
     (4, 1) and (2, 2), N = 1 and 4, on ``partition_mesh``'s private mesh
     of cards, bit for bit against the stacked loop, B1 by card.  With
     one card the line says the four-card part did not run.
+    Training with the placed tree, every run (``placed_train_check``):
+    granite cut to 2 layers at full width, 2 eager steps of
+    ``train_moe_ep``'s 8 × 256 tokens in 8 microbatches on four ``cuda:0``
+    entries against the whole tree on one card's (1, 4) mesh: losses and
+    grad norms within 1e-5 relative, parameters within 1e-6 of the tree's
+    largest |parameter|, B8 and ``moe_dw_kernel`` launches exact (path
+    ``moe_ep_cards_train``).  With
+    four cards (``train``; one card: "not run: needs four cards"):
+    granite at full width and depth, 3 eager steps of that batch with the
+    placed tree on four ``cuda:0`` entries (host copies of the parameters
+    and both moments kept), then on the four cards: every step's loss and
+    grad norm and the state after step 3 bit for bit; B8 (forward, remat,
+    dx) 2 304 and ``moe_dw_kernel`` 768 launches a step on each card
+    (counted by the card current at each launch, on autograd's worker
+    threads too); each card's ``memory_allocated`` after a step against
+    the placed state's bytes (within 1 GiB); the eager walls of steps 2
+    and 3; one step profiled by card (B8, dW and the copies between cards
+    apart); layer 0's MoE forward and backward of ``sum(y·R)`` at the
+    training shapes on the cards against the CPU mesh (y, dx, every expert
+    and router gradient within 1e-5·max + 1e-6; B8 6 and dW 3 a card);
+    and ``launch.train.run(ckpt_dir=...)`` on the cards, granite cut to
+    the deepest stack whose checkpoint stays under 5 GB on disk (12 bytes
+    a stored parameter): 4 straight steps against 2, a save, a resume and
+    2 more, bit for bit, with save and load seconds and bytes on disk.
 37. the ``{"kernels": [...]}`` summary (``launches_by_path`` has every
     path above), then the final ``{"ok": true, ...}``.
 
@@ -6214,24 +6239,33 @@ def card_bytes() -> list:
 
 
 @contextlib.contextmanager
-def launches_by_card(source, fn_name):
-    """Count the launches of one ``csrc`` launcher (``fn_name`` of the
-    library built from ``source``) by the card current at each launch,
-    which ``kernels._build.launch`` makes the operands' card."""
+def launches_by_card(source, *fn_names):
+    """Count the launches of ``csrc`` launchers (``fn_names`` of the
+    library built from ``source``, summed) by the card current at each
+    launch, which ``kernels._build.launch`` makes the operands' card
+    (also on autograd's worker thread of each card: the count is
+    locked)."""
     import collections
+    import threading
     from repro_torch.kernels import _build
     lib = _build.library(source)
-    launcher = getattr(lib, fn_name)
+    launchers = {name: getattr(lib, name) for name in fn_names}
     counts = collections.Counter()
+    lock = threading.Lock()
 
-    def counted(*args):
-        counts[torch.cuda.current_device()] += 1
-        return launcher(*args)
-    setattr(lib, fn_name, counted)
+    def counter(launcher):
+        def counted(*args):
+            with lock:
+                counts[torch.cuda.current_device()] += 1
+            return launcher(*args)
+        return counted
+    for name, launcher in launchers.items():
+        setattr(lib, name, counter(launcher))
     try:
         yield counts
     finally:
-        setattr(lib, fn_name, launcher)
+        for name, launcher in launchers.items():
+            setattr(lib, name, launcher)
 
 
 def by_card(counts, batch) -> dict:
@@ -6273,13 +6307,15 @@ def recorded_generate(params, cfg, batch, new):
     return tokens.cpu(), seen, wall
 
 
-def device_ms_by_card(fn) -> dict:
-    """One call of ``fn`` under torch.profiler after one outside it: its
-    wall ms (every card synchronised) and, by card, the device ms of its
-    kernels (B8's apart) and of its copies and sets."""
+def device_ms_by_card(fn, warmup: bool = True) -> dict:
+    """One call of ``fn`` under torch.profiler (after one outside it with
+    ``warmup``): its wall ms (every card synchronised) and, by card, the
+    device ms of its kernels (B8's and ``moe_dw_kernel``'s apart) and of
+    its copies and sets (the copies between cards apart)."""
     import collections
     from torch.profiler import ProfilerActivity
-    fn()
+    if warmup:
+        fn()
     sync_all()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
@@ -6289,7 +6325,10 @@ def device_ms_by_card(fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     by = collections.defaultdict(lambda: {"kernel_ms": 0.0, "launches": 0,
                                           "b8_ms": 0.0, "b8_launches": 0,
-                                          "copy_ms": 0.0, "copies": 0})
+                                          "dw_ms": 0.0, "dw_launches": 0,
+                                          "copy_ms": 0.0, "copies": 0,
+                                          "peer_copy_ms": 0.0,
+                                          "peer_copies": 0})
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
@@ -6297,12 +6336,16 @@ def device_ms_by_card(fn) -> dict:
         if name.startswith(("Memcpy", "Memset")):
             row["copy_ms"] += ms
             row["copies"] += 1
+            if "PtoP" in name:
+                row["peer_copy_ms"] += ms
+                row["peer_copies"] += 1
             continue
         row["kernel_ms"] += ms
         row["launches"] += 1
-        if "moe_kernel" in name:
-            row["b8_ms"] += ms
-            row["b8_launches"] += 1
+        for kernel, key in (("moe_kernel", "b8"), ("moe_dw_kernel", "dw")):
+            if kernel in name:
+                row[f"{key}_ms"] += ms
+                row[f"{key}_launches"] += 1
     return {"wall_ms": wall_ms,
             "by_card": {f"cuda:{i}": by[i] for i in sorted(by)}}
 
@@ -6695,12 +6738,453 @@ def partitioned_cards():
     return cases
 
 
+# --------------------------------------------------------------------------
+# expert-parallel training across cards (phase 36's train part)
+# --------------------------------------------------------------------------
+
+EP_TRAIN_STEPS = 3        # the bit-for-bit run's eager steps
+EP_CHECK_LAYERS = 2       # the placed-training check's depth (every run)
+EP_CHECK_STEPS = 2
+# the resume's checkpoint (parameters and both moments, f32) stays under
+# this many bytes on disk: granite cut to the deepest stack that does
+EP_RESUME_BYTES = 5e9
+EP_RESUME_DIR = ROOT / "build" / "smoke_ep_ckpt"
+
+
+def ep_train_data(cfg):
+    """``train_moe_ep``'s optimizer and data: ``launch.train.run``'s AdamW
+    for 3 steps and 8 × ``EP_TRAIN_SEQ`` tokens a step from the seed, in
+    the config's microbatches."""
+    from repro_torch.data import DataConfig
+    from repro_torch.train import OptimizerConfig
+    return (OptimizerConfig(peak_lr=3e-3, warmup_steps=5, total_steps=10),
+            DataConfig(vocab_size=cfg.vocab_size, seq_len=EP_TRAIN_SEQ,
+                       global_batch=8, seed=SEED))
+
+
+def ep_train_state(cfg, mesh, ocfg):
+    """``cfg``'s per-layer tree drawn from the seed on ``cuda:0`` as
+    ``launch.train.run`` draws it, placed on ``mesh`` by
+    ``device_put_params`` unless ``mesh`` is None (the whole tree dropped
+    first), and AdamW's state on it."""
+    from repro_torch.distributed.sharding import device_put_params
+    from repro_torch.models import lm
+    from repro_torch.train import init_opt_state
+    gen = torch.Generator(device="cuda:0").manual_seed(SEED)
+    params = lm.unstack_layers(lm.init_params(cfg, gen, device="cuda:0"))
+    if mesh is not None:
+        params = device_put_params(params, mesh)
+    return params, init_opt_state(ocfg, params)
+
+
+def ep_train_steps(params, opt, step_fn, dcfg, steps, mesh, before=None):
+    """``steps`` eager steps of ``step_fn`` under ``mesh``, each timed to
+    every card's end: loss, grad norm, wall ms, B8 (forward, remat, dx)
+    and ``moe_dw_kernel`` launches by card, and with ``before`` (every
+    card's bytes before the tree was drawn) each card's
+    ``memory_allocated`` after the step against the placed state's
+    bytes there (:func:`placed_bytes`)."""
+    from repro_torch.data import synth_batch
+    from repro_torch.distributed.sharding import use_mesh
+    out = []
+    for step in range(steps):
+        batch = {k: v.to("cuda:0")
+                 for k, v in synth_batch(dcfg, step, {}).items()}
+        sync_all()
+        t0 = time.perf_counter()
+        with launches_by_card("moe_gemm", "maple_moe_gemm",
+                              "maple_moe_gemm_dx") as b8, \
+                launches_by_card("moe_gemm", "maple_moe_dw") as dw, \
+                use_mesh(mesh):
+            params, opt, metrics = step_fn(params, opt, batch)
+            sync_all()
+        rec = {"step": step, "wall_ms": (time.perf_counter() - t0) * 1e3,
+               "loss": float(metrics["loss"]),
+               "grad_norm": float(metrics["grad_norm"]),
+               "b8_by_card": dict(b8), "dw_by_card": dict(dw)}
+        if before is not None:
+            now = card_bytes()
+            want = placed_bytes({"params": params, "opt": opt})
+            rec["allocated_gib_by_card"] = [
+                (now[i] - before[i]) / 2**30 for i in range(len(now))]
+            rec["reckoned_gib_by_card"] = [want.get(i, 0) / 2**30
+                                           for i in range(len(now))]
+        out.append(rec)
+    return out
+
+
+def state_on_host(params, opt) -> dict:
+    """Host copies of every tensor of the parameters and both moments,
+    by path (a placed leaf's slices in peer order)."""
+    from repro_torch.train.optimizer import named_leaves, parts
+    return {f"{tag}/{k}": [t.detach().cpu() for t in parts(leaf)]
+            for tag, tree in (("params", params), ("m", opt.m), ("v", opt.v))
+            for k, leaf in named_leaves(tree)}
+
+
+def state_differs(host, params, opt) -> dict:
+    """The leaves of the state on the cards whose bits differ from
+    ``host`` (:func:`state_on_host`): path → largest |a - b|, each leaf
+    brought to the host one at a time."""
+    from repro_torch.train.optimizer import named_leaves, parts
+    diff, seen = {}, 0
+    for tag, tree in (("params", params), ("m", opt.m), ("v", opt.v)):
+        for k, leaf in named_leaves(tree):
+            key, seen = f"{tag}/{k}", seen + 1
+            want = host[key]
+            got = [t.detach().cpu() for t in parts(leaf)]
+            if len(got) != len(want):
+                diff[key] = float("inf")
+            elif not all(torch.equal(a, b) for a, b in zip(got, want)):
+                diff[key] = max(float((a.double() - b.double()).abs().max())
+                                for a, b in zip(got, want))
+    if seen != len(host):
+        raise AssertionError(f"{seen} leaves against {len(host)} kept")
+    return diff
+
+
+def ep_placed_train_check():
+    """Every run: granite cut to ``EP_CHECK_LAYERS`` at full width,
+    ``EP_CHECK_STEPS`` eager steps of ``train_moe_ep``'s batch, the tree
+    placed on four ``cuda:0`` entries against the whole tree under one
+    card's ``(1, 4)`` mesh (the same per-peer code, the norm summed in
+    another order): losses and grad norms within 1e-5 relative, every
+    parameter within 1e-6 of the tree's largest |parameter| (each leaf's
+    error against its own max printed); B8 and ``moe_dw_kernel`` launches
+    of the placed run zeroed just before and read just after."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import Mesh, PeerSlices
+    from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_dw
+    from repro_torch.train import make_train_step
+    from repro_torch.train.optimizer import named_leaves
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=EP_CHECK_LAYERS)
+    ocfg, dcfg = ep_train_data(cfg)
+    step_fn = make_train_step(cfg, ocfg)
+    runs = {}
+    for name, mesh, placed in (
+            ("whole", ep_mesh("cuda"), None),
+            ("placed", Mesh([["cuda:0"] * EP_CARDS], ("data", "model")),
+             True)):
+        torch.cuda.empty_cache()
+        params, opt = ep_train_state(cfg, mesh if placed else None, ocfg)
+        moe_gemm.launches = moe_gemm_dw.launches = 0
+        recs = ep_train_steps(params, opt, step_fn, dcfg, EP_CHECK_STEPS,
+                              mesh)
+        launches = {"moe_gemm": moe_gemm.launches,
+                    "moe_gemm_dw": moe_gemm_dw.launches}
+        runs[name] = (recs, launches,
+                      {k: (v.whole("cpu") if isinstance(v, PeerSlices)
+                           else v.cpu()).detach()
+                       for k, v in named_leaves(params)})
+        del params, opt
+    micro = cfg.train_microbatches * cfg.n_layers * EP_CHECK_STEPS * EP_CARDS
+    expect = {"moe_gemm": 9 * micro, "moe_gemm_dw": 3 * micro}
+    (whole, n_whole, p_whole), (placed, n_placed, p_placed) = \
+        runs["whole"], runs["placed"]
+    if n_whole != expect or n_placed != expect:
+        raise AssertionError(f"placed training check: launches {n_whole} / "
+                             f"{n_placed}, expected {expect}")
+    for a, b in zip(whole, placed):
+        for key in ("loss", "grad_norm"):
+            if not (np.isfinite(b[key]) and abs(b[key] - a[key])
+                    <= 1e-5 * abs(a[key])):
+                raise AssertionError(f"placed training check step "
+                                     f"{a['step']}: {key} {b[key]} against "
+                                     f"the whole tree's {a[key]}")
+    # the tree's largest |parameter| scales the limit: a zero-centred norm
+    # scale is two updates of lr's size, whose own max would hold its
+    # step-2 gradient (from step-1 weights an ulp apart) to 1e-6 of lr
+    limit = 1e-6 * max(float(w.abs().max()) for w in p_whole.values())
+    errs = {k: float((p_placed[k] - want).abs().max())
+            for k, want in p_whole.items()}
+    worst = max(errs, key=errs.get)
+    if errs[worst] > limit:
+        raise AssertionError(f"placed training check: {worst} "
+                             f"{errs[worst]} > {limit}")
+    own = {k: e / float(p_whole[k].abs().max()) for k, e in errs.items()}
+    torch.cuda.empty_cache()
+    return n_placed, {
+        "config": f"{MOE_ARCH}, {EP_CHECK_LAYERS} of 32 layers, full width, "
+        f"f32, seed {SEED}, {EP_CHECK_STEPS} eager steps of 8 x "
+        f"{EP_TRAIN_SEQ} tokens in {cfg.train_microbatches} microbatches",
+        "meshes": "placed on four cuda:0 entries against the whole tree on "
+        "one card's (1, 4) mesh",
+        "loss_whole": [r["loss"] for r in whole],
+        "loss_placed": [r["loss"] for r in placed],
+        "grad_norm_whole": [r["grad_norm"] for r in whole],
+        "grad_norm_placed": [r["grad_norm"] for r in placed],
+        "param_max_abs_err": errs[worst], "param_limit": limit,
+        "param_err_of_own_max": {k: own[k] for k in sorted(
+            own, key=own.get)[-3:]}, "launches": n_placed,
+        "tolerance": "loss and grad norm 1e-5 relative, parameters 1e-6 · "
+        "the tree's largest |parameter|", "check_s": time.perf_counter() - t0}
+
+
+def ep_cards_train_shape_check(params, cfg, mesh, dcfg):
+    """Layer 0's MoE forward and backward at ``train_moe_ep``'s shapes (its
+    input in the first microbatch of step 0, from a forward of the placed
+    tree under ``mesh``) of ``sum(y·R)``: the placed slices on the cards
+    against the whole layer on a CPU mesh of the same shape, y, dx and
+    every expert and router gradient within 1e-5·max + 1e-6 (B8's
+    forward and dx and ``moe_dw_kernel`` on each card against their plain
+    versions); B8 and dW launches by card."""
+    from repro_torch.data import synth_batch
+    from repro_torch.distributed.sharding import PeerSlices, use_mesh
+    from repro_torch.models import lm
+    from repro_torch.models import moe as M
+    mcfg = lm._moe_cfg(cfg)
+    batch = synth_batch(dcfg, 0, {})
+    mb = {k: v[:dcfg.global_batch // cfg.train_microbatches].to("cuda:0")
+          for k, v in batch.items()}
+    with torch.no_grad(), use_mesh(mesh):
+        _, (p0, h0) = layer0_moe_input(lambda: lm.forward(
+            params, cfg, mb, remat=False))
+    r = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        tuple(h0.shape)).astype(np.float32))
+    fresh = lambda t: t.detach().clone().requires_grad_(True)  # noqa: E731
+    got = {}
+    for where in ("cards", "cpu"):
+        if where == "cards":
+            p = {k: v.map(fresh) if isinstance(v, PeerSlices) else fresh(v)
+                 for k, v in p0.items()}
+            x, m, rr = fresh(h0), mesh, r.to("cuda:0")
+        else:
+            p = {k: fresh(v.whole("cpu") if isinstance(v, PeerSlices)
+                          else v.cpu()) for k, v in p0.items()}
+            x, m, rr = fresh(h0.cpu()), ep_mesh("cpu"), r
+        with launches_by_card("moe_gemm", "maple_moe_gemm",
+                              "maple_moe_gemm_dx") as b8, \
+                launches_by_card("moe_gemm", "maple_moe_dw") as dw:
+            with use_mesh(m):
+                y = M.moe_layer(p, mcfg, x)
+                drops = M.ep_dropped_slots(p, mcfg, x.detach())
+            (y * rr).sum().backward()
+            sync_all()
+        grads = {"d" + k: (v.map(lambda t: t.grad).whole("cpu")
+                           if isinstance(v, PeerSlices) else v.grad.cpu())
+                 for k, v in p.items()}
+        got[where] = {"y": y.detach().cpu(), "dx": x.grad.cpu(), **grads}
+        if where == "cards":
+            by = {"b8_by_card": dict(b8), "dw_by_card": dict(dw)}
+    peers = {i: 6 for i in range(EP_CARDS)}
+    if by != {"b8_by_card": peers,
+              "dw_by_card": {i: 3 for i in range(EP_CARDS)}}:
+        raise AssertionError(f"layer-0 train shape on the cards: {by}")
+    errs = {k: check_close(got["cards"][k], want, torch.float32,
+                           f"layer-0 EP train shape {k}, cards against CPU")
+            for k, want in got["cpu"].items()}
+    return {"sizes": M.ep_sizes(mesh, mcfg, *h0.shape[:2]),
+            "dropped_slots": drops, "max_abs_err": errs, **by,
+            "tolerance": "1e-5·max + 1e-6", "loss": "sum(y·R)"}
+
+
+def ep_resume_config():
+    """granite at full width cut to the deepest stack whose checkpoint
+    (every stored parameter and both moments, f32: 12 bytes a parameter,
+    the padded experts counted) stays under ``EP_RESUME_BYTES``; (config,
+    reckoning beside ``param_count``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import leaves_with_path
+    from repro_torch.models import lm
+    full = get_config(MOE_ARCH)
+    for n in range(full.n_layers, 0, -1):
+        cfg = dataclasses.replace(full, n_layers=n)
+        stored = sum(t.numel() for _, t in leaves_with_path(
+            lm.init_params(cfg, None, device="meta")) if torch.is_tensor(t))
+        if 12 * stored <= EP_RESUME_BYTES:
+            return cfg, {"n_layers": n, "param_count": cfg.param_count(),
+                         "stored_params": stored,
+                         "checkpoint_bytes_reckoned": 12 * stored}
+    raise AssertionError("not one granite layer's checkpoint fits")
+
+
+@contextlib.contextmanager
+def timed_checkpoints():
+    """``ft.checkpoint.save`` and ``load`` wrapped: each call's seconds
+    (every card synchronised after it), by function, in call order."""
+    from repro_torch.ft import checkpoint as ckpt
+    seconds = {"save": [], "load": []}
+    kept = {name: getattr(ckpt, name) for name in seconds}
+
+    def timer(name):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = kept[name](*args, **kw)
+            sync_all()
+            seconds[name].append(time.perf_counter() - t0)
+            return out
+        return timed
+    for name in seconds:
+        setattr(ckpt, name, timer(name))
+    try:
+        yield seconds
+    finally:
+        for name, fn in kept.items():
+            setattr(ckpt, name, fn)
+
+
+def ep_cards_resume(mesh):
+    """``launch.train.run`` under ``mesh`` (four cards: the launcher
+    places the tree, the step runs eagerly) on granite cut by
+    :func:`ep_resume_config`, ``train_moe_ep``'s batch: 4 straight steps
+    against 2 steps with ``ckpt_dir``, then 4 from the same directory
+    (resumed from 2): losses, parameters and both moments bit for bit;
+    save and load seconds and the checkpoint's bytes on disk."""
+    import shutil
+    from repro_torch.distributed.sharding import PeerSlices, use_mesh
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.train_step import CapturedTrainStep
+    shutil.rmtree(EP_RESUME_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    cfg, reckoned = ep_resume_config()
+    kw = dict(seq_len=EP_TRAIN_SEQ, global_batch=8, seed=SEED,
+              device="cuda")
+    d = str(EP_RESUME_DIR)
+    with use_mesh(mesh):
+        straight = launch_train.run(cfg, steps=4, **kw)
+        kept = state_on_host(straight.params, straight.opt)
+        losses = [r["loss"] for r in straight.history]
+        del straight
+        torch.cuda.empty_cache()
+        with timed_checkpoints() as seconds:
+            first = launch_train.run(cfg, steps=2, ckpt_dir=d, **kw)
+            nbytes = sum(f.stat().st_size
+                         for f in (EP_RESUME_DIR / "step_00000002").iterdir())
+            del first
+            torch.cuda.empty_cache()
+            resumed = launch_train.run(cfg, steps=4, ckpt_dir=d, **kw)
+    up = resumed.params["groups"]["b0"][0]["moe"]["experts_up"]
+    if not isinstance(up, PeerSlices) or [t.device.index for t in up.parts]             != [mesh.device_at(model=pe).index for pe in range(EP_CARDS)]:
+        raise AssertionError("the resumed run's experts are not placed on "
+                             "their peers' cards")
+    if isinstance(resumed.step_fn, CapturedTrainStep):
+        raise AssertionError("a run across cards captured its step")
+    if [r["step"] for r in resumed.history] != [2, 3]:
+        raise AssertionError(f"the run did not resume from step 2: "
+                             f"{[r['step'] for r in resumed.history]}")
+    diff = state_differs(kept, resumed.params, resumed.opt)
+    if diff or [r["loss"] for r in resumed.history] != losses[2:]:
+        raise AssertionError(f"the resumed run differs from the straight "
+                             f"one: {dict(list(diff.items())[:5])}")
+    del resumed, kept
+    shutil.rmtree(EP_RESUME_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"config": f"{MOE_ARCH}, {cfg.n_layers} of 32 layers, full "
+            f"width, f32, seed {SEED}, 8 x {EP_TRAIN_SEQ} tokens a step in "
+            f"{cfg.train_microbatches} microbatches", "reckoned": reckoned,
+            "run": "4 straight steps against 2 with ckpt_dir, then 4 from "
+            "it (resumed from 2)", "bit_identical": True, "loss": losses,
+            "checkpoint_bytes": nbytes, "save_s": seconds["save"],
+            "load_s": seconds["load"]}
+
+
+def ep_cards_train(mesh):
+    """The four-card part's training (module docstring, phase 36):
+    granite at full width and depth, ``EP_TRAIN_STEPS`` eager steps of
+    ``train_moe_ep``'s batch with the placed tree on four ``cuda:0``
+    entries (host copies of the parameters and moments kept), then on the
+    four cards: every step's loss and grad norm and the state after the
+    last bit for bit; B8 and ``moe_dw_kernel`` launches by card a step;
+    each card's bytes after a step against the placed state's; one
+    profiled step by card; layer 0's forward and backward against the
+    CPU mesh; the resume through ``launch.train.run``."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_dw
+    from repro_torch.train import make_train_step
+    cfg = get_config(MOE_ARCH)
+    ocfg, dcfg = ep_train_data(cfg)
+    step_fn = make_train_step(cfg, ocfg)
+    release_graphs()
+    one = Mesh([["cuda:0"] * EP_CARDS], ("data", "model"))
+    t0 = start = time.perf_counter()
+    params, opt = ep_train_state(cfg, one, ocfg)
+    one_card = ep_train_steps(params, opt, step_fn, dcfg, EP_TRAIN_STEPS,
+                              one)
+    peak_one = torch.cuda.max_memory_allocated(0) / 2**30
+    kept = state_on_host(params, opt)
+    del params, opt
+    one_card_s = time.perf_counter() - t0
+    before = card_bytes()
+    for i in range(EP_CARDS):
+        torch.cuda.reset_peak_memory_stats(i)
+    params, opt = ep_train_state(cfg, mesh, ocfg)
+    moe_gemm.launches = moe_gemm_dw.launches = 0
+    cards = ep_train_steps(params, opt, step_fn, dcfg, EP_TRAIN_STEPS, mesh,
+                           before)
+    launches = {"moe_gemm": moe_gemm.launches,
+                "moe_gemm_dw": moe_gemm_dw.launches}
+    peaks = [torch.cuda.max_memory_allocated(i) / 2**30
+             for i in range(EP_CARDS)]
+    t0 = time.perf_counter()
+    diff = state_differs(kept, params, opt)
+    compare_s = time.perf_counter() - t0
+    del kept
+    per_card = cfg.train_microbatches * cfg.n_layers
+    want = {"b8_by_card": {i: 9 * per_card for i in range(EP_CARDS)},
+            "dw_by_card": {i: 3 * per_card for i in range(EP_CARDS)}}
+    for rec in cards:
+        got = {k: rec[k] for k in want}
+        if got != want:
+            raise AssertionError(f"EP training on four cards, step "
+                                 f"{rec['step']}: {got}, expected {want}")
+        for i, (a, r) in enumerate(zip(rec["allocated_gib_by_card"],
+                                       rec["reckoned_gib_by_card"])):
+            if abs(a - r) > 1.0:
+                raise AssertionError(f"EP training on four cards: cuda:{i} "
+                                     f"holds {a} GiB after step "
+                                     f"{rec['step']}, reckoned {r}")
+    if launches != {"moe_gemm": 9 * per_card * EP_CARDS * EP_TRAIN_STEPS,
+                    "moe_gemm_dw": 3 * per_card * EP_CARDS * EP_TRAIN_STEPS}:
+        raise AssertionError(f"EP training on four cards: {launches}")
+    bits = [(a["loss"], a["grad_norm"]) == (b["loss"], b["grad_norm"])
+            for a, b in zip(one_card, cards)]
+    if not all(bits) or diff:
+        raise AssertionError(f"EP training on four cards differs from four "
+                             f"cuda:0 entries: steps {bits}, leaves "
+                             f"{dict(list(diff.items())[:5])}")
+    step = {"n": EP_TRAIN_STEPS}
+
+    def one_step():
+        from repro_torch.data import synth_batch
+        from repro_torch.distributed.sharding import use_mesh
+        batch = {k: v.to("cuda:0")
+                 for k, v in synth_batch(dcfg, step["n"], {}).items()}
+        step["n"] += 1
+        with use_mesh(mesh):
+            step_fn(params, opt, batch)
+    profiled = device_ms_by_card(one_step, warmup=False)
+    check = ep_cards_train_shape_check(params, cfg, mesh, dcfg)
+    del params, opt
+    torch.cuda.empty_cache()
+    resume = ep_cards_resume(mesh)
+    return launches, {
+        "config": f"{MOE_ARCH}, {cfg.n_layers} layers, full width, f32, its "
+        f"own config "
+        f"(moe_impl {cfg.moe_impl}, capacity {cfg.moe_capacity_factor}), "
+        f"seed {SEED}, 8 x {EP_TRAIN_SEQ} tokens a step in "
+        f"{cfg.train_microbatches} microbatches, eager",
+        "compared": "host copies of every parameter and both moments after "
+        f"step {EP_TRAIN_STEPS}, and every step's loss and grad norm",
+        "bit_identical": True, "one_card_mesh": one_card,
+        "one_card_peak_gib": peak_one, "one_card_s": one_card_s,
+        "cards": cards, "peak_gib_by_card": peaks, "compare_s": compare_s,
+        "launches": launches, "launches_expected_by_card_a_step": want,
+        "walls_ms_steps_2_3": [r["wall_ms"] for r in cards[1:]],
+        "profile_step": profiled, "layer0_train_shape": check,
+        "resume": resume, "train_s": time.perf_counter() - start}
+
+
 def moe_ep_cards(card):
-    """Expert-parallel serving with each peer's experts on its own card
-    (module docstring, phase 36) on :func:`cards_mesh`: granite-moe-3b at
-    full width and depth on the cards the process sees; with four cards
-    also qwen3-moe-235b at phase 31's depth, its deepest placed stack and
-    the partitioned head across cards."""
+    """Expert parallelism with each peer's experts on its own card (module
+    docstring, phase 36) on :func:`cards_mesh`: granite-moe-3b serving at
+    full width and depth on the cards the process sees, and the placed
+    training check on four ``cuda:0`` entries; with four cards also
+    qwen3-moe-235b at phase 31's depth, its deepest placed stack, the
+    partitioned head across cards and granite's training across cards.
+    Returns the launches of each path (serving, and the placed training:
+    the check's on one card, the four-card run's on four) and the line."""
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
     mesh = cards_mesh()
@@ -6708,8 +7192,10 @@ def moe_ep_cards(card):
     several = n_cards >= EP_CARDS
     launches, granite = ep_cards_compare(get_config(MOE_ARCH), mesh,
                                          "moe_ep_cards granite")
+    paths = {"moe_ep_cards": launches}
+    paths["moe_ep_cards_train"], check = ep_placed_train_check()
     line = {"phase": "moe_ep_cards", "card": card, "cards": n_cards,
-            "launches": launches,
+            "launches": launches, "placed_train_check": check,
             "device_names": [torch.cuda.get_device_name(i)
                              for i in range(n_cards)],
             "decode_steps": ("eager: a mesh of several cards is not "
@@ -6719,15 +7205,18 @@ def moe_ep_cards(card):
     if not several:
         line["four_cards"] = (f"not run: this process sees {n_cards} "
                               f"card(s); the four-card part needs four")
+        line["train"] = "not run: needs four cards"
     else:
+        paths["moe_ep_cards_train"], line["train"] = ep_cards_train(mesh)
         qwen_cfg, reckoned = qwen3_moe_config()
         _, line["qwen3_moe"] = ep_cards_compare(
             qwen_cfg, mesh, "moe_ep_cards qwen3-moe")
         line["qwen3_moe"]["one_card_depth_reckoned"] = reckoned
         _, line["qwen3_moe_deep"] = ep_cards_deep(mesh)
         line["partitioned_head"] = partitioned_cards()
+    line["launches_by_path"] = paths
     line["phase_s"] = time.perf_counter() - t0
-    return launches, line
+    return paths, line
 
 
 def profile_events(events):
@@ -6989,7 +7478,8 @@ def main(argv) -> int:
     emit(dryrun_phase(smi))
     examples_launches, line = examples_phase(smi)
     emit(line)
-    ep_launches["moe_ep_cards"], line = moe_ep_cards(smi)
+    paths, line = moe_ep_cards(smi)
+    ep_launches.update(paths)
     emit(line)
 
     # launches: each path's run, counted from 0

@@ -662,6 +662,12 @@ class PeerSlices:
     def requires_grad(self) -> bool:
         return any(t.requires_grad for t in self.parts)
 
+    def map(self, fn) -> "PeerSlices":
+        """The same cut with ``fn`` applied to each slice (on its
+        device)."""
+        return PeerSlices(tuple(fn(t) for t in self.parts), self.axis,
+                          self.shape)
+
     def whole(self, device=None) -> torch.Tensor:
         """The slices joined on ``device`` (default: peer 0's)."""
         device = self.parts[0].device if device is None else device
@@ -675,6 +681,18 @@ def _model_axis(spec: PartitionSpec) -> Optional[int]:
                                 and "model" in entry):
             return i
     return None
+
+
+def peer_axis(name: str, spec: PartitionSpec, mesh) -> Optional[int]:
+    """The axis along which :func:`device_put_params` cuts the leaf at
+    path ``name`` (``"str"`` style) of sharding ``spec``: the dimension
+    ``spec`` shards over ``model`` for an MoE expert leaf
+    (:data:`EXPERT_LEAVES`) on a mesh whose ``model`` axis is above 1;
+    ``None`` for a leaf that stays whole."""
+    if mesh.shape.get("model", 1) < 2 or not any(k in name
+                                                 for k in EXPERT_LEAVES):
+        return None
+    return _model_axis(spec)
 
 
 def device_put_params(params, mesh: Mesh):
@@ -699,9 +717,8 @@ def device_put_params(params, mesh: Mesh):
         if not torch.is_tensor(leaf):
             return leaf
         name = path_str(path, "str")
-        axis = None
-        if msize > 1 and any(k in name for k in EXPERT_LEAVES):
-            axis = _model_axis(spec_for_param(name, tuple(leaf.shape), mesh))
+        axis = peer_axis(name, spec_for_param(name, tuple(leaf.shape), mesh),
+                         mesh)
         if axis is None:
             return leaf.to(home)
         e_loc = leaf.shape[axis] // msize

@@ -18,13 +18,22 @@ BlockCSR's pattern (``block_col``, ``block_row``, ``row_ptr``) beside its
 bfloat16: a bf16 leaf is saved as its uint16 bits under dtype
 ``"bfloat16"`` and restored bit for bit.
 
+An MoE expert leaf placed over a mesh's ``model`` peers
+(:class:`~repro_torch.distributed.sharding.PeerSlices`, from
+``sharding.device_put_params``) is saved as its whole leaf under its
+path: a placed tree's checkpoint is its whole tree's, manifest and
+arrays, and the reference's ``load`` reads it.  Loaded into a placed
+``like``, each slice is restored from its range of the saved leaf,
+straight onto its device.
+
 Reshard-on-load (elastic restarts): given ``shardings``, a tree of
 :class:`~repro_torch.distributed.sharding.NamedSharding` in ``like``'s
 structure (``param_shardings`` of the new mesh), each leaf goes onto its
-sharding's mesh.  The port saves and loads whole tensors in one process,
-so a mesh places a leaf on its one device; a mesh whose coordinates name
-several devices raises (the per-device slices of such a mesh are not
-ported, ROADMAP queue A item 10).
+sharding's mesh.  A mesh whose entries are all one device takes every
+leaf whole on that device; a mesh whose entries name several devices
+places what ``device_put_params`` places there: each expert leaf cut
+into its peers' slices, each on ``mesh.device_at(model=pe)``, every
+other leaf whole on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -39,8 +48,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import (leaves_with_path, map_with_path,
-                                              one_device, path_str)
+from repro_torch.distributed.sharding import (PeerSlices, leaves_with_path,
+                                              map_with_path, mesh_devices,
+                                              path_str, peer_axis)
 
 _PATTERN = ("block_col", "block_row", "row_ptr")
 
@@ -53,7 +63,7 @@ def _flatten(tree) -> List[Tuple[str, Any]]:
     """``(name, leaf)`` for every leaf of ``tree``, in order."""
     out = []
     for path, leaf in leaves_with_path(tree):
-        if not isinstance(leaf, (torch.Tensor, np.ndarray)):
+        if not isinstance(leaf, (torch.Tensor, np.ndarray, PeerSlices)):
             raise TypeError(f"cannot checkpoint a {type(leaf).__name__}")
         out.append((_name(path), leaf))
     return out
@@ -63,6 +73,8 @@ def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
     """A leaf as a host array and its manifest dtype (bf16: its bits)."""
     if isinstance(leaf, np.ndarray):
         return leaf, str(leaf.dtype)
+    if isinstance(leaf, PeerSlices):
+        leaf = leaf.whole("cpu")
     t = leaf.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -122,9 +134,18 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def _restore(arr: np.ndarray, dtype: str, like):
-    """A saved array in ``like``'s type, dtype and device."""
+    """A saved array in ``like``'s type, dtype and device (a placed leaf:
+    each slice its range of ``arr``, on its device)."""
     if isinstance(like, np.ndarray):
         return arr.astype(like.dtype)
+    if isinstance(like, PeerSlices):
+        out, lo = [], 0
+        for part in like.parts:
+            n = part.shape[like.axis]
+            out.append(_restore(arr[(slice(None),) * like.axis
+                                    + (slice(lo, lo + n),)], dtype, part))
+            lo += n
+        return PeerSlices(tuple(out), like.axis, like.shape)
     # (ascontiguousarray makes a () array (1,): the reshape keeps the shape)
     arr = np.ascontiguousarray(arr).reshape(arr.shape)
     if dtype == "bfloat16":
@@ -150,19 +171,38 @@ def _rebuild(like, loaded: Dict[str, Any]):
 
 
 def _placed(like, shardings):
-    """``like`` with every tensor leaf on its sharding's mesh device (an
-    empty tensor of the leaf's shape and dtype there), numpy leaves as
-    they are; ``shardings`` is walked beside ``like``, leaf for leaf."""
+    """``like`` with every tensor leaf placed on its sharding's mesh (as
+    empty tensors of the leaf's shape and dtype): whole on a mesh of one
+    device; on a mesh of several devices cut as ``device_put_params``
+    cuts it (:func:`~repro_torch.distributed.sharding.peer_axis` of the
+    sharding's spec), each slice on its peer's device, else whole on the
+    mesh's first device.  numpy leaves stay as they are; ``shardings`` is
+    walked beside ``like``, leaf for leaf."""
     targets = leaves_with_path(shardings)
 
     def place(path, leaf):
         target_path, target = next(targets, (None, None))
         if target_path is None or _name(target_path) != _name(path):
             raise KeyError(f"shardings have no entry for leaf {_name(path)}")
-        if not isinstance(leaf, torch.Tensor):
+        if not isinstance(leaf, (torch.Tensor, PeerSlices)):
             return leaf
-        return torch.empty(leaf.shape, dtype=leaf.dtype, device=one_device(
-            target.mesh, "load(shardings=...)"))
+        mesh = target.mesh
+        if getattr(mesh, "devices", None) is None:
+            raise ValueError("load(shardings=...): an abstract mesh holds no "
+                             "devices")
+        shape = tuple(leaf.shape)
+        dtype = (leaf.parts[0] if isinstance(leaf, PeerSlices) else leaf).dtype
+        axis = (peer_axis(path_str(path, "str"), target.spec, mesh)
+                if len(mesh_devices(mesh)) > 1 else None)
+        if axis is None:
+            return torch.empty(shape, dtype=dtype,
+                               device=mesh.devices.reshape(-1)[0])
+        msize = mesh.shape["model"]
+        e_loc = shape[axis] // msize
+        cut = shape[:axis] + (e_loc,) + shape[axis + 1:]
+        return PeerSlices(tuple(
+            torch.empty(cut, dtype=dtype, device=mesh.device_at(model=pe))
+            for pe in range(msize)), axis, shape)
     return map_with_path(place, like, bsr=lambda node, fields, path:
                          dataclasses.replace(node, **fields))
 
@@ -172,11 +212,12 @@ def load(ckpt_dir: str, like: Any, step: Optional[int] = None,
     """Restore into the structure of ``like``: each leaf on ``like``'s
     device in ``like``'s dtype, or, with ``shardings`` (a tree of
     ``NamedSharding`` in ``like``'s structure, a BlockCSR's as a dict by
-    field), on its sharding's mesh device; the values are the saved bits.
-    Raises ``KeyError`` for a leaf the checkpoint lacks and ``ValueError``
-    for a shape (or a sparse pattern) that differs; a sharding over a
-    mesh of several devices raises ``NotImplementedError``.  ``mesh`` is
-    accepted as the reference's is (unused)."""
+    field), placed on its sharding's mesh (:func:`_placed`); the values
+    are the saved bits.  A placed leaf of ``like`` comes back placed
+    alike.  Raises ``KeyError`` for a leaf the checkpoint lacks and
+    ``ValueError`` for a shape (or a sparse pattern) that differs, or a
+    sharding over an abstract mesh.  ``mesh`` is accepted as the
+    reference's is (unused)."""
     if shardings is not None:
         like = _placed(like, shardings)
     if step is None:

@@ -29,7 +29,13 @@ eager.  ``--device`` (default ``cuda``) and ``--sparse-mlp`` (the
 config's block-sparse MLP down-projection, trained through the Maple
 kernels) are the port's own flags.  A caller that binds a mesh
 (``distributed.sharding.use_mesh``) around :func:`run` trains an
-``moe_impl="ep_a2a"`` config on the expert-parallel path.
+``moe_impl="ep_a2a"`` config on the expert-parallel path.  Where the
+mesh's entries name several cards (a ``(data=1, model=4)`` mesh of
+``cuda:0`` to ``cuda:3``), the per-layer tree is placed with
+``sharding.device_put_params`` (each ``model`` peer's expert slices on
+its own card, everything else on the mesh's first card) before the
+optimizer state is built on it, the step runs eagerly, and a checkpoint
+saves and restores the placed tree in the whole tree's format.
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ from repro_torch import resolve_device
 from repro_torch.configs import ARCHS, ModelConfig, get_config, \
     get_smoke_config
 from repro_torch.data import DataConfig, synth_batch
+from repro_torch.distributed.sharding import (active_mesh, device_put_params,
+                                              mesh_devices)
 from repro_torch.ft import checkpoint as ckpt
 from repro_torch.ft.straggler import StepTimer, StragglerMonitor
 from repro_torch.models import lm
@@ -95,6 +103,11 @@ def run(cfg: ModelConfig, *, steps: int = 20, seq_len: int = 64,
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = lm.unstack_layers(lm.init_params(cfg, gen, device=dev))
+    mesh = active_mesh()
+    if mesh is not None and len(mesh_devices(mesh)) > 1:
+        # each peer's expert slices on its card; the whole tree is dropped
+        # before the optimizer state is allocated
+        params = device_put_params(params, mesh)
     opt = init_opt_state(ocfg, params)
     start = 0
     if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:

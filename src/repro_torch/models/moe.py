@@ -345,34 +345,33 @@ class _FirstCopy(torch.autograd.Function):
         return (g / ctx.n).expand(ctx.n, *g.shape)
 
 
-def _peer_weights(p, mesh: Mesh, x: torch.Tensor, e_loc: int,
-                  grad: bool):
+def _several(mesh: Mesh, device: torch.device) -> bool:
+    """Whether the mesh's entries name a device other than ``device``
+    (the tokens'): a mesh of several cards."""
+    return not all(_same_device(dev, device) for dev in mesh.devices.flat)
+
+
+def _peer_weights(p, mesh: Mesh, x: torch.Tensor, e_loc: int):
     """Each ``model`` peer's expert weights and the device its products run
     on: the slices of leaves placed by ``device_put_params``, each on its
     peer's device, or views of whole leaves on their one device.  Raises
     where the mesh's entries name several devices and the path is not
-    ported: whole leaves (``ValueError``: place them), a gradient, or a
-    batch axis above 1 (``NotImplementedError``)."""
+    ported: whole leaves (``ValueError``: place them), or a batch axis
+    above 1 (``NotImplementedError``)."""
     names = EXPERT_LEAVES
     msize = mesh.shape["model"]
     placed = isinstance(p["experts_gate"], PeerSlices)
-    several = not all(_same_device(dev, x.device)
-                      for dev in mesh.devices.flat)
+    several = _several(mesh, x.device)
     if several and not placed:
         raise ValueError(
             "moe_layer_ep on a mesh of several devices takes expert weights "
             "placed on their peers' devices: pass the tree through "
             "distributed.sharding.device_put_params(params, mesh) first")
-    if several and grad:
-        raise NotImplementedError(
-            "moe_layer_ep under a gradient on a mesh of several devices "
-            "(training across cards) is not ported yet (ROADMAP queue A "
-            "item 10); train on a mesh whose every entry is one device")
     if several and any(mesh.shape.get(ax, 1) > 1 for ax in ("pod", "data")):
         raise NotImplementedError(
             "moe_layer_ep on a mesh of several devices with a 'data' or "
             "'pod' axis above 1 is not ported yet (ROADMAP queue A item "
-            "10); bind a (data=1, model=M) mesh")
+            "10.3); bind a (data=1, model=M) mesh")
     if not placed:
         parts = {n: p[n].split(e_loc) for n in names}
         return [({n: parts[n][pe] for n in names}, x.device)
@@ -397,7 +396,10 @@ def _ep_forward(p, cfg: MoEConfig, x: torch.Tensor) -> torch.Tensor:
     ``model`` peer holds it, stacked, peer 0's first; only peer 0's where
     no gradient is taken.  Routing, the send buffers, the grouping and
     the combine run on x's device; each peer's three expert products run
-    on its weights' device (:func:`_peer_weights`)."""
+    on its weights' device (:func:`_peer_weights`).  Under a gradient the
+    copies carry the cotangent back: each peer's dx and dW run on its
+    device, from autograd's worker thread of that device, and a placed
+    slice's gradient lands in its own ``.grad`` there."""
     mesh = active_mesh()
     mesh.check_operands(x)
     b, s, d = x.shape
@@ -411,7 +413,7 @@ def _ep_forward(p, cfg: MoEConfig, x: torch.Tensor) -> torch.Tensor:
         t.requires_grad for t in (x, p["router"], p["experts_gate"],
                                   p["experts_up"], p["experts_down"]))
     n_src = msize if grad else 1
-    peers = _peer_weights(p, mesh, x, e_loc, grad)
+    peers = _peer_weights(p, mesh, x, e_loc)
     home = x.device
     # peers on other devices compute first: a copy back to x's device
     # waits for what x's device has queued, so its own peers go last
@@ -485,11 +487,12 @@ def moe_layer_ep(p, cfg: MoEConfig, x: torch.Tensor) -> torch.Tensor:
     Each peer multiplies by its ``e_loc`` experts: a view of whole leaves
     on a mesh whose every entry is x's device, or its slices of leaves
     placed by ``distributed.sharding.device_put_params``, on its own
-    device.  On a mesh of several devices (serving across cards) each
-    peer's rows of the grouped buffer are copied to its device, its
-    three B8 products run there and its output comes back to x's device;
-    whole leaves raise ``ValueError`` there, and a gradient or a batch
-    axis above 1 ``NotImplementedError`` (ROADMAP queue A item 10).
+    device.  On a mesh of several devices (serving and training across
+    cards) each peer's rows of the grouped buffer are copied to its
+    device, its three B8 products run there and its output comes back to
+    x's device; the backward runs each peer's dx and dW there too.  Whole
+    leaves raise ``ValueError`` there, and a batch axis above 1
+    ``NotImplementedError`` (ROADMAP queue A item 10.3).
     """
     copies = _ep_forward(p, cfg, x)
     return copies[0] if len(copies) == 1 else _FirstCopy.apply(copies)

@@ -29,7 +29,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.csr import BlockCSR
-from repro_torch.distributed.sharding import active_mesh, mesh_devices
 from repro_torch.kernels.autotune import auto_plan
 from repro_torch.kernels.partition import (PartitionedSpmmPlan,
                                            plan_partitioned_spmm)
@@ -37,7 +36,7 @@ from repro_torch.kernels.schedule import (SpmmPlan, SpmmTrainPlan, plan_spmm,
                                           plan_spmm_vjp)
 from repro_torch.models import lm
 from repro_torch.models.layers import sparse_linear
-from repro_torch.serve.graphs import StepGraph
+from repro_torch.serve.graphs import StepGraph, captured
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,18 +137,6 @@ def token_entropy(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
 
 _PREFILL_JIT: Dict[tuple, Any] = {}
 _DECODE_JIT: Dict[tuple, Any] = {}
-
-
-def captured(device: torch.device) -> bool:
-    """Whether a serving step on ``device`` runs as a captured CUDA graph:
-    on a card, unless the bound mesh's entries name several cards.  A
-    capture records one card's stream into a pool of that card; peers'
-    launches and allocations on other cards would join it only through
-    the copies' events, outside that pool, so across cards the eager
-    step runs (capture across cards: ROADMAP queue A item 10)."""
-    mesh = active_mesh()
-    return device.type == "cuda" and (mesh is None
-                                      or len(mesh_devices(mesh)) == 1)
 
 
 class PrefillStep:

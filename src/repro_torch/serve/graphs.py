@@ -47,8 +47,21 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from repro_torch.distributed.sharding import active_mesh
+from repro_torch.distributed.sharding import active_mesh, mesh_devices
 from repro_torch.kernels import launch_counters
+
+
+def captured(device: torch.device) -> bool:
+    """Whether a serving or training step on ``device`` runs as a
+    captured CUDA graph: on a card, unless the bound mesh's entries name
+    several cards.  A capture records one card's stream into a pool of
+    that card; peers' launches and allocations on other cards would join
+    it only through the copies' events, outside that pool, so across
+    cards the eager step runs (capture across cards: ROADMAP queue A item
+    10.2)."""
+    mesh = active_mesh()
+    return device.type == "cuda" and (mesh is None
+                                      or len(mesh_devices(mesh)) == 1)
 
 
 def _walk(tree, leaves: list) -> None:

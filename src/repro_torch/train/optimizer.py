@@ -10,6 +10,15 @@ between keys and list indices; a sparse payload as ``<path>/blocks``),
 and the optimizer state keys its moments by those paths.  Weight decay
 is chosen from the path by the reference's tokens.
 
+An MoE expert leaf placed over a mesh's ``model`` peers
+(:class:`~repro_torch.distributed.sharding.PeerSlices`, from
+``sharding.device_put_params``) is one leaf under the whole leaf's path:
+its gradient and moments are ``PeerSlices`` cut alike, each slice on its
+peer's device, and each slice is updated on its own device.  The global
+norm sums the squares on the device of the first leaf, leaf by leaf and
+a placed leaf's slices in peer order; that order is the one difference
+between a placed tree's step and the whole tree's.
+
 The update runs in place: parameters and moments are overwritten leaf by
 leaf, with the f32 temporaries of one leaf at a time (the reference
 returns new arrays; in place keeps one copy of each on the card).  The
@@ -28,6 +37,7 @@ from typing import Any, Callable, Dict, Iterator, NamedTuple, Tuple
 import torch
 
 from repro_torch.core.csr import BlockCSR
+from repro_torch.distributed.sharding import PeerSlices
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,9 +64,10 @@ class OptState(NamedTuple):
     #                                  (a () zero when compression is off)
 
 
-def named_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
+def named_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
     """``(path, tensor)`` for every floating-point tensor of ``tree``, in
-    a fixed order; sparse metadata is skipped."""
+    a fixed order, and ``(path, PeerSlices)`` for a placed leaf; sparse
+    metadata is skipped."""
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from named_leaves(v, f"{prefix}/{k}" if prefix else str(k))
@@ -65,19 +76,29 @@ def named_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
             yield from named_leaves(v, f"{prefix}/{i}" if prefix else str(i))
     elif isinstance(tree, BlockCSR):
         yield f"{prefix}/blocks", tree.blocks
-    elif isinstance(tree, torch.Tensor) and tree.is_floating_point():
+    elif isinstance(tree, PeerSlices) or (isinstance(tree, torch.Tensor)
+                                          and tree.is_floating_point()):
         yield prefix, tree
+
+
+def parts(leaf) -> Tuple[torch.Tensor, ...]:
+    """A leaf's tensors: a placed leaf's slices in peer order, else the
+    tensor itself."""
+    return leaf.parts if isinstance(leaf, PeerSlices) else (leaf,)
 
 
 def tree_map(fn: Callable[[torch.Tensor], Any], tree):
     """``tree`` with ``fn`` applied to every floating-point tensor (a
-    BlockCSR keeps its metadata and gets ``fn(blocks)`` as payload)."""
+    BlockCSR keeps its metadata and gets ``fn(blocks)`` as payload; a
+    placed leaf keeps its cut and gets ``fn`` of each slice)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     if isinstance(tree, BlockCSR):
         return dataclasses.replace(tree, blocks=fn(tree.blocks))
+    if isinstance(tree, PeerSlices):
+        return tree.map(fn)
     if isinstance(tree, torch.Tensor) and tree.is_floating_point():
         return fn(tree)
     return tree
@@ -93,35 +114,61 @@ def lr_at(cfg: OptimizerConfig, step) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cfg.peak_lr * cos)
 
 
+def _zeros_like(leaf, dtype):
+    """Zeros of ``leaf``'s shape in ``dtype`` on its device (a placed
+    leaf: on each slice's)."""
+    if isinstance(leaf, PeerSlices):
+        return leaf.map(lambda t: torch.zeros_like(t, dtype=dtype))
+    return torch.zeros_like(leaf, dtype=dtype)
+
+
 def init_opt_state(cfg: OptimizerConfig, params) -> OptState:
     leaves = list(named_leaves(params))
-    dev = leaves[0][1].device if leaves else torch.device("cpu")
-    m = {k: torch.zeros_like(p, dtype=cfg.m_dtype) for k, p in leaves}
-    v = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in leaves}
+    dev = parts(leaves[0][1])[0].device if leaves else torch.device("cpu")
+    m = {k: _zeros_like(p, cfg.m_dtype) for k, p in leaves}
+    v = {k: _zeros_like(p, torch.float32) for k, p in leaves}
     if cfg.compress_grads:
-        err = {k: torch.zeros_like(p, dtype=torch.float32)
-               for k, p in leaves}
+        err = {k: _zeros_like(p, torch.float32) for k, p in leaves}
     else:
-        err = {k: torch.zeros((), dtype=torch.float32, device=p.device)
+        err = {k: torch.zeros((), dtype=torch.float32,
+                              device=parts(p)[0].device)
                for k, p in leaves}
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
                     m=m, v=v, error=err)
 
 
-def _compress_int8(g, err):
-    """Symmetric per-tensor int8 quantization with error feedback."""
-    g = g + err
-    scale = torch.clamp(torch.max(torch.abs(g)), min=1e-12) / 127.0
-    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
-    deq = q.float() * scale
-    return deq, g - deq
+def _compress_int8(gs, errs):
+    """Symmetric per-tensor int8 quantization with error feedback, of a
+    leaf's slices ``gs`` (f32) and their residuals ``errs``: one scale
+    over the whole leaf, from the slices' largest magnitudes taken in peer
+    order on the first slice's device.  Returns the dequantized slices
+    and their new residuals."""
+    gs = [g + e for g, e in zip(gs, errs)]
+    home = gs[0].device
+    peak = torch.max(torch.stack([torch.max(torch.abs(g)).to(home)
+                                  for g in gs]))
+    scale = torch.clamp(peak, min=1e-12) / 127.0
+    out = []
+    for g in gs:
+        s = scale.to(g.device)
+        deq = torch.clamp(torch.round(g / s), -127, 127).to(
+            torch.int8).float() * s
+        out.append((deq, g - deq))
+    return out
 
 
 def global_norm(tree) -> torch.Tensor:
+    """The square root of every gradient's sum of squares, summed on the
+    first leaf's device in :func:`named_leaves` order (a placed leaf's
+    slices in peer order)."""
     total = None
-    for _, g in named_leaves(tree):
-        sq = torch.sum(torch.square(g.float()))
-        total = sq if total is None else total + sq
+    for _, leaf in named_leaves(tree):
+        for g in parts(leaf):
+            sq = torch.sum(torch.square(g.float()))
+            if total is None:
+                total = sq
+            else:
+                total = total + sq.to(total.device)
     return torch.sqrt(total) if total is not None else torch.zeros(())
 
 
@@ -146,28 +193,40 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state: OptState):
     lr = lr_at(cfg, step)
     b1c = 1 - cfg.b1 ** step.float()
     b2c = 1 - cfg.b2 ** step.float()
+    scalars = {state.step.device: (clip, lr, b1c, b2c)}
     flat_g = dict(named_leaves(grads))
     for path, p in named_leaves(params):
-        m, v = state.m[path], state.v[path]
-        g32 = flat_g[path].float()
+        ps, gs = parts(p), parts(flat_g[path])
+        ms, vs = parts(state.m[path]), parts(state.v[path])
         if cfg.compress_grads:
-            g32, err = _compress_int8(g32, state.error[path])
-            state.error[path].copy_(err)
-            del err
-        g32 = g32 * clip
-        m32 = m if m.dtype == torch.float32 else m.float()
-        m32.mul_(cfg.b1).add_(g32 * (1 - cfg.b1))
-        if m32 is not m:
-            m.copy_(m32)
-        v.mul_(cfg.b2).add_(g32.square_().mul_(1 - cfg.b2))
-        del g32
-        denom = (v / b2c).sqrt_().add_(cfg.eps)
-        update = (m32 / b1c).div_(denom)
-        del denom, m32
-        if cfg.weight_decay and _decayable(path):
-            update.add_(cfg.weight_decay * p.float())
-        if p.dtype == torch.float32:
-            p.sub_(update.mul_(lr))
+            errs = parts(state.error[path])
+            pairs = _compress_int8([g.float() for g in gs], errs)
+            for e, (_, err) in zip(errs, pairs):
+                e.copy_(err)
+            g32s = [deq for deq, _ in pairs]
+            del pairs
         else:
-            p.copy_(p.float() - update.mul_(lr))
+            g32s = [g.float() for g in gs]
+        for i, (w, m, v) in enumerate(zip(ps, ms, vs)):
+            if w.device not in scalars:     # a peer's slice on its device
+                scalars[w.device] = tuple(
+                    t.to(w.device) for t in scalars[state.step.device])
+            c, lr_w, b1c_w, b2c_w = scalars[w.device]
+            g32, g32s[i] = g32s[i] * c, None
+            m32 = m if m.dtype == torch.float32 else m.float()
+            m32.mul_(cfg.b1).add_(g32 * (1 - cfg.b1))
+            if m32 is not m:
+                m.copy_(m32)
+            v.mul_(cfg.b2).add_(g32.square_().mul_(1 - cfg.b2))
+            del g32
+            denom = (v / b2c_w).sqrt_().add_(cfg.eps)
+            update = (m32 / b1c_w).div_(denom)
+            del denom, m32
+            if cfg.weight_decay and _decayable(path):
+                update.add_(cfg.weight_decay * w.float())
+            if w.dtype == torch.float32:
+                w.sub_(update.mul_(lr_w))
+            else:
+                w.copy_(w.float() - update.mul_(lr_w))
+            del update
     return params, state, {"lr": lr, "grad_norm": gnorm}

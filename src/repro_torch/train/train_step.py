@@ -21,7 +21,14 @@ The reference compiles its step once, ``jax.jit(make_train_step(...))``;
 whole step (the forward with its remat, the hand-written backward, the
 microbatch accumulation, the global-norm clip and AdamW) is captured
 once as a CUDA graph and replayed (:class:`CapturedTrainStep`); on the
-CPU it is the eager step.
+CPU, and under a bound mesh whose entries name several cards, it is the
+eager step.
+
+The step takes a tree whose expert leaves were placed over a mesh's
+``model`` peers (``sharding.device_put_params``; the MoE layer's
+expert-parallel path under that mesh): each peer's dx and dW run on its
+peer's card, from autograd's worker thread of that card, each slice's
+gradient lands in its own ``.grad`` there, and AdamW updates it there.
 """
 
 from __future__ import annotations
@@ -32,9 +39,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
-from repro_torch.serve.graphs import StepGraph
+from repro_torch.serve.graphs import StepGraph, captured
 from repro_torch.train.optimizer import (OptimizerConfig, OptState,
-                                         apply_updates, named_leaves,
+                                         apply_updates, named_leaves, parts,
                                          tree_map)
 
 
@@ -64,7 +71,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
                           mlp_plan=mlp_plan)
 
     def train_step(params, opt_state: OptState, batch):
-        leaves = [t for _, t in named_leaves(params)]
+        leaves = [t for _, leaf in named_leaves(params) for t in parts(leaf)]
         for t in leaves:
             t.requires_grad_(True)
             t.grad = None
@@ -127,6 +134,9 @@ class CapturedTrainStep:
                                grad=True)
 
     def __call__(self, params, opt_state, batch):
+        if not captured(self.device):
+            return self.train_step(params, opt_state, batch)
+
         def fn(feeds):
             return self.train_step(params, opt_state, feeds)[2]
 
@@ -139,7 +149,9 @@ class CapturedTrainStep:
 def jitted_train_step(train_step, device):
     """The counterpart of the reference's ``jax.jit(make_train_step(...))``
     for a built ``train_step``: on a CUDA ``device`` a
-    :class:`CapturedTrainStep`, elsewhere ``train_step`` itself."""
-    if torch.device(device).type != "cuda":
+    :class:`CapturedTrainStep`, elsewhere, and under a bound mesh whose
+    entries name several cards (``serve.graphs.captured``: capture across
+    cards is ROADMAP queue A item 10.2), ``train_step`` itself."""
+    if not captured(torch.device(device)):
         return train_step
     return CapturedTrainStep(train_step, device)

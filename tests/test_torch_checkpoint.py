@@ -4,9 +4,13 @@ refused shapes and leaves, and bit-identical training resume through
 ``launch.train.run``; then what the port adds: bf16 and integer leaves bit
 for bit, a sparse weight's pattern checked on load, reshard-on-load
 (``shardings=``) bit for bit and the reference's elastic restart onto
-other meshes, a mesh of several devices refused, and the on-disk format
-read across by the reference's ``load`` (and the reference's by the
-port's)."""
+other meshes, the on-disk format read across by the reference's ``load``
+(and the reference's by the port's); and a tree whose MoE expert leaves
+are placed over a mesh's ``model`` peers (``sharding.device_put_params``):
+saved as its whole tree, loaded into a placed tree or onto a mesh of
+several devices as ``device_put_params`` places it, and a placed
+training run resumed bit for bit (the CPU mesh's entries standing for
+several devices)."""
 
 import os
 
@@ -20,9 +24,11 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core.csr import BlockCSR
 from repro_torch.distributed import sharding as sh
 from repro_torch.ft import checkpoint as ckpt
+from repro_torch.launch import train as launch_train
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.launch.train import run
-from repro_torch.train.optimizer import OptState, named_leaves
+from repro_torch.models import moe as M
+from repro_torch.train.optimizer import OptState, named_leaves, parts
 
 
 def test_roundtrip_and_latest(tmp_path):
@@ -71,11 +77,16 @@ def test_missing_leaf_rejected(tmp_path):
 
 
 def _assert_trees_equal(a, b):
+    """Equal leaves, bit for bit, on the same devices (a placed leaf's
+    slices against the other's, slice by slice)."""
     la, lb = dict(named_leaves(a)), dict(named_leaves(b))
     assert la.keys() == lb.keys()
     for k in la:
-        assert la[k].dtype == lb[k].dtype, k
-        assert torch.equal(la[k], lb[k]), k
+        pa, pb = parts(la[k]), parts(lb[k])
+        assert type(la[k]) is type(lb[k]) and len(pa) == len(pb), k
+        for x, y in zip(pa, pb):
+            assert x.dtype == y.dtype and x.device == y.device, k
+            assert torch.equal(x, y), k
 
 
 @pytest.mark.timeout(120)
@@ -170,16 +181,30 @@ def test_block_csr_pattern_is_saved_and_checked(tmp_path):
         ckpt.load(str(tmp_path), {"mlp": [other]})
 
 
-def test_shardings_raise(tmp_path):
+def test_shardings_over_several_devices_place_each_peers_slice(tmp_path):
     """Reshard-on-load onto a mesh whose coordinates name several devices
-    raises (a leaf's per-device slices are not ported: queue A item 10);
-    onto an abstract mesh (no devices) too."""
-    tree = {"w": torch.zeros((4, 4))}
+    (``meta`` stands for a device other than the CPU) places what
+    ``device_put_params`` places: an expert leaf cut into the ``model``
+    peers' slices, each on ``mesh.device_at(model=pe)`` (the CPU's with
+    the saved bits of its range), every other leaf whole on the mesh's
+    first device.  An abstract mesh (no devices) and shardings that lack
+    a leaf raise."""
+    g = torch.Generator().manual_seed(4)
+    tree = {"w": torch.randn((4, 4), generator=g),
+            "moe": {"experts_gate": torch.randn((4, 4, 2), generator=g)}}
     ckpt.save(str(tmp_path), 2, tree)
     several = sh.Mesh([["cpu", "meta"], ["cpu", "cpu"]], ("data", "model"))
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        ckpt.load(str(tmp_path), tree,
-                  shardings=sh.param_shardings(tree, several))
+    _, got = ckpt.load(str(tmp_path), tree,
+                       shardings=sh.param_shardings(tree, several))
+    assert got["w"].device.type == "cpu" and torch.equal(got["w"], tree["w"])
+    cut = got["moe"]["experts_gate"]
+    assert isinstance(cut, sh.PeerSlices)
+    assert (cut.axis, cut.shape) == (0, (4, 4, 2))
+    for pe, part in enumerate(cut.parts):
+        assert part.device == several.device_at(model=pe)
+        assert part.shape == (2, 4, 2)
+    assert torch.equal(cut.parts[0], tree["moe"]["experts_gate"][:2])
+    assert cut.parts[1].device.type == "meta"
     with pytest.raises(ValueError, match="abstract mesh"):
         ckpt.load(str(tmp_path), tree, shardings=sh.param_shardings(
             tree, sh.abstract_mesh((2, 2), ("data", "model"))))
@@ -260,6 +285,135 @@ def test_elastic_restart_onto_other_meshes(tmp_path):
         _, restored = ckpt.load(str(tmp_path), like, shardings=shardings)
         p4, _ = run_steps(mesh_b, restored["params"], restored["opt"], 2, 2)
         _assert_trees_equal(p4, ref)
+
+
+def _placed_tree(mesh, seed=5, down=torch.bfloat16):
+    """A tree of two per-layer MoE layers (``experts_down`` in ``down``),
+    an embedding and an optimizer state over it, placed on ``mesh`` by
+    ``device_put_params``, beside the whole tree."""
+    g = torch.Generator().manual_seed(seed)
+    layers = [{"moe": {"router": torch.randn((6, 8), generator=g),
+                       "experts_gate": torch.randn((8, 6, 3), generator=g),
+                       "experts_down": torch.randn((8, 3, 6), generator=g)
+                       .to(down)}} for _ in range(2)]
+    params = {"embed_tokens": torch.randn((10, 6), generator=g),
+              "groups": {"b0": layers}}
+    opt = OptState(step=torch.tensor(3, dtype=torch.int32),
+                   m={k: torch.randn(t.shape, generator=g)
+                      for k, t in named_leaves(params)},
+                   v={k: torch.rand(t.shape, generator=g)
+                      for k, t in named_leaves(params)},
+                   error={k: torch.zeros(()) for k, _ in
+                          named_leaves(params)})
+    whole = {"params": params, "opt": opt}
+    return whole, sh.device_put_params(whole, mesh)
+
+
+def test_placed_tree_saves_its_whole_trees_checkpoint(tmp_path):
+    """A placed tree's checkpoint (parameters and an optimizer state whose
+    moments are cut alike) has its whole tree's manifest and arrays."""
+    whole, placed = _placed_tree(make_debug_mesh((1, 4), device="cpu"))
+    moe = placed["params"]["groups"]["b0"][1]["moe"]
+    assert isinstance(moe["experts_down"], sh.PeerSlices)
+    assert isinstance(placed["opt"].m["groups/b0/0/moe/experts_gate"],
+                      sh.PeerSlices)
+    ckpt.save(str(tmp_path / "placed"), 3, placed)
+    ckpt.save(str(tmp_path / "whole"), 3, whole)
+    import json
+    dirs = [tmp_path / name / "step_00000003" for name in ("placed", "whole")]
+    manifests = [json.loads((d / "manifest.json").read_text()) for d in dirs]
+    assert manifests[0] == manifests[1]
+    arrays = [np.load(d / "shard_00000.npz") for d in dirs]
+    assert sorted(arrays[0].files) == sorted(arrays[1].files)
+    for f in arrays[1].files:
+        assert arrays[0][f].dtype == arrays[1][f].dtype
+        np.testing.assert_array_equal(arrays[0][f], arrays[1][f])
+
+
+def test_placed_loads_equal_device_put_params(tmp_path, monkeypatch):
+    """Loaded into a placed ``like``, and with ``shardings`` over a mesh
+    of several devices, a checkpoint comes back as ``device_put_params``
+    of the loaded whole tree, bit for bit (a mesh of ``meta`` entries:
+    each slice on ``mesh.device_at(model=pe)``)."""
+    mesh = make_debug_mesh((1, 4), device="cpu")
+    whole, _ = _placed_tree(mesh)
+    ckpt.save(str(tmp_path), 7, whole)
+    _, other = _placed_tree(mesh, seed=6)          # other values, same tree
+    _, got = ckpt.load(str(tmp_path), other)
+    _assert_trees_equal(got, sh.device_put_params(whole, mesh))
+    assert torch.equal(got["opt"].step, whole["opt"].step)
+    like, _ = _placed_tree(mesh, seed=6)
+    several = sh.Mesh([["cpu", "cpu", "cpu", "cpu"]], ("data", "model"))
+    shardings = {"params": sh.param_shardings(like["params"], several),
+                 "opt": sh.param_shardings(like["opt"], several)}
+    with monkeypatch.context() as m:     # four entries as four devices
+        m.setattr(ckpt, "mesh_devices", lambda mesh: list(mesh.devices.flat))
+        _, got = ckpt.load(str(tmp_path), like, shardings=shardings)
+    _assert_trees_equal(got, sh.device_put_params(whole, several))
+    meta = sh.Mesh([["cpu", "meta", "meta", "meta"]], ("data", "model"))
+    _, got = ckpt.load(str(tmp_path), like, shardings={
+        "params": sh.param_shardings(like["params"], meta),
+        "opt": sh.param_shardings(like["opt"], meta)})
+    want = sh.device_put_params(whole, meta)
+    for (k, a), (_, b) in zip(sh.leaves_with_path(got),
+                              sh.leaves_with_path(want)):
+        assert type(a) is type(b), k
+        for pe, (x, y) in enumerate(zip(parts(a), parts(b))):
+            assert x.device == y.device, k
+            if isinstance(a, sh.PeerSlices):
+                assert x.device == meta.device_at(model=pe)
+            if x.device.type == "cpu":
+                assert torch.equal(x, y), k
+
+
+def test_reference_reads_a_placed_checkpoint(tmp_path):
+    """The reference's ``load`` reads a placed f32 tree's checkpoint
+    (parameters and moments): each expert leaf whole, with the whole
+    tree's bits."""
+    trees = _placed_tree(make_debug_mesh((1, 4), device="cpu"),
+                         down=torch.float32)
+    whole, placed = ({"params": t["params"], "m": t["opt"].m,
+                      "v": t["opt"].v} for t in trees)
+    ckpt.save(str(tmp_path), 5, placed)
+    like = sh.map_with_path(lambda path, t: jnp.zeros(tuple(t.shape),
+                                                      jnp.asarray(
+                                                          t.numpy()).dtype),
+                            whole)
+    step, got = ref_ckpt.load(str(tmp_path), like)
+    assert step == 5
+    flat = dict(sh.leaves_with_path(got))
+    for path, t in sh.leaves_with_path(whole):
+        np.testing.assert_array_equal(np.asarray(flat[path]), t.numpy())
+
+
+@pytest.mark.timeout(120)
+def test_placed_run_resumes_bit_for_bit(tmp_path, monkeypatch, capsys):
+    """granite-moe-3b's smoke config on the expert-parallel path through
+    ``launch.train.run`` under a (1, 4) mesh counted as four devices (the
+    launcher places the tree; the MoE layer takes its several-device
+    path): 2 steps, a checkpoint, a resume and 2 more equal 4 straight
+    steps bit for bit, parameters and optimizer state, slice by slice."""
+    import dataclasses
+    monkeypatch.setattr(launch_train, "mesh_devices",
+                        lambda mesh: list(mesh.devices.flat))
+    monkeypatch.setattr(M, "_several", lambda mesh, device: True)
+    cfg = dataclasses.replace(get_smoke_config("granite-moe-3b-a800m"),
+                              moe_impl="ep_a2a", moe_capacity_factor=1.25)
+    kw = dict(seq_len=16, global_batch=2, micro_batches=1, device="cpu")
+    d = str(tmp_path)
+    with sh.use_mesh(make_debug_mesh((1, 4), device="cpu")):
+        straight = run(cfg, steps=4, **kw)
+        run(cfg, steps=2, ckpt_dir=d, **kw)
+        resumed = run(cfg, steps=4, ckpt_dir=d, **kw)
+    assert "resumed from step 2" in capsys.readouterr().out
+    moe = resumed.params["groups"]["b0"][0]["moe"]
+    assert isinstance(moe["experts_up"], sh.PeerSlices)
+    assert [r["step"] for r in resumed.history] == [2, 3]
+    assert [r["loss"] for r in resumed.history] == \
+        [r["loss"] for r in straight.history[2:]]
+    _assert_trees_equal(resumed.params, straight.params)
+    _assert_trees_equal(resumed.opt._asdict(), straight.opt._asdict())
+    assert torch.equal(resumed.opt.step, straight.opt.step)
 
 
 def test_reference_reads_the_port_format(tmp_path):

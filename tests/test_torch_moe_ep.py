@@ -8,9 +8,11 @@ from numpy seeds and handed over in an npz; it writes each case's output
 and the gradients of ``sum(y²)``.  The port runs the same program on a CPU
 mesh of the same shape (``make_debug_mesh(..., device="cpu")``), with
 whole expert leaves and with the tree placed by
-``sharding.device_put_params`` (each peer's slices, the serving path of
-a mesh of several cards); the subprocess also writes the reference's
-cut of each expert leaf (``NamedSharding.devices_indices_map``).
+``sharding.device_put_params`` (each peer's slices, the serving and
+training path of a mesh of several cards, where the CPU mesh's entries
+stand for several devices through ``moe._several``); the subprocess also
+writes the reference's cut of each expert leaf
+(``NamedSharding.devices_indices_map``).
 
 Tolerances: y within 1e-5 (the two sum in different orders); dx and the
 expert-weight and router gradients within 1e-4·max + 1e-6, of two
@@ -78,6 +80,21 @@ PER_LAYER = "['groups']/['b0']/[1]/['moe']/['{}']"
 CUTS = [((1, 4), STACKED, (3, 8, 64, 32), "experts_gate"),
         ((2, 4), STACKED, (3, 8, 32, 64), "experts_down"),
         ((2, 4), PER_LAYER, (8, 64, 32), "experts_up")]
+# the cases whose placed gradients are held against the reference's cut
+# of each expert leaf (the layer's own tree: the leaf's path is its key)
+GRADIENT = ["mesh14_cf8", "mesh14_cf125_drops"]
+EXPERTS = ("experts_gate", "experts_up", "experts_down")
+
+
+def _leaf_dims(name, leaf):
+    e = CASES[name][2]
+    return (e, F, D) if leaf == "experts_down" else (e, D, F)
+
+
+GRAD_CUTS = {(name, leaf): len(CUTS) + i for i, (name, leaf) in enumerate(
+    (n, leaf) for n in GRADIENT for leaf in EXPERTS)}
+ALL_CUTS = CUTS + [(CASES[name][0], "['{}']", _leaf_dims(name, leaf), leaf)
+                   for name, leaf in GRAD_CUTS]
 
 SCRIPT = textwrap.dedent("""
     import os, sys, json
@@ -161,7 +178,7 @@ def reference(tmp_path_factory):
         arrays[f"{name}/r"] = _cotangent(name)
     spec["__cuts__"] = [{"shape": shape, "path": path.format(leaf),
                          "leaf": dims}
-                        for shape, path, dims, leaf in CUTS]
+                        for shape, path, dims, leaf in ALL_CUTS]
     (tmp / "spec.json").write_text(json.dumps(spec))
     np.savez(tmp / "inputs.npz", **arrays)
     env = dict(os.environ, JAX_PLATFORMS="cpu",
@@ -591,23 +608,61 @@ def test_placed_tree_serves_like_the_whole_tree(granite_ep):
         assert torch.equal(got, want)
 
 
-def test_ep_gradient_on_several_devices_raises(monkeypatch):
-    """Training across cards is not ported: placed weights that take a
-    gradient on a mesh of several devices raise, naming ROADMAP item 10
-    (the CPU's entries stand for other devices)."""
+def _reference_range(reference, i, pe, axis):
+    """The ``[lo, hi)`` of ``axis`` that the reference's sharding of cut
+    ``i`` gives ``model`` peer ``pe`` (the same at every ``data``
+    coordinate)."""
+    cut = reference[f"cut{i}"]                    # data, model, dim, lo, hi
+    rows = cut[(cut[:, 1] == pe) & (cut[:, 2] == axis)]
+    assert len(np.unique(rows[:, 3:], axis=0)) == 1, rows
+    return int(rows[0, 3]), int(rows[0, 4])
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("name", GRADIENT)
+def test_ep_gradient_on_several_devices(reference, name, monkeypatch):
+    """Training across cards: placed weights take a gradient on a mesh of
+    several devices (the CPU mesh's entries stand for four devices
+    through ``moe._several``; each slice still on its peer's entry).
+    Each slice's ``.grad`` of ``sum(y·R)`` is the reference's gradient
+    cut at that peer's range (``devices_indices_map``), and dx and the
+    router's gradient the reference's, within 1e-4·max + 1e-6."""
     mesh = make_debug_mesh((1, 4), device="cpu")
-    _, placed, cfg, x = _placed("mesh14_cf8", mesh)
-    for part in placed["experts_gate"].parts:
-        part.requires_grad_(True)
-    monkeypatch.setattr(M, "_same_device", lambda a, b: False)
-    with sh.use_mesh(mesh), \
-            pytest.raises(NotImplementedError, match="queue A item 10"):
-        M.moe_layer(placed, cfg, x)
+    _, placed, cfg, x = _placed(name, mesh)
+    leaves = [placed["router"].requires_grad_(True), x.requires_grad_(True)]
+    for key in EXPERTS:
+        for part in placed[key].parts:
+            leaves.append(part.requires_grad_(True))
+    seen = []
+
+    def several(mesh, device):
+        seen.append(device)
+        return True
+    monkeypatch.setattr(M, "_several", several)
+    r = torch.from_numpy(_cotangent(name))
+    with sh.use_mesh(mesh):
+        y = M.moe_layer(placed, cfg, x)
+    assert seen
+    (y * r).sum().backward()
+    for key in EXPERTS:
+        want = reference[f"{name}/lin_d{key}"]
+        limit = 1e-4 * float(np.abs(want).max()) + 1e-6
+        i = GRAD_CUTS[name, key]
+        for pe, part in enumerate(placed[key].parts):
+            assert part.grad is not None and part.grad.device == part.device
+            lo, hi = _reference_range(reference, i, pe, placed[key].axis)
+            assert part.shape[0] == hi - lo
+            err = float(np.abs(part.grad.numpy() - want[lo:hi]).max())
+            assert err <= limit, f"{name} d{key} peer {pe}: {err} > {limit}"
+    for key, got in (("router", placed["router"].grad), ("x", x.grad)):
+        want = reference[f"{name}/lin_d{key}"]
+        err = float(np.abs(got.numpy() - want).max())
+        assert err <= 1e-4 * float(np.abs(want).max()) + 1e-6, key
 
 
 def test_ep_several_devices_with_data_above_1_raises(monkeypatch):
     """A mesh of several devices with a ``data`` axis of 2 raises,
-    naming ROADMAP item 10 (the CPU's entries stand for other
+    naming ROADMAP item 10.3 (the CPU's entries stand for other
     devices)."""
     mesh = make_debug_mesh((2, 4), device="cpu")
     _, placed, cfg, x = _placed("mesh24_cf8", mesh)

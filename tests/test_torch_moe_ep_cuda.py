@@ -13,6 +13,10 @@ across cards, on the card.
   for bit against the one-card ``(1, 4)`` mesh on the same weights, each
   peer's B8 products on its own card, the decode step eager (no
   capture across cards).  Needs four cards.
+* The same config trained across the four cards: 2 eager steps of the
+  placed tree bit for bit against four ``cuda:0`` entries (losses, grad
+  norms, parameters and moments), each slice's gradient on its peer's
+  card, ``jitted_train_step`` the eager step there.  Needs four cards.
 
 They import nothing of JAX and skip below their card count:
 
@@ -222,3 +226,66 @@ def test_granite_ep_on_four_cards_equals_one_card(four_cards):
     assert torch.equal(tok1, tok4)
     for a, b in zip(lg1, lg4):
         assert torch.equal(a, b)
+
+
+def test_granite_ep_trains_on_four_cards_like_one_card(four_cards):
+    """granite-moe-3b's smoke config (EP, capacity 1.25) trained from one
+    draw, placed on four ``cuda:0`` entries and on four cards: 2 eager
+    steps give the same losses and grad norms, and the same parameters
+    and moments, bit for bit; under the four cards a backward leaves each
+    slice's gradient on its peer's card, and ``jitted_train_step`` is the
+    eager step itself."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, synth_batch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    from repro_torch.train import (OptimizerConfig, init_opt_state,
+                                   jitted_train_step, make_train_step)
+    from repro_torch.train.optimizer import named_leaves, parts
+    cfg = dataclasses.replace(get_smoke_config("granite-moe-3b-a800m"),
+                              moe_impl="ep_a2a", moe_capacity_factor=1.25)
+    home = four_cards[0]
+    torch.cuda.set_device(home)
+    ocfg = OptimizerConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                      global_batch=4, seed=0)
+    step = make_train_step(cfg, ocfg, micro_batches=2)
+    meshes = {"one": make_debug_mesh((1, 4), device="cuda:0"),
+              "four": make_debug_mesh((1, 4))}
+    runs = {}
+    for name, mesh in meshes.items():
+        params = sh.device_put_params(lm.unstack_layers(lm.init_params(
+            cfg, torch.Generator(device=home).manual_seed(0), device=home)),
+            mesh)
+        opt = init_opt_state(ocfg, params)
+        metrics = []
+        with sh.use_mesh(mesh):
+            for s in range(2):
+                batch = {k: v.to(home) for k, v in synth_batch(dcfg, s).items()}
+                params, opt, m = step(params, opt, batch)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        state = {f"{tag}/{k}": [t.detach().cpu() for t in parts(leaf)]
+                 for tag, tree in (("p", params), ("m", opt.m), ("v", opt.v))
+                 for k, leaf in named_leaves(tree)}
+        runs[name] = (metrics, state, params)
+    (m1, s1, _), (m4, s4, placed) = runs["one"], runs["four"]
+    assert m1 == m4
+    assert s1.keys() == s4.keys()
+    for k, want in s1.items():
+        assert all(torch.equal(a, b) for a, b in zip(s4[k], want)), k
+    mesh = meshes["four"]
+    batch = {k: v.to(home) for k, v in synth_batch(dcfg, 2).items()}
+    leaves = [t for _, leaf in named_leaves(placed) for t in parts(leaf)]
+    for t in leaves:
+        t.requires_grad_(True)
+    with sh.use_mesh(mesh):
+        loss, _ = lm.loss_fn(placed, cfg, batch)
+        loss.backward()
+        assert jitted_train_step(step, home) is step
+    for _, leaf in named_leaves(placed):
+        if isinstance(leaf, sh.PeerSlices):
+            for pe, part in enumerate(leaf.parts):
+                assert part.device == four_cards[pe]
+                assert part.grad is not None
+                assert part.grad.device == four_cards[pe]
