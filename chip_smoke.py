@@ -7,7 +7,9 @@ Run from the repository root with no arguments::
 
 ``python3 chip_smoke.py --only moe_ep_cards`` runs the device phase and
 phase 36 alone (on a machine with four cards, its four-card part, which
-trains across the cards as well).
+trains across the cards as well); ``--only pipeline_cards`` the device
+phase and phase 37 (with four cards, qwen2-72b at full depth across
+them).
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
@@ -471,7 +473,38 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
     the deepest stack whose checkpoint stays under 5 GB on disk (12 bytes
     a stored parameter): 4 straight steps against 2, a save, a resume and
     2 more, bit for bit, with save and load seconds and bytes on disk.
-37. the ``{"kernels": [...]}`` summary (``launches_by_path`` has every
+37. pipeline_cards — the GPipe pipeline with each stage's layer groups
+    on its own card (``pipeline_apply`` over a ``("pod",)`` mesh of 4:
+    the cards the process sees where there are four, else four
+    ``cuda:0`` entries).  Every run: qwen2-72b's smoke config cut to 8
+    layers, f32, a sparse MLP at (8, 8), QKV biases drawn, card mesh
+    against CPU mesh (output, dx and every gradient of ``sum(y·R)``
+    within 1e-4·max + 1e-6, as phase 33's qwen3-4b smoke); then
+    qwen2-72b at full width cut to 8 layers (2 a stage), bf16, its
+    sparse MLP at (64, 64) d 0.25, drawn on ``cuda:0``, on four
+    ``cuda:0`` entries: the config's 8 microbatches of 1 × 1 024 tokens
+    embedded by a table drawn on the card, used and dropped; launches
+    zeroed just before and read just after, exactly as ``pipeline``
+    reckons them (path ``pipeline_cards``); y, dx and every gradient
+    against the same blocks run in order, microbatch by microbatch,
+    within 1e-2·max; and layer 0's sparse down-projection on one such
+    microbatch (the forward, dh and the blocks' gradient: B4 on each
+    plan and B2, at 8 192 × 29 568) against the plain masked-dense
+    product in f32, within 1e-2·max.
+    With four cards also: that tree placed by
+    ``pipeline.place_stages`` on the cards, bit for bit against the four
+    ``cuda:0`` entries (the gaps held to 1e-2·max where not), each
+    layer's gradient on its stage's card, the unplaced tree refused; then
+    qwen2-72b at all 80 layers, 20 drawn on each card (no card holds the
+    whole tree; one host pattern, one plan): launches, ring bytes
+    (``collective-permute``, against M·(P−1) hops of 1 × 1 024 × 8 192 ×
+    2 bytes each way) and peak GiB by card (beside the parameters and
+    gradients reckoned); the wall of a second run, a third profiled by
+    card (device ms), the efficiency Σ device ms / (4 × wall) beside
+    GPipe's M / (M + P − 1); y, dx and every gradient against the same
+    blocks run in order on their cards within 1e-2·max.  With fewer
+    cards the line says the four-card part did not run.
+38. the ``{"kernels": [...]}`` summary (``launches_by_path`` has every
     path above), then the final ``{"ok": true, ...}``.
 
 Every phase's line carries ``t_s``, the seconds since the start.
@@ -624,8 +657,9 @@ def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
 
 def check_close(got, want, dtype, what):
     """f32: only the order of summation differs; bf16: one rounding of
-    the f32 sum at the end, at most one bf16 ulp (2^-8 relative) apart."""
-    got, want = got.float(), want.float()
+    the f32 sum at the end, at most one bf16 ulp (2^-8 relative) apart.
+    ``got`` is brought to ``want``'s device."""
+    got, want = got.float().to(want.device), want.float()
     scale = float(want.abs().max()) if want.numel() else 0.0
     err = float((got - want).abs().max()) if want.numel() else 0.0
     limit = (1e-5 * scale + 1e-6) if dtype == torch.float32 else 1e-2 * scale
@@ -5600,25 +5634,50 @@ def pipe_grads(layers, fn, x, r):
     return y.detach(), grads, xg.grad
 
 
+def pipe_expected(plan, blocks):
+    """The Maple launches of ``blocks`` block-microbatches of a pipelined
+    forward and backward: the MLP forward and its recompute in the forward
+    plan's layout, dB in the transpose-side plan's, dA on B2."""
+    expect = {"maple_spmm_naive": 0, "maple_spmm_compact": 0,
+              "maple_spmm_planned": 0, "maple_sddmm_bsr": blocks}
+    expect[PLANNED[plan.fwd.fused]] += 2 * blocks
+    expect[PLANNED[plan.bwd.fused]] += blocks
+    return expect
+
+
+def pipe_launches():
+    from repro_torch.kernels.maple_sddmm import maple_sddmm_bsr
+    return {**spmm_counters(), "maple_sddmm_bsr": maple_sddmm_bsr.launches}
+
+
+def zero_pipe_launches():
+    from repro_torch.kernels.maple_sddmm import maple_sddmm_bsr
+    zero_spmm_counters()
+    maple_sddmm_bsr.launches = 0
+
+
 def pipe_stage_fn(cfg, plan):
     from repro_torch.models import lm
     return lambda stage, h: lm.apply_layers(stage, cfg, h, mlp_plan=plan)
 
 
-def pipeline_smoke_against_cpu():
-    """The qwen3-4b smoke config (8 layers, sparse MLP at (8, 8)) through
-    ``pipeline_apply`` over (4,) pod meshes of ``"cuda"`` and of
-    ``"cpu"`` entries: output and every gradient card against CPU within
-    1e-4·max + 1e-6."""
+def pipeline_smoke_against_cpu(arch="qwen3-4b"):
+    """``arch``'s smoke config (8 layers, sparse MLP at (8, 8), f32, its
+    biases drawn by :func:`draw_biases`: none in qwen3-4b, QKV in
+    qwen2-72b) through ``pipeline_apply`` over (4,) pod meshes of
+    ``"cuda"`` and of ``"cpu"`` entries: output, dx and every gradient
+    card against CPU within 1e-4·max + 1e-6."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.distributed.pipeline import pipeline_apply
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models import lm
-    cfg = dataclasses.replace(get_smoke_config("qwen3-4b"), n_layers=8,
+    cfg = dataclasses.replace(get_smoke_config(arch), n_layers=8,
                               sparse_mlp=True, sparse_block=(8, 8))
-    cpu = lm.unstack_layers(lm.init_params(
-        cfg, torch.Generator().manual_seed(SEED), device="cpu"))["groups"][
-            "b0"]
+    gen = torch.Generator().manual_seed(SEED)
+    cpu = lm.unstack_layers(lm.init_params(cfg, gen, device="cpu"))[
+        "groups"]["b0"]
+    for layer in cpu:
+        draw_biases(layer, gen)
     card = [cuda_tree(layer) for layer in cpu]
     g = torch.Generator().manual_seed(SEED + 1)
     x = torch.randn((4, 16, cfg.d_model), generator=g)
@@ -5633,7 +5692,7 @@ def pipeline_smoke_against_cpu():
     y_err = grads_close(out["cuda"][0], out["cpu"][0], "smoke output")
     g_err = max(grads_close(a, b, f"smoke grad {i}") for i, (a, b) in
                 enumerate(zip(out["cuda"][1], out["cpu"][1])))
-    return {"config": "qwen3-4b smoke, 8 layers, sparse_mlp (8,8), "
+    return {"config": f"{arch} smoke, 8 layers, sparse_mlp (8,8), "
             "4 x 16 tokens", "y_max_abs_err": y_err,
             "grad_max_abs_err": g_err,
             "dx_max_abs_err": grads_close(out["cuda"][2], out["cpu"][2],
@@ -5654,7 +5713,6 @@ def pipeline_phase(card, train_device_ms):
     transpose-side plan's, dA on B2."""
     from repro_torch.configs import get_config
     from repro_torch.distributed.pipeline import pipeline_apply
-    from repro_torch.kernels.maple_sddmm import maple_sddmm_bsr
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models import lm
     from repro_torch.train.optimizer import named_leaves
@@ -5677,20 +5735,15 @@ def pipeline_phase(card, train_device_ms):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_spmm_counters()
-    maple_sddmm_bsr.launches = 0
+    zero_pipe_launches()
     t0 = time.perf_counter()
     y_pipe, g_pipe, dx_pipe = pipe_grads(layers, piped, x, r)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = {**spmm_counters(),
-                "maple_sddmm_bsr": maple_sddmm_bsr.launches}
+    launches = pipe_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     blocks = PIPE_MICRO * cfg.n_layers      # P·M stage calls of L/P blocks
-    expect = {"maple_spmm_naive": 0, "maple_spmm_compact": 0,
-              "maple_spmm_planned": 0, "maple_sddmm_bsr": blocks}
-    expect[PLANNED[plan.fwd.fused]] += 2 * blocks
-    expect[PLANNED[plan.bwd.fused]] += blocks
+    expect = pipe_expected(plan, blocks)
     if launches != expect:
         raise AssertionError(f"pipeline launches {launches}, expected "
                              f"{expect}")
@@ -6312,7 +6365,6 @@ def device_ms_by_card(fn, warmup: bool = True) -> dict:
     ``warmup``): its wall ms (every card synchronised) and, by card, the
     device ms of its kernels (B8's and ``moe_dw_kernel``'s apart) and of
     its copies and sets (the copies between cards apart)."""
-    import collections
     from torch.profiler import ProfilerActivity
     if warmup:
         fn()
@@ -6323,13 +6375,22 @@ def device_ms_by_card(fn, warmup: bool = True) -> dict:
         fn()
         sync_all()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return {"wall_ms": wall_ms,
+            "by_card": events_by_card(prof.profiler.kineto_results.events())}
+
+
+def events_by_card(events) -> dict:
+    """A profile's device events summed by card: kernel ms and launches
+    (B8's and ``moe_dw_kernel``'s apart), copies and sets (the copies
+    between cards apart)."""
+    import collections
     by = collections.defaultdict(lambda: {"kernel_ms": 0.0, "launches": 0,
                                           "b8_ms": 0.0, "b8_launches": 0,
                                           "dw_ms": 0.0, "dw_launches": 0,
                                           "copy_ms": 0.0, "copies": 0,
                                           "peer_copy_ms": 0.0,
                                           "peer_copies": 0})
-    for e in prof.profiler.kineto_results.events():
+    for e in events:
         if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
         row, ms, name = by[e.device_index()], e.duration_ns() / 1e6, e.name()
@@ -6346,8 +6407,7 @@ def device_ms_by_card(fn, warmup: bool = True) -> dict:
             if kernel in name:
                 row[f"{key}_ms"] += ms
                 row[f"{key}_launches"] += 1
-    return {"wall_ms": wall_ms,
-            "by_card": {f"cuda:{i}": by[i] for i in sorted(by)}}
+    return {f"cuda:{i}": by[i] for i in sorted(by)}
 
 
 def placed_bytes(tree) -> dict:
@@ -7219,6 +7279,418 @@ def moe_ep_cards(card):
     return paths, line
 
 
+# --------------------------------------------------------------------------
+# phase 37: the GPipe pipeline across cards
+# --------------------------------------------------------------------------
+
+# qwen2-72b (QKV biases) with bf16 parameters and its sparse MLP at
+# (64, 64) blocks, density 0.25, pipelined over 4 stages: the config's
+# train_microbatches (8) microbatches of 1 × 1 024 embedded tokens; one
+# card runs it cut to 8 layers (2 a stage), four cards at all 80 (20 a
+# card)
+PIPE_CARDS_ARCH, PIPE_CARDS_SEQ, PIPE_CARDS_CUT = "qwen2-72b", 1024, 8
+PIPE_CARDS = 4
+
+
+def pipe_cards_config(n_layers=None):
+    """qwen2-72b with its sparse MLP, at ``n_layers`` (default: all)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(PIPE_CARDS_ARCH)
+    return dataclasses.replace(cfg, sparse_mlp=True,
+                               n_layers=n_layers or cfg.n_layers)
+
+
+def pipe_cards_layer(cfg, gen):
+    """One block of ``cfg`` in the trainer's per-layer layout, bf16,
+    drawn from ``gen`` on its card, its QKV biases drawn
+    (:func:`draw_biases`)."""
+    from repro_torch.models import lm
+    layer = lm._init_block(gen, cfg, "attn", stack=(), dtype=torch.bfloat16)
+    draw_biases(layer, gen)
+    return layer
+
+
+def share_pattern(layers):
+    """Every layer's sparse down-projection on layer 0's host pattern
+    arrays and per-device metadata (each layer drew the same pattern from
+    ``cfg.sparse_mask_seed``), so that one ``sparse_mlp_plan`` serves
+    every card."""
+    first = layers[0]["mlp"]["w_down"]
+    for layer in layers:
+        w = layer["mlp"]["w_down"]
+        if not all(np.array_equal(getattr(w, f), getattr(first, f))
+                   for f in ("block_col", "block_row", "row_ptr")):
+            raise AssertionError("the layers drew different sparse patterns")
+        layer["mlp"]["w_down"] = dataclasses.replace(first, blocks=w.blocks)
+    return layers
+
+
+def pipe_cards_inputs(cfg, gen):
+    """``train_microbatches`` sequences of ``PIPE_CARDS_SEQ`` tokens
+    embedded by a table drawn from ``gen`` (bf16, on its card; used and
+    dropped), and R for ``sum(y·R)``."""
+    from repro_torch.models import layers as L
+    embed = L.dense_init(gen, (cfg.vocab_padded, cfg.d_model), cfg.d_model,
+                         torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (cfg.train_microbatches, PIPE_CARDS_SEQ),
+                           generator=gen, device=gen.device)
+    x = embed[tokens]
+    del embed
+    torch.cuda.empty_cache()
+    r = torch.randn(x.shape, generator=gen, device=gen.device).to(x.dtype)
+    return x, r
+
+
+def sequential_blocks(stage_fn, stages, n_micro):
+    """``h`` through the stages' blocks in order, microbatch by
+    microbatch, each stage on its layers' card; the output on ``h``'s
+    card."""
+    def run(h):
+        outs = []
+        for mb in h.chunk(n_micro):
+            for layers in stages:
+                mb = stage_fn(layers, mb.to(layers[0]["attn"]["wq"].device))
+            outs.append(mb.to(h.device))
+        return torch.cat(outs)
+    return run
+
+
+def pipe_cards_mlp_check(w, plan, gen):
+    """One block's sparse down-projection ``w`` (d_ff → d_model) on a
+    microbatch of 1 × ``PIPE_CARDS_SEQ`` tokens, through ``sparse_linear``
+    on ``plan`` as the path calls it, forward and backward of
+    ``sum(y·G)``: y (the forward plan's kernel), dh (the transpose-side
+    plan's) and the blocks' gradient (B2), each against the plain
+    masked-dense product in f32 of the same values by
+    :func:`check_close`'s rule for ``w``'s dtype; its launches counted
+    (one of each kernel, apart from the path's)."""
+    from repro_torch.models.layers import sparse_linear
+    dtype = w.blocks.dtype
+    h = torch.randn((1, PIPE_CARDS_SEQ, w.shape[1]), generator=gen,
+                    device=gen.device).to(dtype)
+    g = torch.randn((1, PIPE_CARDS_SEQ, w.shape[0]), generator=gen,
+                    device=gen.device).to(dtype)
+    out = {}
+    zero_pipe_launches()
+    for name, dt in (("kernel", dtype), ("plain", torch.float32)):
+        blocks = w.blocks.detach().to(dt).requires_grad_(True)
+        hx = h.detach().to(dt).requires_grad_(True)
+        wx = dataclasses.replace(w, blocks=blocks)
+        y = (sparse_linear(wx, hx, plan=plan) if name == "kernel"
+             else torch.matmul(hx, wx.to_dense().t()))
+        y.backward(g.to(dt))
+        out[name] = (y.detach(), hx.grad, blocks.grad)
+        if name == "kernel":
+            launches = pipe_launches()
+    names = ("y", "dh", "dblocks")
+    errs = {what: check_close(got, want, dtype, f"sparse MLP {what}")
+            for what, got, want in zip(names, out["kernel"], out["plain"])}
+    share = {what: errs[what] / float(want.abs().max())
+             for what, want in zip(names, out["plain"])}
+    expect = pipe_expected(plan, 1)
+    expect[PLANNED[plan.fwd.fused]] -= 1          # no recompute here
+    if launches != expect:
+        raise AssertionError(f"sparse MLP check: launches {launches}, "
+                             f"expected {expect}")
+    return {"shape": [*w.shape], "block": [*w.block_shape],
+            "nnzb": int(w.nnzb), "tokens": PIPE_CARDS_SEQ,
+            "kernels": {"y": PLANNED[plan.fwd.fused],
+                        "dh": PLANNED[plan.bwd.fused],
+                        "dblocks": "maple_sddmm_bsr"},
+            "launches": launches, "max_abs_err": errs,
+            "share_of_max": share, "tolerance": "1e-2·max (bf16)" if dtype == torch.bfloat16
+            else "1e-5·max + 1e-6"}
+
+
+def pipe_cards_cut():
+    """qwen2-72b at full width cut to 8 layers (2 a stage), bf16, sparse
+    MLP, drawn on ``cuda:0``, through ``pipeline_apply`` over four
+    ``cuda:0`` entries: 8 microbatches of 1 × 1 024 embedded tokens, the
+    gradients of ``sum(y·R)``; launches zeroed just before and read just
+    after, exact; y, dx and every gradient against the same blocks run in
+    order, microbatch by microbatch, within 1e-2·max.  Returns the
+    launches, the line, and the tree, inputs and results for the
+    four-card check."""
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    cfg = pipe_cards_config(PIPE_CARDS_CUT)
+    gen = torch.Generator(device="cuda:0").manual_seed(SEED)
+    layers = share_pattern([pipe_cards_layer(cfg, gen)
+                            for _ in range(cfg.n_layers)])
+    x, r = pipe_cards_inputs(cfg, gen)
+    plan = lm.sparse_mlp_plan(layers)
+    stage_fn = pipe_stage_fn(cfg, plan)
+    mesh = make_debug_mesh((PIPE_CARDS,), ("pod",), device="cuda")
+    m = cfg.train_microbatches
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    zero_pipe_launches()
+    t1 = time.perf_counter()
+    got = pipe_grads(layers, lambda h: pipeline_apply(stage_fn, mesh, m,
+                                                      layers, h), x, r)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t1) * 1e3
+    launches = pipe_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    expect = pipe_expected(plan, m * cfg.n_layers)
+    if launches != expect:
+        raise AssertionError(f"pipeline_cards launches {launches}, expected "
+                             f"{expect}")
+    per = cfg.n_layers // PIPE_CARDS
+    stages = [layers[p * per:(p + 1) * per] for p in range(PIPE_CARDS)]
+    want = pipe_grads(layers, sequential_blocks(stage_fn, stages, m), x, r)
+    bf = torch.bfloat16
+    errs = {"y_max_abs_err": check_close(got[0], want[0], bf, "8 layers: y"),
+            "dx_max_abs_err": check_close(got[2], want[2], bf,
+                                          "8 layers: dx"),
+            "grad_max_abs_err": max(
+                check_close(a, b, bf, f"8 layers: grad {i}")
+                for i, (a, b) in enumerate(zip(got[1], want[1])))}
+    errs["bit_identical"] = (torch.equal(got[0], want[0])
+                             and torch.equal(got[2], want[2])
+                             and all(torch.equal(a, b)
+                                     for a, b in zip(got[1], want[1])))
+    del want
+    mlp = pipe_cards_mlp_check(layers[0]["mlp"]["w_down"], plan, gen)
+    line = {"config": f"{PIPE_CARDS_ARCH} at full width, {cfg.n_layers} of "
+            f"80 layers, bf16, sparse_mlp (64,64) d=0.25, QKV biases drawn, "
+            f"remat per block", "n_layers": cfg.n_layers,
+            "depth_reduced": True, "mesh": {"pod": PIPE_CARDS},
+            "devices": "four cuda:0 entries", "microbatches": m,
+            "tokens": [m, PIPE_CARDS_SEQ], "launches": launches,
+            "launches_expected": expect,
+            "plan_fused": [plan.fwd.fused, plan.bwd.fused],
+            "vs_sequential": errs, "tolerance": "1e-2·max",
+            "mlp_vs_plain": mlp,
+            "init_s": init_s, "wall_ms": wall_ms, "peak_mem_gib": peak_gib,
+            "n_grads": len(got[1]), "s": time.perf_counter() - t0}
+    return launches, line, (cfg, layers, plan, x, r, got)
+
+
+def pipe_cards_bits(cut, mesh):
+    """The 8-layer tree of :func:`pipe_cards_cut` placed by
+    ``place_stages`` on the four cards: y, dx and every gradient against
+    the four ``cuda:0`` entries' bit for bit (else, the gaps, held to
+    1e-2·max); each layer's ``.grad`` on its stage's card; the unplaced
+    tree raises there."""
+    from repro_torch.distributed.pipeline import pipeline_apply, place_stages
+    from repro_torch.train.optimizer import named_leaves
+    cfg, layers, plan, x, r, one = cut
+    stage_fn = pipe_stage_fn(cfg, plan)
+    m = cfg.train_microbatches
+    devices = [mesh.device_at(pod=p) for p in range(PIPE_CARDS)]
+    try:
+        pipeline_apply(stage_fn, mesh, m, layers, x)
+    except ValueError as e:
+        unplaced = str(e)
+    else:
+        raise AssertionError("the unplaced tree ran on four cards")
+    placed = place_stages(layers, mesh)
+    per_layer = len(list(named_leaves(layers[0])))
+    per = cfg.n_layers // PIPE_CARDS
+    leaves = [t for _, t in named_leaves(placed)]
+    kept = sum(t is u for t, (_, u) in zip(leaves, named_leaves(layers)))
+    y, grads, dx = pipe_grads(
+        placed, lambda h: pipeline_apply(stage_fn, mesh, m, placed, h), x, r)
+    for i, g in enumerate(grads):
+        if g.device != devices[i // per_layer // per]:
+            raise AssertionError(f"grad {i} on {g.device}, its stage on "
+                                 f"{devices[i // per_layer // per]}")
+    equal = [torch.equal(y, one[0]), torch.equal(dx, one[2])] + [
+        torch.equal(g.to(w.device), w) for g, w in zip(grads, one[1])]
+    out = {"bit_identical": all(equal), "kept_on_cuda0": kept,
+           "leaves": len(leaves), "unplaced_raises": unplaced[:160]}
+    if not all(equal):
+        out["differ"] = [i for i, e in enumerate(equal) if not e]
+        bf = torch.bfloat16
+        out["max_abs_err"] = max(
+            [check_close(y, one[0], bf, "four cards: y"),
+             check_close(dx, one[2], bf, "four cards: dx")]
+            + [check_close(g, w, bf, f"four cards: grad {i}")
+               for i, (g, w) in enumerate(zip(grads, one[1]))])
+    return out
+
+
+def pipe_cards_profile(fn):
+    """One call of ``fn`` under torch.profiler: its wall ms (every card
+    synchronised), its device events by card (:func:`events_by_card`),
+    and the ms during which 0, 1, … ``PIPE_CARDS`` cards ran a kernel at
+    once (each card's kernel intervals swept together): the stages'
+    overlap, which a run that serialised the cards would leave at 1."""
+    import collections
+    from torch.profiler import ProfilerActivity
+    sync_all()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync_all()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = list(prof.profiler.kineto_results.events())
+    edges = sorted(
+        edge for e in events
+        if e.device_type() == torch.autograd.DeviceType.CUDA
+        and not e.name().startswith(("Memcpy", "Memset"))
+        for edge in ((e.start_ns(), e.device_index(), 1),
+                     (e.start_ns() + e.duration_ns(), e.device_index(), -1)))
+    busy_ms = [0.0] * (PIPE_CARDS + 1)
+    running = collections.Counter()
+    for (t, card, step), (t_next, _, _) in zip(edges, edges[1:]):
+        running[card] += step
+        busy_ms[sum(n > 0 for n in running.values())] += (t_next - t) / 1e6
+    return {"wall_ms": wall_ms, "by_card": events_by_card(events),
+            "cards_busy_at_once_ms": busy_ms}
+
+
+def pipe_cards_full(mesh):
+    """qwen2-72b at all 80 layers, 20 on each card, each stage drawn on
+    its own card (no card ever holds the whole tree; one host pattern),
+    through ``pipeline_apply`` with 8 microbatches of 1 × 1 024 embedded
+    tokens, forward and backward of ``sum(y·R)``: launches, ring bytes
+    and peak GiB by card in the first run; a second run's wall; a third
+    profiled by card; then the same blocks run in order on their cards,
+    microbatch by microbatch: y, dx and every gradient (the pipeline's
+    held as host copies meanwhile) within 1e-2·max."""
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.distributed.sharding import collectives_moved
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import named_leaves
+    t0 = time.perf_counter()
+    cfg = pipe_cards_config()
+    devices = [mesh.device_at(pod=p) for p in range(PIPE_CARDS)]
+    per = cfg.n_layers // PIPE_CARDS
+    stages = []
+    for p, dev in enumerate(devices):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1 + p)
+        stages.append([pipe_cards_layer(cfg, gen) for _ in range(per)])
+    layers = share_pattern([layer for stage in stages for layer in stage])
+    stages = [layers[p * per:(p + 1) * per] for p in range(PIPE_CARDS)]
+    x, r = pipe_cards_inputs(cfg, torch.Generator(
+        device=devices[0]).manual_seed(SEED))
+    plan = lm.sparse_mlp_plan(layers)
+    stage_fn = pipe_stage_fn(cfg, plan)
+    m = cfg.train_microbatches
+    piped = lambda h: pipeline_apply(stage_fn, mesh, m, layers, h)
+    sync_all()
+    init_s = time.perf_counter() - t0
+    params_gib = {f"cuda:{i}": n / 2**30
+                  for i, n in placed_bytes(layers).items()}
+    for i in range(PIPE_CARDS):
+        torch.cuda.reset_peak_memory_stats(i)
+    before = collectives_moved()
+    zero_pipe_launches()
+    with launches_by_card("maple_spmm", "maple_spmm_planned") as b4, \
+            launches_by_card("maple_spmm", "maple_spmm_compact") as b1, \
+            launches_by_card("maple_sddmm", "maple_sddmm_bsr") as b2:
+        t1 = time.perf_counter()
+        y, grads, dx = pipe_grads(layers, piped, x, r)
+        sync_all()
+        first_ms = (time.perf_counter() - t1) * 1e3
+    launches = pipe_launches()
+    moved = {k: v - before[k] for k, v in collectives_moved().items()}
+    peaks = [torch.cuda.max_memory_allocated(i) / 2**30
+             for i in range(PIPE_CARDS)]
+    by_card = {"maple_spmm_planned": dict(b4), "maple_spmm_compact": dict(b1),
+               "maple_sddmm_bsr": dict(b2)}
+    expect = pipe_expected(plan, m * cfg.n_layers)
+    if launches != expect:
+        raise AssertionError(f"pipeline_cards full depth: launches "
+                             f"{launches}, expected {expect}")
+    for name, counts in by_card.items():
+        want = {i: expect[name] // PIPE_CARDS for i in range(PIPE_CARDS)}
+        if {i: c for i, c in counts.items() if c} != \
+                {i: c for i, c in want.items() if c}:
+            raise AssertionError(f"pipeline_cards full depth: {name} by "
+                                 f"card {dict(counts)}, expected {want}")
+    hop = PIPE_CARDS_SEQ * cfg.d_model * 2
+    ring = {"collective_permute_bytes": moved["collective-permute"],
+            "reckoned_each_way": m * (PIPE_CARDS - 1) * hop,
+            "all_reduce_bytes": moved["all-reduce"]}
+    if moved["collective-permute"] != 2 * ring["reckoned_each_way"]:
+        raise AssertionError(f"ring bytes {ring}")
+    if not all(bool(torch.isfinite(t).all()) for t in (y, dx)):
+        raise AssertionError("pipeline_cards full depth: non-finite output")
+    host = [g.cpu() for g in grads]
+    host_y, host_dx = y.cpu(), dx.cpu()
+    del grads, y, dx
+    leaves = [t for _, t in named_leaves(layers)]
+
+    def fwd_bwd():
+        (piped(x) * r).sum().backward()
+        for t in leaves:
+            t.grad = None
+    wall_ms = walls_ms(fwd_bwd, calls=1)[0]
+    prof = pipe_cards_profile(fwd_bwd)
+    busy = sum(c["kernel_ms"] for c in prof["by_card"].values())
+    t2 = time.perf_counter()
+    want = pipe_grads(layers, sequential_blocks(stage_fn, stages, m), x, r)
+    sync_all()
+    sequential_ms = (time.perf_counter() - t2) * 1e3
+    bf = torch.bfloat16
+    errs = {"y_max_abs_err": check_close(host_y, want[0], bf, "80 layers: y"),
+            "dx_max_abs_err": check_close(host_dx, want[2], bf,
+                                          "80 layers: dx"),
+            "grad_max_abs_err": max(
+                check_close(h, w, bf, f"80 layers: grad {i}")
+                for i, (h, w) in enumerate(zip(host, want[1])))}
+    line = {"config": f"{PIPE_CARDS_ARCH} at full width and depth, bf16, "
+            f"sparse_mlp (64,64) d=0.25, QKV biases drawn, remat per block",
+            "n_layers": cfg.n_layers, "depth_reduced": False,
+            "layers_a_card": per, "microbatches": m,
+            "tokens": [m, PIPE_CARDS_SEQ], "init_s": init_s,
+            "params_gib_by_card": params_gib,
+            "reckoned_gib_by_card": {k: 2 * v for k, v in params_gib.items()},
+            "peak_gib_by_card": peaks, "launches": launches,
+            "launches_by_card": by_card, "ring": ring,
+            "first_wall_ms": first_ms, "wall_ms": wall_ms,
+            "sequential_wall_ms": sequential_ms,
+            "device_ms_by_card": prof,
+            "efficiency": busy / (PIPE_CARDS * wall_ms),
+            "gpipe_ideal": m / (m + PIPE_CARDS - 1),
+            "vs_sequential": errs, "tolerance": "1e-2·max",
+            "s": time.perf_counter() - t0}
+    del layers, stages, leaves, want, host, x, r
+    torch.cuda.empty_cache()
+    return launches, line
+
+
+def pipeline_cards(card):
+    """The GPipe pipeline with each stage's layer groups on its own card
+    (module docstring, phase 37): every run the qwen2-72b smoke config
+    card against CPU and the 8-layer full-width tree on four ``cuda:0``
+    entries against the sequential blocks; with four cards also that tree
+    placed on them (bit for bit against the one card) and qwen2-72b at
+    all 80 layers, 20 a card.  Returns the one-card run's launches (the
+    path's) and the line."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    n_cards = torch.cuda.device_count()
+    line = {"phase": "pipeline_cards", "card": card, "cards": n_cards,
+            "smoke_card_vs_cpu":
+                pipeline_smoke_against_cpu(PIPE_CARDS_ARCH)}
+    launches, line["cut"], cut = pipe_cards_cut()
+    if n_cards < PIPE_CARDS:
+        line["four_cards"] = (f"not run: needs four cards (this process "
+                              f"sees {n_cards})")
+        del cut
+    else:
+        mesh = make_debug_mesh((PIPE_CARDS,), ("pod",))
+        line["device_names"] = [torch.cuda.get_device_name(i)
+                                for i in range(n_cards)]
+        line["bits"] = pipe_cards_bits(cut, mesh)
+        del cut
+        torch.cuda.empty_cache()
+        _, line["full_depth"] = pipe_cards_full(mesh)
+    torch.cuda.empty_cache()
+    line["phase_s"] = time.perf_counter() - t0
+    return launches, line
+
+
 def profile_events(events):
     """The profiler's raw events, aggregated in one pass (``key_averages``
     takes minutes over a train step's million events): device events by
@@ -7312,8 +7784,9 @@ def profile(fn, warmup: bool = True, totals=(), cross_check=False) -> dict:
 def main(argv) -> int:
     only = None
     if argv:
-        if argv != ["--only", "moe_ep_cards"]:
-            print("usage: chip_smoke.py [--only moe_ep_cards]",
+        if len(argv) != 2 or argv[0] != "--only" or argv[1] not in (
+                "moe_ep_cards", "pipeline_cards"):
+            print("usage: chip_smoke.py [--only moe_ep_cards|pipeline_cards]",
                   file=sys.stderr)
             return 2
         only = argv[1]
@@ -7336,8 +7809,9 @@ def main(argv) -> int:
           "kernel_build_s": build_s,
           "device_count": torch.cuda.device_count(),
           "nvidia_smi_all": smi_all})
-    if only == "moe_ep_cards":
-        _, line = moe_ep_cards(smi)
+    if only is not None:
+        _, line = (moe_ep_cards if only == "moe_ep_cards"
+                   else pipeline_cards)(smi)
         emit(line)
         emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                      "count": torch.cuda.device_count()}})
@@ -7481,6 +7955,8 @@ def main(argv) -> int:
     paths, line = moe_ep_cards(smi)
     ep_launches.update(paths)
     emit(line)
+    pipe_cards_launches, line = pipeline_cards(smi)
+    emit(line)
 
     # launches: each path's run, counted from 0
     by_path = {**serve_launches, "train": train_launches,
@@ -7494,7 +7970,8 @@ def main(argv) -> int:
                "encdec_reference": encdec_ref_launches, **encdec_launches,
                "vlm_reference": vlm_ref_launches, **vlm_launches,
                **family_launches, **ep_launches,
-               "pipeline": pipe_launches, **examples_launches}
+               "pipeline": pipe_launches, **examples_launches,
+               "pipeline_cards": pipe_cards_launches}
     f32 = lambda n: lambda r: r["dtype"] == "float32" and r.get("N") == n
     headline = {"maple_spmm_naive": f32(1), "maple_spmm_compact": f32(1),
                 "maple_spmm_planned": f32(1),

@@ -14,11 +14,18 @@ at every one of the ``M + P - 1`` ticks in lockstep, on zeros in the
 pipeline's bubbles, and the last stage's outputs are broadcast over
 ``pod``.  The port runs the same program coordinate by coordinate in one
 process, as ``models.moe.moe_layer_ep`` does: stage ``p`` on
-``mesh.device_at(pod=p)``, ``P · M`` stage calls (the bubbles' outputs are
-never read, so they are not computed), and the last stage's outputs come
-back on ``x``'s device in ``x``'s shape.  A mesh whose coordinates name
-several devices raises, as expert parallelism does (ROADMAP queue A
-item 10).
+``mesh.device_at(pod=p)`` (index 0 along every other axis: the reference
+replicates a stage over them, and those replicas compute the same
+values), ``P · M`` stage calls (the bubbles' outputs are never read, so
+they are not computed), and the last stage's outputs come back on
+``x``'s device in ``x``'s shape.
+
+On a mesh whose entries name several devices (four cards) each stage's
+groups live on their own device: :func:`place_stages` puts them there
+once, as the reference's ``jax.device_put(params_stacked,
+NamedSharding(mesh, P("pod")))`` does, and :func:`pipeline_apply` takes
+only such a tree there (it copies nothing each call).  On a mesh of one
+device a stage's groups are moved to it where they lie elsewhere.
 """
 
 from __future__ import annotations
@@ -29,7 +36,8 @@ from typing import Callable, List
 import torch
 
 from repro_torch.core.csr import BlockCSR
-from repro_torch.distributed.sharding import Mesh, moved, one_device
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import Mesh, moved, same_device
 
 
 def stage_group_count(n_groups: int, n_pods: int) -> int:
@@ -66,16 +74,84 @@ def _stage_params(params, lo: int, hi: int):
     return params[lo:hi]
 
 
+def _map_tensors(tree, fn):
+    """``tree`` with ``fn`` applied to every tensor (a BlockCSR's payload;
+    its host pattern and per-device metadata cache kept)."""
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(v, fn) for v in tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, BlockCSR):
+        return dataclasses.replace(tree, blocks=fn(tree.blocks),
+                                   device_meta=tree.device_meta)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
 def _on_device(tree, device: torch.device):
     """``tree`` with every tensor on ``device`` (no copy where it is)."""
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_on_device(v, device) for v in tree)
-    if isinstance(tree, dict):
-        return {k: _on_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, BlockCSR):
-        return dataclasses.replace(tree, blocks=tree.blocks.to(device),
-                                   device_meta=tree.device_meta)
-    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+    return _map_tensors(tree, lambda t: t.to(device))
+
+
+def _per_group(params, n_pods: int, what: str, fn):
+    """``params`` with each layer group replaced by ``fn(g, group, p)``,
+    ``p`` its stage (``g // (n_groups / P)``): the per-layer list layout
+    (a list of per-group subtrees, or dicts of such lists).  A stacked
+    leaf (a tensor or BlockCSR outside any list) raises ``ValueError``."""
+    per = stage_group_count(_n_groups(params), n_pods)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(fn(g, group, g // per)
+                              for g, group in enumerate(tree))
+        raise ValueError(
+            f"{what} takes the per-layer list layout (lm.unstack_layers's), "
+            f"one subtree a layer group, placed by place_stages; this tree "
+            f"holds a stacked {type(tree).__name__}")
+    return walk(params)
+
+
+def _stage_devices(mesh: Mesh, pod_axis: str) -> List[torch.device]:
+    return [mesh.device_at(**{pod_axis: p})
+            for p in range(mesh.shape[pod_axis])]
+
+
+def place_stages(params_stacked, mesh: Mesh, *, pod_axis: str = "pod"):
+    """``params_stacked`` placed for :func:`pipeline_apply` on ``mesh``:
+    the port's ``jax.device_put(params_stacked, NamedSharding(mesh,
+    P(pod_axis)))``.  Takes the per-layer list layout
+    (``lm.unstack_layers``'s: a list of per-group subtrees, or dicts of
+    such lists); group ``g`` goes to the device of its stage,
+    ``mesh.device_at(pod=g // (n_groups / P))``, each tensor a leaf of
+    its own there (``requires_grad`` kept), and one already on that
+    device is kept as it is, not copied.  A BlockCSR keeps its one host
+    pattern.  A stacked leaf raises ``ValueError``."""
+    devices = _stage_devices(mesh, pod_axis)
+
+    def put(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+        if same_device(t.device, device):
+            return t
+        return t.detach().to(device).requires_grad_(t.requires_grad)
+    return _per_group(params_stacked, len(devices), "place_stages",
+                      lambda g, group, p: _map_tensors(
+                          group, lambda t: put(t, devices[p])))
+
+
+def _check_placed(params, devices: List[torch.device]) -> None:
+    """Raise ``ValueError`` unless every group of ``params`` lies on its
+    stage's device (:func:`place_stages`)."""
+    def check(g, group, p):
+        def on_stage(t):
+            if not same_device(t.device, devices[p]):
+                raise ValueError(
+                    f"pipeline_apply on a mesh of several devices: layer "
+                    f"group {g} holds a tensor on {t.device}, not on stage "
+                    f"{p}'s {devices[p]}; place the tree with "
+                    f"distributed.pipeline.place_stages(params, mesh) first")
+        _map_tensors(group, on_stage)
+    _per_group(params, len(devices),
+               "pipeline_apply on a mesh of several devices", check)
 
 
 def pipeline_apply(stage_fn: Callable, mesh: Mesh, n_microbatches: int,
@@ -91,18 +167,26 @@ def pipeline_apply(stage_fn: Callable, mesh: Mesh, n_microbatches: int,
     tensor of its own).  ``x``: ``(batch, ...)`` with the batch divisible
     by ``n_microbatches``.  Returns the last stage's output, ``x``'s
     shape (``stage_fn`` keeps a microbatch's shape), on ``x``'s device.
+
+    On a mesh whose entries name several devices ``params_stacked`` must
+    be placed (:func:`place_stages`): a group on another device than its
+    stage's, or a stacked tree, raises ``ValueError``.  On a mesh of one
+    device a stage's groups are moved to it where they lie elsewhere.
     """
     n_pods = mesh.shape[pod_axis]
     m = n_microbatches
     if x.shape[0] % m:
         raise ValueError(f"batch {x.shape[0]} vs microbatches {m}")
-    one_device(mesh, "pipeline_apply")
-    mesh.check_operands(x)
+    several = sharding.several(mesh)
     per = stage_group_count(_n_groups(params_stacked), n_pods)
-    devices = [mesh.device_at(**{pod_axis: p}) for p in range(n_pods)]
-    stages = [_on_device(_stage_params(params_stacked, p * per,
-                                       (p + 1) * per), devices[p])
+    devices = _stage_devices(mesh, pod_axis)
+    if several:
+        _check_placed(params_stacked, devices)
+    mesh.check_operands(x)
+    stages = [_stage_params(params_stacked, p * per, (p + 1) * per)
               for p in range(n_pods)]
+    if not several:
+        stages = [_on_device(s, d) for s, d in zip(stages, devices)]
     xs = x.reshape(m, x.shape[0] // m, *x.shape[1:])
     inbox: List = [None] * n_pods       # the activation entering each stage
     outs: List = [None] * m

@@ -270,20 +270,14 @@ def mesh_devices(mesh) -> List[torch.device]:
     return out
 
 
-def one_device(mesh, what: str) -> torch.device:
-    """The one device that every coordinate of ``mesh`` names.  ``what``
-    runs on a mesh coordinate by coordinate in one process; on a mesh of
-    several devices it raises ``NotImplementedError`` (not ported yet),
-    on one with no devices (:class:`AbstractMesh`) ``ValueError``."""
+def several(mesh) -> bool:
+    """Whether ``mesh``'s entries name several devices (a mesh of several
+    cards): the one test by which the pipeline, the MoE layer and capture
+    choose their paths.  A mesh with no devices (:class:`AbstractMesh`)
+    raises ``ValueError``."""
     if getattr(mesh, "devices", None) is None:
-        raise ValueError(f"{what}: an abstract mesh holds no devices")
-    devices = mesh_devices(mesh)
-    if len(devices) != 1:
-        raise NotImplementedError(
-            f"{what} on a mesh of several devices "
-            f"({sorted(map(str, devices))}) is not ported yet (ROADMAP "
-            f"queue A item 10); bind a mesh whose every entry is one device")
-    return devices[0]
+        raise ValueError("an abstract mesh holds no devices")
+    return len(mesh_devices(mesh)) > 1
 
 
 def local_devices() -> List[torch.device]:

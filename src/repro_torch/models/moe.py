@@ -36,6 +36,7 @@ from typing import Dict, List
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import (EXPERT_LEAVES, Mesh,
                                               PeerSlices, active_mesh, moved)
 from repro_torch.distributed.sharding import same_device as _same_device
@@ -345,12 +346,6 @@ class _FirstCopy(torch.autograd.Function):
         return (g / ctx.n).expand(ctx.n, *g.shape)
 
 
-def _several(mesh: Mesh, device: torch.device) -> bool:
-    """Whether the mesh's entries name a device other than ``device``
-    (the tokens'): a mesh of several cards."""
-    return not all(_same_device(dev, device) for dev in mesh.devices.flat)
-
-
 def _peer_weights(p, mesh: Mesh, x: torch.Tensor, e_loc: int):
     """Each ``model`` peer's expert weights and the device its products run
     on: the slices of leaves placed by ``device_put_params``, each on its
@@ -361,7 +356,7 @@ def _peer_weights(p, mesh: Mesh, x: torch.Tensor, e_loc: int):
     names = EXPERT_LEAVES
     msize = mesh.shape["model"]
     placed = isinstance(p["experts_gate"], PeerSlices)
-    several = _several(mesh, x.device)
+    several = sharding.several(mesh)
     if several and not placed:
         raise ValueError(
             "moe_layer_ep on a mesh of several devices takes expert weights "

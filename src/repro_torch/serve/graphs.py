@@ -47,7 +47,8 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from repro_torch.distributed.sharding import active_mesh, mesh_devices
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import active_mesh
 from repro_torch.kernels import launch_counters
 
 
@@ -57,11 +58,11 @@ def captured(device: torch.device) -> bool:
     several cards.  A capture records one card's stream into a pool of
     that card; peers' launches and allocations on other cards would join
     it only through the copies' events, outside that pool, so across
-    cards the eager step runs (capture across cards: ROADMAP queue A item
-    10.2)."""
+    cards the eager step runs (capture across cards: ROADMAP's work held
+    for after the first benchmark, item 10.2)."""
     mesh = active_mesh()
     return device.type == "cuda" and (mesh is None
-                                      or len(mesh_devices(mesh)) == 1)
+                                      or not sharding.several(mesh))
 
 
 def _walk(tree, leaves: list) -> None:

@@ -151,7 +151,8 @@ def jitted_train_step(train_step, device):
     for a built ``train_step``: on a CUDA ``device`` a
     :class:`CapturedTrainStep`, elsewhere, and under a bound mesh whose
     entries name several cards (``serve.graphs.captured``: capture across
-    cards is ROADMAP queue A item 10.2), ``train_step`` itself."""
+    cards waits in ROADMAP's work held for after the first benchmark, item
+    10.2), ``train_step`` itself."""
     if not captured(torch.device(device)):
         return train_step
     return CapturedTrainStep(train_step, device)

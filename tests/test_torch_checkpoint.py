@@ -10,7 +10,10 @@ are placed over a mesh's ``model`` peers (``sharding.device_put_params``):
 saved as its whole tree, loaded into a placed tree or onto a mesh of
 several devices as ``device_put_params`` places it, and a placed
 training run resumed bit for bit (the CPU mesh's entries standing for
-several devices)."""
+several devices).  A tree placed for the pipeline
+(``pipeline.place_stages``, each stage's layer groups on its device)
+likewise: its whole tree's checkpoint, loaded back onto the devices its
+``like`` names, and placed after the load onto another stage count."""
 
 import os
 
@@ -22,12 +25,13 @@ import torch
 from repro.ft import checkpoint as ref_ckpt
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.csr import BlockCSR
+from repro_torch.distributed import pipeline
 from repro_torch.distributed import sharding as sh
 from repro_torch.ft import checkpoint as ckpt
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.launch.train import run
-from repro_torch.models import moe as M
+from repro_torch.models import lm
 from repro_torch.train.optimizer import OptState, named_leaves, parts
 
 
@@ -366,6 +370,66 @@ def test_placed_loads_equal_device_put_params(tmp_path, monkeypatch):
                 assert torch.equal(x, y), k
 
 
+def test_stage_placed_tree_saves_loads_and_places_again(tmp_path,
+                                                       monkeypatch):
+    """qwen2-72b's smoke config at 8 layers (bf16, sparse MLP) placed by
+    ``place_stages`` over four pods: saved, it has its whole tree's
+    manifest and arrays; loaded into a placed ``like`` of other values,
+    every leaf comes back on the device that ``like`` names, bit for bit
+    (a ``meta`` pod shows the groups on another device); after the load,
+    ``place_stages`` puts it onto 2 stages, whose pipeline gives the 4
+    stages' output bit for bit (the CPU entries standing for several
+    devices)."""
+    import dataclasses
+    import json
+    cfg = dataclasses.replace(get_smoke_config("qwen2-72b"), n_layers=8,
+                              sparse_mlp=True, sparse_block=(8, 8))
+
+    def layers(seed):
+        return lm.unstack_layers(lm.init_params(
+            cfg, torch.Generator().manual_seed(seed), torch.bfloat16,
+            device="cpu"))["groups"]["b0"]
+    pods = lambda devs: sh.Mesh(devs, ("pod",))
+    whole = layers(0)
+    placed = pipeline.place_stages(whole, pods(["cpu"] * 4))
+    ckpt.save(str(tmp_path / "placed"), 5, placed)
+    ckpt.save(str(tmp_path / "whole"), 5, whole)
+    dirs = [tmp_path / name / "step_00000005" for name in ("placed", "whole")]
+    manifests = [json.loads((d / "manifest.json").read_text()) for d in dirs]
+    assert manifests[0] == manifests[1]
+    arrays = [np.load(d / "shard_00000.npz") for d in dirs]
+    assert sorted(arrays[0].files) == sorted(arrays[1].files)
+    for f in arrays[1].files:
+        np.testing.assert_array_equal(arrays[0][f], arrays[1][f])
+
+    _, got = ckpt.load(str(tmp_path / "placed"),
+                       pipeline.place_stages(layers(1), pods(["cpu"] * 4)))
+    _assert_trees_equal(got, whole)
+    like = pipeline.place_stages(layers(1), pods(["cpu"] * 3 + ["meta"]))
+    _, got = ckpt.load(str(tmp_path / "placed"), like)
+    for g, (a, b) in enumerate(zip(got, whole)):
+        for (k, x), (_, y) in zip(named_leaves(a), named_leaves(b)):
+            assert x.device.type == ("meta" if g >= 6 else "cpu"), (g, k)
+            assert x.dtype == y.dtype
+            if g < 6:
+                assert torch.equal(x, y), (g, k)
+
+    _, got = ckpt.load(str(tmp_path / "placed"), layers(1))
+    two = pipeline.place_stages(got, pods(["cpu", "meta"]))
+    assert [g for g, layer in enumerate(two)
+            if layer["attn"]["wq"].device.type == "meta"] == [4, 5, 6, 7]
+    plan = lm.sparse_mlp_plan(whole)
+    fn = lambda stage, h: lm.apply_layers(stage, cfg, h, mlp_plan=plan)
+    x = torch.randn((4, 8, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2)).to(
+                        torch.bfloat16)
+    monkeypatch.setattr(sh, "several", lambda mesh: True)
+    y2 = pipeline.pipeline_apply(fn, pods(["cpu"] * 2), 4, pipeline
+                                 .place_stages(got, pods(["cpu"] * 2)), x)
+    y4 = pipeline.pipeline_apply(fn, pods(["cpu"] * 4), 4, placed, x)
+    assert torch.equal(y2, y4)
+
+
 def test_reference_reads_a_placed_checkpoint(tmp_path):
     """The reference's ``load`` reads a placed f32 tree's checkpoint
     (parameters and moments): each expert leaf whole, with the whole
@@ -396,7 +460,7 @@ def test_placed_run_resumes_bit_for_bit(tmp_path, monkeypatch, capsys):
     import dataclasses
     monkeypatch.setattr(launch_train, "mesh_devices",
                         lambda mesh: list(mesh.devices.flat))
-    monkeypatch.setattr(M, "_several", lambda mesh, device: True)
+    monkeypatch.setattr(sh, "several", lambda mesh: True)
     cfg = dataclasses.replace(get_smoke_config("granite-moe-3b-a800m"),
                               moe_impl="ep_a2a", moe_capacity_factor=1.25)
     kw = dict(seq_len=16, global_batch=2, micro_batches=1, device="cpu")

@@ -10,7 +10,7 @@ mesh of the same shape (``make_debug_mesh(..., device="cpu")``), with
 whole expert leaves and with the tree placed by
 ``sharding.device_put_params`` (each peer's slices, the serving and
 training path of a mesh of several cards, where the CPU mesh's entries
-stand for several devices through ``moe._several``); the subprocess also
+stand for several devices through ``sharding.several``); the subprocess also
 writes the reference's cut of each expert leaf
 (``NamedSharding.devices_indices_map``).
 
@@ -498,7 +498,7 @@ def test_ep_mesh_of_several_devices_raises(monkeypatch):
     cards) takes expert weights placed on their peers' devices: whole
     leaves raise, naming the placement function; here the CPU's entries
     stand for other devices."""
-    monkeypatch.setattr(M, "_same_device", lambda a, b: False)
+    monkeypatch.setattr(sh, "several", lambda mesh: True)
     cfg = M.MoEConfig(**_fields("mesh14_cf8"))
     p = M.init_moe(torch.Generator().manual_seed(0), cfg)
     x = torch.zeros((2, 8, D))
@@ -623,7 +623,7 @@ def _reference_range(reference, i, pe, axis):
 def test_ep_gradient_on_several_devices(reference, name, monkeypatch):
     """Training across cards: placed weights take a gradient on a mesh of
     several devices (the CPU mesh's entries stand for four devices
-    through ``moe._several``; each slice still on its peer's entry).
+    through ``sharding.several``; each slice still on its peer's entry).
     Each slice's ``.grad`` of ``sum(y·R)`` is the reference's gradient
     cut at that peer's range (``devices_indices_map``), and dx and the
     router's gradient the reference's, within 1e-4·max + 1e-6."""
@@ -635,10 +635,10 @@ def test_ep_gradient_on_several_devices(reference, name, monkeypatch):
             leaves.append(part.requires_grad_(True))
     seen = []
 
-    def several(mesh, device):
-        seen.append(device)
+    def several(mesh):
+        seen.append(mesh)
         return True
-    monkeypatch.setattr(M, "_several", several)
+    monkeypatch.setattr(sh, "several", several)
     r = torch.from_numpy(_cotangent(name))
     with sh.use_mesh(mesh):
         y = M.moe_layer(placed, cfg, x)
@@ -666,7 +666,7 @@ def test_ep_several_devices_with_data_above_1_raises(monkeypatch):
     devices)."""
     mesh = make_debug_mesh((2, 4), device="cpu")
     _, placed, cfg, x = _placed("mesh24_cf8", mesh)
-    monkeypatch.setattr(M, "_same_device", lambda a, b: False)
+    monkeypatch.setattr(sh, "several", lambda mesh: True)
     with sh.use_mesh(mesh), \
             pytest.raises(NotImplementedError, match="queue A item 10"):
         M.moe_layer(placed, cfg, x)

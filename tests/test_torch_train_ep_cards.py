@@ -2,7 +2,7 @@
 placed on its own device (``sharding.device_put_params``), on the CPU.
 
 The CPU mesh's entries stand for several devices through
-``moe._several`` (the MoE layer then takes its path of several devices:
+``sharding.several`` (the MoE layer then takes its path of several devices:
 each peer's rows copied to its slices' device, the slices checked to lie
 there) while every slice stays a CPU tensor, so the placed tree trains
 here as it does across cards:
@@ -57,10 +57,10 @@ def _stand_in(monkeypatch):
     the list its calls append to."""
     seen = []
 
-    def several(mesh, device):
-        seen.append(device)
+    def several(mesh):
+        seen.append(mesh)
         return True
-    monkeypatch.setattr(M, "_several", several)
+    monkeypatch.setattr(sh, "several", several)
     return seen
 
 
